@@ -1,0 +1,249 @@
+"""GR4J interface class (Perrin, Michel & Andreassian 2003).
+
+Counterpart of ``rrmpg_tpu.models.gr4j.GR4J``: same parameters, bounds,
+structured dtype, validation errors and ``simulate``/``fit`` signatures,
+with ``engine='scan'|'fused'`` in place of ``'xla'|'pallas'``:
+
+* ``'scan'`` -- plain batched PyTorch (:mod:`..ops.gr4j`), any device;
+* ``'fused'`` -- the hand-written CUDA kernels
+  (:mod:`..ops.fused_gr4j`) for CUDA tensors; on the CPU their plain
+  versions.
+
+Outputs are tensors on the model's device in the reference layout,
+member axis last: ``(T, N)``.  Forecast mode (``initial_state`` /
+``return_final_state``) waits for the state kernel (K4).
+"""
+
+import numbers
+
+import numpy as np
+import torch
+
+from ..config import DEFAULT_DTYPE
+from ..ops.fused_gr4j import gr4j_ensemble_mse_fused, gr4j_simulate_fused
+from ..ops.gr4j import run_gr4j
+from ..ops.stats import losses_from_stats
+from ..ops.uh import NUM_UH1, NUM_UH2, required_uh_lengths
+from ..utils.array_checks import check_for_negatives, validate_array_input
+from ..utils.metrics import calibration_loss
+from .basemodel import BaseModel
+
+_ENGINES = ("scan", "fused")
+
+
+def fit_uh_lengths(x4_hi):
+    """Short bounds-derived UH register lengths for the fused fit path:
+    ``ceil(x4_hi)`` / ``ceil(2*x4_hi + 1)``, capped at (NUM_UH1, NUM_UH2).
+    Under the class bounds (x4 <= 2.9) this is (3, 7)."""
+    n1 = min(int(np.ceil(x4_hi)), NUM_UH1)
+    n2 = min(int(np.ceil(2.0 * x4_hi + 1.0)), NUM_UH2)
+    return n1, n2
+
+
+def _check_engine(engine):
+    if engine not in _ENGINES:
+        raise ValueError("engine must be 'scan' or 'fused'.")
+
+
+def _no_forecast_state(initial_state, return_final_state):
+    if initial_state is not None or return_final_state:
+        raise NotImplementedError(
+            "Forecast mode (initial_state / return_final_state) is not "
+            "ported yet; it needs the state kernel K4 (ROADMAP.md, "
+            "Queue 1, item 6).")
+
+
+class GR4J(BaseModel):
+    """Interface to the GR4J model."""
+
+    _param_list = ['x1', 'x2', 'x3', 'x4']
+
+    _default_bounds = {'x1': (100, 1200),
+                       'x2': (-5, 3),
+                       'x3': (20, 300),
+                       'x4': (1.1, 2.9)}
+
+    _dtype = np.dtype([('x1', np.float64),
+                       ('x2', np.float64),
+                       ('x3', np.float64),
+                       ('x4', np.float64)])
+
+    def __init__(self, params=None, device="cpu", dtype=DEFAULT_DTYPE):
+        super().__init__(params=params, device=device, dtype=dtype)
+
+    @staticmethod
+    def _validate_forcings(prec, etp):
+        prec = validate_array_input(prec, np.float64, 'precipitation')
+        etp = validate_array_input(etp, np.float64, 'pot. evapotranspiration')
+        if check_for_negatives(prec):
+            raise ValueError(
+                "Precipitation must be non-negative; the input contains "
+                "negative values.")
+        if len(prec) != len(etp):
+            raise RuntimeError(
+                f"prec and etp lengths differ: {len(prec)} vs {len(etp)}.")
+        return prec, etp
+
+    @staticmethod
+    def _validate_inits(s_init, r_init):
+        if not isinstance(s_init, numbers.Number):
+            raise TypeError(
+                f"'s_init' needs a numeric scalar, got {type(s_init).__name__}.")
+        if not isinstance(r_init, numbers.Number):
+            raise TypeError(
+                f"'r_init' needs a numeric scalar, got {type(r_init).__name__}.")
+        s_init = float(s_init)
+        r_init = float(r_init)
+        if not 0 <= s_init <= 1:
+            raise ValueError(
+                f"'s_init' is a fraction of x1 and must lie in [0, 1]; got "
+                f"{s_init}.")
+        if not 0 <= r_init <= 1:
+            raise ValueError(
+                f"'r_init' is a fraction of x3 and must lie in [0, 1]; got "
+                f"{r_init}.")
+        return s_init, r_init
+
+    def simulate(self, prec, etp, s_init=0, r_init=0, return_storage=False,
+                 params=None, engine="scan", initial_state=None,
+                 return_final_state=False):
+        """Simulate streamflow for the given forcings.
+
+        Args:
+            prec: (T,) precipitation [mm/day].
+            etp: (T,) potential evapotranspiration [mm/day].
+            s_init: initial production store filling as fraction of x1.
+            r_init: initial routing store filling as fraction of x3.
+            return_storage: also return the s/r store series ('scan' only).
+            params: (optional) structured array / dict of parameter sets,
+                evaluated batched.
+            engine: 'scan' (plain PyTorch) or 'fused' (CUDA kernel K3,
+                discharge only).
+
+        Returns:
+            qsim (T, N), plus s_store (T, N) and r_store (T, N) if
+            ``return_storage``; tensors on the model's device.
+
+        Raises:
+            ValueError: If one of the inputs contains invalid values.
+            TypeError: If one of the inputs has an incorrect datatype.
+            RuntimeError: If prec and etp differ in length.
+        """
+        prec, etp = self._validate_forcings(prec, etp)
+        s_init, r_init = self._validate_inits(s_init, r_init)
+        if not isinstance(return_storage, bool):
+            raise TypeError(
+                "'return_storage' expects a bool, got "
+                f"{type(return_storage).__name__}.")
+        _check_engine(engine)
+        _no_forecast_state(initial_state, return_final_state)
+
+        param_dict, _ = self._prepare_params(params)
+        n1, n2 = required_uh_lengths(param_dict['x4'])
+        prec, etp = self._tensor(prec), self._tensor(etp)
+        if engine == "fused":
+            if return_storage:
+                raise ValueError(
+                    "engine='fused' computes discharge only; use "
+                    "engine='scan' for storage trajectories.")
+            qsim = gr4j_simulate_fused(prec, etp, s_init, r_init,
+                                       param_dict, n1, n2)
+            return qsim.T
+        qsim, s_store, r_store = run_gr4j(prec, etp, s_init, r_init,
+                                          param_dict, n1, n2)
+        if return_storage:
+            return qsim.T, s_store.T, r_store.T
+        return qsim.T
+
+    def _fused_stats(self, qobs, param_dict, sim_kwargs):
+        """(4, N) time-mean sufficient statistics from the fused kernel K2:
+        the trajectory-free evaluation behind
+        ``monte_carlo(return_qsim=False, engine='fused')``."""
+        kw = dict(sim_kwargs)
+        kw.pop("engine", None)
+        prec = kw.pop("prec")
+        etp = kw.pop("etp")
+        s_init = kw.pop("s_init", 0.0)
+        r_init = kw.pop("r_init", 0.0)
+        if kw:
+            raise ValueError(
+                f"Unused simulate kwargs for the fused statistics "
+                f"path: {sorted(kw)}.")
+        prec, etp = self._validate_forcings(prec, etp)
+        s_init, r_init = self._validate_inits(s_init, r_init)
+        qobs = np.asarray(qobs, np.float64)
+        n1, n2 = required_uh_lengths(param_dict['x4'])
+        return gr4j_ensemble_mse_fused(
+            self._tensor(prec), self._tensor(etp), self._tensor(qobs),
+            s_init, r_init, param_dict, num_uh1=n1, num_uh2=n2, stats=True,
+            masked=bool(np.isnan(qobs).any()))
+
+    def _batch_objective(self, qobs, prec, etp, s_init, r_init, loss_metric,
+                         engine):
+        """The calibration objective: (P, 4) candidates -> (P,) losses.
+
+        ``qobs``/``prec``/``etp`` are (T,) tensors on the model's device.
+        'fused' evaluates a whole DE generation with one launch of K1
+        ('mse'/'rmse') or K2 ('nse'/'kge'); 'scan' runs the plain
+        batched simulation and the masked metrics.
+        """
+        _check_engine(engine)
+        loss = calibration_loss(loss_metric)
+        if engine == "scan":
+            def objective(X):
+                params = {n: X[:, j] for j, n in enumerate(self._param_list)}
+                qsim, _, _ = run_gr4j(prec, etp, s_init, r_init, params)
+                return loss(qobs[None, :], qsim, dim=-1)
+
+            return objective
+
+        n1, n2 = fit_uh_lengths(self._default_bounds['x4'][1])
+        use_stats = loss_metric in ("nse", "kge")
+        masked = bool(torch.isnan(qobs).any())
+
+        def objective(X):
+            params = {n: X[:, j].contiguous()
+                      for j, n in enumerate(self._param_list)}
+            out = gr4j_ensemble_mse_fused(
+                prec, etp, qobs, s_init, r_init, params, num_uh1=n1,
+                num_uh2=n2, stats=use_stats, masked=masked)
+            if use_stats:
+                return 1.0 - losses_from_stats(out, qobs)[loss_metric]
+            if loss_metric == "rmse":
+                return torch.sqrt(out)
+            return out
+
+        return objective
+
+    def fit(self, qobs, prec, etp, s_init=0., r_init=0., loss_metric="mse",
+            seed=None, engine="scan", initial_state=None, **de_kwargs):
+        """Calibrate the model on observed discharge with differential
+        evolution on the model's device.
+
+        Args:
+            qobs: observed discharge; NaN marks a gap.
+            prec, etp: forcing arrays.
+            s_init, r_init: initial store fillings as fractions, in [0, 1].
+            loss_metric: 'mse' (default), 'rmse', or 'nse'/'kge'
+                minimizing ``1 - score``.
+            seed: (optional) seed of the optimizer's ``torch.Generator``.
+            engine: 'scan', or 'fused' to evaluate every DE generation
+                with one launch of the fused objective kernel.
+            **de_kwargs: forwarded to
+                :func:`rrmpg_tpu_torch.tools.calibration.minimize`.
+
+        Returns:
+            An :class:`~rrmpg_tpu_torch.tools.calibration.OptimizeResult`.
+        """
+        from ..tools.calibration import minimize
+
+        _no_forecast_state(initial_state, False)
+        qobs = validate_array_input(qobs, np.float64, 'qobs')
+        prec, etp = self._validate_forcings(prec, etp)
+        s_init, r_init = self._validate_inits(s_init, r_init)
+        objective = self._batch_objective(
+            self._tensor(qobs), self._tensor(prec), self._tensor(etp),
+            s_init, r_init, loss_metric, engine)
+        bounds = tuple(self._default_bounds[p] for p in self._param_list)
+        return minimize(objective, bounds, seed=seed, device=self.device,
+                        dtype=self.dtype, **de_kwargs)

@@ -1,0 +1,8 @@
+"""Utility subpackage: metrics and input validation."""
+
+from .array_checks import check_for_negatives, validate_array_input
+from .metrics import (
+    nse, mse, rmse, kge, alpha_nse, beta_nse, pearson_r,
+    calc_nse, calc_mse, calc_rmse, calc_kge, calc_alpha_nse, calc_beta_nse,
+    calc_r, calibration_loss,
+)

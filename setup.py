@@ -13,6 +13,7 @@ setup(
     package_data={
         "rrmpg_tpu.data": ["camels/*.txt"],
         "rrmpg_tpu.native": ["oracle.cpp"],
+        "rrmpg_tpu_torch": ["csrc/*.cu"],
     },
     include_package_data=True,
     install_requires=[
