@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's GR4J main path on one NVIDIA GPU.
+"""Drive the PyTorch port's main paths on one NVIDIA GPU.
 
     python3 chip_smoke.py        # from the repository root; needs one card
 
@@ -7,22 +7,31 @@ Phases, in order (each prints its lines; any failure exits non-zero):
 
 1. environment -- card name and power limit, torch / CUDA / nvcc / triton;
 2. build       -- compile ``rrmpg_tpu_torch/csrc/*.cu`` for sm_90a;
-3. kernels     -- each fused kernel (K1 MSE, K2 stats, K3 trajectories)
-                  against its plain PyTorch version on the same CUDA
-                  tensors: float64 and float32, both UH register pairs,
-                  with and without NaN gaps in qobs;
-4. golden      -- the fused engine in float64 against the authors' Excel
-                  GR4J trajectory (tests/data/gr4j_example_data.csv);
-5. main path   -- on CAMELS basin 01031500, float32: a 131072-member
-                  Monte-Carlo through the fused stats kernel, two DE
-                  calibrations (MSE, KGE) through the fused objectives,
-                  and a fused simulation of the calibrated model.  The
-                  launch counters must show every kernel ran; then each
-                  kernel is compared with its plain version at the shapes
-                  the main path gave it;
-6. times       -- each kernel against its plain version at
-                  131072 members x 3651 days, and the main path's wall
-                  times.
+3. kernels     -- every fused kernel against its plain PyTorch version on
+                  the same CUDA tensors, float64 and float32: GR4J (K1 MSE,
+                  K2 stats, K3 trajectories; both UH register pairs, with
+                  and without NaN gaps in qobs), ABC (K6 single launch, K7
+                  three launches; T in {1, 1000, 70000, 1000003}, c in
+                  {0, 0.12, 1}; against the doubling scan, the sequential
+                  loop and each other) and HBV-Edu (K12 MSE and stats with
+                  and without gaps, K13 trajectories; NaN-aware);
+4. golden      -- the fused engines in float64 against the authors' Excel
+                  GR4J trajectory and MATLAB HBV-Edu trajectory
+                  (tests/data/);
+5. main paths  -- float32, through the public entry points, each with the
+                  launch counters set to 0 just before and read just after:
+                  GR4J on CAMELS basin 01031500 (131072-member Monte-Carlo
+                  through K2, two DE calibrations through K1/K2, a fused
+                  simulation through K3); HBV-Edu on the 3652 MATLAB days
+                  (131072-member Monte-Carlo and two calibrations through
+                  K12, a fused simulation through K13); ABC (one member over
+                  10 000 000 steps through K6, a 4096-member Monte-Carlo and
+                  a calibration on CAMELS 01031500).  Then each kernel is
+                  compared with its plain version at the shapes the main
+                  path gave it;
+6. times       -- each kernel against its plain version and its bound:
+                  GR4J and HBV-Edu at 131072 members x 3651 days, ABC at
+                  10 000 000 steps.
 
 The last two lines are a JSON object describing the kernels and the
 result line ``{"ok": true, "device": {...}}``.
@@ -31,7 +40,6 @@ result line ``{"ok": true, "device": {...}}``.
 import json
 import os
 import re
-import statistics
 import subprocess
 import sys
 import time
@@ -44,24 +52,65 @@ import rrmpg_tpu_torch  # noqa: F401  (fails outside a checkout of the repo)
 
 REPO = Path(__file__).resolve().parent
 DEVICE = "cuda"
-SOURCE = "rrmpg_tpu_torch/csrc/gr4j_fused.cu"
-REPLACES = {"gr4j_mse": "rrmpg_tpu/ops/pallas_gr4j.py:228",
-            "gr4j_stats": "rrmpg_tpu/ops/pallas_gr4j.py:285",
-            "gr4j_traj": "rrmpg_tpu/ops/pallas_gr4j.py:156"}
+F32, F64 = torch.float32, torch.float64
+GR4J_SRC = "rrmpg_tpu_torch/csrc/gr4j_fused.cu"
+ABC_SRC = "rrmpg_tpu_torch/csrc/abc_scan.cu"
+HBV_SRC = "rrmpg_tpu_torch/csrc/hbv_fused.cu"
+# name -> (source, the TPU kernel it replaces)
+KERNELS = {
+    "gr4j_mse": (GR4J_SRC, "rrmpg_tpu/ops/pallas_gr4j.py:228"),
+    "gr4j_stats": (GR4J_SRC, "rrmpg_tpu/ops/pallas_gr4j.py:285"),
+    "gr4j_traj": (GR4J_SRC, "rrmpg_tpu/ops/pallas_gr4j.py:156"),
+    "abc_fused_single": (ABC_SRC, "rrmpg_tpu/ops/pallas_linear_scan.py:169"),
+    "abc_fused": (ABC_SRC, "rrmpg_tpu/ops/pallas_linear_scan.py:28"),
+    "hbv_objective": (HBV_SRC, "rrmpg_tpu/ops/pallas_hbv.py:109"),
+    "hbv_traj": (HBV_SRC, "rrmpg_tpu/ops/pallas_hbv.py:203"),
+}
 BOUNDS_X4_WIDE = 9.9      # exercises every tap of the (10, 21) registers
 MC_MEMBERS = 131072
+ABC_MC_MEMBERS = 4096
+ABC_STEPS = 10_000_000
+ABC_PARAMS = {'a': 0.3, 'b': 0.2, 'c': 0.15}
 TIME_MEMBERS, TIME_STEPS = 131072, 3651
-# Golden parameters (tests/test_models_golden.py:test_gr4j_against_excel).
-GOLDEN_PARAMS = {'x1': np.exp(5.76865628090826),
-                 'x2': np.sinh(1.61742503661094),
-                 'x3': np.exp(4.24316129943456),
-                 'x4': np.exp(-0.117506799276908) + 0.5}
-# Tolerances of the kernel-vs-plain checks.  float64: the same operations
-# in another order (FMA contraction) and libdevice vs ATen tanh.  float32:
-# rounding compounds over thousands of steps of the recurrence; the
-# fused-vs-XLA float32 drift of rrmpg_tpu is 8.5e-3 relative.
-TOL = {torch.float64: {"traj": (1e-9, 1e-12), "obj": (1e-9, 1e-12)},
-       torch.float32: {"traj": (5e-3, 1e-3), "obj": (2e-2, 0.0)}}
+# Golden parameters (tests/test_models_golden.py).
+GR4J_GOLDEN = {'x1': np.exp(5.76865628090826),
+               'x2': np.sinh(1.61742503661094),
+               'x3': np.exp(4.24316129943456),
+               'x4': np.exp(-0.117506799276908) + 0.5}
+HBV_GOLDEN = {'T_t': 0, 'DD': 4.25, 'FC': 177.1, 'Beta': 2.35, 'C': 0.02,
+              'PWP': 105.89, 'K_0': 0.05, 'K_1': 0.03, 'K_2': 0.02,
+              'K_p': 0.05, 'L': 4.87}
+HBV_INITS = (0.0, 100.0, 3.0, 10.0)      # snow, soil, s1, s2
+HBV_AREA = 410                           # km^2, mm/day <-> m^3/s
+# Tolerances of the kernel-vs-plain checks, (rtol, atol).  float64: the same
+# operations in another order (FMA contraction) and libdevice vs ATen
+# tanh/pow.  float32: rounding compounds over thousands of steps of the
+# recurrence; the fused-vs-XLA float32 drift of rrmpg_tpu is 8.5e-3
+# relative.  ABC in float32: the scan sums in another order than its plain
+# version; the error is held to 1e-4 of each series' largest value.
+TOL = {F64: {"traj": (1e-9, 1e-12), "obj": (1e-9, 1e-12)},
+       F32: {"traj": (5e-3, 1e-3), "obj": (2e-2, 0.0)}}
+ABC_TOL_F64 = (1e-9, 1e-12)
+ABC_RTOL_OF_MAX_F32 = 1e-4
+
+# The card's published peaks (NVIDIA H100 SXM data sheet): device memory
+# rate and float32 rate outside the tensor cores.
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_F32_FLOPS = 67e12
+# Floating-point operations of one step, counted from the CUDA sources with
+# +, -, *, /, compare-and-select and each tanh / sqrt / rsqrt / pow call as
+# one operation (a lower count than what the card really issues, so the bound
+# stays a bound).  gr4j_step: production store 37, UH registers
+# 2 + (2*NUH1 - 1) + (2*NUH2 - 1), routing store and outflow 21.
+# hbv_step: snow 10, soil 14, reservoirs and discharge 17.  ABC: a*P,
+# alpha*S + B, coeff*P + c*S_prev.  Objective sums: 3 (MSE) or 8 (stats).
+GR4J_STEP_OPS = {(3, 7): 37 + 2 + 5 + 13 + 21, (10, 21): 37 + 2 + 19 + 41 + 21}
+HBV_STEP_OPS = 10 + 14 + 17
+ABC_STEP_OPS = 6
+OBJECTIVE_OPS = {"mse": 3, "stats": 8}
+# GPU cycles to spin before a timed run of launches, so that the host has
+# queued them all before the first one starts.
+SPIN_CYCLES = 40_000_000
 
 
 class SmokeFailure(Exception):
@@ -81,28 +130,74 @@ def card_line():
     return out.strip().splitlines()[0]
 
 
-def errors(got, want, rtol, atol):
-    """(max abs err, max rel err, within allclose(rtol, atol))."""
+def errors(got, want, rtol, atol, nan_ok=False):
+    """(max abs err, max rel err, within allclose(rtol, atol), NaN count).
+
+    Outputs must be finite, except with ``nan_ok`` (HBV-Edu members whose
+    soil store went negative): then kernel and plain version must be NaN
+    at the same places and the rest is compared."""
     got, want = got.double(), want.double()
-    check(torch.isfinite(got).all().item(), "kernel output is not finite")
+    nan = torch.isnan(want)
+    if nan_ok:
+        check(torch.equal(torch.isnan(got), nan),
+              "kernel and plain version are NaN at different places")
+        got, want = got[~nan], want[~nan]
+    else:
+        check(torch.isfinite(got).all().item(), "kernel output is not finite")
+    if got.numel() == 0:
+        return 0.0, 0.0, True, int(nan.sum())
     diff = (got - want).abs()
-    rel = diff / want.abs().clamp_min(torch.finfo(torch.float64).tiny)
+    diff = torch.where(got == want, 0.0, diff)        # equal infinities
+    rel = diff / want.abs().clamp_min(torch.finfo(F64).tiny)
     ok = bool((diff <= atol + rtol * want.abs()).all())
-    return float(diff.max()), float(rel.max()), ok
+    return float(diff.max()), float(rel.max()), ok, int(nan.sum())
 
 
-def timed(fn, reps):
-    """Median wall time in ms of ``reps`` synchronized calls after one
-    warm-up call."""
+def report(label, got, want, rtol, atol, nan_ok=False):
+    """Print one kernel-vs-plain comparison and fail if it disagrees;
+    returns the max abs error."""
+    torch.cuda.synchronize()
+    abs_err, rel_err, ok, n_nan = errors(got, want, rtol, atol, nan_ok)
+    nan_note = f" nan={n_nan}/{want.numel()}" if nan_ok else ""
+    print(f"    {label} shape={tuple(got.shape)} max_abs={abs_err:.3e} "
+          f"max_rel={rel_err:.3e} rtol={rtol:g} atol={atol:.3g}{nan_note} "
+          f"{'ok' if ok else 'FAIL'}")
+    check(ok, f"{label}: kernel disagrees with its plain version")
+    return abs_err
+
+
+def abc_tol(want):
+    if want.dtype == F64:
+        return ABC_TOL_F64
+    return 0.0, ABC_RTOL_OF_MAX_F32 * float(want.abs().max())
+
+
+def device_ms(fn, reps):
+    """Mean device time in ms of ``reps`` calls queued back to back (CUDA
+    events), after one warm-up call."""
     fn()
     torch.cuda.synchronize()
-    times = []
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SPIN_CYCLES)
+    start.record()
     for _ in range(reps):
-        t0 = time.perf_counter()
         fn()
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1e3)
-    return statistics.median(times)
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def bound_ms(ops, n_bytes):
+    """The least time the card could take, and which resource binds."""
+    by_ops = ops / PEAK_F32_FLOPS * 1e3
+    by_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
+    return (by_ops, "operations") if by_ops >= by_bytes else (by_bytes,
+                                                              "bytes")
+
+
+def as_tensor(a, dtype):
+    return torch.tensor(np.asarray(a, np.float64), dtype=dtype, device=DEVICE)
 
 
 def basin():
@@ -113,11 +208,67 @@ def basin():
             df['PET'].to_numpy())
 
 
-def random_params(rng, n, x4_hi, dtype):
+def hbv_data():
+    """The MATLAB example: daily forcing, monthly climatologies and the
+    MATLAB discharge (m^3/s)."""
+    import pandas as pd
+
+    data = REPO / "tests" / "data"
+    daily = pd.read_csv(data / 'hbv_daily_inputs.txt', sep='\t',
+                        names=['date', 'month', 'temp', 'prec'])
+    monthly = pd.read_csv(data / 'hbv_monthly_inputs.txt', sep=' ',
+                          names=['temp', 'not_needed', 'evap'])
+    qsim = pd.read_csv(data / 'hbv_qsim.csv', header=None, names=['qsim'])
+    forcing = dict(temp=daily.temp.to_numpy(), prec=daily.prec.to_numpy(),
+                   month=daily.month.to_numpy(), PE_m=monthly.evap.to_numpy(),
+                   T_m=monthly.temp.to_numpy())
+    return forcing, qsim.qsim.to_numpy()
+
+
+def gr4j_random_params(rng, n, x4_hi, dtype):
     p = {'x1': rng.uniform(100, 1200, n), 'x2': rng.uniform(-5, 3, n),
          'x3': rng.uniform(20, 300, n), 'x4': rng.uniform(1.1, x4_hi, n)}
-    return {k: torch.tensor(v, dtype=dtype, device=DEVICE)
-            for k, v in p.items()}
+    return {k: as_tensor(v, dtype) for k, v in p.items()}
+
+
+def hbv_random_params(rng, n, dtype, n_dry=0):
+    """Members within the class bounds; the first ``n_dry`` get a field
+    capacity that empties the soil store, so they go NaN."""
+    from rrmpg_tpu_torch.models import HBVEdu
+
+    p = {k: rng.uniform(lo, hi, n)
+         for k, (lo, hi) in HBVEdu._default_bounds.items()}
+    p['FC'][:n_dry] = 2.0
+    return {k: as_tensor(v, dtype) for k, v in p.items()}
+
+
+def hbv_tensors(forcing, dtype, t_len=None):
+    """(temp, prec, month0, pe_m, t_m) tensors as the wrappers take them."""
+    cut = slice(None, t_len)
+    return (as_tensor(forcing['temp'][cut], dtype),
+            as_tensor(forcing['prec'][cut], dtype),
+            torch.tensor(forcing['month'][cut] - 1, device=DEVICE),
+            as_tensor(forcing['PE_m'], dtype), as_tensor(forcing['T_m'], dtype))
+
+
+def hbv_kernel(fh, tensors, qobs, params, mode, masked=False):
+    """One HBV kernel mode ('traj', 'mse' or 'stats') through its wrapper."""
+    if mode == "traj":
+        return fh.hbv_simulate_fused(*tensors, *HBV_INITS, params)
+    return fh.hbv_ensemble_mse_fused(*tensors, qobs, *HBV_INITS, params,
+                                     stats=mode == "stats", masked=masked)
+
+
+def hbv_plain(fh, tensors, qobs, params, mode, masked=False):
+    """The plain version of the same mode on the same inputs."""
+    temp, prec, month, pe_m, t_m = tensors
+    series = (temp, prec, pe_m[month], t_m[month])
+    packed = fh.pack_params(params, *HBV_INITS)
+    if mode == "traj":
+        return fh.hbv_simulate_reference(*series, packed)
+    count = int(torch.isfinite(qobs).sum()) if masked else qobs.shape[0]
+    return fh.hbv_objective_reference(*series, qobs, packed, mode == "stats",
+                                      masked, count)
 
 
 # ---------------------------------------------------------------------------
@@ -155,10 +306,10 @@ def phase_build():
     print(f"[2 build] {lib.path.name} built in {lib.build_seconds:.1f} s "
           f"(0.0 = found built)")
     # One line per kernel instantiation from nvcc's -Xptxas -v output.
-    kernel, spill = None, 0
+    kernel, spill, n_kernels = None, 0, 0
     for ln in lib.log.splitlines():
         if "Compiling entry function" in ln:
-            m = re.search(r"(gr4j_(?:objective|traj)_kernel)I(\w+?)EEv", ln)
+            m = re.search(r"\d+([a-z0-9_]+_kernel)I(\w+?)EEv", ln)
             kernel, spill = (m.group(1) + "<" + m.group(2) + ">") if m \
                 else ln.split("'")[1], 0
         elif "spill stores" in ln:
@@ -169,31 +320,31 @@ def phase_build():
             print(f"    ptxas: {kernel}: {regs} registers, {spill} bytes "
                   "spill stores")
             kernel = None
+            n_kernels += 1
+    check(n_kernels > 0, "no kernel found in the build log")
 
 
-def phase_kernels(prec_np, etp_np, qobs_np, n=1000, t_len=3651):
-    """Every kernel against its plain version: both dtypes, both UH pairs,
-    with and without gaps."""
+def phase_kernels_gr4j(prec_np, etp_np, qobs_np, n=500, t_len=3651):
     from rrmpg_tpu_torch.ops import fused_gr4j as fg
 
     qobs_gap = qobs_np[:t_len].copy()
     qobs_gap[::17] = np.nan
     qobs_gap[400:430] = np.nan
     n_checks = 0
-    for dtype in (torch.float64, torch.float32):
+    for dtype in (F64, F32):
         tol = TOL[dtype]
-        as_t = lambda a: torch.tensor(a[:t_len], dtype=dtype, device=DEVICE)
-        prec, etp = as_t(prec_np), as_t(etp_np)
+        prec, etp = as_tensor(prec_np[:t_len], dtype), as_tensor(
+            etp_np[:t_len], dtype)
         for n1, n2 in fg.SUPPORTED_UH:
             rng = np.random.default_rng(n1)
-            params = random_params(rng, n, 2.9 if n1 == 3 else BOUNDS_X4_WIDE,
-                                   dtype)
+            params = gr4j_random_params(
+                rng, n, 2.9 if n1 == 3 else BOUNDS_X4_WIDE, dtype)
             packed = fg.pack_params(params, 0.4, 0.3)
             cases = [("traj", fg.gr4j_simulate_fused(
                           prec, etp, 0.4, 0.3, params, n1, n2),
                       fg.gr4j_simulate_reference(prec, etp, packed, n1, n2))]
-            for masked, qo in ((False, qobs_np), (True, qobs_gap)):
-                qo = as_t(qo)
+            for masked, qo in ((False, qobs_np[:t_len]), (True, qobs_gap)):
+                qo = as_tensor(qo, dtype)
                 count = int(torch.isfinite(qo).sum()) if masked else t_len
                 for stats in (False, True):
                     name = ("stats" if stats else "mse") + (
@@ -205,109 +356,189 @@ def phase_kernels(prec_np, etp_np, qobs_np, n=1000, t_len=3651):
                             prec, etp, qo, packed, n1, n2, stats, masked,
                             count)))
             for name, got, want in cases:
-                torch.cuda.synchronize()
-                rtol, atol = tol["traj" if name == "traj" else "obj"]
-                abs_err, rel_err, ok = errors(got, want, rtol, atol)
-                print(f"    {str(dtype)[6:]} uh=({n1},{n2}) {name:13s} "
-                      f"shape={tuple(got.shape)} max_abs={abs_err:.3e} "
-                      f"max_rel={rel_err:.3e} rtol={rtol:g} atol={atol:g} "
-                      f"{'ok' if ok else 'FAIL'}")
-                check(ok, f"{name} kernel disagrees with its plain version")
+                report(f"gr4j {str(dtype)[6:]} uh=({n1},{n2}) {name:13s}",
+                       got, want, *tol["traj" if name == "traj" else "obj"])
                 n_checks += 1
-    print(f"[3 kernels] {n_checks} kernel-vs-plain checks passed at "
+    print(f"[3 kernels] GR4J: {n_checks} kernel-vs-plain checks passed at "
           f"N={n}, T={t_len}")
 
 
-def phase_golden():
+def phase_kernels_abc():
+    from rrmpg_tpu_torch.ops import abc, fused_abc as fa
+
+    n_checks = 0
+    for dtype in (F64, F32):
+        for t_len in (1, 1000, 70000, 1_000_003):
+            prec = as_tensor(
+                np.random.default_rng(t_len).uniform(0, 20, t_len), dtype)
+            for c in (0.0, 0.12, 1.0):
+                params = {'a': 0.3, 'b': 0.4, 'c': c}
+                want = abc.run_abcmodel_pscan(prec, 5.0, params)
+                single = fa.abc_fused_single(prec, 5.0, params)
+                chunked = fa.abc_fused(prec, 5.0, params)
+                pairs = [("K6 vs pscan", single, want),
+                         ("K7 vs pscan", chunked, want),
+                         ("K6 vs K7", single, chunked)]
+                if t_len <= 20000:
+                    seq = abc.run_abcmodel(prec, 5.0, params)
+                    pairs += [("K6 vs loop", single, seq),
+                              ("K7 vs loop", chunked, seq)]
+                check(single[1][0].item() == 5.0 and single[0][0].item() == 0
+                      and chunked[1][0].item() == 5.0
+                      and chunked[0][0].item() == 0,
+                      "ABC kernels: S[0] != s0 or q[0] != 0")
+                for what, got, ref in pairs:
+                    for series, g, w in zip(("q", "S"), got, ref):
+                        report(f"abc {str(dtype)[6:]} T={t_len} c={c:g} "
+                               f"{what} {series}", g, w, *abc_tol(w))
+                        n_checks += 1
+    print(f"[3 kernels] ABC: {n_checks} checks passed")
+
+
+def phase_kernels_hbv(forcing, qobs_np, n=1000):
+    from rrmpg_tpu_torch.ops import fused_hbv as fh
+
+    qobs_gap = qobs_np.copy()
+    qobs_gap[::17] = np.nan
+    qobs_gap[400:430] = np.nan
+    n_checks = 0
+    for dtype in (F64, F32):
+        tensors = hbv_tensors(forcing, dtype)
+        params = hbv_random_params(np.random.default_rng(12), n, dtype,
+                                   n_dry=n // 20)
+        for mode, masked in (("traj", False), ("mse", False), ("stats", False),
+                             ("mse", True), ("stats", True)):
+            qobs = as_tensor(qobs_gap if masked else qobs_np, dtype)
+            args = (fh, tensors, qobs, params, mode, masked)
+            got, want = hbv_kernel(*args), hbv_plain(*args)
+            report(f"hbv {str(dtype)[6:]} {mode}"
+                   f"{'+masked' if masked else ''}", got, want,
+                   *TOL[dtype]["traj" if mode == "traj" else "obj"],
+                   nan_ok=True)
+            n_checks += 1
+    print(f"[3 kernels] HBV-Edu: {n_checks} kernel-vs-plain checks passed at "
+          f"N={n}, T={len(qobs_np)}")
+
+
+def phase_golden(forcing, qsim_matlab):
     import pandas as pd
-    from rrmpg_tpu_torch.models import GR4J
+    from rrmpg_tpu_torch.models import GR4J, HBVEdu
 
     data = pd.read_csv(REPO / "tests" / "data" / "gr4j_example_data.csv")
-    model = GR4J(params=GOLDEN_PARAMS, device=DEVICE, dtype=torch.float64)
-    qsim = model.simulate(data.prec, data.etp, s_init=0.6, r_init=0.7,
-                          engine='fused')
-    q = qsim.cpu().numpy().ravel()
+    model = GR4J(params=GR4J_GOLDEN, dtype=F64)
+    q = model.simulate(data.prec, data.etp, s_init=0.6, r_init=0.7,
+                       engine='fused').cpu().numpy().ravel()
     err = float(np.max(np.abs(q - data.qsim_excel.to_numpy())))
     ok = np.allclose(q, data.qsim_excel)
-    print(f"[4 golden] fused float64 vs Excel qsim: T={len(q)} "
+    print(f"[4 golden] GR4J fused float64 vs Excel qsim: T={len(q)} "
           f"max_abs={err:.3e} np.allclose={ok}")
     check(ok, "fused GR4J does not reproduce the Excel trajectory")
 
+    snow, soil, s1, s2 = HBV_INITS
+    q = HBVEdu(params=HBV_GOLDEN, dtype=F64).simulate(
+        **forcing, snow_init=snow, soil_init=soil, s1_init=s1, s2_init=s2,
+        engine='fused').cpu().numpy().ravel()
+    q = q * HBV_AREA * 1000 / (24 * 60 * 60)
+    err = float(np.max(np.abs(q - qsim_matlab)))
+    ok = np.allclose(q, qsim_matlab)
+    print(f"[4 golden] HBV-Edu fused float64 vs MATLAB qsim: T={len(q)} "
+          f"max_abs={err:.3e} np.allclose={ok}")
+    check(ok, "fused HBV-Edu does not reproduce the MATLAB trajectory")
 
-def phase_main_path(card, qobs, prec, etp):
+
+def run_counted(fn):
+    """Run ``fn`` with the launch counts set to 0 just before; returns its
+    result, the counts read just after, and the wall seconds."""
+    from rrmpg_tpu_torch.ops import LAUNCHES, reset_launches
+
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    result = fn()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    return result, {k: v for k, v in LAUNCHES.items() if v}, seconds
+
+
+def check_fit(model_cls, res, what):
+    check(np.isfinite(res.fun), f"{what}: fit fun is not finite: {res.fun}")
+    for name, v in zip(model_cls._param_list, res.x):
+        lo, hi = model_cls._default_bounds[name]
+        check(lo - 1e-5 * abs(lo) <= v <= hi + 1e-5 * abs(hi),
+              f"{what}: fit {name}={v} outside ({lo}, {hi})")
+
+
+def population_params(model_cls, res):
+    pop = torch.tensor(res.population, dtype=F32, device=DEVICE)
+    return {n: pop[:, j].contiguous()
+            for j, n in enumerate(model_cls._param_list)}
+
+
+def phase_main_path_gr4j(card, qobs, prec, etp):
     from rrmpg_tpu_torch.models import GR4J
     from rrmpg_tpu_torch.ops import fused_gr4j as fg
     from rrmpg_tpu_torch.tools import monte_carlo
 
     names = GR4J._param_list
-    np.random.seed(0)
-    fg.reset_launches()
-    t0 = time.perf_counter()
-    mc = monte_carlo(GR4J(device=DEVICE), num=MC_MEMBERS, qobs=qobs,
-                     prec=prec, etp=etp, return_qsim=False, engine='fused',
-                     metrics=('mse', 'nse', 'kge'))
-    torch.cuda.synchronize()
-    mc_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    res_mse = GR4J(device=DEVICE).fit(qobs, prec, etp, engine='fused',
-                                      seed=0, maxiter=30)
-    fit_mse_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    res_kge = GR4J(device=DEVICE).fit(qobs, prec, etp, engine='fused',
-                                      seed=0, maxiter=30, loss_metric='kge')
-    fit_kge_s = time.perf_counter() - t0
-    calibrated = GR4J(params={k: float(v) for k, v in zip(names, res_kge.x)},
-                      device=DEVICE)
-    qsim = calibrated.simulate(prec, etp, engine='fused')
-    torch.cuda.synchronize()
-    launches = dict(fg.LAUNCHES)
+    walls = {}
 
+    def drive():
+        np.random.seed(0)
+        t0 = time.perf_counter()
+        mc = monte_carlo(GR4J(), num=MC_MEMBERS, qobs=qobs, prec=prec,
+                         etp=etp, return_qsim=False, engine='fused',
+                         metrics=('mse', 'nse', 'kge'))
+        torch.cuda.synchronize()
+        walls["mc"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        res_mse = GR4J().fit(qobs, prec, etp, engine='fused', seed=0,
+                             maxiter=30)
+        walls["fit_mse"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        res_kge = GR4J().fit(qobs, prec, etp, engine='fused', seed=0,
+                             maxiter=30, loss_metric='kge')
+        walls["fit_kge"] = time.perf_counter() - t0
+        calibrated = GR4J(params={k: float(v)
+                                  for k, v in zip(names, res_kge.x)})
+        return mc, res_mse, res_kge, calibrated, calibrated.simulate(
+            prec, etp, engine='fused')
+
+    (mc, res_mse, res_kge, calibrated, qsim), launches, _ = run_counted(drive)
     for m in ('mse', 'nse', 'kge'):
         check(mc[m].shape == (MC_MEMBERS,), f"MC {m} has shape {mc[m].shape}")
         check(np.isfinite(mc[m]).all(), f"MC {m} has non-finite values")
-    bounds = GR4J._default_bounds
-    for res in (res_mse, res_kge):
-        check(np.isfinite(res.fun), f"fit fun is not finite: {res.fun}")
-        for name, v in zip(names, res.x):
-            lo, hi = bounds[name]
-            check(lo - 1e-5 * abs(lo) <= v <= hi + 1e-5 * abs(hi),
-                  f"fit {name}={v} outside {bounds[name]}")
+    check_fit(GR4J, res_mse, "GR4J mse")
+    check_fit(GR4J, res_kge, "GR4J kge")
     check(qsim.shape == (len(prec), 1) and bool(torch.isfinite(qsim).all()),
-          "calibrated simulation is not a finite (T, 1) series")
+          "calibrated GR4J simulation is not a finite (T, 1) series")
     expect = {"gr4j_stats": 1 + res_kge.nit + 1,
               "gr4j_mse": res_mse.nit + 1, "gr4j_traj": 1}
     check(launches == expect,
           f"launch counts {launches} differ from the expected {expect}")
-    print(f"[5 main path] CAMELS 01031500 T={len(prec)} float32: MC "
+    print(f"[5 main path] GR4J, CAMELS 01031500 T={len(prec)} float32: MC "
           f"{MC_MEMBERS} members best NSE {np.max(mc['nse']):.4f} in "
-          f"{mc_s:.3f} s; fit mse nit={res_mse.nit} fun={res_mse.fun:.5f} in "
-          f"{fit_mse_s:.3f} s; fit kge nit={res_kge.nit} "
-          f"1-KGE={res_kge.fun:.5f} in {fit_kge_s:.3f} s; launches "
-          f"{launches} == expected; {card}")
+          f"{walls['mc']:.3f} s; fit mse nit={res_mse.nit} "
+          f"fun={res_mse.fun:.5f} in {walls['fit_mse']:.3f} s; fit kge "
+          f"nit={res_kge.nit} 1-KGE={res_kge.fun:.5f} in "
+          f"{walls['fit_kge']:.3f} s; launches {launches} == expected; "
+          f"{card}")
 
     # Each kernel against its plain version at the shapes the main path
     # gave it (these launches are not counted above).
-    as_t = lambda a: torch.tensor(np.asarray(a, np.float64),
-                                  dtype=torch.float32, device=DEVICE)
-    prec_t, etp_t, qobs_t = as_t(prec), as_t(etp), as_t(qobs)
+    prec_t, etp_t, qobs_t = (as_tensor(a, F32) for a in (prec, etp, qobs))
     masked = bool(np.isnan(qobs).any())
     count = int(np.isfinite(qobs).sum())
-    model = GR4J(device=DEVICE)
-    mc_params, _ = model._prepare_params(mc['params'])
-    pop = torch.tensor(res_kge.population, dtype=torch.float32,
-                       device=DEVICE)
-    pop_params = {n: pop[:, j].contiguous() for j, n in enumerate(names)}
+    mc_params, _ = GR4J()._prepare_params(mc['params'])
+    pop_params = population_params(GR4J, res_kge)
     cal_params, _ = calibrated._prepare_params(None)
-    rtol_o = TOL[torch.float32]["obj"]
-    rtol_t = TOL[torch.float32]["traj"]
     cases = [
-        ("gr4j_stats", "MC", mc_params, (10, 21), True, rtol_o),
-        ("gr4j_mse", "fit population", pop_params, (3, 7), False, rtol_o),
-        ("gr4j_stats", "fit population", pop_params, (3, 7), True, rtol_o),
-        ("gr4j_traj", "calibrated", cal_params, (10, 21), None, rtol_t),
+        ("gr4j_stats", "MC", mc_params, (10, 21), True),
+        ("gr4j_mse", "fit population", pop_params, (3, 7), False),
+        ("gr4j_stats", "fit population", pop_params, (3, 7), True),
+        ("gr4j_traj", "calibrated", cal_params, (10, 21), None),
     ]
     max_abs = {}
-    for kernel, what, params, (n1, n2), stats, (rtol, atol) in cases:
+    for kernel, what, params, (n1, n2), stats in cases:
         packed = fg.pack_params(params, 0.0, 0.0)
         if stats is None:
             got = fg.gr4j_simulate_fused(prec_t, etp_t, 0.0, 0.0, params,
@@ -319,78 +550,329 @@ def phase_main_path(card, qobs, prec, etp):
                                              masked=masked)
             want = fg.gr4j_objective_reference(prec_t, etp_t, qobs_t, packed,
                                                n1, n2, stats, masked, count)
-        torch.cuda.synchronize()
-        abs_err, rel_err, ok = errors(got, want, rtol, atol)
-        max_abs[kernel] = max(max_abs.get(kernel, 0.0), abs_err)
-        print(f"    main-path shape {kernel} ({what}) "
-              f"shape={tuple(got.shape)} max_abs={abs_err:.3e} "
-              f"max_rel={rel_err:.3e} rtol={rtol:g} atol={atol:g} "
-              f"{'ok' if ok else 'FAIL'}")
-        check(ok, f"{kernel} disagrees with its plain version at the main "
-                  f"path's shape ({what})")
-    walls = {"mc_s": mc_s, "fit_mse_s": fit_mse_s, "fit_kge_s": fit_kge_s}
+        err = report(f"main-path shape {kernel} ({what})", got, want,
+                     *TOL[F32]["traj" if stats is None else "obj"])
+        max_abs[kernel] = max(max_abs.get(kernel, 0.0), err)
     return launches, max_abs, walls
 
 
-def phase_times(card, prec_np, etp_np, qobs_np):
-    from rrmpg_tpu_torch.ops import fused_gr4j as fg
+def phase_main_path_hbv(card, forcing, qsim_matlab):
+    from rrmpg_tpu_torch.models import HBVEdu
+    from rrmpg_tpu_torch.ops import fused_hbv as fh
+    from rrmpg_tpu_torch.tools import monte_carlo
 
-    as_t = lambda a: torch.tensor(a[:TIME_STEPS], dtype=torch.float32,
-                                  device=DEVICE)
-    prec, etp, qobs = as_t(prec_np), as_t(etp_np), as_t(qobs_np)
-    params = random_params(np.random.default_rng(1), TIME_MEMBERS, 2.9,
-                           torch.float32)
-    packed = fg.pack_params(params, 0.0, 0.0)
-    n1, n2 = fg.SUPPORTED_UH[1]
-    runs = {
-        "gr4j_mse": (
-            lambda: fg.gr4j_ensemble_mse_fused(prec, etp, qobs, 0.0, 0.0,
-                                               params, n1, n2),
-            lambda: fg.gr4j_objective_reference(prec, etp, qobs, packed,
-                                                n1, n2)),
-        "gr4j_stats": (
-            lambda: fg.gr4j_ensemble_mse_fused(prec, etp, qobs, 0.0, 0.0,
-                                               params, n1, n2, stats=True),
-            lambda: fg.gr4j_objective_reference(prec, etp, qobs, packed,
-                                                n1, n2, stats=True)),
-        "gr4j_traj": (
-            lambda: fg.gr4j_simulate_fused(prec, etp, 0.0, 0.0, params,
-                                           n1, n2),
-            lambda: fg.gr4j_simulate_reference(prec, etp, packed, n1, n2)),
-    }
-    times = {}
-    for name, (kernel, plain) in runs.items():
+    names = HBVEdu._param_list
+    snow, soil, s1, s2 = HBV_INITS
+    inits = dict(snow_init=snow, soil_init=soil, s1_init=s1, s2_init=s2)
+    # Observations: the MATLAB discharge back in mm/day, with a few gaps.
+    qobs = qsim_matlab * (24 * 60 * 60) / (HBV_AREA * 1000)
+    qobs[200:215] = np.nan
+    qobs[::97] = np.nan
+    walls = {}
+
+    def drive():
+        np.random.seed(0)
+        t0 = time.perf_counter()
+        mc = monte_carlo(HBVEdu(), num=MC_MEMBERS, qobs=qobs,
+                         return_qsim=False, engine='fused',
+                         metrics=('mse', 'nse', 'kge'), **forcing, **inits)
+        torch.cuda.synchronize()
+        walls["mc"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        res_mse = HBVEdu().fit(qobs, **forcing, **inits, engine='fused',
+                               seed=0, maxiter=30)
+        walls["fit_mse"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        res_kge = HBVEdu().fit(qobs, **forcing, **inits, engine='fused',
+                               seed=0, maxiter=30, loss_metric='kge')
+        walls["fit_kge"] = time.perf_counter() - t0
+        calibrated = HBVEdu(params={k: float(v)
+                                    for k, v in zip(names, res_kge.x)})
+        return mc, res_mse, res_kge, calibrated, calibrated.simulate(
+            **forcing, **inits, engine='fused')
+
+    (mc, res_mse, res_kge, calibrated, qsim), launches, _ = run_counted(drive)
+    n_nan = int(np.isnan(mc['mse']).sum())
+    for m in ('mse', 'nse', 'kge'):
+        check(mc[m].shape == (MC_MEMBERS,), f"MC {m} has shape {mc[m].shape}")
+        check(int(np.isnan(mc[m]).sum()) == n_nan
+              and not np.isinf(mc[m]).any(),
+              f"HBV MC {m}: NaN members differ between metrics, or inf")
+    check(n_nan < MC_MEMBERS // 2, f"{n_nan} of {MC_MEMBERS} HBV MC members "
+          "are NaN")
+    check_fit(HBVEdu, res_mse, "HBV mse")
+    check_fit(HBVEdu, res_kge, "HBV kge")
+    check(qsim.shape == (len(qobs), 1) and bool(torch.isfinite(qsim).all()),
+          "calibrated HBV simulation is not a finite (T, 1) series")
+    expect = {"hbv_stats": 1 + res_kge.nit + 1, "hbv_mse": res_mse.nit + 1,
+              "hbv_traj": 1}
+    check(launches == expect,
+          f"launch counts {launches} differ from the expected {expect}")
+    print(f"[5 main path] HBV-Edu, MATLAB example T={len(qobs)} float32: MC "
+          f"{MC_MEMBERS} members ({n_nan} NaN) best NSE "
+          f"{np.nanmax(mc['nse']):.4f} in {walls['mc']:.3f} s; fit mse "
+          f"nit={res_mse.nit} fun={res_mse.fun:.5f} in "
+          f"{walls['fit_mse']:.3f} s; fit kge nit={res_kge.nit} "
+          f"1-KGE={res_kge.fun:.5f} in {walls['fit_kge']:.3f} s; launches "
+          f"{launches} == expected; {card}")
+
+    tensors = hbv_tensors(forcing, F32)
+    qobs_t = as_tensor(qobs, F32)
+    mc_params, _ = HBVEdu()._prepare_params(mc['params'])
+    pop_params = population_params(HBVEdu, res_kge)
+    cal_params, _ = calibrated._prepare_params(None)
+    max_abs = {}
+    for kernel, what, params, mode in (
+            ("hbv_stats", "MC", mc_params, "stats"),
+            ("hbv_mse", "fit population", pop_params, "mse"),
+            ("hbv_stats", "fit population", pop_params, "stats"),
+            ("hbv_traj", "calibrated", cal_params, "traj")):
+        args = (fh, tensors, qobs_t, params, mode, True)
+        got, want = hbv_kernel(*args), hbv_plain(*args)
+        err = report(f"main-path shape {kernel} ({what})", got, want,
+                     *TOL[F32]["traj" if mode == "traj" else "obj"],
+                     nan_ok=True)
+        max_abs[kernel] = max(max_abs.get(kernel, 0.0), err)
+    return launches, max_abs, walls
+
+
+def phase_main_path_abc(card, qobs, prec_basin):
+    from rrmpg_tpu_torch.models import ABCModel
+    from rrmpg_tpu_torch.ops import abc, fused_abc as fa
+    from rrmpg_tpu_torch.tools import monte_carlo
+
+    prec_long = np.random.default_rng(0).uniform(0, 20, ABC_STEPS)
+    prec_t = as_tensor(prec_long, F32)
+    walls = {}
+
+    def drive():
+        t0 = time.perf_counter()
+        q_long, s_long = ABCModel(params=ABC_PARAMS).simulate(
+            prec_long, engine='fused', return_storage=True)
+        torch.cuda.synchronize()
+        walls["simulate"] = time.perf_counter() - t0
+        # The three-launch scan has no engine of its own in the class (nor
+        # in rrmpg_tpu): its users call the op, at the same shape.
+        t0 = time.perf_counter()
+        chunked = fa.abc_fused(prec_t, 0.0, ABC_PARAMS)
+        torch.cuda.synchronize()
+        walls["abc_fused_op"] = time.perf_counter() - t0
+        np.random.seed(0)
+        t0 = time.perf_counter()
+        mc = monte_carlo(ABCModel(), num=ABC_MC_MEMBERS, qobs=qobs,
+                         prec=prec_basin, return_qsim=False, engine='fused',
+                         metrics=('mse', 'nse'))
+        torch.cuda.synchronize()
+        walls["mc"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        res = ABCModel().fit(qobs, prec_basin, seed=0, maxiter=30)
+        walls["fit"] = time.perf_counter() - t0
+        calibrated = ABCModel(params={k: float(v) for k, v in
+                                      zip(ABCModel._param_list, res.x)})
+        return q_long, s_long, chunked, mc, res, calibrated.simulate(
+            prec_basin, engine='fused')
+
+    (q_long, s_long, chunked, mc, res, qsim), launches, _ = run_counted(
+        drive)
+    check(q_long.shape == s_long.shape == (ABC_STEPS, 1)
+          and bool(torch.isfinite(q_long).all())
+          and bool(torch.isfinite(s_long).all()),
+          "ABC 10M-step simulation is not a finite (T, 1) pair")
+    for m in ('mse', 'nse'):
+        check(mc[m].shape == (ABC_MC_MEMBERS,)
+              and np.isfinite(mc[m]).all(), f"ABC MC {m} is not finite")
+    check_fit(ABCModel, res, "ABC mse")
+    check(qsim.shape == (len(prec_basin), 1)
+          and bool(torch.isfinite(qsim).all()),
+          "calibrated ABC simulation is not a finite (T, 1) series")
+    expect = {"abc_fused_single": 3, "abc_fused": 1}
+    check(launches == expect,
+          f"launch counts {launches} differ from the expected {expect}")
+    print(f"[5 main path] ABC float32: simulate T={ABC_STEPS} in "
+          f"{walls['simulate']:.3f} s; MC {ABC_MC_MEMBERS} members on CAMELS "
+          f"01031500 (T={len(prec_basin)}) best NSE {np.max(mc['nse']):.4f} "
+          f"in {walls['mc']:.3f} s; fit mse nit={res.nit} fun={res.fun:.5f} "
+          f"in {walls['fit']:.3f} s (plain doubling scan per generation); "
+          f"launches {launches} == expected; {card}")
+
+    # What the main path computed at 10M steps (K6 through the class, K7
+    # through the op) against the plain version, then the kernels
+    # themselves at that shape and at the Monte-Carlo's.
+    max_abs = {}
+    want = abc.run_abcmodel_pscan(prec_t, 0.0, ABC_PARAMS)
+    for what, got in (
+            ("ABCModel.simulate", (q_long[:, 0], s_long[:, 0])),
+            ("ops.abc_fused", chunked),
+            ("abc_fused_single", fa.abc_fused_single(prec_t, 0.0,
+                                                     ABC_PARAMS)),
+            ("abc_fused", fa.abc_fused(prec_t, 0.0, ABC_PARAMS))):
+        for series, g, w in zip(("q", "S"), got, want):
+            err = report(f"main-path shape {what} (T={ABC_STEPS}) {series}",
+                         g, w, *abc_tol(w))
+            if what in KERNELS:
+                max_abs[what] = max(max_abs.get(what, 0.0), err)
+    mc_params, _ = ABCModel()._prepare_params(mc['params'])
+    basin_t = as_tensor(prec_basin, F32)
+    got = fa.abc_fused_single(basin_t, 0.0, mc_params)
+    want = abc.run_abcmodel_pscan(basin_t, 0.0, mc_params)
+    for series, g, w in zip(("q", "S"), got, want):
+        err = report(f"main-path shape abc_fused_single (MC) {series}", g, w,
+                     *abc_tol(w))
+        max_abs["abc_fused_single"] = max(max_abs["abc_fused_single"], err)
+    return launches, max_abs, walls
+
+
+def phase_times(card, prec_np, etp_np, qobs_np, forcing, qsim_matlab):
+    """Kernel, plain version and bound of every kernel; returns
+    ``{name: dict(ms, plain_ms, bound_ms, bound_by)}``."""
+    from rrmpg_tpu_torch.ops import abc, fused_abc as fa
+    from rrmpg_tpu_torch.ops import fused_gr4j as fg
+    from rrmpg_tpu_torch.ops import fused_hbv as fh
+
+    n, t_len = TIME_MEMBERS, TIME_STEPS
+    rows = {}
+
+    def measure(name, kernel, plain, ops, n_bytes, reps, what):
         # plain, kernel, kernel, plain: drift shows as a plain/plain gap.
-        plain_a = timed(plain, 2)
-        kernel_a = timed(kernel, 5)
-        kernel_b = timed(kernel, 5)
-        plain_b = timed(plain, 2)
+        plain_a = device_ms(plain, 1)
+        kernel_a = device_ms(kernel, reps)
+        kernel_b = device_ms(kernel, reps)
+        plain_b = device_ms(plain, 1)
         ms, plain_ms = min(kernel_a, kernel_b), min(plain_a, plain_b)
-        times[name] = (ms, plain_ms)
-        rate = TIME_MEMBERS * TIME_STEPS / (ms * 1e-3)
-        print(f"[6 times] {name} float32 uh=({n1},{n2}) N={TIME_MEMBERS} "
-              f"T={TIME_STEPS}: kernel {kernel_a:.3f}/{kernel_b:.3f} ms, "
-              f"plain {plain_a:.1f}/{plain_b:.1f} ms (median of runs), "
-              f"{rate:.4e} member-steps/s; {card}")
-    return times
+        bound, by = bound_ms(ops, n_bytes)
+        rows[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                          bound_by=by)
+        print(f"[6 times] {name} float32 {what}: kernel {kernel_a:.4f}/"
+              f"{kernel_b:.4f} ms, plain {plain_a:.2f}/{plain_b:.2f} ms, "
+              f"bound {bound:.4f} ms by {by} (operations "
+              f"{ops / PEAK_F32_FLOPS * 1e3:.4f} ms, bytes "
+              f"{n_bytes / PEAK_BYTES_PER_S * 1e3:.4f} ms), kernel/bound "
+              f"{ms / bound:.1f}x; {card}")
+        return ms
+
+    # GR4J, 131072 x 3651.
+    prec, etp, qobs = (as_tensor(a[:t_len], F32)
+                       for a in (prec_np, etp_np, qobs_np))
+    params = gr4j_random_params(np.random.default_rng(1), n, 2.9, F32)
+    packed = fg.pack_params(params, 0.0, 0.0)
+    uh = fg.SUPPORTED_UH[1]
+    shape = f"uh={uh} N={n} T={t_len}"
+    step = GR4J_STEP_OPS[uh] * n * t_len
+    for mode in ("mse", "stats"):
+        stats = mode == "stats"
+        ms = measure(
+            f"gr4j_{mode}",
+            lambda: fg.gr4j_ensemble_mse_fused(prec, etp, qobs, 0.0, 0.0,
+                                               params, *uh, stats=stats),
+            lambda: fg.gr4j_objective_reference(prec, etp, qobs, packed, *uh,
+                                                stats=stats),
+            step + OBJECTIVE_OPS[mode] * n * t_len,
+            4 * (3 * t_len + 6 * n + (4 if stats else 1) * n), 5, shape)
+        print(f"    {n * t_len / (ms * 1e-3):.4e} member-steps/s")
+    measure("gr4j_traj",
+            lambda: fg.gr4j_simulate_fused(prec, etp, 0.0, 0.0, params, *uh),
+            lambda: fg.gr4j_simulate_reference(prec, etp, packed, *uh),
+            step, 4 * (2 * t_len + 6 * n + n * t_len), 5, shape)
+
+    # HBV-Edu, 131072 x 3651, on the first 3651 MATLAB days.
+    tensors = hbv_tensors(forcing, F32, t_len)
+    hbv_qobs = as_tensor(qsim_matlab[:t_len], F32)
+    hbv_params = hbv_random_params(np.random.default_rng(2), n, F32)
+    shape = f"N={n} T={t_len}"
+    step = HBV_STEP_OPS * n * t_len
+    for mode in ("mse", "stats", "traj"):
+        name = "hbv_traj" if mode == "traj" else f"hbv_{mode}"
+        out_bytes = {"mse": n, "stats": 4 * n, "traj": n * t_len}[mode]
+        n_series = 4 if mode == "traj" else 5
+        args = (fh, tensors, hbv_qobs, hbv_params, mode)
+        ms = measure(name, lambda: hbv_kernel(*args),
+                     lambda: hbv_plain(*args),
+                     step + OBJECTIVE_OPS.get(mode, 0) * n * t_len,
+                     4 * (n_series * t_len + 17 * n + out_bytes), 5, shape)
+        print(f"    {n * t_len / (ms * 1e-3):.4e} member-steps/s")
+
+    # ABC, one member over 10M steps.  Three copies of the series take
+    # turns, so that no launch finds its input in the 50 MB L2 cache.
+    rng = np.random.default_rng(0)
+    series = [as_tensor(rng.uniform(0, 20, ABC_STEPS), F32) for _ in range(3)]
+    turn = [0]
+
+    def next_prec():
+        turn[0] += 1
+        return series[turn[0] % len(series)]
+
+    # Parameters as device tensors, as the class passes them: a Python
+    # float would cost a host-to-device copy that waits for the stream.
+    member = {k: as_tensor(v, F32) for k, v in ABC_PARAMS.items()}
+    s0 = as_tensor(0.0, F32)
+    n_bytes = 12 * ABC_STEPS
+    for name, fn in (("abc_fused_single", fa.abc_fused_single),
+                     ("abc_fused", fa.abc_fused)):
+        ms = measure(name, lambda: fn(next_prec(), s0, member),
+                     lambda: abc.run_abcmodel_pscan(next_prec(), s0, member),
+                     ABC_STEP_OPS * ABC_STEPS, n_bytes, 20,
+                     f"N=1 T={ABC_STEPS}")
+        print(f"    {ABC_STEPS / (ms * 1e-3):.4e} steps/s, "
+              f"{n_bytes / (ms * 1e-3) / 1e9:.1f} GB/s of the "
+              f"{n_bytes / 1e6:.0f} MB that must move")
+    return rows
+
+
+def kernel_entries(launches, max_abs, times):
+    """The seven kernels of the ``kernels`` line.  K12 is one kernel with
+    two modes: its entry carries the stats mode (the Monte-Carlo path)
+    at the top and both modes under ``modes``."""
+    def entry(name, launches_n, err, row):
+        source, replaces = KERNELS[name]
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": launches_n,
+                "max_abs_err": err, "ms": row["ms"],
+                "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+                "bound_by": row["bound_by"], "library_ms": None}
+
+    out = []
+    for name in KERNELS:
+        if name != "hbv_objective":
+            out.append(entry(name, launches.get(name, 0), max_abs[name],
+                             times[name]))
+            continue
+        k12 = entry(name, launches.get("hbv_mse", 0)
+                    + launches.get("hbv_stats", 0),
+                    max(max_abs["hbv_mse"], max_abs["hbv_stats"]),
+                    times["hbv_stats"])
+        k12["modes"] = {
+            mode: {"replaces": f"rrmpg_tpu/ops/pallas_hbv.py:{line}",
+                   "launches": launches.get(f"hbv_{mode}", 0),
+                   "max_abs_err": max_abs[f"hbv_{mode}"],
+                   **times[f"hbv_{mode}"]}
+            for mode, line in (("mse", 109), ("stats", 151))}
+        out.append(k12)
+    return out
 
 
 def main():
     card = phase_environment()
     phase_build()
     qobs, prec, etp = basin()
-    phase_kernels(prec, etp, qobs)
-    phase_golden()
-    launches, max_abs, walls = phase_main_path(card, qobs, prec, etp)
-    times = phase_times(card, prec, etp, qobs)
-    print(f"[6 times] main path wall: MC {walls['mc_s']:.3f} s, fit mse "
-          f"{walls['fit_mse_s']:.3f} s, fit kge {walls['fit_kge_s']:.3f} s; "
-          f"{card}")
-    kernels = [{"name": name, "route": "cuda", "source": SOURCE,
-                "replaces": REPLACES[name], "launches": launches[name],
-                "max_abs_err": max_abs[name], "ms": times[name][0],
-                "plain_ms": times[name][1]}
-               for name in ("gr4j_mse", "gr4j_stats", "gr4j_traj")]
+    forcing, qsim_matlab = hbv_data()
+    phase_kernels_gr4j(prec, etp, qobs)
+    phase_kernels_abc()
+    phase_kernels_hbv(forcing, qsim_matlab)
+    phase_golden(forcing, qsim_matlab)
+    launches, max_abs = {}, {}
+    for name, result in (
+            ("GR4J", phase_main_path_gr4j(card, qobs, prec, etp)),
+            ("HBV-Edu", phase_main_path_hbv(card, forcing, qsim_matlab)),
+            ("ABC", phase_main_path_abc(card, qobs, prec))):
+        launches.update(result[0])
+        max_abs.update(result[1])
+        print(f"[5 main path] {name} wall: " + ", ".join(
+            f"{k} {v:.3f} s" for k, v in result[2].items()) + f"; {card}")
+    times = phase_times(card, prec, etp, qobs, forcing, qsim_matlab)
+    kernels = kernel_entries(launches, max_abs, times)
+    for k in kernels:
+        check(k["launches"] > 0, f"{k['name']} was launched no time on the "
+              "main path")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,144 @@
+#!/usr/bin/env python3
+"""Where the time goes on the PyTorch port's main paths, on one NVIDIA GPU.
+
+    python3 profile_port.py        # from the repository root; needs one card
+
+Each path is driven through the entry points a user calls, in float32, at
+the shapes ``chip_smoke.py`` drives: warmed up once, run three times
+untraced (host clock, synchronised) and once under ``torch.profiler``.
+Per path one line: the untraced walls, the traced wall, the device's busy
+time (kernels and copies), its idle share (1 - busy / traced wall), and the
+device time by kernel name.  Every line carries the card's name and power
+limit.  The numbers of PERF.md section 5 come from here.
+"""
+
+import sys
+import time
+
+import numpy as np
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+
+import chip_smoke as cs
+
+UNTRACED_RUNS = 3
+TOP_KERNELS = 4
+
+
+def wall_ms(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def device_time_us(event):
+    for name in ("self_device_time_total", "self_cuda_time_total"):
+        if hasattr(event, name):
+            return getattr(event, name)
+    return 0.0
+
+
+def trace(card, label, fn):
+    """Print one path's line; returns the device time by kernel name."""
+    fn()
+    untraced = [wall_ms(fn) for _ in range(UNTRACED_RUNS)]
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        traced = wall_ms(fn)
+    by_name = {}
+    for event in prof.key_averages():
+        # Device-side events only (kernels, copies): a host operator's
+        # entry repeats the device time of the kernels it launched.
+        if event.device_type != DeviceType.CUDA:
+            continue
+        us = device_time_us(event)
+        if us > 0:
+            by_name[event.key] = (us / 1e3, event.count)
+    busy = sum(ms for ms, _ in by_name.values())
+    if busy == 0:
+        raise cs.SmokeFailure(
+            f"{label}: the trace shows no device time; the profiler does "
+            "not see the card")
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:TOP_KERNELS]
+    kernels = "; ".join(f"{name[:60]} {ms:.3f} ms x{count}"
+                        for name, (ms, count) in top)
+    print(f"[profile] {label}: untraced "
+          f"{' / '.join(f'{w:.2f}' for w in untraced)} ms, traced "
+          f"{traced:.2f} ms, device busy {busy:.3f} ms, idle share "
+          f"{1 - busy / traced:.3f}; {kernels}; {card}")
+    return by_name
+
+
+def main():
+    card = cs.phase_environment()
+    cs.phase_build()
+    from rrmpg_tpu_torch.models import GR4J, ABCModel, HBVEdu
+    from rrmpg_tpu_torch.ops import abc_fused, abc_fused_single
+    from rrmpg_tpu_torch.tools import monte_carlo
+
+    qobs, prec, etp = cs.basin()
+    forcing, qsim_matlab = cs.hbv_data()
+    snow, soil, s1, s2 = cs.HBV_INITS
+    hbv_kw = dict(forcing, snow_init=snow, soil_init=soil, s1_init=s1,
+                  s2_init=s2)
+    hbv_qobs = qsim_matlab * (24 * 60 * 60) / (cs.HBV_AREA * 1000)
+    hbv_qobs[::97] = np.nan
+    mc_kw = dict(return_qsim=False, engine='fused',
+                 metrics=('mse', 'nse', 'kge'))
+
+    def seeded(fn):
+        def run():
+            np.random.seed(0)
+            return fn()
+        return run
+
+    n = cs.MC_MEMBERS
+    trace(card, f"GR4J MC {n} x {len(prec)}", seeded(lambda: monte_carlo(
+        GR4J(), num=n, qobs=qobs, prec=prec, etp=etp, **mc_kw)))
+    for loss in ('mse', 'kge'):
+        trace(card, f"GR4J fit {loss} (60 members x {len(prec)}, "
+              "maxiter 30)", lambda: GR4J().fit(
+                  qobs, prec, etp, engine='fused', seed=0, maxiter=30,
+                  loss_metric=loss))
+
+    trace(card, f"HBV-Edu MC {n} x {len(hbv_qobs)}",
+          seeded(lambda: monte_carlo(HBVEdu(), num=n, qobs=hbv_qobs,
+                                     **mc_kw, **hbv_kw)))
+    for loss in ('mse', 'kge'):
+        trace(card, f"HBV-Edu fit {loss} (165 members x {len(hbv_qobs)}, "
+              "maxiter 30)", lambda: HBVEdu().fit(
+                  hbv_qobs, **hbv_kw, engine='fused', seed=0, maxiter=30,
+                  loss_metric=loss))
+    trace(card, f"HBV-Edu simulate 1 x {len(hbv_qobs)} (fused)",
+          lambda: HBVEdu(params=cs.HBV_GOLDEN).simulate(
+              **hbv_kw, engine='fused'))
+
+    prec_long = np.random.default_rng(0).uniform(0, 20, cs.ABC_STEPS)
+    prec_t = cs.as_tensor(prec_long, cs.F32)
+    model = ABCModel(params=cs.ABC_PARAMS)
+    trace(card, f"ABC simulate 1 x {cs.ABC_STEPS} from a numpy series "
+          "(fused)", lambda: model.simulate(prec_long, engine='fused',
+                                            return_storage=True))
+    trace(card, f"ABC op abc_fused_single 1 x {cs.ABC_STEPS} on a device "
+          "tensor", lambda: abc_fused_single(prec_t, 0.0, cs.ABC_PARAMS))
+    trace(card, f"ABC op abc_fused 1 x {cs.ABC_STEPS} on a device tensor",
+          lambda: abc_fused(prec_t, 0.0, cs.ABC_PARAMS))
+    trace(card, f"ABC MC {cs.ABC_MC_MEMBERS} x {len(prec)} (fused)",
+          seeded(lambda: monte_carlo(
+              ABCModel(), num=cs.ABC_MC_MEMBERS, qobs=qobs, prec=prec,
+              return_qsim=False, engine='fused', metrics=('mse', 'nse'))))
+    trace(card, f"ABC fit mse (45 members x {len(prec)}, maxiter 30, plain "
+          "doubling scan)", lambda: ABCModel().fit(qobs, prec, seed=0,
+                                                   maxiter=30))
+    print(card)
+
+
+if __name__ == "__main__":
+    try:
+        main()
+    except cs.SmokeFailure as exc:
+        print(f"FAIL: {exc}", file=sys.stderr)
+        sys.exit(1)

@@ -4,12 +4,15 @@ float32 is the production default, as ``rrmpg_tpu.config.default_float``
 gives without x64.  float64 runs natively on the GPU and is what the
 golden tests and the JAX-parity tests use.
 
-Every entry point takes an explicit ``device``; nothing moves data to the
-CPU when no GPU is found -- asking for CUDA without one raises.
+The card is the default device of every entry point (``DEFAULT_DEVICE``);
+the CPU is asked for explicitly with ``device='cpu'``, as the CPU tests do.
+Nothing moves data to the CPU when no GPU is found -- a machine without
+CUDA raises unless the caller asked for the CPU.
 """
 
 import torch
 
+DEFAULT_DEVICE = "cuda"
 DEFAULT_DTYPE = torch.float32
 FLOAT_DTYPES = (torch.float32, torch.float64)
 

@@ -1,0 +1,271 @@
+// Fused HBV-Edu ensemble kernels for NVIDIA Hopper (sm_90a).
+//
+// Replace the Pallas kernels of rrmpg_tpu/ops/pallas_hbv.py:
+//   K12 _kernel        (hbv_ensemble_mse_pallas)             -> hbv_objective_kernel<..., STATS=false>
+//       _stats_kernel  (hbv_ensemble_mse_pallas, stats=True) -> hbv_objective_kernel<..., STATS=true>
+//   K13 _traj_kernel   (hbv_simulate_pallas)                 -> hbv_traj_kernel
+// and the step they share (_hbv_step), written once here as hbv_step so the
+// state kernel and the warm objectives can reuse it.
+//
+// What bounds these kernels on this card: operations, and behind them the
+// serial latency of one thread.  Each member is a recurrence of T dependent
+// steps over four stores (snow, soil, near-surface, base flow) with one
+// pow() per step; K12 moves 17 numbers in and 1 or 4 out per member, K13
+// writes the (N, T) trajectory.  The four forcing series are the same for
+// every member: one read per step that the whole warp shares.
+//
+// What the design does about it: one thread owns one member; the stores and
+// the 13 constants stay in registers for the whole time loop, the objective
+// accumulates in registers, and latency is hidden by running many members
+// per SM.  The forcing reads go through __ldg, which the warp serves as one
+// broadcast.  K13's per-step stores stride across members (row-major
+// (N, T)); that is left as it is for now.
+//
+// pow() is IEEE pow (no fast-math): a negative soil store gives NaN through
+// (soil/FC)^Beta, as the reference's np.power does, and that NaN reaches the
+// member's loss.  The soil store is not clamped.
+//
+// Unlike the TPU kernels there is no (8, 128) member tiling, no padding of
+// N or T and no time-tile grid.
+//
+// C interface (bound with ctypes): every entry returns a cudaError_t as int
+// (0 on success) and launches on the stream it is given without
+// synchronising.  params is a (17, N) row-major array
+// [T_t, DD, FC, Beta, C, PWP, K_0, K_1, K_2, K_p, L,
+//  snow0, soil0, s1_0, s2_0, 1/FC, 1/PWP]; pe and tm are the monthly
+// climatologies already gathered to one value per step.
+
+#include <cuda_runtime.h>
+
+#include <cstddef>
+
+namespace {
+
+constexpr int kBlock = 128;
+
+__device__ __forceinline__ float dev_pow(float x, float y) { return powf(x, y); }
+__device__ __forceinline__ double dev_pow(double x, double y) { return pow(x, y); }
+
+// max(x, 0) and min(x, y) that propagate NaN, as jnp.maximum / jnp.minimum
+// and torch.clamp / torch.minimum do.
+template <typename Real>
+__device__ __forceinline__ Real relu_nan(Real x) {
+  return (x > Real(0) || x != x) ? x : Real(0);
+}
+
+template <typename Real>
+__device__ __forceinline__ Real min_nan(Real x, Real y) {
+  return (x < y || x != x) ? x : y;
+}
+
+// One member's parameters and state, in registers.
+template <typename Real>
+struct Member {
+  Real T_t, DD, Beta, C, PWP, K_0, K_1, K_2, K_p, L, iFC, iPWP;
+  Real snow, soil, s1, s2;
+};
+
+template <typename Real>
+__device__ __forceinline__ void hbv_init(Member<Real>& m,
+                                         const Real* __restrict__ params,
+                                         int n, int i) {
+  const Real* col = params + i;  // row r of this member: col[r * n]
+  m.T_t = col[(size_t)0 * n];
+  m.DD = col[(size_t)1 * n];
+  m.Beta = col[(size_t)3 * n];
+  m.C = col[(size_t)4 * n];
+  m.PWP = col[(size_t)5 * n];
+  m.K_0 = col[(size_t)6 * n];
+  m.K_1 = col[(size_t)7 * n];
+  m.K_2 = col[(size_t)8 * n];
+  m.K_p = col[(size_t)9 * n];
+  m.L = col[(size_t)10 * n];
+  m.snow = col[(size_t)11 * n];
+  m.soil = col[(size_t)12 * n];
+  m.s1 = col[(size_t)13 * n];
+  m.s2 = col[(size_t)14 * n];
+  m.iFC = col[(size_t)15 * n];
+  m.iPWP = col[(size_t)16 * n];
+}
+
+// One HBV-Edu time step (_hbv_step, pallas_hbv.py:48-106); returns the
+// discharge.  A cold start (WARM=false) treats t = 0 as the initialization
+// step: the stores stay as they are and the discharge is 0.  Division by FC
+// and PWP is a multiply by the packed reciprocals.
+template <typename Real, bool WARM>
+__device__ __forceinline__ Real hbv_step(Member<Real>& m, int t, Real temp,
+                                         Real prec, Real pe_month,
+                                         Real t_month) {
+  if (!WARM && t == 0) return Real(0);
+  const bool freezing = temp < m.T_t;
+  const Real melt_pot = m.DD * (temp - m.T_t);
+  const Real snow =
+      freezing ? m.snow + prec : relu_nan(m.snow - melt_pot);
+  const Real liquid =
+      freezing ? Real(0) : prec + min_nan(m.snow, melt_pot);
+
+  const Real prec_eff = liquid * dev_pow(m.soil * m.iFC, m.Beta);
+  const Real pe = (Real(1) + m.C * (temp - t_month)) * pe_month;
+  const Real ea = m.soil > m.PWP ? pe : pe * (m.soil * m.iPWP);
+  const Real soil = m.soil + liquid - prec_eff - ea;
+
+  const Real overflow = relu_nan(m.s1 - m.L) * m.K_0;
+  const Real s1 = m.s1 + prec_eff - overflow - m.s1 * m.K_1 - m.s1 * m.K_p;
+  const Real s2 = m.s2 + m.s1 * m.K_p - m.s2 * m.K_2;
+
+  m.snow = snow;
+  m.soil = soil;
+  m.s1 = s1;
+  m.s2 = s2;
+  return overflow + s1 * m.K_1 + s2 * m.K_2;
+}
+
+// K13: (N, T) discharge trajectories, row-major.
+template <typename Real, bool WARM>
+__global__ void __launch_bounds__(kBlock)
+hbv_traj_kernel(const Real* __restrict__ temp, const Real* __restrict__ prec,
+                const Real* __restrict__ pe, const Real* __restrict__ tm,
+                const Real* __restrict__ params, int n, int t_len,
+                Real* __restrict__ out) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  Member<Real> m;
+  hbv_init(m, params, n, i);
+  Real* row = out + (size_t)i * t_len;
+  for (int t = 0; t < t_len; ++t) {
+    row[t] = hbv_step<Real, WARM>(m, t, __ldg(temp + t), __ldg(prec + t),
+                                  __ldg(pe + t), __ldg(tm + t));
+  }
+}
+
+// K12.  STATS=false: out[i] = mean squared error.  STATS=true:
+// out[k*N + i] = time means of [err^2, q, q^2, q*qobs].  MASKED skips steps
+// whose observation is NaN (the step itself still runs); `count` is the
+// number of steps averaged over (T, or the valid count).  A NaN discharge
+// at a step with an observation makes the member's result NaN.
+template <typename Real, bool WARM, bool STATS, bool MASKED>
+__global__ void __launch_bounds__(kBlock)
+hbv_objective_kernel(const Real* __restrict__ temp,
+                     const Real* __restrict__ prec,
+                     const Real* __restrict__ pe, const Real* __restrict__ tm,
+                     const Real* __restrict__ qobs,
+                     const Real* __restrict__ params, int n, int t_len,
+                     Real count, Real* __restrict__ out) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  Member<Real> m;
+  hbv_init(m, params, n, i);
+  Real sse = Real(0), sum_q = Real(0), sum_q2 = Real(0), sum_qo = Real(0);
+  for (int t = 0; t < t_len; ++t) {
+    const Real q = hbv_step<Real, WARM>(m, t, __ldg(temp + t),
+                                        __ldg(prec + t), __ldg(pe + t),
+                                        __ldg(tm + t));
+    const Real qo = __ldg(qobs + t);
+    if (MASKED && qo != qo) continue;
+    const Real diff = q - qo;
+    sse += diff * diff;
+    if (STATS) {
+      sum_q += q;
+      sum_q2 += q * q;
+      sum_qo += q * qo;
+    }
+  }
+  out[i] = sse / count;
+  if (STATS) {
+    out[(size_t)n + i] = sum_q / count;
+    out[2 * (size_t)n + i] = sum_q2 / count;
+    out[3 * (size_t)n + i] = sum_qo / count;
+  }
+}
+
+inline dim3 grid_for(int n) { return dim3((n + kBlock - 1) / kBlock); }
+
+template <typename Real>
+int simulate(const Real* temp, const Real* prec, const Real* pe,
+             const Real* tm, const Real* params, int n, int t_len, Real* out,
+             int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (n <= 0 || t_len <= 0) return (int)cudaSuccess;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  hbv_traj_kernel<Real, false>
+      <<<grid_for(n), kBlock, 0, s>>>(temp, prec, pe, tm, params, n, t_len,
+                                      out);
+  return (int)cudaGetLastError();
+}
+
+template <typename Real, bool STATS, bool MASKED>
+void launch_objective(const Real* temp, const Real* prec, const Real* pe,
+                      const Real* tm, const Real* qobs, const Real* params,
+                      int n, int t_len, Real count, Real* out,
+                      cudaStream_t s) {
+  hbv_objective_kernel<Real, false, STATS, MASKED>
+      <<<grid_for(n), kBlock, 0, s>>>(temp, prec, pe, tm, qobs, params, n,
+                                      t_len, count, out);
+}
+
+template <typename Real>
+int objective(const Real* temp, const Real* prec, const Real* pe,
+              const Real* tm, const Real* qobs, const Real* params, int n,
+              int t_len, int stats, int masked, double count, Real* out,
+              int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (n <= 0 || t_len <= 0) return (int)cudaSuccess;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Real cnt = Real(count);
+  if (stats && masked) {
+    launch_objective<Real, true, true>(temp, prec, pe, tm, qobs, params, n,
+                                       t_len, cnt, out, s);
+  } else if (stats) {
+    launch_objective<Real, true, false>(temp, prec, pe, tm, qobs, params, n,
+                                        t_len, cnt, out, s);
+  } else if (masked) {
+    launch_objective<Real, false, true>(temp, prec, pe, tm, qobs, params, n,
+                                        t_len, cnt, out, s);
+  } else {
+    launch_objective<Real, false, false>(temp, prec, pe, tm, qobs, params, n,
+                                         t_len, cnt, out, s);
+  }
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+int rrmpg_hbv_simulate_f32(const float* temp, const float* prec,
+                           const float* pe, const float* tm,
+                           const float* params, int n, int t_len, float* out,
+                           int device, void* stream) {
+  return simulate<float>(temp, prec, pe, tm, params, n, t_len, out, device,
+                         stream);
+}
+
+int rrmpg_hbv_simulate_f64(const double* temp, const double* prec,
+                           const double* pe, const double* tm,
+                           const double* params, int n, int t_len,
+                           double* out, int device, void* stream) {
+  return simulate<double>(temp, prec, pe, tm, params, n, t_len, out, device,
+                          stream);
+}
+
+int rrmpg_hbv_objective_f32(const float* temp, const float* prec,
+                            const float* pe, const float* tm,
+                            const float* qobs, const float* params, int n,
+                            int t_len, int stats, int masked, double count,
+                            float* out, int device, void* stream) {
+  return objective<float>(temp, prec, pe, tm, qobs, params, n, t_len, stats,
+                          masked, count, out, device, stream);
+}
+
+int rrmpg_hbv_objective_f64(const double* temp, const double* prec,
+                            const double* pe, const double* tm,
+                            const double* qobs, const double* params, int n,
+                            int t_len, int stats, int masked, double count,
+                            double* out, int device, void* stream) {
+  return objective<double>(temp, prec, pe, tm, qobs, params, n, t_len, stats,
+                           masked, count, out, device, stream);
+}
+
+}  // extern "C"

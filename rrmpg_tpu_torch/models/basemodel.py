@@ -16,7 +16,15 @@ import numbers
 import numpy as np
 import torch
 
-from ..config import DEFAULT_DTYPE, resolve_device, resolve_dtype
+from ..config import (DEFAULT_DEVICE, DEFAULT_DTYPE, resolve_device,
+                      resolve_dtype)
+
+_ENGINES = ("scan", "fused")
+
+
+def check_engine(engine):
+    if engine not in _ENGINES:
+        raise ValueError("engine must be 'scan' or 'fused'.")
 
 
 class BaseModel(object):
@@ -31,13 +39,15 @@ class BaseModel(object):
     # Structured numpy datatype (one float64 field per parameter).
     _dtype = np.dtype([])
 
-    def __init__(self, params=None, device="cpu", dtype=DEFAULT_DTYPE):
+    def __init__(self, params=None, device=DEFAULT_DEVICE,
+                 dtype=DEFAULT_DTYPE):
         """Initialize a hydrological model.
 
         Args:
             params: (optional) dict with one value per model parameter; if
                 omitted, random parameters are drawn within the bounds.
-            device: where the model computes (``'cpu'``, ``'cuda'``, ...).
+            device: where the model computes: the card (``'cuda'``, the
+                default; raises on a machine without one) or ``'cpu'``.
             dtype: ``torch.float32`` (default) or ``torch.float64``.
 
         Raises:

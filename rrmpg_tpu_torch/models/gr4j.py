@@ -9,6 +9,8 @@ with ``engine='scan'|'fused'`` in place of ``'xla'|'pallas'``:
   (:mod:`..ops.fused_gr4j`) for CUDA tensors; on the CPU their plain
   versions.
 
+A model lives on the card unless built with ``device='cpu'``.
+
 Outputs are tensors on the model's device in the reference layout,
 member axis last: ``(T, N)``.  Forecast mode (``initial_state`` /
 ``return_final_state``) waits for the state kernel (K4).
@@ -19,16 +21,14 @@ import numbers
 import numpy as np
 import torch
 
-from ..config import DEFAULT_DTYPE
+from ..config import DEFAULT_DEVICE, DEFAULT_DTYPE
 from ..ops.fused_gr4j import gr4j_ensemble_mse_fused, gr4j_simulate_fused
 from ..ops.gr4j import run_gr4j
 from ..ops.stats import losses_from_stats
 from ..ops.uh import NUM_UH1, NUM_UH2, required_uh_lengths
 from ..utils.array_checks import check_for_negatives, validate_array_input
 from ..utils.metrics import calibration_loss
-from .basemodel import BaseModel
-
-_ENGINES = ("scan", "fused")
+from .basemodel import BaseModel, check_engine
 
 
 def fit_uh_lengths(x4_hi):
@@ -38,11 +38,6 @@ def fit_uh_lengths(x4_hi):
     n1 = min(int(np.ceil(x4_hi)), NUM_UH1)
     n2 = min(int(np.ceil(2.0 * x4_hi + 1.0)), NUM_UH2)
     return n1, n2
-
-
-def _check_engine(engine):
-    if engine not in _ENGINES:
-        raise ValueError("engine must be 'scan' or 'fused'.")
 
 
 def _no_forecast_state(initial_state, return_final_state):
@@ -68,7 +63,8 @@ class GR4J(BaseModel):
                        ('x3', np.float64),
                        ('x4', np.float64)])
 
-    def __init__(self, params=None, device="cpu", dtype=DEFAULT_DTYPE):
+    def __init__(self, params=None, device=DEFAULT_DEVICE,
+                 dtype=DEFAULT_DTYPE):
         super().__init__(params=params, device=device, dtype=dtype)
 
     @staticmethod
@@ -135,7 +131,7 @@ class GR4J(BaseModel):
             raise TypeError(
                 "'return_storage' expects a bool, got "
                 f"{type(return_storage).__name__}.")
-        _check_engine(engine)
+        check_engine(engine)
         _no_forecast_state(initial_state, return_final_state)
 
         param_dict, _ = self._prepare_params(params)
@@ -187,7 +183,7 @@ class GR4J(BaseModel):
         ('mse'/'rmse') or K2 ('nse'/'kge'); 'scan' runs the plain
         batched simulation and the masked metrics.
         """
-        _check_engine(engine)
+        check_engine(engine)
         loss = calibration_loss(loss_metric)
         if engine == "scan":
             def objective(X):

@@ -1,0 +1,242 @@
+"""HBV-Edu interface class (Aghakouchak & Habib 2010).
+
+Counterpart of ``rrmpg_tpu.models.hbvedu.HBVEdu``: same 11 parameters,
+bounds, structured dtype, validation errors (month array in [1, 12],
+monthly climatologies of length 12) and ``simulate``/``fit`` signatures,
+with ``engine='scan'|'fused'`` in place of ``'xla'|'pallas'``:
+
+* ``'scan'`` -- plain batched PyTorch (:mod:`..ops.hbvedu`), any device;
+* ``'fused'`` -- the hand-written CUDA kernels (:mod:`..ops.fused_hbv`)
+  for CUDA tensors; on the CPU their plain versions.
+
+Outputs are tensors on the model's device in the reference layout,
+member axis last: ``(T, N)``.  Forecast mode (``initial_state`` /
+``return_final_state``) waits for the state kernel (K14).
+"""
+
+import numpy as np
+import torch
+
+from ..config import DEFAULT_DEVICE, DEFAULT_DTYPE
+from ..ops.fused_hbv import hbv_ensemble_mse_fused, hbv_simulate_fused
+from ..ops.hbvedu import PARAM_NAMES, run_hbvedu
+from ..ops.stats import losses_from_stats
+from ..utils.array_checks import check_for_negatives, validate_array_input
+from ..utils.metrics import calibration_loss
+from .basemodel import BaseModel, check_engine
+
+_INIT_NAMES = ("snow_init", "soil_init", "s1_init", "s2_init")
+
+
+def _no_forecast_state(initial_state, return_final_state):
+    if initial_state is not None or return_final_state:
+        raise NotImplementedError(
+            "Forecast mode (initial_state / return_final_state) is not "
+            "ported yet; it needs the state kernel K14 (ROADMAP.md, "
+            "Queue 1, item 6).")
+
+
+class HBVEdu(BaseModel):
+    """Interface to the educational HBV model."""
+
+    _param_list = list(PARAM_NAMES)
+
+    _default_bounds = {'T_t': (-1, 1),
+                       'DD': (3, 7),
+                       'FC': (100, 200),
+                       'Beta': (1, 7),
+                       'C': (0.01, 0.07),
+                       'PWP': (90, 180),
+                       'K_0': (0.05, 0.2),
+                       'K_1': (0.01, 0.1),
+                       'K_2': (0.01, 0.05),
+                       'K_p': (0.01, 0.05),
+                       'L': (2, 5)}
+
+    _dtype = np.dtype([(name, np.float64) for name in PARAM_NAMES])
+
+    def __init__(self, params=None, device=DEFAULT_DEVICE,
+                 dtype=DEFAULT_DTYPE):
+        super().__init__(params=params, device=device, dtype=dtype)
+
+    @staticmethod
+    def _validate_inputs(temp, prec, month, PE_m, T_m):
+        temp = validate_array_input(temp, np.float64, 'temperature')
+        prec = validate_array_input(prec, np.float64, 'precipitation')
+        if check_for_negatives(prec):
+            raise ValueError(
+                "Precipitation must be non-negative; the input contains "
+                "negative values.")
+
+        month = validate_array_input(month, np.int8, 'month')
+        if any(len(arr) != len(temp) for arr in [prec, month]):
+            raise RuntimeError(
+                "temp, prec and month series need matching lengths; got "
+                f"{len(temp)}, {len(prec)} and {len(month)}.")
+
+        PE_m = validate_array_input(PE_m, np.float64, 'PE_m')
+        T_m = validate_array_input(T_m, np.float64, 'T_m')
+        if any(len(arr) != 12 for arr in [PE_m, T_m]):
+            raise RuntimeError(
+                "PE_m and T_m are monthly climatologies and need exactly 12 "
+                f"entries; got {len(PE_m)} and {len(T_m)}.")
+
+        if (np.min(month) < 1) or (np.max(month) > 12):
+            raise ValueError(
+                "Month indices must be integers from 1 (January) through "
+                "12 (December).")
+
+        # 0-based month index for the climatology gather.
+        month = (month - 1).astype(np.int64)
+        return temp, prec, month, PE_m, T_m
+
+    def _forcing_tensors(self, temp, prec, month, PE_m, T_m):
+        """Validated forcings as tensors on the model's device."""
+        temp, prec, month, PE_m, T_m = self._validate_inputs(
+            temp, prec, month, PE_m, T_m)
+        return (self._tensor(temp), self._tensor(prec),
+                torch.as_tensor(month, device=self.device),
+                self._tensor(PE_m), self._tensor(T_m))
+
+    def simulate(self, temp, prec, month, PE_m, T_m, snow_init=0,
+                 soil_init=0, s1_init=0, s2_init=0, return_storage=False,
+                 params=None, engine="scan", initial_state=None,
+                 return_final_state=False):
+        """Simulate rainfall-runoff for the given forcings.
+
+        Args:
+            temp: (T,) mean temperature series.
+            prec: (T,) precipitation series.
+            month: (T,) month number of each timestep in [1, 12].
+            PE_m: (12,) long-term monthly potential evapotranspiration.
+            T_m: (12,) long-term monthly mean temperature.
+            snow_init, soil_init, s1_init, s2_init: initial storages.
+            return_storage: also return the four storage series ('scan'
+                only).
+            params: (optional) structured array / dict of parameter sets,
+                evaluated batched.
+            engine: 'scan' (plain PyTorch) or 'fused' (CUDA kernel K13,
+                discharge only).
+
+        Returns:
+            qsim (T, N); plus snow, soil, s1, s2 (each (T, N)) if
+            ``return_storage``; tensors on the model's device.
+
+        Raises:
+            ValueError: If one of the inputs contains invalid values.
+            TypeError: If one of the inputs has an incorrect datatype.
+            RuntimeError: If the monthly arrays are not of size 12 or there
+                is a size mismatch between precipitation, temperature and
+                the month array.
+        """
+        forcings = self._forcing_tensors(temp, prec, month, PE_m, T_m)
+        inits = tuple(float(v) for v in (snow_init, soil_init, s1_init,
+                                         s2_init))
+        if not isinstance(return_storage, bool):
+            raise TypeError(
+                "'return_storage' expects a bool, got "
+                f"{type(return_storage).__name__}.")
+        check_engine(engine)
+        _no_forecast_state(initial_state, return_final_state)
+
+        param_dict, _ = self._prepare_params(params)
+        if engine == "fused":
+            if return_storage:
+                raise ValueError(
+                    "engine='fused' computes discharge only; use "
+                    "engine='scan' for storage trajectories.")
+            return hbv_simulate_fused(*forcings, *inits, param_dict).T
+        outputs = run_hbvedu(*forcings, *inits, param_dict)
+        if return_storage:
+            return tuple(x.T for x in outputs)
+        return outputs[0].T
+
+    def _fused_stats(self, qobs, param_dict, sim_kwargs):
+        """(4, N) time-mean sufficient statistics from the fused kernel
+        K12: the trajectory-free evaluation behind
+        ``monte_carlo(return_qsim=False, engine='fused')``."""
+        kw = dict(sim_kwargs)
+        kw.pop("engine", None)
+        forcings = self._forcing_tensors(
+            *(kw.pop(k) for k in ("temp", "prec", "month", "PE_m", "T_m")))
+        inits = tuple(float(kw.pop(k, 0.0)) for k in _INIT_NAMES)
+        if kw:
+            raise ValueError(
+                f"Unused simulate kwargs for the fused statistics "
+                f"path: {sorted(kw)}.")
+        qobs = np.asarray(qobs, np.float64)
+        return hbv_ensemble_mse_fused(
+            *forcings, self._tensor(qobs), *inits, param_dict, stats=True,
+            masked=bool(np.isnan(qobs).any()))
+
+    def _batch_objective(self, qobs, forcings, inits, loss_metric, engine):
+        """The calibration objective: (P, 11) candidates -> (P,) losses.
+
+        ``qobs`` and ``forcings`` are tensors on the model's device.
+        'fused' evaluates a whole DE generation with one launch of K12
+        (MSE for 'mse'/'rmse', the sufficient statistics for
+        'nse'/'kge'); 'scan' runs the plain batched simulation and the
+        masked metrics.
+        """
+        check_engine(engine)
+        loss = calibration_loss(loss_metric)
+        if engine == "scan":
+            def objective(X):
+                params = {n: X[:, j] for j, n in enumerate(self._param_list)}
+                qsim = run_hbvedu(*forcings, *inits, params)[0]
+                return loss(qobs[None, :], qsim, dim=-1)
+
+            return objective
+
+        use_stats = loss_metric in ("nse", "kge")
+        masked = bool(torch.isnan(qobs).any())
+
+        def objective(X):
+            params = {n: X[:, j].contiguous()
+                      for j, n in enumerate(self._param_list)}
+            out = hbv_ensemble_mse_fused(
+                *forcings, qobs, *inits, params, stats=use_stats,
+                masked=masked)
+            if use_stats:
+                return 1.0 - losses_from_stats(out, qobs)[loss_metric]
+            if loss_metric == "rmse":
+                return torch.sqrt(out)
+            return out
+
+        return objective
+
+    def fit(self, qobs, temp, prec, month, PE_m, T_m, snow_init=0.,
+            soil_init=0., s1_init=0., s2_init=0., loss_metric="mse",
+            seed=None, engine="scan", initial_state=None, **de_kwargs):
+        """Calibrate the model on observed discharge with differential
+        evolution on the model's device.
+
+        Args:
+            qobs: observed discharge; NaN marks a gap.
+            temp, prec, month, PE_m, T_m: forcings as in :meth:`simulate`.
+            snow_init, soil_init, s1_init, s2_init: initial storages.
+            loss_metric: 'mse' (default), 'rmse', or 'nse'/'kge'
+                minimizing ``1 - score``.
+            seed: (optional) seed of the optimizer's ``torch.Generator``.
+            engine: 'scan', or 'fused' to evaluate every DE generation
+                with one launch of the fused objective kernel.
+            **de_kwargs: forwarded to
+                :func:`rrmpg_tpu_torch.tools.calibration.minimize`.
+
+        Returns:
+            An :class:`~rrmpg_tpu_torch.tools.calibration.OptimizeResult`.
+            Candidates whose soil store went negative have NaN losses; the
+            optimizer never selects them (``nonfinite_members()``).
+        """
+        from ..tools.calibration import minimize
+
+        _no_forecast_state(initial_state, False)
+        qobs = validate_array_input(qobs, np.float64, 'qobs')
+        forcings = self._forcing_tensors(temp, prec, month, PE_m, T_m)
+        inits = tuple(float(v) for v in (snow_init, soil_init, s1_init,
+                                         s2_init))
+        objective = self._batch_objective(self._tensor(qobs), forcings,
+                                          inits, loss_metric, engine)
+        bounds = tuple(self._default_bounds[p] for p in self._param_list)
+        return minimize(objective, bounds, seed=seed, device=self.device,
+                        dtype=self.dtype, **de_kwargs)

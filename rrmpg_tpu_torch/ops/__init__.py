@@ -2,13 +2,16 @@
 kernels' wrappers (``'fused'``).  Every function takes a leading member
 axis on its parameters."""
 
+from ._launch import LAUNCHES, reset_launches
+from .abc import run_abcmodel, run_abcmodel_pscan, run_abcmodel_warm
+from .fused_abc import abc_fused, abc_fused_single
 from .fused_gr4j import (
-    LAUNCHES,
     SUPPORTED_UH,
     gr4j_ensemble_mse_fused,
     gr4j_simulate_fused,
-    reset_launches,
 )
+from .fused_hbv import hbv_ensemble_mse_fused, hbv_simulate_fused
 from .gr4j import GR4JState, run_gr4j, run_gr4j_warm
+from .hbvedu import run_hbvedu, run_hbvedu_warm
 from .stats import losses_from_stats
 from .uh import NUM_UH1, NUM_UH2, causal_fir, required_uh_lengths, uh_ordinates

@@ -1,9 +1,9 @@
 """Build and load the port's CUDA kernels.
 
 The sources under ``rrmpg_tpu_torch/csrc/*.cu`` have a plain C interface.
-At first use they are compiled by ``nvcc`` for Hopper (``sm_90a``) into
-one shared library under ``build/rrmpg_tpu_torch/`` beside the package,
-and loaded with ``ctypes``.  The library's file name carries a hash of
+At first use they are compiled by ``nvcc`` for Hopper (``sm_90a``), one
+``nvcc`` per source and all at once, linked into one shared library under
+``build/rrmpg_tpu_torch/`` beside the package, and loaded with ``ctypes``.  The library's file name carries a hash of
 the sources and flags, so an edited source is rebuilt and a stale build
 is never loaded.  Nothing outside the repository's own sources is
 compiled, and a failed build raises with nvcc's error output.
@@ -11,12 +11,14 @@ compiled, and a failed build raises with nvcc's error output.
 Nothing here runs at import time: the CPU tests import every module.
 """
 
+import contextlib
 import ctypes
 import functools
 import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 import time
 from pathlib import Path
 
@@ -24,20 +26,41 @@ _PKG_DIR = Path(__file__).resolve().parent.parent
 SRC_DIR = _PKG_DIR / "csrc"
 BUILD_DIR = _PKG_DIR.parent / "build" / "rrmpg_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
+_D = ctypes.c_double
+# GR4J objective: prec, etp, qobs, params, n, t, nuh1, nuh2, stats, masked,
+# count, out, device, stream
+_GR4J_OBJECTIVE = (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _D, _P, _I, _P)
+# ABC single launch: prec, scal, n, t, scratch_int, scratch_real, qsim,
+# storage, device, stream
+_ABC_SINGLE = (_P, _P, _I, _L, _P, _P, _P, _P, _I, _P)
+# ABC three launches: prec, scal, n, t, scratch_real, qsim, storage, device,
+# stream
+_ABC_CHUNKED = (_P, _P, _I, _L, _P, _P, _P, _I, _P)
+# HBV trajectories: temp, prec, pe, tm, params, n, t, out, device, stream
+_HBV_SIMULATE = (_P, _P, _P, _P, _P, _I, _I, _P, _I, _P)
+# HBV objective: temp, prec, pe, tm, qobs, params, n, t, stats, masked,
+# count, out, device, stream
+_HBV_OBJECTIVE = (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _D, _P, _I, _P)
 _SIGNATURES = {
     # prec, etp, params, n, t, nuh1, nuh2, out, device, stream
     "rrmpg_gr4j_simulate_f32": (_P, _P, _P, _I, _I, _I, _I, _P, _I, _P),
     "rrmpg_gr4j_simulate_f64": (_P, _P, _P, _I, _I, _I, _I, _P, _I, _P),
-    # prec, etp, qobs, params, n, t, nuh1, nuh2, stats, masked, count,
-    # out, device, stream
-    "rrmpg_gr4j_objective_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                                 ctypes.c_double, _P, _I, _P),
-    "rrmpg_gr4j_objective_f64": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                                 ctypes.c_double, _P, _I, _P),
+    "rrmpg_gr4j_objective_f32": _GR4J_OBJECTIVE,
+    "rrmpg_gr4j_objective_f64": _GR4J_OBJECTIVE,
+    "rrmpg_abc_chunk_size": (_I,),
+    "rrmpg_abc_single_f32": _ABC_SINGLE,
+    "rrmpg_abc_single_f64": _ABC_SINGLE,
+    "rrmpg_abc_chunked_f32": _ABC_CHUNKED,
+    "rrmpg_abc_chunked_f64": _ABC_CHUNKED,
+    "rrmpg_hbv_simulate_f32": _HBV_SIMULATE,
+    "rrmpg_hbv_simulate_f64": _HBV_SIMULATE,
+    "rrmpg_hbv_objective_f32": _HBV_OBJECTIVE,
+    "rrmpg_hbv_objective_f64": _HBV_OBJECTIVE,
 }
 
 
@@ -89,16 +112,39 @@ def load_library():
 
     nvcc = _find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp_path = BUILD_DIR / f".{lib_path.name}.{os.getpid()}.tmp"
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp_path), *map(str, sources)]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        tmp_path.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed (exit {proc.returncode}): {' '.join(cmd)}\n"
-            f"{proc.stderr}")
-    log_path.write_text(proc.stderr)
-    os.replace(tmp_path, lib_path)
-    return KernelLibrary(lib_path, seconds, proc.stderr)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp, \
+            contextlib.ExitStack() as files:
+        tmp = Path(tmp)
+        # One compiler per source, all started together; each writes its
+        # messages (ptxas -v) to a file of its own.
+        jobs = []
+        for src in sources:
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(tmp / f"{src.stem}.o"),
+                   str(src)]
+            messages = files.enter_context(
+                open(tmp / f"{src.stem}.log", "w+"))
+            jobs.append((cmd, messages, subprocess.Popen(
+                cmd, stdout=subprocess.DEVNULL, stderr=messages)))
+        log = ""
+        failures = []
+        for cmd, messages, proc in jobs:
+            proc.wait()
+            messages.seek(0)
+            text = messages.read()
+            log += text
+            if proc.returncode != 0:
+                failures.append(f"nvcc failed (exit {proc.returncode}): "
+                                f"{' '.join(cmd)}\n{text}")
+        if failures:
+            raise RuntimeError("\n".join(failures))
+        cmd = [nvcc, "-shared", "-o", str(tmp / lib_path.name),
+               *(str(tmp / f"{src.stem}.o") for src in sources)]
+        link = subprocess.run(cmd, capture_output=True, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed (exit {link.returncode}): {' '.join(cmd)}\n"
+                f"{link.stderr}")
+        log_path.write_text(log)
+        os.replace(tmp / lib_path.name, lib_path)
+    return KernelLibrary(lib_path, time.perf_counter() - t0, log)

@@ -1,0 +1,82 @@
+"""Launching the CUDA library's entry points, and counting the launches.
+
+Shared by the fused kernel modules (:mod:`.fused_gr4j`, :mod:`.fused_abc`,
+:mod:`.fused_hbv`).  :data:`LAUNCHES` holds one count per kernel; a
+wrapper adds one where it launches its kernel and nowhere else, so a run
+can show which kernels it went through.
+"""
+
+import torch
+
+from ..config import FLOAT_DTYPES
+
+# Kernel launches since the last reset_launches(), by kernel name.
+LAUNCHES = {}
+
+
+def register_kernels(*names):
+    """Give each named kernel a launch count, starting at 0."""
+    for name in names:
+        LAUNCHES.setdefault(name, 0)
+
+
+def reset_launches():
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def check_inputs(family, series, packed, rows):
+    """Device, dtype, shape and contiguity checks shared by the wrappers:
+    ``series`` are (T,) tensors, ``packed`` the (rows, N) parameter block.
+    Returns T."""
+    ref = series[0]
+    if ref.dtype not in FLOAT_DTYPES:
+        raise TypeError(f"fused {family} kernels take float32 or float64, "
+                        f"got {ref.dtype}.")
+    t_len = ref.shape[0]
+    for x in (*series, packed):
+        if x.device != ref.device or x.dtype != ref.dtype:
+            raise ValueError(
+                f"every input of a fused {family} kernel must share one "
+                f"device and dtype; got {x.device}/{x.dtype} and "
+                f"{ref.device}/{ref.dtype}.")
+        if not x.is_contiguous():
+            raise ValueError(
+                f"fused {family} kernel inputs must be contiguous.")
+    for x in series:
+        if x.dim() != 1 or x.shape[0] != t_len:
+            raise ValueError(
+                f"forcing and observation series must all be (T,), got "
+                f"{[tuple(s.shape) for s in series]}.")
+    if packed.dim() != 2 or packed.shape[0] != rows:
+        raise ValueError(f"packed params must be ({rows}, N), got "
+                         f"{tuple(packed.shape)}.")
+    if ref.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"fused {family} kernels run on CUDA tensors (or, "
+                         f"in their plain version, CPU tensors); got "
+                         f"{ref.device}.")
+    return t_len
+
+
+def valid_count(qobs, masked):
+    """Steps a masked objective averages over; raises if there is none."""
+    if not masked:
+        return qobs.shape[0]
+    count = int(torch.isfinite(qobs).sum())
+    if count == 0:
+        raise ValueError(
+            "qobs has no finite value: a masked objective over zero "
+            "valid steps is undefined.")
+    return count
+
+
+def launch(kernel, fn_f32, fn_f64, dtype, device, *args):
+    """Call the float32 or float64 entry point on ``device``'s current
+    stream, raise on a CUDA error and count one launch of ``kernel``."""
+    fn = fn_f32 if dtype == torch.float32 else fn_f64
+    stream = torch.cuda.current_stream(device).cuda_stream
+    err = fn(*args, device.index, stream)
+    if err != 0:
+        raise RuntimeError(
+            f"{fn.__name__} failed with cudaError_t {err}.")
+    LAUNCHES[kernel] += 1

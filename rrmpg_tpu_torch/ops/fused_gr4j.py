@@ -11,27 +11,24 @@ and UH shift registers in registers for the whole time loop.
   [mse, mean_q, mean_q^2, mean_q*qobs] for NSE/KGE via
   :func:`~.stats.losses_from_stats`.
 
-Each wrapper takes its kernel for CUDA tensors (or raises) and, only
-because the tensors lie on the CPU, its plain PyTorch version
-(``*_reference``): a batched shift-register loop written like the kernel.
-:data:`LAUNCHES` counts kernel launches per kernel.
+The card is the port's default device: models put their tensors there,
+and on a CUDA tensor a wrapper launches its kernel or raises.  Only for
+tensors the caller put on the CPU (``device='cpu'``, as the CPU tests do)
+a wrapper runs its plain PyTorch version (``*_reference``): a batched
+shift-register loop written like the kernel.  :data:`LAUNCHES` (shared
+with the other kernel modules, :mod:`._launch`) counts launches per kernel.
 """
 
 import torch
 
-from ..config import FLOAT_DTYPES
+from ._launch import (LAUNCHES, check_inputs, launch,  # noqa: F401
+                      register_kernels, reset_launches, valid_count)
 from .uh import NUM_UH1, NUM_UH2, uh_ordinates
+
+register_kernels("gr4j_mse", "gr4j_stats", "gr4j_traj")
 
 # UH register lengths the CUDA library is instantiated for.
 SUPPORTED_UH = ((3, 7), (NUM_UH1, NUM_UH2))
-
-# Kernel launches since the last reset_launches(), by kernel.
-LAUNCHES = {"gr4j_mse": 0, "gr4j_stats": 0, "gr4j_traj": 0}
-
-
-def reset_launches():
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
 
 
 def _check_uh(num_uh1, num_uh2):
@@ -47,45 +44,6 @@ def pack_params(params, s_init, r_init):
     x1, x3 = params['x1'], params['x3']
     return torch.stack([x1, params['x2'], x3, params['x4'],
                         s_init * x1, r_init * x3]).contiguous()
-
-
-def _check_inputs(series, packed):
-    """Device, dtype, shape and contiguity checks shared by the wrappers."""
-    ref = series[0]
-    if ref.dtype not in FLOAT_DTYPES:
-        raise TypeError(f"fused GR4J kernels take float32 or float64, got "
-                        f"{ref.dtype}.")
-    t_len = ref.shape[0]
-    for x in (*series, packed):
-        if x.device != ref.device or x.dtype != ref.dtype:
-            raise ValueError(
-                "every input of a fused GR4J kernel must share one device "
-                f"and dtype; got {x.device}/{x.dtype} and "
-                f"{ref.device}/{ref.dtype}.")
-        if not x.is_contiguous():
-            raise ValueError("fused GR4J kernel inputs must be contiguous.")
-    for x in series:
-        if x.dim() != 1 or x.shape[0] != t_len:
-            raise ValueError(
-                f"forcing and observation series must all be (T,), got "
-                f"{[tuple(s.shape) for s in series]}.")
-    if packed.dim() != 2 or packed.shape[0] != 6:
-        raise ValueError(f"packed params must be (6, N), got "
-                         f"{tuple(packed.shape)}.")
-    if ref.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"fused GR4J kernels run on CUDA tensors (or, in "
-                         f"their plain version, CPU tensors); got "
-                         f"{ref.device}.")
-    return t_len
-
-
-def _launch(fn_f32, fn_f64, dtype, device, *args):
-    fn = fn_f32 if dtype == torch.float32 else fn_f64
-    stream = torch.cuda.current_stream(device).cuda_stream
-    err = fn(*args, device.index, stream)
-    if err != 0:
-        raise RuntimeError(
-            f"{fn.__name__} failed with cudaError_t {err}.")
 
 
 # ---------------------------------------------------------------------------
@@ -188,7 +146,7 @@ def gr4j_simulate_fused(prec, etp, s_init, r_init, params, num_uh1=NUM_UH1,
     """
     _check_uh(num_uh1, num_uh2)
     packed = pack_params(params, s_init, r_init)
-    t_len = _check_inputs((prec, etp), packed)
+    t_len = check_inputs("GR4J", (prec, etp), packed, 6)
     if prec.device.type == "cpu":
         return gr4j_simulate_reference(prec, etp, packed, num_uh1, num_uh2)
     from ._build import load_library
@@ -196,10 +154,10 @@ def gr4j_simulate_fused(prec, etp, s_init, r_init, params, num_uh1=NUM_UH1,
     lib = load_library()
     n = packed.shape[1]
     out = torch.empty((n, t_len), dtype=prec.dtype, device=prec.device)
-    _launch(lib.rrmpg_gr4j_simulate_f32, lib.rrmpg_gr4j_simulate_f64,
-            prec.dtype, prec.device, prec.data_ptr(), etp.data_ptr(),
-            packed.data_ptr(), n, t_len, num_uh1, num_uh2, out.data_ptr())
-    LAUNCHES["gr4j_traj"] += 1
+    launch("gr4j_traj", lib.rrmpg_gr4j_simulate_f32,
+           lib.rrmpg_gr4j_simulate_f64, prec.dtype, prec.device,
+           prec.data_ptr(), etp.data_ptr(), packed.data_ptr(), n, t_len,
+           num_uh1, num_uh2, out.data_ptr())
     return out
 
 
@@ -223,14 +181,8 @@ def gr4j_ensemble_mse_fused(prec, etp, qobs, s_init, r_init, params,
             "yet; see ROADMAP.md, Queue 1, item 6 (forecast state).")
     _check_uh(num_uh1, num_uh2)
     packed = pack_params(params, s_init, r_init)
-    t_len = _check_inputs((prec, etp, qobs), packed)
-    count = t_len
-    if masked:
-        count = int(torch.isfinite(qobs).sum())
-        if count == 0:
-            raise ValueError(
-                "qobs has no finite value: a masked objective over zero "
-                "valid steps is undefined.")
+    t_len = check_inputs("GR4J", (prec, etp, qobs), packed, 6)
+    count = valid_count(qobs, masked)
     if prec.device.type == "cpu":
         return gr4j_objective_reference(prec, etp, qobs, packed, num_uh1,
                                         num_uh2, stats, masked, count)
@@ -240,9 +192,9 @@ def gr4j_ensemble_mse_fused(prec, etp, qobs, s_init, r_init, params,
     n = packed.shape[1]
     out = torch.empty((4, n) if stats else (n,), dtype=prec.dtype,
                       device=prec.device)
-    _launch(lib.rrmpg_gr4j_objective_f32, lib.rrmpg_gr4j_objective_f64,
-            prec.dtype, prec.device, prec.data_ptr(), etp.data_ptr(),
-            qobs.data_ptr(), packed.data_ptr(), n, t_len, num_uh1, num_uh2,
-            int(stats), int(masked), float(count), out.data_ptr())
-    LAUNCHES["gr4j_stats" if stats else "gr4j_mse"] += 1
+    launch("gr4j_stats" if stats else "gr4j_mse",
+           lib.rrmpg_gr4j_objective_f32, lib.rrmpg_gr4j_objective_f64,
+           prec.dtype, prec.device, prec.data_ptr(), etp.data_ptr(),
+           qobs.data_ptr(), packed.data_ptr(), n, t_len, num_uh1, num_uh2,
+           int(stats), int(masked), float(count), out.data_ptr())
     return out

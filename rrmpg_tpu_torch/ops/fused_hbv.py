@@ -1,0 +1,188 @@
+"""Fused HBV-Edu ensemble kernels: wrappers and their plain versions.
+
+Counterpart of ``rrmpg_tpu/ops/pallas_hbv.py``.  The kernels are CUDA C++
+in ``rrmpg_tpu_torch/csrc/hbv_fused.cu``: one thread per member, the four
+stores and the member's constants in registers for the whole time loop.
+
+* K13 :func:`hbv_simulate_fused` -- (N, T) discharge trajectories;
+* K12 :func:`hbv_ensemble_mse_fused` -- fused simulate + MSE, one number
+  per member, or with ``stats=True`` the (4, N) time means
+  [mse, mean_q, mean_q^2, mean_q*qobs] for NSE/KGE via
+  :func:`~.stats.losses_from_stats`.
+
+On a CUDA tensor a wrapper launches its kernel or raises; only for tensors
+the caller put on the CPU it runs its plain PyTorch version
+(``*_reference``), written operation for operation like the kernel: the
+step multiplies by the packed ``1/FC`` and ``1/PWP`` where
+:mod:`.hbvedu` divides.
+
+A negative soil store gives NaN through the ``Beta`` power, in the kernels
+as in the plain versions; a NaN discharge at a step with an observation
+makes that member's result NaN.
+"""
+
+import torch
+
+from ._launch import check_inputs, launch, register_kernels, valid_count
+from .hbvedu import PARAM_NAMES
+
+register_kernels("hbv_mse", "hbv_stats", "hbv_traj")
+
+NUM_ROWS = 17
+
+
+def pack_params(params, snow_init, soil_init, s1_init, s2_init):
+    """(17, N) contiguous: the 11 parameters in ``PARAM_NAMES`` order, the
+    four initial stores, ``1/FC`` and ``1/PWP``."""
+    ref = params['T_t']
+    rows = [params[k] for k in PARAM_NAMES]
+    rows += [torch.as_tensor(v, dtype=ref.dtype, device=ref.device)
+             .expand_as(ref) for v in (snow_init, soil_init, s1_init, s2_init)]
+    rows += [1.0 / params['FC'], 1.0 / params['PWP']]
+    return torch.stack(rows).contiguous()
+
+
+def _month_series(month, pe_m, t_m):
+    """The climatologies gathered to one value per step."""
+    return pe_m[month].contiguous(), t_m[month].contiguous()
+
+
+# ---------------------------------------------------------------------------
+# Plain versions: the kernel's loop, batched over members
+# ---------------------------------------------------------------------------
+
+class _Members:
+    """Per-member constants and stores, as the kernel keeps in registers."""
+
+    def __init__(self, packed):
+        (self.T_t, self.DD, _, self.Beta, self.C, self.PWP, self.K_0,
+         self.K_1, self.K_2, self.K_p, self.L, snow, soil, s1, s2,
+         self.iFC, self.iPWP) = packed
+        self.snow, self.soil = snow.clone(), soil.clone()
+        self.s1, self.s2 = s1.clone(), s2.clone()
+
+    def step(self, t, temp, prec, pe_month, t_month):
+        """One HBV-Edu step (``hbv_step`` in the CUDA source); returns q."""
+        if t == 0:
+            return torch.zeros_like(self.snow)
+        freezing = temp < self.T_t
+        melt_pot = self.DD * (temp - self.T_t)
+        snow = torch.where(freezing, self.snow + prec,
+                           torch.clamp(self.snow - melt_pot, min=0.0))
+        liquid = torch.where(freezing, 0.0,
+                             prec + torch.minimum(self.snow, melt_pot))
+        prec_eff = liquid * torch.pow(self.soil * self.iFC, self.Beta)
+        pe = (1.0 + self.C * (temp - t_month)) * pe_month
+        ea = torch.where(self.soil > self.PWP, pe,
+                         pe * (self.soil * self.iPWP))
+        soil = self.soil + liquid - prec_eff - ea
+        overflow = torch.clamp(self.s1 - self.L, min=0.0) * self.K_0
+        s1 = (self.s1 + prec_eff - overflow - self.s1 * self.K_1
+              - self.s1 * self.K_p)
+        s2 = self.s2 + self.s1 * self.K_p - self.s2 * self.K_2
+        self.snow, self.soil, self.s1, self.s2 = snow, soil, s1, s2
+        return overflow + s1 * self.K_1 + s2 * self.K_2
+
+
+def hbv_simulate_reference(temp, prec, pe_series, tm_series, packed):
+    """Plain version of K13: (N, T) trajectories."""
+    m = _Members(packed)
+    out = prec.new_empty((packed.shape[1], prec.shape[0]))
+    for t in range(prec.shape[0]):
+        out[:, t] = m.step(t, temp[t], prec[t], pe_series[t], tm_series[t])
+    return out
+
+
+def hbv_objective_reference(temp, prec, pe_series, tm_series, qobs, packed,
+                            stats=False, masked=False, count=None):
+    """Plain version of K12: (N,) mean squared errors, or with
+    ``stats=True`` the (4, N) time means.  ``masked`` drops steps whose
+    observation is NaN; the sums are divided by ``count`` (default T)."""
+    m = _Members(packed)
+    T = prec.shape[0]
+    valid = torch.isfinite(qobs) if masked else None
+    acc = packed.new_zeros((4 if stats else 1, packed.shape[1]))
+    for t in range(T):
+        q = m.step(t, temp[t], prec[t], pe_series[t], tm_series[t])
+        qo = qobs[t]
+        diff = q - qo
+        terms = [diff * diff]
+        if stats:
+            terms += [q, q * q, q * qo]
+        terms = torch.stack(terms)
+        if masked:
+            terms = torch.where(valid[t], terms, 0.0)
+        acc += terms
+    out = acc / (T if count is None else count)
+    return out if stats else out[0]
+
+
+# ---------------------------------------------------------------------------
+# Wrappers
+# ---------------------------------------------------------------------------
+
+def hbv_simulate_fused(temp, prec, month, pe_m, t_m, snow_init, soil_init,
+                       s1_init, s2_init, params):
+    """Fused-ensemble HBV-Edu simulation (K13); returns qsim of shape
+    (N, T).
+
+    Args:
+        temp, prec: (T,) forcing tensors.
+        month: (T,) 0-based integer month indices.
+        pe_m, t_m: (12,) monthly climatologies.
+        snow_init, soil_init, s1_init, s2_init: initial storages.
+        params: dict of (N,) tensors for the 11 HBV parameters.
+    """
+    packed = pack_params(params, snow_init, soil_init, s1_init, s2_init)
+    pe_series, tm_series = _month_series(month, pe_m, t_m)
+    series = (temp, prec, pe_series, tm_series)
+    t_len = check_inputs("HBV-Edu", series, packed, NUM_ROWS)
+    if prec.device.type == "cpu":
+        return hbv_simulate_reference(*series, packed)
+    from ._build import load_library
+
+    lib = load_library()
+    n = packed.shape[1]
+    out = torch.empty((n, t_len), dtype=prec.dtype, device=prec.device)
+    launch("hbv_traj", lib.rrmpg_hbv_simulate_f32, lib.rrmpg_hbv_simulate_f64,
+           prec.dtype, prec.device, *(x.data_ptr() for x in series),
+           packed.data_ptr(), n, t_len, out.data_ptr())
+    return out
+
+
+def hbv_ensemble_mse_fused(temp, prec, month, pe_m, t_m, qobs, snow_init,
+                           soil_init, s1_init, s2_init, params, stats=False,
+                           masked=False, state=None):
+    """Fused HBV-Edu simulate + objective (K12).
+
+    Returns (N,) mean squared errors, or with ``stats=True`` a (4, N)
+    tensor of time means [mse, mean_q, mean_q^2, mean_q*qobs].
+
+    ``masked=True`` treats NaN observations as gaps: they are left out of
+    the sums, which are normalized over the valid count.  An observation
+    record with no valid step raises ``ValueError``.
+
+    ``state`` (warm entry from carried storages) is not ported yet.
+    """
+    if state is not None:
+        raise NotImplementedError(
+            "Warm entry (state=) of the fused HBV-Edu objective is not "
+            "ported yet; see ROADMAP.md, Queue 1, item 6 (forecast state).")
+    packed = pack_params(params, snow_init, soil_init, s1_init, s2_init)
+    pe_series, tm_series = _month_series(month, pe_m, t_m)
+    series = (temp, prec, pe_series, tm_series, qobs)
+    t_len = check_inputs("HBV-Edu", series, packed, NUM_ROWS)
+    count = valid_count(qobs, masked)
+    if prec.device.type == "cpu":
+        return hbv_objective_reference(*series, packed, stats, masked, count)
+    from ._build import load_library
+
+    lib = load_library()
+    n = packed.shape[1]
+    out = torch.empty((4, n) if stats else (n,), dtype=prec.dtype,
+                      device=prec.device)
+    launch("hbv_stats" if stats else "hbv_mse", lib.rrmpg_hbv_objective_f32,
+           lib.rrmpg_hbv_objective_f64, prec.dtype, prec.device,
+           *(x.data_ptr() for x in series), packed.data_ptr(), n, t_len,
+           int(stats), int(masked), float(count), out.data_ptr())
+    return out

@@ -20,7 +20,8 @@ import typing
 import numpy as np
 import torch
 
-from ..config import DEFAULT_DTYPE, resolve_device, resolve_dtype
+from ..config import (DEFAULT_DEVICE, DEFAULT_DTYPE, resolve_device,
+                      resolve_dtype)
 
 
 class OptimizeResult(typing.NamedTuple):
@@ -61,8 +62,8 @@ def _converged(energies, tol, atol):
 
 def differential_evolution(objective, bounds, popsize=15, maxiter=1000,
                            tol=0.01, atol=0.0, mutation=(0.5, 1.0),
-                           recombination=0.7, seed=None, device="cpu",
-                           dtype=DEFAULT_DTYPE):
+                           recombination=0.7, seed=None,
+                           device=DEFAULT_DEVICE, dtype=DEFAULT_DTYPE):
     """Global minimization by differential evolution.
 
     Args:
@@ -76,7 +77,8 @@ def differential_evolution(objective, bounds, popsize=15, maxiter=1000,
         recombination: crossover probability.
         seed: int seed of the ``torch.Generator`` on ``device`` that draws
             every random number (0 if None).
-        device, dtype: where and in which float type the population lives.
+        device, dtype: where (the card by default) and in which float type
+            the population lives.
 
     Returns:
         :class:`OptimizeResult`; ``nfev = P * (nit + 1)``.

@@ -5,12 +5,17 @@ JAX, so it runs on a GPU machine without it:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
-Each kernel (K1 MSE, K2 stats, K3 trajectories) is held against its plain
-PyTorch version on the same CUDA tensors.  Tolerances: float64
-``rtol=1e-9, atol=1e-12`` (the same operations in another order);
+Each kernel (GR4J K1 MSE, K2 stats, K3 trajectories; ABC K6 single launch,
+K7 three launches; HBV-Edu K12 objective, K13 trajectories) is held
+against its plain PyTorch version on the same CUDA tensors.  Tolerances:
+float64 ``rtol=1e-9, atol=1e-12`` (the same operations in another order);
 float32 trajectories ``rtol=5e-3, atol=1e-3`` and objectives
 ``rtol=2e-2`` (rounding compounds over the recurrence; rrmpg_tpu's own
-fused-vs-XLA float32 drift is 8.5e-3 relative).
+fused-vs-XLA float32 drift is 8.5e-3 relative).  The ABC scan in float32
+is held to ``1e-4`` of each series' largest value: the
+parallel order of the sums differs from the plain version's.  HBV-Edu
+members whose soil store goes negative are NaN in kernel and plain
+version alike; the NaN sets must be equal.
 """
 
 import os
@@ -20,8 +25,10 @@ import pandas as pd
 import pytest
 import torch
 
-from rrmpg_tpu_torch.models import GR4J
+from rrmpg_tpu_torch.models import GR4J, ABCModel, HBVEdu
+from rrmpg_tpu_torch.ops import abc, fused_abc as fa
 from rrmpg_tpu_torch.ops import fused_gr4j as fg
+from rrmpg_tpu_torch.ops import fused_hbv as fh
 
 pytestmark = pytest.mark.cuda
 
@@ -99,7 +106,7 @@ def test_fit_launches_one_kernel_per_generation(cuda):
     rng = np.random.default_rng(3)
     prec, etp = rng.uniform(0, 15, 400), rng.uniform(0, 4, 400)
     qobs = GR4J(params={'x1': 500.0, 'x2': 0.5, 'x3': 80.0, 'x4': 2.0},
-                dtype=torch.float64).simulate(prec, etp).numpy().ravel()
+                dtype=torch.float64).simulate(prec, etp).cpu().numpy().ravel()
     fg.reset_launches()
     res = GR4J(device=cuda).fit(qobs, prec, etp, engine='fused', seed=0,
                                 maxiter=4)
@@ -111,3 +118,147 @@ def test_mixed_devices_raise(cuda):
     prec, etp, _, params = _inputs(cuda, torch.float32, N=4, T=10)
     with pytest.raises(ValueError, match="one device"):
         fg.gr4j_simulate_fused(prec.cpu(), etp.cpu(), 0.0, 0.0, params)
+
+
+# ---------------------------------------------------------------------------
+# ABC: K6 (one launch) and K7 (three launches)
+# ---------------------------------------------------------------------------
+
+def _abc_close(got, want):
+    if want.dtype == torch.float64:
+        torch.testing.assert_close(got, want, rtol=1e-9, atol=1e-12)
+    else:
+        torch.testing.assert_close(got, want, rtol=0.0,
+                                   atol=1e-4 * float(want.abs().max()))
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("T", [1, 1000, 70000, 1_000_003])
+@pytest.mark.parametrize("c", [0.0, 0.12, 1.0])
+def test_abc_kernels_match_plain(cuda, dtype, T, c):
+    prec = torch.tensor(np.random.default_rng(T).uniform(0, 20, T),
+                        dtype=dtype, device=cuda)
+    params = {'a': 0.3, 'b': 0.4, 'c': c}
+    want = abc.run_abcmodel_pscan(prec, 5.0, params)
+    fg.reset_launches()
+    single = fa.abc_fused_single(prec, 5.0, params)
+    chunked = fa.abc_fused(prec, 5.0, params)
+    torch.cuda.synchronize()
+    assert fg.LAUNCHES["abc_fused_single"] == 1
+    assert fg.LAUNCHES["abc_fused"] == 1
+    for got in (single, chunked):
+        assert got[1][0].item() == 5.0 and got[0][0].item() == 0.0
+        for g, w in zip(got, want):
+            assert g.shape == (T,) and g.dtype == dtype
+            _abc_close(g, w)
+    for g, w in zip(single, chunked):
+        _abc_close(g, w)
+    if T <= 20000:
+        for g, w in zip(single, abc.run_abcmodel(prec, 5.0, params)):
+            _abc_close(g, w)
+
+
+@pytest.mark.parametrize("kernel", [fa.abc_fused_single, fa.abc_fused])
+def test_abc_kernels_members_in_one_launch(cuda, kernel):
+    rng = np.random.default_rng(1)
+    prec = torch.tensor(rng.uniform(0, 20, 9001), dtype=torch.float64,
+                        device=cuda)
+    np.random.seed(2)
+    raw = ABCModel(device=cuda).get_random_params(num=37)
+    params = {k: torch.tensor(raw[k], dtype=torch.float64, device=cuda)
+              for k in 'abc'}
+    s0 = torch.tensor(rng.uniform(0, 9, 37), dtype=torch.float64,
+                      device=cuda)
+    fg.reset_launches()
+    got = kernel(prec, s0, params)
+    # Twice in a row: the second launch must not see the first one's flags.
+    again = kernel(prec, s0, params)
+    torch.cuda.synchronize()
+    assert sum(fg.LAUNCHES.values()) == 2
+    for g, g2, w in zip(got, again, abc.run_abcmodel_pscan(prec, s0, params)):
+        assert g.shape == (37, 9001)
+        torch.testing.assert_close(g, w, rtol=1e-9, atol=1e-12)
+        # Not bit for bit: how far a block looks back depends on timing.
+        torch.testing.assert_close(g2, w, rtol=1e-9, atol=1e-12)
+
+
+# ---------------------------------------------------------------------------
+# HBV-Edu: K12 (objective) and K13 (trajectories)
+# ---------------------------------------------------------------------------
+
+def _hbv_inputs(device, dtype, T=500, N=300, gaps=False, seed=0):
+    rng = np.random.default_rng(seed)
+    qobs = rng.uniform(0, 5, T)
+    if gaps:
+        qobs[::11] = np.nan
+    as_t = lambda a: torch.tensor(a, dtype=dtype, device=device)
+    forcings = (as_t(rng.uniform(-8, 22, T)), as_t(rng.uniform(0, 15, T)),
+                torch.tensor(rng.integers(0, 12, T), device=device),
+                as_t(rng.uniform(0.5, 4, 12)), as_t(rng.uniform(-3, 18, 12)))
+    bounds = HBVEdu._default_bounds
+    params = {k: as_t(rng.uniform(*bounds[k], N)) for k in bounds}
+    # Small field capacities empty the soil store: those members go NaN.
+    params['FC'][:N // 10] = 2.0
+    return forcings, as_t(qobs), params
+
+
+def _assert_close_nan_aware(got, want, rtol, atol):
+    nan = torch.isnan(want)
+    assert torch.equal(torch.isnan(got), nan)
+    assert 0 < int(nan.sum()) < nan.numel()
+    torch.testing.assert_close(got[~nan], want[~nan], rtol=rtol, atol=atol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("mode", ["traj", "mse", "stats", "mse+masked",
+                                  "stats+masked"])
+def test_hbv_kernel_matches_plain(cuda, dtype, mode):
+    masked = mode.endswith("masked")
+    forcings, qobs, params = _hbv_inputs(cuda, dtype, gaps=masked)
+    inits = (0.0, 100.0, 3.0, 10.0)
+    packed = fh.pack_params(params, *inits)
+    temp, prec, month, pe_m, t_m = forcings
+    series = (temp, prec, pe_m[month], t_m[month])
+    fg.reset_launches()
+    if mode == "traj":
+        got = fh.hbv_simulate_fused(*forcings, *inits, params)
+        want = fh.hbv_simulate_reference(*series, packed)
+        rtol, atol = TOL[dtype]["traj"]
+        kernel = "hbv_traj"
+    else:
+        stats = mode.startswith("stats")
+        count = int(torch.isfinite(qobs).sum())
+        got = fh.hbv_ensemble_mse_fused(*forcings, qobs, *inits, params,
+                                        stats=stats, masked=masked)
+        want = fh.hbv_objective_reference(*series, qobs, packed, stats,
+                                          masked, count)
+        rtol, atol = TOL[dtype]["obj"]
+        kernel = "hbv_stats" if stats else "hbv_mse"
+    torch.cuda.synchronize()
+    assert fg.LAUNCHES[kernel] == 1
+    assert got.device.type == "cuda" and got.dtype == dtype
+    _assert_close_nan_aware(got, want, rtol, atol)
+
+
+def test_golden_matlab_trajectory_fused_float64(cuda):
+    read = lambda name, **kw: pd.read_csv(os.path.join(DATA_DIR, name), **kw)
+    daily = read('hbv_daily_inputs.txt', sep='\t',
+                 names=['date', 'month', 'temp', 'prec'])
+    monthly = read('hbv_monthly_inputs.txt', sep=' ',
+                   names=['temp', 'not_needed', 'evap'])
+    qsim_matlab = read('hbv_qsim.csv', header=None, names=['qsim'])
+    params = {'T_t': 0, 'DD': 4.25, 'FC': 177.1, 'Beta': 2.35, 'C': 0.02,
+              'PWP': 105.89, 'K_0': 0.05, 'K_1': 0.03, 'K_2': 0.02,
+              'K_p': 0.05, 'L': 4.87}
+    model = HBVEdu(params=params, device=cuda, dtype=torch.float64)
+    qsim = model.simulate(daily.temp, daily.prec, daily.month, monthly.evap,
+                          monthly.temp, snow_init=0, soil_init=100,
+                          s1_init=3, s2_init=10, engine='fused')
+    qsim = (qsim.cpu().numpy().ravel() * 410 * 1000) / (24 * 60 * 60)
+    assert np.allclose(qsim, qsim_matlab.qsim)
+
+
+def test_default_device_is_the_card(cuda):
+    assert GR4J().device.type == "cuda"
+    assert ABCModel().device.type == "cuda"
+    assert HBVEdu().device.type == "cuda"

@@ -43,6 +43,10 @@ def _inputs(T, N, seed=0, x4_max=9.9):
     return forcing, params
 
 
+def _p64(params):
+    return params_from_numpy(params, device='cpu', dtype=torch.float64)
+
+
 def _t(a):
     return torch.as_tensor(np.asarray(a), dtype=torch.float64)
 
@@ -91,7 +95,7 @@ def test_run_gr4j_matches_jax(n1, n2, x4_max):
     jq, js, jr, jfinal = _jax_run(forcing, params, 0.4, 0.3, n1, n2)
     q, s, r, final = pt_gr4j.run_gr4j(
         _t(forcing['prec']), _t(forcing['etp']), 0.4, 0.3,
-        params_from_numpy(params, dtype=torch.float64), n1, n2,
+        _p64(params), n1, n2,
         return_final=True)
     assert q.shape == (64, 300)
     for got, want in ((q, jq), (s, js), (r, jr), (final.s, jfinal.s),
@@ -104,7 +108,7 @@ def test_run_gr4j_matches_jax(n1, n2, x4_max):
 def test_run_gr4j_warm_matches_jax_and_splits_exactly():
     forcing, params = _inputs(300, 16, seed=4)
     prec, etp = _t(forcing['prec']), _t(forcing['etp'])
-    p = params_from_numpy(params, dtype=torch.float64)
+    p = _p64(params)
     # JAX: first segment cold with its final state, second segment warm.
     _, _, _, jstate = _jax_run({k: v[:120] for k, v in forcing.items()},
                                params, 0.2, 0.5)
@@ -113,7 +117,7 @@ def test_run_gr4j_warm_matches_jax_and_splits_exactly():
             jstate, {k: jnp.asarray(v) for k, v in params.items()})
     state = gr4j_state_from_numpy(
         {k: np.asarray(getattr(jstate, k)) for k in jstate._fields},
-        dtype=torch.float64)
+        device='cpu', dtype=torch.float64)
     q_b, _, _, _ = pt_gr4j.run_gr4j_warm(prec[120:], etp[120:], state, p)
     np.testing.assert_allclose(q_b.numpy(), np.asarray(jq_b), rtol=RTOL,
                                atol=1e-12)
@@ -132,7 +136,7 @@ def test_run_gr4j_warm_rejects_short_history():
                               pr_history=torch.zeros(2, 5, dtype=torch.float64))
     with pytest.raises(ValueError, match="num_uh2"):
         pt_gr4j.run_gr4j_warm(_t(forcing['prec']), _t(forcing['etp']), state,
-                              params_from_numpy(params, dtype=torch.float64))
+                              _p64(params))
 
 
 @pytest.mark.parametrize("engine", ["ops", "scan", "fused"])
@@ -141,10 +145,10 @@ def test_golden_excel_trajectory(engine):
     if engine == "ops":
         qsim, _, _ = pt_gr4j.run_gr4j(
             _t(data.prec), _t(data.etp), 0.6, 0.7,
-            params_from_numpy(GOLDEN_PARAMS, dtype=torch.float64))
+            _p64(GOLDEN_PARAMS))
         qsim = qsim[0]
     else:
-        model = GR4J(params=GOLDEN_PARAMS, dtype=torch.float64)
+        model = GR4J(params=GOLDEN_PARAMS, dtype=torch.float64, device='cpu')
         qsim = model.simulate(data.prec, data.etp, s_init=0.6, r_init=0.7,
                               engine=engine)
         assert qsim.shape == (len(data), 1)

@@ -26,8 +26,8 @@ from rrmpg_tpu.ops.pallas_snow import losses_from_stats as jax_losses
 from rrmpg_tpu.tools import monte_carlo as jax_monte_carlo
 from rrmpg_tpu.utils import metrics as jax_metrics
 from rrmpg_tpu_torch.data import CAMELSLoader
-from rrmpg_tpu_torch.interop import params_from_numpy
-from rrmpg_tpu_torch.models import GR4J
+from rrmpg_tpu_torch.interop import gr4j_state_from_numpy, params_from_numpy
+from rrmpg_tpu_torch.models import GR4J, ABCModel, HBVEdu
 from rrmpg_tpu_torch.ops import losses_from_stats
 from rrmpg_tpu_torch.tools import differential_evolution, monte_carlo
 from rrmpg_tpu_torch.utils import metrics
@@ -58,7 +58,7 @@ def test_simulate_matches_jax(engine):
     params = jax_models.GR4J().get_random_params(num=20)
     want = jax_models.GR4J().simulate(prec, etp, s_init=0.3, r_init=0.6,
                                       params=params)
-    got = GR4J(dtype=F64).simulate(prec, etp, s_init=0.3, r_init=0.6,
+    got = GR4J(device='cpu', dtype=F64).simulate(prec, etp, s_init=0.3, r_init=0.6,
                                    params=params, engine=engine)
     assert got.shape == want.shape == (200, 20)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-10,
@@ -67,7 +67,7 @@ def test_simulate_matches_jax(engine):
 
 def test_simulate_storage_and_errors():
     prec, etp, _ = _series(50)
-    model = GR4J(dtype=F64)
+    model = GR4J(device='cpu', dtype=F64)
     q, s, r = model.simulate(prec, etp, return_storage=True)
     assert q.shape == s.shape == r.shape == (50, 1)
     with pytest.raises(ValueError, match="discharge only"):
@@ -95,7 +95,7 @@ def test_monte_carlo_matches_jax(engine, gaps):
                            etp=etp, metrics=METRICS, engine='xla',
                            return_qsim=False)
     np.random.seed(11)
-    got = monte_carlo(GR4J(dtype=F64), num=64, qobs=qobs, prec=prec,
+    got = monte_carlo(GR4J(device='cpu', dtype=F64), num=64, qobs=qobs, prec=prec,
                       etp=etp, metrics=METRICS, engine=engine,
                       return_qsim=False)
     np.testing.assert_array_equal(got['params'], want['params'])
@@ -112,18 +112,18 @@ def test_monte_carlo_matches_jax(engine, gaps):
 def test_monte_carlo_qsim_and_batches():
     prec, etp, qobs = _series(80, seed=3)
     np.random.seed(5)
-    whole = monte_carlo(GR4J(dtype=F64), num=10, qobs=qobs, prec=prec,
+    whole = monte_carlo(GR4J(device='cpu', dtype=F64), num=10, qobs=qobs, prec=prec,
                         etp=etp)
     np.random.seed(5)
-    parts = monte_carlo(GR4J(dtype=F64), num=10, qobs=qobs, prec=prec,
+    parts = monte_carlo(GR4J(device='cpu', dtype=F64), num=10, qobs=qobs, prec=prec,
                         etp=etp, batch_size=3)
     assert whole['qsim'].shape == (80, 10)
     np.testing.assert_allclose(parts['qsim'], whole['qsim'], rtol=1e-14)
     np.testing.assert_allclose(parts['mse'], whole['mse'], rtol=1e-14)
     with pytest.raises(ValueError, match="qobs"):
-        monte_carlo(GR4J(), num=4, prec=prec, etp=etp, return_qsim=False)
+        monte_carlo(GR4J(device='cpu'), num=4, prec=prec, etp=etp, return_qsim=False)
     with pytest.raises(ValueError, match="Unknown metric"):
-        monte_carlo(GR4J(), num=4, qobs=qobs, prec=prec, etp=etp,
+        monte_carlo(GR4J(device='cpu'), num=4, qobs=qobs, prec=prec, etp=etp,
                     metrics=('fhv',))
 
 
@@ -198,7 +198,7 @@ def test_fit_objective_at_jax_optimum():
     ``res.fun`` (rtol=1e-8), for the fused and the scan engine."""
     prec, etp, qobs = _series(120, seed=9)
     jres = jax_models.GR4J().fit(qobs, prec, etp, seed=0, maxiter=3)
-    model = GR4J(dtype=F64)
+    model = GR4J(device='cpu', dtype=F64)
     res = model.fit(qobs, prec, etp, engine='fused', seed=0, maxiter=3)
     assert np.isfinite(res.fun) and res.nit <= 3
     assert res.nfev == 60 * (res.nit + 1)
@@ -228,7 +228,7 @@ def test_fit_objectives_match_jax_losses(loss_metric):
         want = 1.0 - np.asarray(getattr(jax_metrics, loss_metric)(
             qobs[:, None], qsim, axis=0))
     X = torch.tensor(np.stack([params[n] for n in GR4J._param_list], 1))
-    model = GR4J(dtype=F64)
+    model = GR4J(device='cpu', dtype=F64)
     for engine in ('fused', 'scan'):
         obj = model._batch_objective(torch.tensor(qobs), torch.tensor(prec),
                                      torch.tensor(etp), 0.0, 0.0,
@@ -242,8 +242,10 @@ def test_de_minimizes_and_is_reproducible():
     def sphere(X):
         return ((X - torch.tensor([1.0, -2.0, 3.0], dtype=F64)) ** 2).sum(1)
 
-    a = differential_evolution(sphere, bounds, seed=3, dtype=F64)
-    b = differential_evolution(sphere, bounds, seed=3, dtype=F64)
+    a = differential_evolution(sphere, bounds, seed=3, device='cpu',
+                               dtype=F64)
+    b = differential_evolution(sphere, bounds, seed=3, device='cpu',
+                               dtype=F64)
     assert a.success and a.fun < 1e-3
     np.testing.assert_allclose(a.x, [1.0, -2.0, 3.0], atol=0.05)
     np.testing.assert_array_equal(a.population, b.population)
@@ -258,14 +260,14 @@ def test_de_quarantines_nonfinite_members():
         return torch.where(X[:, 0] > 0.9, torch.nan, out)
 
     res = differential_evolution(objective, bounds, seed=0, maxiter=5,
-                                 dtype=F64)
+                                 device='cpu', dtype=F64)
     assert np.isfinite(res.fun)
     members, energies = res.nonfinite_members()
     assert members.shape[1] == 2 and not np.isfinite(energies).any()
 
 
 def test_model_parameter_registry():
-    model = GR4J(dtype=F64)
+    model = GR4J(device='cpu', dtype=F64)
     params = model.get_random_params(num=5)
     assert params.dtype == jax_models.GR4J().get_dtype()
     pd_, num = model._prepare_params(params)
@@ -281,11 +283,28 @@ def test_model_parameter_registry():
     with pytest.raises(AttributeError):
         model.set_params({'x9': 1.0})
     with pytest.raises(AttributeError):
-        GR4J(params={'x1': 1.0})
+        GR4J(params={'x1': 1.0}, device='cpu')
     with pytest.raises(TypeError):
-        GR4J(dtype=torch.float16)
+        GR4J(device='cpu', dtype=torch.float16)
     np.testing.assert_array_equal(
-        params_from_numpy(params, dtype=F64)['x2'].numpy(), params['x2'])
+        params_from_numpy(params, device='cpu', dtype=F64)['x2'].numpy(), params['x2'])
+
+
+def test_default_device_is_the_card_and_never_falls_back():
+    """Every entry point defaults to the card: on a machine without CUDA
+    it raises instead of computing on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("this machine has CUDA; the no-CUDA path is not reachable")
+    params = {'x1': np.array([300.0])}
+    state = {'s': 1.0, 'r': 2.0, 'pr_history': np.zeros(20)}
+    for entry in (GR4J, ABCModel, HBVEdu,
+                  lambda: differential_evolution(lambda X: X.sum(1),
+                                                 [(0.0, 1.0)]),
+                  lambda: params_from_numpy(params),
+                  lambda: gr4j_state_from_numpy(state)):
+        with pytest.raises(RuntimeError, match="cuda"):
+            entry()
+    assert GR4J(device='cpu').device.type == 'cpu'
 
 
 def test_camels_loader_matches_jax(tmp_path):
