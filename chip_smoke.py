@@ -13,11 +13,15 @@ Phases, in order (each prints its lines; any failure exits non-zero):
                   and without NaN gaps in qobs), ABC (K6 single launch, K7
                   three launches; T in {1, 1000, 70000, 1000003}, c in
                   {0, 0.12, 1}; against the doubling scan, the sequential
-                  loop and each other) and HBV-Edu (K12 MSE and stats with
-                  and without gaps, K13 trajectories; NaN-aware);
+                  loop and each other), HBV-Edu (K12 MSE and stats with
+                  and without gaps, K13 trajectories; NaN-aware) and the
+                  snow family (K8 MSE, stats and SCA statistics with and
+                  without gaps, K9 trajectories; plain, hysteresis, ice and
+                  hysteresis + ice variants and the snow-only routine; 1 and
+                  5 layers; both UH register pairs);
 4. golden      -- the fused engines in float64 against the authors' Excel
-                  GR4J trajectory and MATLAB HBV-Edu trajectory
-                  (tests/data/);
+                  GR4J trajectory, MATLAB HBV-Edu trajectory and the four
+                  Excel snow trajectories (tests/data/);
 5. main paths  -- float32, through the public entry points, each with the
                   launch counters set to 0 just before and read just after:
                   GR4J on CAMELS basin 01031500 (131072-member Monte-Carlo
@@ -26,12 +30,17 @@ Phases, in order (each prints its lines; any failure exits non-zero):
                   (131072-member Monte-Carlo and two calibrations through
                   K12, a fused simulation through K13); ABC (one member over
                   10 000 000 steps through K6, a 4096-member Monte-Carlo and
-                  a calibration on CAMELS 01031500).  Then each kernel is
-                  compared with its plain version at the shapes the main
-                  path gave it;
+                  a calibration on CAMELS 01031500); the hysteresis + ice
+                  snow model on the 1827 days and 5 elevation layers of its
+                  Excel sheet (131072-member Monte-Carlo, two calibrations
+                  and a discharge + snow-cover calibration through K8, a
+                  fused simulation through K9, and the snow-only routine
+                  through both).  Then each kernel is compared with its
+                  plain version at the shapes the main path gave it;
 6. times       -- each kernel against its plain version and its bound:
-                  GR4J and HBV-Edu at 131072 members x 3651 days, ABC at
-                  10 000 000 steps.
+                  GR4J and HBV-Edu at 131072 members x 3651 days, the snow
+                  kernels at 131072 x 3651 x 5 layers (hysteresis + ice),
+                  ABC at 10 000 000 steps.
 
 The last two lines are a JSON object describing the kernels and the
 result line ``{"ok": true, "device": {...}}``.
@@ -56,6 +65,7 @@ F32, F64 = torch.float32, torch.float64
 GR4J_SRC = "rrmpg_tpu_torch/csrc/gr4j_fused.cu"
 ABC_SRC = "rrmpg_tpu_torch/csrc/abc_scan.cu"
 HBV_SRC = "rrmpg_tpu_torch/csrc/hbv_fused.cu"
+SNOW_SRC = "rrmpg_tpu_torch/csrc/snow_fused.cu"
 # name -> (source, the TPU kernel it replaces)
 KERNELS = {
     "gr4j_mse": (GR4J_SRC, "rrmpg_tpu/ops/pallas_gr4j.py:228"),
@@ -65,6 +75,16 @@ KERNELS = {
     "abc_fused": (ABC_SRC, "rrmpg_tpu/ops/pallas_linear_scan.py:28"),
     "hbv_objective": (HBV_SRC, "rrmpg_tpu/ops/pallas_hbv.py:109"),
     "hbv_traj": (HBV_SRC, "rrmpg_tpu/ops/pallas_hbv.py:203"),
+    "snow_objective": (SNOW_SRC, "rrmpg_tpu/ops/pallas_snow.py:115"),
+    "snow_traj": (SNOW_SRC, "rrmpg_tpu/ops/pallas_snow.py:213"),
+}
+# Kernels with several modes: mode -> line of the mode in the TPU kernel.
+KERNEL_MODES = {
+    "hbv_objective": {"mse": "rrmpg_tpu/ops/pallas_hbv.py:109",
+                      "stats": "rrmpg_tpu/ops/pallas_hbv.py:151"},
+    "snow_objective": {"mse": "rrmpg_tpu/ops/pallas_snow.py:264",
+                       "stats": "rrmpg_tpu/ops/pallas_snow.py:265",
+                       "sca_stats": "rrmpg_tpu/ops/pallas_snow.py:270"},
 }
 BOUNDS_X4_WIDE = 9.9      # exercises every tap of the (10, 21) registers
 MC_MEMBERS = 131072
@@ -82,6 +102,22 @@ HBV_GOLDEN = {'T_t': 0, 'DD': 4.25, 'FC': 177.1, 'Beta': 2.35, 'C': 0.02,
               'K_p': 0.05, 'L': 4.87}
 HBV_INITS = (0.0, 100.0, 3.0, 10.0)      # snow, soil, s1, s2
 HBV_AREA = 410                           # km^2, mm/day <-> m^3/s
+# The snow goldens' settings (tests/test_models_golden.py).
+ALTITUDES = [550, 620, 700, 785, 920]
+CEMANEIGE_GOLDEN = {'CTG': 0.25, 'Kf': 3.74}
+CEMANEIGEGR4J_GOLDEN = dict(CEMANEIGE_GOLDEN,
+                            x1=np.exp(5.25483021675164),
+                            x2=np.sinh(1.58209470624126),
+                            x3=np.exp(4.3853181982412),
+                            x4=np.exp(0.954786342674327) + 0.5)
+HYST_GOLDEN = {"Thacc": 18.6, "Rsp": 0.22, "CTG": 0.78, "Kf": 4.02,
+               "x1": 546, "x2": 0.53, "x3": 276, "x4": 1.32}
+FRAC_ICE_GOLDEN = np.array([0.02, 0.04, 0.25, 0.51, 0.71])
+# (name, hyst, ice) of the four GR4J compositions.
+SNOW_VARIANTS = (("plain", False, False), ("hyst", True, False),
+                 ("ice", False, True), ("hyst+ice", True, True))
+SNOW_CHECK_INITS = (2.0, -1.0, 0.4, 0.3)  # snow pack, thermal state, s, r
+SNOW_FIT_MAXITER = 20
 # Tolerances of the kernel-vs-plain checks, (rtol, atol).  float64: the same
 # operations in another order (FMA contraction) and libdevice vs ATen
 # tanh/pow.  float32: rounding compounds over thousands of steps of the
@@ -108,6 +144,14 @@ GR4J_STEP_OPS = {(3, 7): 37 + 2 + 5 + 13 + 21, (10, 21): 37 + 2 + 19 + 41 + 21}
 HBV_STEP_OPS = 10 + 14 + 17
 ABC_STEP_OPS = 6
 OBJECTIVE_OPS = {"mse": 3, "stats": 8}
+# snow_fused.cu, per layer and step: snow_layer_step 20 (plain) or 32
+# (hysteresis), the ice melt 5, the layer sum 1; per step 2 for the mean and
+# the ice term; the objective always forms its four sums (8); the SCA
+# statistics add 10 per band.
+SNOW_LAYER_OPS = {False: 20, True: 32}
+SNOW_ICE_OPS = 5
+SNOW_SUMS_OPS = 8
+SNOW_SCA_OPS = 10      # per band: 100*sca, the difference, four sums
 # GPU cycles to spin before a timed run of launches, so that the host has
 # queued them all before the first one starts.
 SPIN_CYCLES = 40_000_000
@@ -270,6 +314,82 @@ def hbv_plain(fh, tensors, qobs, params, mode, masked=False):
     return fh.hbv_objective_reference(*series, qobs, packed, mode == "stats",
                                       masked, count)
 
+class SnowData:
+    """Layer forcing and observations of one snow call, on the card;
+    ``qobs`` and ``ndsi`` are keyed by ``masked`` (the gapped copies)."""
+
+    def __init__(self, prec, temp, frac, etp, frac_ice, qobs, ndsi=None,
+                 qobs_gap=None, ndsi_gap=None):
+        self.prec, self.temp, self.frac, self.etp = prec, temp, frac, etp
+        self.frac_ice = frac_ice
+        self.qobs = {False: qobs, True: qobs if qobs_gap is None else qobs_gap}
+        self.ndsi = {False: ndsi, True: ndsi if ndsi_gap is None else ndsi_gap}
+
+    @classmethod
+    def random(cls, rng, t_len, num_layers, dtype, temp_range=(-12, 18),
+               frac_range=(-0.3, 1.2), ice_hi=0.7, qobs_range=(1, 5)):
+        shape = (t_len, num_layers)
+        forcing = [as_tensor(a, dtype) for a in (
+            rng.uniform(0, 15, shape), rng.uniform(*temp_range, shape),
+            np.clip(rng.uniform(*frac_range, shape), 0, 1),
+            rng.uniform(0, 4, t_len), rng.uniform(0, ice_hi, num_layers))]
+        qobs = rng.uniform(*qobs_range, t_len)
+        ndsi = rng.uniform(0, 100, (num_layers, t_len))
+        # Gaps: discharge and each band by their own.
+        qobs_gap, ndsi_gap = qobs.copy(), ndsi.copy()
+        qobs_gap[::17] = np.nan
+        qobs_gap[40:55] = np.nan
+        ndsi_gap[0, ::5] = np.nan
+        ndsi_gap[-1, 100:160] = np.nan
+        return cls(*forcing, *(as_tensor(a, dtype) for a in (
+            qobs, ndsi, qobs_gap, ndsi_gap)))
+
+
+def snow_random_params(rng, n, dtype, x4_hi):
+    """Members over the widest bounds of the snow classes."""
+    p = {'CTG': rng.uniform(0, 1, n), 'Kf': rng.uniform(0, 10, n),
+         'Thacc': rng.uniform(1, 100, n), 'Rsp': rng.uniform(0, 1, n),
+         'x1': rng.uniform(10, 1200, n), 'x2': rng.uniform(-5, 3, n),
+         'x3': rng.uniform(20, 5000, n), 'x4': rng.uniform(1.1, x4_hi, n),
+         'DDF': rng.uniform(0, 30, n)}
+    return {k: as_tensor(v, dtype) for k, v in p.items()}
+
+
+def snow_call(fs, d, params, mode, hyst=False, ice=False, snow_only=False,
+              uh=(10, 21), masked=False, inits=SNOW_CHECK_INITS, plain=False):
+    """One mode ('traj', 'mse', 'stats' or 'sca_stats') of K8 / K9 through
+    its wrapper or, with ``plain``, the plain version on the same inputs."""
+    snow0, th0, s_init, r_init = inits
+    frac_ice = d.frac_ice if ice else None
+    sca = mode == "sca_stats"
+    qobs, ndsi = d.qobs[masked], (d.ndsi[masked] if sca else None)
+    if not plain:
+        if mode == "traj":
+            return fs.snowgr4j_simulate_fused(
+                d.prec, d.temp, d.etp, d.frac, snow0, th0, s_init, r_init,
+                params, frac_ice=frac_ice, hyst=hyst, ice=ice,
+                snow_only=snow_only, num_uh1=uh[0], num_uh2=uh[1])
+        return fs.snowgr4j_ensemble_mse_fused(
+            d.prec, d.temp, d.etp, d.frac, qobs, snow0, th0, s_init, r_init,
+            params, frac_ice=frac_ice, ndsi=ndsi, hyst=hyst, ice=ice,
+            stats=mode == "stats", sca_stats=sca, snow_only=snow_only,
+            num_uh1=uh[0], num_uh2=uh[1], masked=masked)
+    packed = fs.pack_params(params, s_init, r_init, snow_only)
+    snow, rain, consts = fs.layer_inputs(d.prec, d.frac, hyst)
+    if frac_ice is None:
+        frac_ice = torch.zeros_like(d.frac_ice)
+    args = (packed, consts, frac_ice, snow0, th0, hyst, ice, snow_only, *uh)
+    if mode == "traj":
+        return fs.snowgr4j_simulate_reference(snow, rain, d.temp, d.etp,
+                                              *args)
+    count = int(torch.isfinite(qobs).sum())
+    return fs.snowgr4j_objective_reference(
+        snow, rain, d.temp, d.etp, qobs, *args, stats=mode == "stats",
+        masked=masked, count=count,
+        ndsi=ndsi.T.contiguous() if sca else None,
+        band_counts=(torch.isfinite(ndsi).sum(dim=1).to(ndsi.dtype)
+                     if sca else None))
+
 
 # ---------------------------------------------------------------------------
 # Phases
@@ -299,6 +419,14 @@ def phase_environment():
     return card
 
 
+def template_args(mangled):
+    """'fLi10ELi21ELb1E' -> 'float, 10, 21, true'."""
+    args = [{"d": "double", "f": "float"}.get(mangled[0], mangled[0])]
+    for kind, value in re.findall(r"L([ib])(\d+)E", mangled):
+        args.append(value if kind == "i" else str(value == "1").lower())
+    return ", ".join(args)
+
+
 def phase_build():
     from rrmpg_tpu_torch.ops._build import load_library
 
@@ -309,9 +437,10 @@ def phase_build():
     kernel, spill, n_kernels = None, 0, 0
     for ln in lib.log.splitlines():
         if "Compiling entry function" in ln:
-            m = re.search(r"\d+([a-z0-9_]+_kernel)I(\w+?)EEv", ln)
-            kernel, spill = (m.group(1) + "<" + m.group(2) + ">") if m \
-                else ln.split("'")[1], 0
+            m = re.search(r"_cu_[0-9a-f]{8}\d+([a-z0-9_]+_kernel)I(\w+?)EEv",
+                          ln)
+            kernel, spill = (m.group(1) + "<" + template_args(m.group(2))
+                             + ">") if m else ln.split("'")[1], 0
         elif "spill stores" in ln:
             spill = max(spill, int(ln.split("bytes spill stores")[0]
                                    .split(",")[-1]))
@@ -420,6 +549,77 @@ def phase_kernels_hbv(forcing, qobs_np, n=1000):
           f"N={n}, T={len(qobs_np)}")
 
 
+def phase_kernels_snow(n=256, t_len=300):
+    """K8 and K9, every instantiated variant against the plain version.
+
+    float32: kernel and plain version are compared on the same float32
+    inputs with the tolerances of the other kernels.  The snow step's
+    products are written without fused multiply-adds, so both sides take
+    the same branches and no member has to be set aside; the snow-only
+    outflow, which is the snow state alone, is also counted for bit
+    equality."""
+    from rrmpg_tpu_torch.ops import fused_gr4j as fg
+    from rrmpg_tpu_torch.ops import fused_snow as fs
+
+    n_checks, unequal = 0, 0
+    for dtype in (F64, F32):
+        tol = TOL[dtype]
+        name = str(dtype)[6:]
+        for num_layers in (1, 5):
+            d = SnowData.random(np.random.default_rng(num_layers), t_len,
+                                num_layers, dtype)
+            # The snow-only routine (no GR4J, no UH registers).
+            params = snow_random_params(np.random.default_rng(3), n, dtype,
+                                        2.9)
+            cases = [("traj", False)] + [(mode, masked)
+                                         for masked in (False, True)
+                                         for mode in ("mse", "stats")]
+            for mode, masked in cases:
+                kw = dict(snow_only=True, masked=masked)
+                got = snow_call(fs, d, params, mode, **kw)
+                want = snow_call(fs, d, params, mode, plain=True, **kw)
+                report(f"snow {name} L={num_layers} snow-only {mode}"
+                       f"{'+masked' if masked else ''}", got, want,
+                       *tol["traj" if mode == "traj" else "obj"])
+                n_checks += 1
+                if mode == "traj":
+                    unequal += int((got != want).sum())
+            for uh in fg.SUPPORTED_UH:
+                params = snow_random_params(
+                    np.random.default_rng(uh[0]), n, dtype,
+                    2.9 if uh[0] == 3 else BOUNDS_X4_WIDE)
+                for variant, hyst, ice in SNOW_VARIANTS:
+                    kw = dict(hyst=hyst, ice=ice, uh=uh)
+                    label = (f"snow {name} L={num_layers} uh={uh} "
+                             f"{variant:8s}")
+                    report(f"{label} traj", snow_call(fs, d, params, "traj",
+                                                      **kw),
+                           snow_call(fs, d, params, "traj", plain=True, **kw),
+                           *tol["traj"])
+                    n_checks += 1
+                    for masked in (False, True):
+                        # One plain run gives every mode's numbers: MSE is
+                        # row 0 of the statistics, which are rows 0..3 of
+                        # the SCA statistics.
+                        widest = "sca_stats" if hyst else "stats"
+                        want = snow_call(fs, d, params, widest, plain=True,
+                                         masked=masked, **kw)
+                        for mode in ("mse", "stats", "sca_stats"):
+                            if mode == "sca_stats" and not hyst:
+                                continue
+                            got = snow_call(fs, d, params, mode,
+                                            masked=masked, **kw)
+                            ref = {"mse": want[0], "stats": want[:4],
+                                   "sca_stats": want}[mode]
+                            report(f"{label} {mode}"
+                                   f"{'+masked' if masked else ''}", got,
+                                   ref, *tol["obj"])
+                            n_checks += 1
+    print(f"[3 kernels] snow: {n_checks} kernel-vs-plain checks passed at "
+          f"N={n}, T={t_len}, L in (1, 5); snow-only outflow elements that "
+          f"differ from the plain version in any bit: {unequal}")
+
+
 def phase_golden(forcing, qsim_matlab):
     import pandas as pd
     from rrmpg_tpu_torch.models import GR4J, HBVEdu
@@ -444,6 +644,46 @@ def phase_golden(forcing, qsim_matlab):
     print(f"[4 golden] HBV-Edu fused float64 vs MATLAB qsim: T={len(q)} "
           f"max_abs={err:.3e} np.allclose={ok}")
     check(ok, "fused HBV-Edu does not reproduce the MATLAB trajectory")
+
+    # The four Excel snow trajectories through K9.
+    from rrmpg_tpu_torch.models import (Cemaneige, CemaneigeGR4J,
+                                        CemaneigeHystGR4J,
+                                        CemaneigeHystGR4JIce)
+
+    def read(name, **kw):
+        return pd.read_csv(REPO / "tests" / "data" / name, **kw)
+
+    def met(df):
+        return (df.precipitation, df.mean_temp, df.min_temp, df.max_temp)
+
+    df = read('cemaneige_validation_data.csv', sep=';')
+    runs = [("Cemaneige", df.liquid_outflow, Cemaneige(
+        params=CEMANEIGE_GOLDEN, dtype=F64).simulate(
+            *met(df), met_station_height=495, altitudes=ALTITUDES,
+            engine='fused'))]
+    df = read('cemaneigegr4j_validation_data.csv', sep=';', index_col=0)
+    runs.append(("CemaneigeGR4J", df.qsim, CemaneigeGR4J(
+        params=CEMANEIGEGR4J_GOLDEN, dtype=F64).simulate(
+            *met(df), df.pe, met_station_height=495, altitudes=ALTITUDES,
+            s_init=0.6, r_init=0.7, engine='fused')))
+    df = read('cemaneigehystgr4j_validation_data.csv', index_col=0)
+    runs.append(("CemaneigeHystGR4J", df.qsim, CemaneigeHystGR4J(
+        params=HYST_GOLDEN, dtype=F64).simulate(
+            *met(df), df.pe, met_station_height=700, altitudes=ALTITUDES,
+            s_init=0.5, r_init=0.4, engine='fused')))
+    df = read('cemaneigehystgr4jice_validation_data.csv', index_col=0)
+    runs.append(("CemaneigeHystGR4JIce", df.qsim, CemaneigeHystGR4JIce(
+        params=dict(HYST_GOLDEN, DDF=5), dtype=F64).simulate(
+            *met(df), df.pe, FRAC_ICE_GOLDEN, met_station_height=700,
+            altitudes=ALTITUDES, s_init=0.5, r_init=0.4, sca_init=0.2,
+            engine='fused')))
+    for name, want, q in runs:
+        q, want = q.cpu().numpy().ravel(), want.to_numpy()
+        ok = np.allclose(q, want)
+        print(f"[4 golden] {name} fused float64 vs Excel: T={len(q)} "
+              f"max_abs={float(np.max(np.abs(q - want))):.3e} "
+              f"np.allclose={ok}")
+        check(ok, f"fused {name} does not reproduce the Excel trajectory")
 
 
 def run_counted(fn):
@@ -722,6 +962,148 @@ def phase_main_path_abc(card, qobs, prec_basin):
     return launches, max_abs, walls
 
 
+def snow_main_data():
+    """The hysteresis + ice Excel sheet's forcing; its simulated discharge
+    with a few gaps as observations; five NDSI bands made from a seed (the
+    repository has no observed NDSI), two of them with gaps."""
+    import pandas as pd
+
+    df = pd.read_csv(REPO / "tests" / "data"
+                     / "cemaneigehystgr4jice_validation_data.csv",
+                     index_col=0)
+    met = dict(prec=df.precipitation.to_numpy(),
+               mean_temp=df.mean_temp.to_numpy(),
+               min_temp=df.min_temp.to_numpy(),
+               max_temp=df.max_temp.to_numpy(), etp=df.pe.to_numpy())
+    qobs = df.qsim.to_numpy().copy()
+    qobs[300:320] = np.nan
+    qobs[::91] = np.nan
+    rng = np.random.default_rng(5)
+    ndsi = [rng.uniform(0, 100, len(df)) for _ in ALTITUDES]
+    ndsi[1][rng.choice(len(df), 200, replace=False)] = np.nan
+    ndsi[4][::13] = np.nan
+    return met, qobs, ndsi
+
+
+def phase_main_path_snow(card):
+    from rrmpg_tpu_torch.models import Cemaneige, CemaneigeHystGR4JIce
+    from rrmpg_tpu_torch.ops import fused_snow as fs
+    from rrmpg_tpu_torch.tools import monte_carlo
+
+    model_cls = CemaneigeHystGR4JIce
+    met, qobs, ndsi = snow_main_data()
+    setup = dict(met_station_height=700, altitudes=ALTITUDES, s_init=0.5,
+                 r_init=0.4)
+    fit_kw = dict(engine='fused', seed=0, maxiter=SNOW_FIT_MAXITER, **setup)
+    station = {k: met[k] for k in ("prec", "mean_temp", "min_temp",
+                                   "max_temp")}
+    # The snow-only routine calibrates against the layer-mean outflow of
+    # the golden parameters.
+    outflow = Cemaneige(params=CEMANEIGE_GOLDEN).simulate(
+        **station, met_station_height=700,
+        altitudes=ALTITUDES).cpu().numpy().ravel().astype(np.float64)
+    walls = {}
+
+    def timed(key, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        walls[key] = time.perf_counter() - t0
+        return out
+
+    def drive():
+        np.random.seed(0)
+        mc = timed("mc", lambda: monte_carlo(
+            model_cls(), num=MC_MEMBERS, qobs=qobs, return_qsim=False,
+            engine='fused', metrics=('mse', 'nse', 'kge'), **met,
+            frac_ice=FRAC_ICE_GOLDEN, **setup))
+        forcing = (*met.values(), FRAC_ICE_GOLDEN)
+        res_mse = timed("fit_mse", lambda: model_cls().fit(
+            qobs, *forcing, **fit_kw))
+        res_kge = timed("fit_kge", lambda: model_cls().fit(
+            qobs, *forcing, loss_metric='kge', **fit_kw))
+        res_sca = timed("fit_q_sca", lambda: model_cls().fit_Q_SCA(
+            qobs, *forcing, *ndsi, loss_metric='kge', **fit_kw))
+        calibrated = model_cls(params={
+            k: float(v) for k, v in zip(model_cls._param_list, res_kge.x)})
+        qsim = timed("simulate", lambda: calibrated.simulate(
+            *forcing, engine='fused', **setup))
+        res_snow = timed("cemaneige_fit", lambda: Cemaneige().fit(
+            outflow, **station, met_station_height=700, altitudes=ALTITUDES,
+            engine='fused', seed=0, maxiter=SNOW_FIT_MAXITER))
+        snow_model = Cemaneige(params={
+            k: float(v) for k, v in zip(Cemaneige._param_list, res_snow.x)})
+        snow_out = timed("cemaneige_simulate", lambda: snow_model.simulate(
+            **station, met_station_height=700, altitudes=ALTITUDES,
+            engine='fused'))
+        return (mc, res_mse, res_kge, res_sca, calibrated, qsim, res_snow,
+                snow_model, snow_out)
+
+    (mc, res_mse, res_kge, res_sca, calibrated, qsim, res_snow, snow_model,
+     snow_out), launches, _ = run_counted(drive)
+    for m in ('mse', 'nse', 'kge'):
+        check(mc[m].shape == (MC_MEMBERS,), f"MC {m} has shape {mc[m].shape}")
+        check(np.isfinite(mc[m]).all(), f"snow MC {m} has non-finite values")
+    for res, what in ((res_mse, "mse"), (res_kge, "kge"),
+                      (res_sca, "Q+SCA")):
+        check_fit(model_cls, res, f"snow {what}")
+    check_fit(Cemaneige, res_snow, "Cemaneige mse")
+    t_len = len(qobs)
+    for series, what in ((qsim, "calibrated snow"), (snow_out, "Cemaneige")):
+        check(series.shape == (t_len, 1)
+              and bool(torch.isfinite(series).all()),
+              f"{what} simulation is not a finite (T, 1) series")
+    expect = {"snow_stats": 1 + res_kge.nit + 1,
+              "snow_mse": res_mse.nit + 1 + res_snow.nit + 1,
+              "snow_sca_stats": res_sca.nit + 1, "snow_traj": 2}
+    check(launches == expect,
+          f"launch counts {launches} differ from the expected {expect}")
+    print(f"[5 main path] CemaneigeHystGR4JIce, Excel forcing T={t_len} x "
+          f"{len(ALTITUDES)} layers float32: MC {MC_MEMBERS} members best "
+          f"NSE {np.max(mc['nse']):.4f} in {walls['mc']:.3f} s; fit mse "
+          f"nit={res_mse.nit} fun={res_mse.fun:.5f} in "
+          f"{walls['fit_mse']:.3f} s; fit kge nit={res_kge.nit} "
+          f"1-KGE={res_kge.fun:.5f} in {walls['fit_kge']:.3f} s; fit_Q_SCA "
+          f"kge nit={res_sca.nit} fun={res_sca.fun:.5f} in "
+          f"{walls['fit_q_sca']:.3f} s; Cemaneige fit nit={res_snow.nit} "
+          f"fun={res_snow.fun:.3e}; launches {launches} == expected; {card}")
+
+    # Each kernel mode against its plain version at the shapes the main
+    # path gave it (these launches are not counted above).
+    f = model_cls()._prepare(*met.values(), FRAC_ICE_GOLDEN, 700, ALTITUDES,
+                             0, 0, 0, 0.5, 0.4)
+    forcing = (f.prec, f.mean_temp, f.frac_solid_prec, f.etp, f.frac_ice)
+    d = SnowData(*forcing, as_tensor(qobs, F32),
+                 as_tensor(np.stack(ndsi), F32))
+    d_snow = SnowData(*forcing, as_tensor(outflow, F32))
+    mc_params, _ = model_cls()._prepare_params(mc['params'])
+    cal_params, _ = calibrated._prepare_params(None)
+    snow_params, _ = snow_model._prepare_params(None)
+    full = dict(hyst=True, ice=True, uh=(10, 21), inits=(0.0, 0.0, 0.5, 0.4))
+    only = dict(snow_only=True, inits=(0.0, 0.0, 0.0, 0.0))
+    cases = [
+        ("snow_stats", "MC", d, mc_params, "stats", dict(full, masked=True)),
+        ("snow_mse", "fit population", d, population_params(
+            model_cls, res_mse), "mse", dict(full, masked=True)),
+        ("snow_stats", "fit population", d, population_params(
+            model_cls, res_kge), "stats", dict(full, masked=True)),
+        ("snow_sca_stats", "fit_Q_SCA population", d, population_params(
+            model_cls, res_sca), "sca_stats", dict(full, masked=True)),
+        ("snow_traj", "calibrated", d, cal_params, "traj", full),
+        ("snow_mse", "Cemaneige fit population", d_snow, population_params(
+            Cemaneige, res_snow), "mse", only),
+        ("snow_traj", "Cemaneige", d_snow, snow_params, "traj", only),
+    ]
+    max_abs = {}
+    for kernel, what, data, params, mode, kw in cases:
+        err = report(f"main-path shape {kernel} ({what})",
+                     snow_call(fs, data, params, mode, **kw),
+                     snow_call(fs, data, params, mode, plain=True, **kw),
+                     *TOL[F32]["traj" if mode == "traj" else "obj"])
+        max_abs[kernel] = max(max_abs.get(kernel, 0.0), err)
+    return launches, max_abs, walls
+
+
 def phase_times(card, prec_np, etp_np, qobs_np, forcing, qsim_matlab):
     """Kernel, plain version and bound of every kernel; returns
     ``{name: dict(ms, plain_ms, bound_ms, bound_by)}``."""
@@ -791,6 +1173,41 @@ def phase_times(card, prec_np, etp_np, qobs_np, forcing, qsim_matlab):
                      4 * (n_series * t_len + 17 * n + out_bytes), 5, shape)
         print(f"    {n * t_len / (ms * 1e-3):.4e} member-steps/s")
 
+    # The snow family at the hysteresis + ice flagship shape: 131072 x 3651
+    # x 5 layers, UH (3, 7), forcing and members from one numpy recipe.
+    from rrmpg_tpu_torch.ops import fused_snow as fs
+
+    num_layers, uh = 5, fg.SUPPORTED_UH[0]
+    rng = np.random.default_rng(2)
+    d = SnowData.random(rng, t_len, num_layers, F32, temp_range=(-10, 15),
+                        frac_range=(0, 1), ice_hi=0.5, qobs_range=(0, 5))
+    snow_params = {k: as_tensor(rng.uniform(lo, hi, n), F32)
+                   for k, (lo, hi) in (
+                       ('CTG', (0, 1)), ('Kf', (0, 6)), ('Thacc', (5, 50)),
+                       ('Rsp', (0.1, 1)), ('x1', (100, 1200)),
+                       ('x2', (-5, 3)), ('x3', (20, 300)),
+                       ('x4', (1.1, 2.9)), ('DDF', (1, 10)))}
+    kw = dict(hyst=True, ice=True, uh=uh, inits=(0.0, 0.0, 0.3, 0.3))
+    shape = f"hyst+ice uh={uh} N={n} T={t_len} L={num_layers}"
+    step = (num_layers * (SNOW_LAYER_OPS[True] + SNOW_ICE_OPS + 1) + 2
+            + GR4J_STEP_OPS[uh]) * n * t_len
+    series = 3 * t_len * num_layers + t_len + 2 * num_layers
+    extra = {  # mode: (operations per step, values read, values written)
+        "mse": (SNOW_SUMS_OPS, t_len, n),
+        "stats": (SNOW_SUMS_OPS, t_len, 4 * n),
+        "sca_stats": (SNOW_SUMS_OPS + SNOW_SCA_OPS * num_layers,
+                      t_len + t_len * num_layers + num_layers,
+                      (4 + 4 * num_layers) * n),
+        "traj": (0, 0, n * t_len)}
+    for mode, (ops, read, written) in extra.items():
+        name = f"snow_{mode}"
+        ms = measure(
+            name, lambda: snow_call(fs, d, snow_params, mode, **kw),
+            lambda: snow_call(fs, d, snow_params, mode, plain=True, **kw),
+            step + ops * n * t_len, 4 * (series + read + 11 * n + written),
+            3, shape)
+        print(f"    {n * t_len / (ms * 1e-3):.4e} member-steps/s")
+
     # ABC, one member over 10M steps.  Three copies of the series take
     # turns, so that no launch finds its input in the 50 MB L2 cache.
     rng = np.random.default_rng(0)
@@ -819,9 +1236,10 @@ def phase_times(card, prec_np, etp_np, qobs_np, forcing, qsim_matlab):
 
 
 def kernel_entries(launches, max_abs, times):
-    """The seven kernels of the ``kernels`` line.  K12 is one kernel with
-    two modes: its entry carries the stats mode (the Monte-Carlo path)
-    at the top and both modes under ``modes``."""
+    """The nine kernels of the ``kernels`` line.  K8 and K12 are one kernel
+    with several modes: the entry carries the stats mode (the Monte-Carlo
+    path) at the top, the launches of all modes together, and every mode
+    under ``modes``."""
     def entry(name, launches_n, err, row):
         source, replaces = KERNELS[name]
         return {"name": name, "route": "cuda", "source": source,
@@ -832,21 +1250,22 @@ def kernel_entries(launches, max_abs, times):
 
     out = []
     for name in KERNELS:
-        if name != "hbv_objective":
+        if name not in KERNEL_MODES:
             out.append(entry(name, launches.get(name, 0), max_abs[name],
                              times[name]))
             continue
-        k12 = entry(name, launches.get("hbv_mse", 0)
-                    + launches.get("hbv_stats", 0),
-                    max(max_abs["hbv_mse"], max_abs["hbv_stats"]),
-                    times["hbv_stats"])
-        k12["modes"] = {
-            mode: {"replaces": f"rrmpg_tpu/ops/pallas_hbv.py:{line}",
-                   "launches": launches.get(f"hbv_{mode}", 0),
-                   "max_abs_err": max_abs[f"hbv_{mode}"],
-                   **times[f"hbv_{mode}"]}
-            for mode, line in (("mse", 109), ("stats", 151))}
-        out.append(k12)
+        family = name.split("_")[0]
+        modes = [f"{family}_{mode}" for mode in KERNEL_MODES[name]]
+        combined = entry(name, sum(launches.get(m, 0) for m in modes),
+                         max(max_abs[m] for m in modes),
+                         times[f"{family}_stats"])
+        combined["modes"] = {
+            mode: {"replaces": line,
+                   "launches": launches.get(f"{family}_{mode}", 0),
+                   "max_abs_err": max_abs[f"{family}_{mode}"],
+                   **times.get(f"{family}_{mode}", {})}
+            for mode, line in KERNEL_MODES[name].items()}
+        out.append(combined)
     return out
 
 
@@ -858,12 +1277,14 @@ def main():
     phase_kernels_gr4j(prec, etp, qobs)
     phase_kernels_abc()
     phase_kernels_hbv(forcing, qsim_matlab)
+    phase_kernels_snow()
     phase_golden(forcing, qsim_matlab)
     launches, max_abs = {}, {}
     for name, result in (
             ("GR4J", phase_main_path_gr4j(card, qobs, prec, etp)),
             ("HBV-Edu", phase_main_path_hbv(card, forcing, qsim_matlab)),
-            ("ABC", phase_main_path_abc(card, qobs, prec))):
+            ("ABC", phase_main_path_abc(card, qobs, prec)),
+            ("snow", phase_main_path_snow(card))):
         launches.update(result[0])
         max_abs.update(result[1])
         print(f"[5 main path] {name} wall: " + ", ".join(

@@ -75,7 +75,8 @@ def trace(card, label, fn):
 def main():
     card = cs.phase_environment()
     cs.phase_build()
-    from rrmpg_tpu_torch.models import GR4J, ABCModel, HBVEdu
+    from rrmpg_tpu_torch.models import (GR4J, ABCModel,
+                                        CemaneigeHystGR4JIce, HBVEdu)
     from rrmpg_tpu_torch.ops import abc_fused, abc_fused_single
     from rrmpg_tpu_torch.tools import monte_carlo
 
@@ -115,6 +116,32 @@ def main():
     trace(card, f"HBV-Edu simulate 1 x {len(hbv_qobs)} (fused)",
           lambda: HBVEdu(params=cs.HBV_GOLDEN).simulate(
               **hbv_kw, engine='fused'))
+
+    met, snow_qobs, ndsi = cs.snow_main_data()
+    snow_forcing = (*met.values(), cs.FRAC_ICE_GOLDEN)
+    snow_kw = dict(met_station_height=700, altitudes=cs.ALTITUDES,
+                   s_init=0.5, r_init=0.4)
+    snow_fit = dict(engine='fused', seed=0, maxiter=cs.SNOW_FIT_MAXITER,
+                    **snow_kw)
+    shape = f"{len(snow_qobs)} x {len(cs.ALTITUDES)} layers"
+    trace(card, f"CemaneigeHystGR4JIce MC {n} x {shape}",
+          seeded(lambda: monte_carlo(
+              CemaneigeHystGR4JIce(), num=n, qobs=snow_qobs, **mc_kw, **met,
+              frac_ice=cs.FRAC_ICE_GOLDEN, **snow_kw)))
+    for loss in ('mse', 'kge'):
+        trace(card, f"CemaneigeHystGR4JIce fit {loss} (135 members x "
+              f"{shape}, maxiter {cs.SNOW_FIT_MAXITER})",
+              lambda: CemaneigeHystGR4JIce().fit(
+                  snow_qobs, *snow_forcing, loss_metric=loss, **snow_fit))
+    trace(card, f"CemaneigeHystGR4JIce fit_Q_SCA kge (135 members x "
+          f"{shape}, maxiter {cs.SNOW_FIT_MAXITER})",
+          lambda: CemaneigeHystGR4JIce().fit_Q_SCA(
+              snow_qobs, *snow_forcing, *ndsi, loss_metric='kge',
+              **snow_fit))
+    trace(card, f"CemaneigeHystGR4JIce simulate 1 x {shape} (fused)",
+          lambda: CemaneigeHystGR4JIce(
+              params=dict(cs.HYST_GOLDEN, DDF=5)).simulate(
+                  *snow_forcing, engine='fused', **snow_kw))
 
     prec_long = np.random.default_rng(0).uniform(0, 20, cs.ABC_STEPS)
     prec_t = cs.as_tensor(prec_long, cs.F32)

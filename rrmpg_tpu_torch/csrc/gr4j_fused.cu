@@ -4,9 +4,9 @@
 //   K1  _mse_kernel    (gr4j_ensemble_mse_pallas)             -> gr4j_objective_kernel<..., STATS=false>
 //   K2  _stats_kernel  (gr4j_ensemble_mse_pallas, stats=True) -> gr4j_objective_kernel<..., STATS=true>
 //   K3  _traj_kernel   (gr4j_simulate_pallas)                 -> gr4j_traj_kernel
-// and the shared step/init they are built from (_gr4j_step, _init_block),
-// written once here as gr4j_step / gr4j_init so the snow and regional
-// kernels can reuse them.
+// The shared step/init they are built from (_gr4j_step, _init_block) are
+// gr4j_step / gr4j_init in gr4j_step.cuh, which the snow kernels include
+// too.
 //
 // What bounds these kernels on this card: per-thread serial latency.  Each
 // member is one long recurrence of T dependent steps (tanh, two divides,
@@ -38,131 +38,9 @@
 
 #include <cstddef>
 
+#include "gr4j_step.cuh"
+
 namespace {
-
-constexpr int kBlock = 128;
-
-__device__ __forceinline__ float dev_tanh(float x) { return tanhf(x); }
-__device__ __forceinline__ double dev_tanh(double x) { return tanh(x); }
-__device__ __forceinline__ float dev_sqrt(float x) { return sqrtf(x); }
-__device__ __forceinline__ double dev_sqrt(double x) { return sqrt(x); }
-__device__ __forceinline__ float dev_rsqrt(float x) { return rsqrtf(x); }
-__device__ __forceinline__ double dev_rsqrt(double x) { return rsqrt(x); }
-__device__ __forceinline__ float dev_pow(float x, float y) { return powf(x, y); }
-__device__ __forceinline__ double dev_pow(double x, double y) { return pow(x, y); }
-
-// max(x, 0) that propagates NaN, as jnp.maximum / torch.clamp do.
-template <typename Real>
-__device__ __forceinline__ Real relu_nan(Real x) {
-  return (x > Real(0) || x != x) ? x : Real(0);
-}
-
-template <typename Real>
-__device__ __forceinline__ Real clamp01(Real x) {
-  return x < Real(0) ? Real(0) : (x > Real(1) ? Real(1) : x);
-}
-
-template <typename Real>
-__device__ __forceinline__ Real pow4(Real x) {
-  Real x2 = x * x;
-  return x2 * x2;
-}
-
-// S-curves of the reference (gr4j_model.py:159-192), for t >= 0.
-template <typename Real>
-__device__ __forceinline__ Real s_curve1(Real t, Real x4) {
-  if (t <= Real(0)) return Real(0);
-  return dev_pow(clamp01(t / x4), Real(2.5));
-}
-
-template <typename Real>
-__device__ __forceinline__ Real s_curve2(Real t, Real x4) {
-  if (t <= Real(0)) return Real(0);
-  Real ratio = t / x4;
-  if (t <= x4) return Real(0.5) * dev_pow(clamp01(ratio), Real(2.5));
-  return Real(1) - Real(0.5) * dev_pow(clamp01(Real(2) - ratio), Real(2.5));
-}
-
-// One member's parameters and state.  Local to the thread; with constant
-// indices the arrays live in registers.
-template <typename Real, int NUH1, int NUH2>
-struct Member {
-  Real x1, x2, ix1, ix3;
-  Real s, r;
-  Real oh1[NUH1], oh2[NUH2];  // UH ordinates
-  Real uh1[NUH1], uh2[NUH2];  // UH shift registers
-};
-
-// Cold start (_init_block without history): stores from the packed
-// absolute levels, UH ordinates from x4, empty shift registers.
-template <typename Real, int NUH1, int NUH2>
-__device__ __forceinline__ void gr4j_init(Member<Real, NUH1, NUH2>& m,
-                                          const Real* __restrict__ params,
-                                          int n, int i) {
-  const Real x1 = params[i];
-  const Real x3 = params[2 * (size_t)n + i];
-  const Real x4 = params[3 * (size_t)n + i];
-  m.x1 = x1;
-  m.x2 = params[(size_t)n + i];
-  m.ix1 = Real(1) / x1;
-  m.ix3 = Real(1) / x3;
-  m.s = params[4 * (size_t)n + i];
-  m.r = params[5 * (size_t)n + i];
-#pragma unroll
-  for (int j = 0; j < NUH1; ++j) {
-    m.oh1[j] = s_curve1(Real(j + 1), x4) - s_curve1(Real(j), x4);
-    m.uh1[j] = Real(0);
-  }
-#pragma unroll
-  for (int j = 0; j < NUH2; ++j) {
-    m.oh2[j] = s_curve2(Real(j + 1), x4) - s_curve2(Real(j), x4);
-    m.uh2[j] = Real(0);
-  }
-}
-
-// One GR4J time step (_gr4j_step, pallas_gr4j.py:56-117); returns the
-// discharge.  1/x1 and 1/x3 are multiplies; the rain and evaporation arms
-// need no branch because the inactive one is exactly zero.
-template <typename Real, int NUH1, int NUH2>
-__device__ __forceinline__ Real gr4j_step(Member<Real, NUH1, NUH2>& m,
-                                          Real p, Real e) {
-  const Real one = Real(1);
-  // production store (eq. 3/4 + percolation)
-  const Real p_n = relu_nan(p - e);
-  const Real pe_n = relu_nan(e - p);
-  const Real sr = m.s * m.ix1;
-  const Real tanh_pn = dev_tanh(p_n * m.ix1);
-  const Real tanh_pen = dev_tanh(pe_n * m.ix1);
-  const Real p_s = (m.x1 * (one - sr * sr) * tanh_pn) / (one + sr * tanh_pn);
-  const Real e_s =
-      (m.s * (Real(2) - sr) * tanh_pen) / (one + (one - sr) * tanh_pen);
-  const Real s_interim = m.s - e_s + p_s;
-  const Real zs = pow4(s_interim * m.ix1 * Real(4.0 / 9.0));
-  const Real perc = s_interim * (one - dev_rsqrt(dev_sqrt(one + zs)));
-  m.s = s_interim - perc;
-  const Real p_r = perc + (p_n - p_s);
-
-  // unit hydrograph shift registers
-  const Real pr1 = Real(0.9) * p_r;
-  const Real pr2 = Real(0.1) * p_r;
-#pragma unroll
-  for (int j = 0; j < NUH1 - 1; ++j) m.uh1[j] = m.uh1[j + 1] + m.oh1[j] * pr1;
-  m.uh1[NUH1 - 1] = m.oh1[NUH1 - 1] * pr1;
-#pragma unroll
-  for (int j = 0; j < NUH2 - 1; ++j) m.uh2[j] = m.uh2[j + 1] + m.oh2[j] * pr2;
-  m.uh2[NUH2 - 1] = m.oh2[NUH2 - 1] * pr2;
-
-  // routing store (eq. 18 + non-linear outflow)
-  const Real rx = m.r * m.ix3;
-  const Real rx2 = rx * rx;
-  const Real gw_exchange = m.x2 * (rx2 * rx * dev_sqrt(rx));  // (r/x3)^3.5
-  const Real r_interim = relu_nan(m.r + m.uh1[0] + gw_exchange);
-  const Real zr = pow4(r_interim * m.ix3);
-  const Real q_r = r_interim * (one - dev_rsqrt(dev_sqrt(one + zr)));
-  m.r = r_interim - q_r;
-  const Real q_d = relu_nan(m.uh2[0] + gw_exchange);
-  return q_r + q_d;
-}
 
 // K3: (N, T) discharge trajectories, row-major.
 template <typename Real, int NUH1, int NUH2>

@@ -28,6 +28,44 @@ def params_from_numpy(params, device=DEFAULT_DEVICE, dtype=torch.float32):
             for k, v in params.items()}
 
 
+def layer_forcing_from_numpy(prec, mean_temp, frac_solid_prec, frac_ice=None,
+                             ndsi=None, device=DEFAULT_DEVICE,
+                             dtype=torch.float32):
+    """The snow ops' layer forcing as tensors, on the card unless
+    ``device='cpu'``: ``(prec, mean_temp, frac_solid_prec)``, each (T, L),
+    followed by ``frac_ice`` (L,) and ``ndsi`` (L, T; an array or a sequence
+    of L band series) where given -- the arrays the JAX ops take as they
+    are."""
+    device = resolve_device(device)
+
+    def tensor(a):
+        return torch.tensor(np.asarray(a, np.float64), dtype=dtype,
+                            device=device)
+
+    layers = tuple(tensor(a) for a in (prec, mean_temp, frac_solid_prec))
+    shape = layers[0].shape
+    if len(shape) != 2 or any(x.shape != shape for x in layers):
+        raise ValueError(
+            "prec, mean_temp and frac_solid_prec must share one (T, L) "
+            f"shape; got {[tuple(x.shape) for x in layers]}.")
+    out = layers
+    if frac_ice is not None:
+        frac_ice = tensor(frac_ice)
+        if frac_ice.shape != shape[1:]:
+            raise ValueError(
+                f"frac_ice must hold one fraction per layer ({shape[1]}); "
+                f"got shape {tuple(frac_ice.shape)}.")
+        out += (frac_ice,)
+    if ndsi is not None:
+        ndsi = tensor(np.stack([np.asarray(b, np.float64) for b in ndsi]))
+        if ndsi.shape != (shape[1], shape[0]):
+            raise ValueError(
+                f"ndsi must be (L, T) = ({shape[1]}, {shape[0]}); got "
+                f"{tuple(ndsi.shape)}.")
+        out += (ndsi,)
+    return out
+
+
 def gr4j_state_from_numpy(state, device=DEFAULT_DEVICE,
                           dtype=torch.float32):
     """Batched :class:`~rrmpg_tpu_torch.ops.gr4j.GR4JState` from the fields

@@ -1,0 +1,431 @@
+"""Shared validation, met preprocessing and engines of the Cemaneige model
+family.
+
+Counterpart of the cold-start half of ``rrmpg_tpu/models/_snow_base.py``
+(validation and elevation-layer preprocessing once for all five snow
+classes, error types and messages as in the reference,
+``rrmpg/models/cemaneige.py:132-200``).  :class:`CemaneigeBase` holds what
+every snow class needs; :class:`SnowGR4JBase` adds what the four GR4J
+compositions share -- they differ only in two flags (hysteresis, ice melt)
+and in their parameter lists, so ``simulate`` / ``fit`` / ``fit_Q_SCA`` are
+written once here and each class keeps the reference's signature.
+
+Engines: ``'scan'`` is plain batched PyTorch (:mod:`..ops.compositions`),
+``'fused'`` the hand-written CUDA kernels K8 / K9 (:mod:`..ops.fused_snow`)
+for CUDA tensors, on the CPU their plain versions.
+
+Forecast mode (``initial_state`` / ``return_final_state``) waits for the
+state kernel K10 and the state bundles.
+"""
+
+import numbers
+import typing
+
+import numpy as np
+import torch
+
+from ..ops.compositions import (
+    run_cemaneigegr4j,
+    run_cemaneigegr4jice,
+    run_cemaneigehystgr4j,
+    run_cemaneigehystgr4jice,
+)
+from ..ops.fused_snow import (
+    q_sca_loss_from_stats,
+    snowgr4j_ensemble_mse_fused,
+    snowgr4j_simulate_fused,
+)
+from ..ops.met import (
+    calculate_solid_fraction,
+    extrapolate_precipitation,
+    extrapolate_temperature,
+)
+from ..ops.stats import losses_from_stats
+from ..ops.uh import NUM_UH1, NUM_UH2, required_uh_lengths
+from ..utils.array_checks import check_for_negatives, validate_array_input
+from ..utils.metrics import calibration_loss
+from .basemodel import BaseModel, check_engine
+from .gr4j import GR4J, fit_uh_lengths
+
+NUM_NDSI_BANDS = 5
+
+
+def _no_forecast_state(initial_state, return_final_state):
+    if initial_state is not None or return_final_state:
+        raise NotImplementedError(
+            "Forecast mode (initial_state / return_final_state) is not "
+            "ported yet; it needs the state kernel K10 and the state "
+            "bundles (ROADMAP.md, Queue 1, item 6).")
+
+
+def _no_mesh(mesh):
+    if mesh is not None:
+        raise NotImplementedError(
+            "mesh= (an ensemble split across devices) is not ported yet; "
+            "see ROADMAP.md, Queue 1, item 9 (multi-device).")
+
+
+def _check_return_storage(value, name='return_storage'):
+    if not isinstance(value, bool):
+        raise TypeError(
+            f"'{name}' expects a bool, got {type(value).__name__}.")
+
+
+def stats_objective(evaluate, qobs, loss_metric):
+    """Turn ``evaluate(params, stats) -> (N,) MSE or (4, N) statistics``
+    into a loss: 'mse'/'rmse' from the squared error, 'nse'/'kge' as
+    ``1 - score`` from the sufficient statistics."""
+    calibration_loss(loss_metric)          # raises on an unknown metric
+    use_stats = loss_metric in ("nse", "kge")
+
+    def loss(params):
+        out = evaluate(params, use_stats)
+        if use_stats:
+            return 1.0 - losses_from_stats(out, qobs)[loss_metric]
+        if loss_metric == "rmse":
+            return torch.sqrt(out)
+        return out
+
+    return loss
+
+
+class CemaneigeBase(BaseModel):
+    """Base class for models containing the Cemaneige snow routine."""
+
+    @staticmethod
+    def _validate_met(prec, mean_temp, min_temp, max_temp,
+                      met_station_height, altitudes, extra_series=()):
+        """Validate inputs and extrapolate them to elevation layers.
+
+        Args:
+            prec, mean_temp, min_temp, max_temp: (T,) station series.
+            met_station_height: station elevation [m].
+            altitudes: list of median layer elevations (may be empty for a
+                single layer at station height).
+            extra_series: additional (name, array) pairs that must have the
+                same length as prec (e.g. etp, NDSI bands); returned
+                validated in order.
+
+        Returns:
+            (prec, mean_temp, frac_solid_prec, altitudes, extras) as float64
+            numpy arrays, with layer arrays of shape (T, L).
+        """
+        prec = validate_array_input(prec, np.float64, 'prec')
+        mean_temp = validate_array_input(mean_temp, np.float64, 'mean_temp')
+        min_temp = validate_array_input(min_temp, np.float64, 'min_temp')
+        max_temp = validate_array_input(max_temp, np.float64, 'max_temp')
+        extras = [validate_array_input(arr, np.float64, name)
+                  for name, arr in extra_series]
+
+        if check_for_negatives(prec):
+            raise ValueError(
+                "Precipitation must be non-negative; the input contains "
+                "negative values.")
+
+        if any(len(ar) != len(prec)
+               for ar in [mean_temp, min_temp, max_temp] + extras):
+            raise RuntimeError(
+                "Every meteorological series passed to this model needs the "
+                f"same length as prec ({len(prec)}).")
+
+        if not isinstance(altitudes, list):
+            raise TypeError(
+                f"'altitudes' expects a list of elevation-band heights, got "
+                f"{type(altitudes).__name__}.")
+        if len(altitudes) > 0:
+            bad = [v for v in altitudes if not isinstance(v, numbers.Number)]
+            if bad:
+                raise TypeError(
+                    f"'altitudes' contains non-numeric entries: {bad}.")
+            if met_station_height is None:
+                raise ValueError(
+                    "Elevation-band extrapolation needs "
+                    "'met_station_height', which was not given.")
+            if not isinstance(met_station_height, numbers.Number):
+                raise TypeError(
+                    "'met_station_height' needs a numeric scalar, got "
+                    f"{type(met_station_height).__name__}.")
+            altitudes = np.array(altitudes)
+
+        if not isinstance(met_station_height, numbers.Number):
+            raise TypeError(
+                "'met_station_height' needs a numeric scalar, got "
+                f"{type(met_station_height).__name__}.")
+
+        # The preprocessing is a few elementwise passes over (T, L): it runs
+        # on the host in float64, whatever the model's device and dtype.
+        prec, mean_temp, min_temp, max_temp = (
+            torch.from_numpy(np.ascontiguousarray(a))
+            for a in (prec, mean_temp, min_temp, max_temp))
+        if len(altitudes) > 0:
+            prec = extrapolate_precipitation(prec, altitudes,
+                                             met_station_height)
+            min_temp, mean_temp, max_temp = extrapolate_temperature(
+                min_temp, mean_temp, max_temp, altitudes, met_station_height)
+        else:
+            prec, mean_temp, min_temp, max_temp = (
+                a[:, None] for a in (prec, mean_temp, min_temp, max_temp))
+            altitudes = np.array([met_station_height])
+
+        frac_solid_prec = calculate_solid_fraction(
+            prec, altitudes, mean_temp, min_temp, max_temp)
+
+        return (prec.numpy(), mean_temp.numpy(), frac_solid_prec.numpy(),
+                altitudes, extras)
+
+    @staticmethod
+    def _validate_number(value, name):
+        if not isinstance(value, numbers.Number):
+            raise TypeError(
+                f"'{name}' needs a numeric scalar, got {type(value).__name__}.")
+        return float(value)
+
+    @staticmethod
+    def _validate_frac_ice(frac_ice):
+        """Validate the glacier-fraction array of the ice-melt variants.
+
+        Reference semantics (``rrmpg/models/cemaneigegr4jice.py:200-208``):
+        must be 1-D; coerced to a numpy array.
+        """
+        if isinstance(frac_ice, np.ndarray) and frac_ice.ndim != 1:
+            raise ValueError(
+                f"'frac_ice' needs one glaciated fraction per elevation "
+                f"band (a flat array); got ndim={frac_ice.ndim}.")
+        return np.asarray(frac_ice, dtype=np.float64)
+
+    def _candidates(self, X):
+        """(P, dim) candidate matrix -> dict of contiguous (P,) columns."""
+        return {name: X[:, j].contiguous()
+                for j, name in enumerate(self._param_list)}
+
+    def _minimize(self, objective, seed, de_kwargs):
+        from ..tools.calibration import minimize
+
+        bounds = tuple(self._default_bounds[p] for p in self._param_list)
+        return minimize(objective, bounds, seed=seed, device=self.device,
+                        dtype=self.dtype, **de_kwargs)
+
+
+class _Forcing(typing.NamedTuple):
+    """Validated inputs of one call, as tensors on the model's device."""
+    prec: torch.Tensor                 # (T, L)
+    mean_temp: torch.Tensor            # (T, L)
+    etp: torch.Tensor                  # (T,)
+    frac_solid_prec: torch.Tensor      # (T, L)
+    frac_ice: typing.Optional[torch.Tensor]   # (L,), ice variants
+    snow_pack_init: float
+    thermal_state_init: float
+    sca_init: float
+    s_init: float
+    r_init: float
+    extras: tuple                      # further (T,) series (NDSI bands)
+
+
+class SnowGR4JBase(CemaneigeBase):
+    """What the four Cemaneige + GR4J compositions share.  Subclasses set
+    ``_hyst`` / ``_ice`` and keep the reference's method signatures."""
+
+    _hyst = False
+    _ice = False
+
+    def _prepare(self, prec, mean_temp, min_temp, max_temp, etp, frac_ice,
+                 met_station_height, altitudes, snow_pack_init,
+                 thermal_state_init, sca_init, s_init, r_init,
+                 extra_series=()):
+        extra = (('pot. evapotranspiration', etp),) + tuple(extra_series)
+        prec, mean_temp, frac_solid_prec, _, extras = self._validate_met(
+            prec, mean_temp, min_temp, max_temp, met_station_height,
+            altitudes, extra_series=extra)
+        if self._ice:
+            frac_ice = self._tensor(self._validate_frac_ice(frac_ice))
+        snow_pack_init = self._validate_number(snow_pack_init,
+                                               'snow_pack_init')
+        thermal_state_init = self._validate_number(thermal_state_init,
+                                                   'thermal_state_init')
+        sca_init = self._validate_number(sca_init, 'sca_init')
+        s_init, r_init = GR4J._validate_inits(s_init, r_init)
+        return _Forcing(
+            self._tensor(prec), self._tensor(mean_temp),
+            self._tensor(extras[0]), self._tensor(frac_solid_prec),
+            frac_ice if self._ice else None, snow_pack_init,
+            thermal_state_init, sca_init, s_init, r_init,
+            tuple(self._tensor(x) for x in extras[1:]))
+
+    # ------------------------------------------------------------------
+    # The two engines
+    # ------------------------------------------------------------------
+
+    def _run_scan(self, f, params, num_uh1, num_uh2):
+        """The composition on the ``'scan'`` engine; returns the op's
+        series in the reference's order, member axis first."""
+        snow_inits = (f.snow_pack_init, f.thermal_state_init)
+        if self._hyst:
+            snow_inits += (f.sca_init,)
+        tail = (*snow_inits, f.s_init, f.r_init, params, num_uh1, num_uh2)
+        if self._ice:
+            run = (run_cemaneigehystgr4jice if self._hyst
+                   else run_cemaneigegr4jice)
+            return run(f.prec, f.mean_temp, f.etp, f.frac_ice,
+                       f.frac_solid_prec, *tail)
+        run = run_cemaneigehystgr4j if self._hyst else run_cemaneigegr4j
+        return run(f.prec, f.mean_temp, f.etp, f.frac_solid_prec, *tail)
+
+    def _fused_simulate(self, f, params):
+        """Discharge-only fused simulation (K9); (N, T)."""
+        n1, n2 = required_uh_lengths(params['x4'])
+        return snowgr4j_simulate_fused(
+            f.prec, f.mean_temp, f.etp, f.frac_solid_prec, f.snow_pack_init,
+            f.thermal_state_init, f.s_init, f.r_init, params,
+            frac_ice=f.frac_ice, hyst=self._hyst, ice=self._ice, num_uh1=n1,
+            num_uh2=n2)
+
+    def _fused_objective_stats(self, f, qobs, params, **modes):
+        """One launch of K8 at the UH lengths the class bounds need."""
+        n1, n2 = fit_uh_lengths(self._default_bounds['x4'][1])
+        return snowgr4j_ensemble_mse_fused(
+            f.prec, f.mean_temp, f.etp, f.frac_solid_prec, qobs,
+            f.snow_pack_init, f.thermal_state_init, f.s_init, f.r_init,
+            params, frac_ice=f.frac_ice, hyst=self._hyst, ice=self._ice,
+            num_uh1=n1, num_uh2=n2, **modes)
+
+    def _fused_batch_objective(self, loss_metric, f, qobs):
+        """Batched DE objective backed by K8: a (P, dim) candidate matrix
+        (columns ordered as ``_param_list``) -> (P,) losses in one launch.
+        'mse'/'rmse' accumulate squared error; 'nse'/'kge' run the
+        statistics mode and minimize ``1 - score``."""
+        masked = bool(torch.isnan(qobs).any())
+        loss = stats_objective(
+            lambda params, stats: self._fused_objective_stats(
+                f, qobs, params, stats=stats, masked=masked),
+            qobs, loss_metric)
+        return lambda X: loss(self._candidates(X))
+
+    def _fused_q_sca_objective(self, loss_metric, f, qobs, ndsi):
+        """Batched Q+SCA objective backed by K8's ``sca_stats`` mode: the
+        discharge and per-band 100*SCA statistics come from one launch;
+        the reference's 0.75 / 5 x 0.05 weighting is applied to them."""
+        if loss_metric not in ("mse", "kge"):
+            raise ValueError(
+                f"Unsupported loss_metric {loss_metric!r} for the fused "
+                "Q+SCA statistics path; supported: 'mse', 'kge'.")
+        masked = bool(torch.isnan(qobs).any() or torch.isnan(ndsi).any())
+
+        def objective(X):
+            stats = self._fused_objective_stats(
+                f, qobs, self._candidates(X), ndsi=ndsi, sca_stats=True,
+                masked=masked)
+            return q_sca_loss_from_stats(stats, qobs, ndsi, loss_metric)
+
+        return objective
+
+    # ------------------------------------------------------------------
+    # simulate / fit / fit_Q_SCA, shared by the four classes
+    # ------------------------------------------------------------------
+
+    def _simulate(self, f, return_storage, params, mesh, engine,
+                  initial_state, return_final_state):
+        _check_return_storage(return_storage)
+        check_engine(engine)
+        _no_mesh(mesh)
+        _no_forecast_state(initial_state, return_final_state)
+        param_dict, _ = self._prepare_params(params)
+        if engine == "fused":
+            if return_storage:
+                raise ValueError(
+                    "engine='fused' computes discharge only; use "
+                    "engine='scan' for storage trajectories.")
+            return self._fused_simulate(f, param_dict).T
+        n1, n2 = required_uh_lengths(param_dict['x4'])
+        outputs = self._run_scan(f, param_dict, n1, n2)
+        if not return_storage:
+            return outputs[0].T
+        # Reference layout, member axis last: (T, N) and (T, L, N).  The
+        # rain series (last of the hysteresis outputs) is (T, L), the same
+        # for every member.
+        n = outputs[0].shape[0]
+        series = [x.T if x.dim() == 2 else x.permute(1, 2, 0)
+                  for x in outputs]
+        if self._hyst:
+            rain = outputs[-1]
+            series[-1] = rain[:, :, None].expand(*rain.shape, n)
+        return tuple(series)
+
+    def _fused_stats(self, qobs, param_dict, sim_kwargs):
+        """(4, N) time-mean sufficient statistics from K8: the
+        trajectory-free evaluation behind
+        ``monte_carlo(return_qsim=False, engine='fused')``."""
+        kw = dict(sim_kwargs)
+        kw.pop("engine", None)
+        _no_mesh(kw.pop("mesh", None))
+        forcing = [kw.pop(k) for k in ("prec", "mean_temp", "min_temp",
+                                       "max_temp", "etp")]
+        frac_ice = kw.pop("frac_ice", None) if self._ice else None
+        if self._ice and frac_ice is None:
+            raise ValueError(f"{type(self).__name__} needs 'frac_ice'.")
+        met_station_height = kw.pop("met_station_height")
+        altitudes = kw.pop("altitudes", [])
+        inits = [kw.pop(k, 0) for k in ("snow_pack_init",
+                                        "thermal_state_init")]
+        # sca_init is inert (reference parity) but part of the signature.
+        sca_init = kw.pop("sca_init", 0) if self._hyst else 0
+        gr4j_inits = [kw.pop(k, 0) for k in ("s_init", "r_init")]
+        if kw:
+            raise ValueError(
+                f"Unused simulate kwargs for the fused statistics "
+                f"path: {sorted(kw)}.")
+        f = self._prepare(*forcing, frac_ice, met_station_height, altitudes,
+                          *inits, sca_init, *gr4j_inits)
+        qobs = np.asarray(qobs, np.float64)
+        return self._fused_objective_stats(
+            f, self._tensor(qobs), param_dict, stats=True,
+            masked=bool(np.isnan(qobs).any()))
+
+    def _fit(self, obs, f, loss_metric, seed, engine, initial_state,
+             de_kwargs):
+        check_engine(engine)
+        _no_forecast_state(initial_state, False)
+        loss = calibration_loss(loss_metric)
+        qobs = self._tensor(validate_array_input(obs, np.float64, 'obs'))
+        if engine == "fused":
+            objective = self._fused_batch_objective(loss_metric, f, qobs)
+        else:
+            def objective(X):
+                qsim = self._run_scan(f, self._candidates(X), NUM_UH1,
+                                      NUM_UH2)[0]
+                return loss(qobs[None, :], qsim, dim=-1)
+
+        return self._minimize(objective, seed, de_kwargs)
+
+    def _fit_q_sca(self, obs, f, loss_metric, seed, engine, initial_state,
+                   pareto, de_kwargs):
+        check_engine(engine)
+        _no_forecast_state(initial_state, False)
+        if pareto:
+            raise NotImplementedError(
+                "fit_Q_SCA(pareto=True) needs the NSGA-II optimizer "
+                "(tools/moo.py), which is not ported yet; see ROADMAP.md, "
+                "Queue 1, item 8.")
+        loss = calibration_loss(loss_metric)
+        qobs = self._tensor(validate_array_input(obs, np.float64, 'obs'))
+        if f.prec.shape[1] != NUM_NDSI_BANDS:
+            raise ValueError(
+                f"fit_Q_SCA compares {NUM_NDSI_BANDS} NDSI series with the "
+                f"snow-covered area of {NUM_NDSI_BANDS} elevation bands; "
+                f"'altitudes' gives {f.prec.shape[1]}.")
+        ndsi = torch.stack(f.extras)                       # (5, T)
+        if engine == "fused":
+            objective = self._fused_q_sca_objective(loss_metric, f, qobs,
+                                                    ndsi)
+        else:
+            sca_index = 5                                  # in both orders
+
+            def objective(X):
+                outputs = self._run_scan(f, self._candidates(X), NUM_UH1,
+                                         NUM_UH2)
+                loss_q = loss(qobs[None, :], outputs[0], dim=-1)
+                sca = 100.0 * outputs[sca_index]           # (N, T, L)
+                loss_sca = sum(loss(ndsi[b][None, :], sca[:, :, b], dim=-1)
+                               for b in range(NUM_NDSI_BANDS))
+                return 0.75 * loss_q + 0.05 * loss_sca
+
+        return self._minimize(objective, seed, de_kwargs)

@@ -3,10 +3,12 @@
 The sources under ``rrmpg_tpu_torch/csrc/*.cu`` have a plain C interface.
 At first use they are compiled by ``nvcc`` for Hopper (``sm_90a``), one
 ``nvcc`` per source and all at once, linked into one shared library under
-``build/rrmpg_tpu_torch/`` beside the package, and loaded with ``ctypes``.  The library's file name carries a hash of
-the sources and flags, so an edited source is rebuilt and a stale build
-is never loaded.  Nothing outside the repository's own sources is
-compiled, and a failed build raises with nvcc's error output.
+``build/rrmpg_tpu_torch/`` beside the package, and loaded with ``ctypes``.
+The library's file name carries a hash of the sources, the headers they
+share (``csrc/*.cuh``) and the flags, so an edited source or header is
+rebuilt and a stale build is never loaded.  Nothing outside the
+repository's own sources is compiled, and a failed build raises with
+nvcc's error output.
 
 Nothing here runs at import time: the CPU tests import every module.
 """
@@ -46,6 +48,16 @@ _HBV_SIMULATE = (_P, _P, _P, _P, _P, _I, _I, _P, _I, _P)
 # HBV objective: temp, prec, pe, tm, qobs, params, n, t, stats, masked,
 # count, out, device, stream
 _HBV_OBJECTIVE = (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _D, _P, _I, _P)
+# Snow trajectories: snow, rain, temp, etp, params, layer_consts, frac_ice,
+# n, t, layers, nuh1, nuh2, hyst, ice, snow_only, snow0, th0, out, device,
+# stream
+_SNOW_SIMULATE = (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                  _D, _D, _P, _I, _P)
+# Snow objective: snow, rain, temp, etp, qobs, ndsi, params, layer_consts,
+# frac_ice, band_counts, n, t, layers, nuh1, nuh2, hyst, ice, snow_only,
+# stats, sca, masked, snow0, th0, count, out, device, stream
+_SNOW_OBJECTIVE = (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                   _I, _I, _I, _I, _I, _I, _D, _D, _D, _P, _I, _P)
 _SIGNATURES = {
     # prec, etp, params, n, t, nuh1, nuh2, out, device, stream
     "rrmpg_gr4j_simulate_f32": (_P, _P, _P, _I, _I, _I, _I, _P, _I, _P),
@@ -61,6 +73,11 @@ _SIGNATURES = {
     "rrmpg_hbv_simulate_f64": _HBV_SIMULATE,
     "rrmpg_hbv_objective_f32": _HBV_OBJECTIVE,
     "rrmpg_hbv_objective_f64": _HBV_OBJECTIVE,
+    "rrmpg_snow_max_layers": (_I, _I),
+    "rrmpg_snow_simulate_f32": _SNOW_SIMULATE,
+    "rrmpg_snow_simulate_f64": _SNOW_SIMULATE,
+    "rrmpg_snow_objective_f32": _SNOW_OBJECTIVE,
+    "rrmpg_snow_objective_f64": _SNOW_OBJECTIVE,
 }
 
 
@@ -100,7 +117,7 @@ def load_library():
     """Build (if needed) and load the kernel library; cached per process."""
     sources = sorted(SRC_DIR.glob("*.cu"))
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
+    for src in (*sources, *sorted(SRC_DIR.glob("*.cuh"))):
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
     tag = digest.hexdigest()[:16]

@@ -101,7 +101,8 @@ def run_gr4j(prec, etp, s_init, r_init, params, num_uh1=NUM_UH1,
     """Simulate GR4J for a batch of parameter sets.
 
     Args:
-        prec, etp: (T,) forcing tensors.
+        prec, etp: (T,) forcing tensors; ``prec`` may also be (T, N), one
+            series per member (the snow compositions' liquid water).
         s_init, r_init: initial store levels as fractions of x1 / x3
             (reference convention), scalars or (N,) tensors.
         params: dict of (N,) tensors 'x1', 'x2', 'x3', 'x4'.

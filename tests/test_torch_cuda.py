@@ -6,8 +6,9 @@ JAX, so it runs on a GPU machine without it:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
 Each kernel (GR4J K1 MSE, K2 stats, K3 trajectories; ABC K6 single launch,
-K7 three launches; HBV-Edu K12 objective, K13 trajectories) is held
-against its plain PyTorch version on the same CUDA tensors.  Tolerances:
+K7 three launches; the snow family's K8 objective and K9 trajectories;
+HBV-Edu K12 objective, K13 trajectories) is held against its plain PyTorch
+version on the same CUDA tensors.  Tolerances:
 float64 ``rtol=1e-9, atol=1e-12`` (the same operations in another order);
 float32 trajectories ``rtol=5e-3, atol=1e-3`` and objectives
 ``rtol=2e-2`` (rounding compounds over the recurrence; rrmpg_tpu's own
@@ -15,7 +16,9 @@ fused-vs-XLA float32 drift is 8.5e-3 relative).  The ABC scan in float32
 is held to ``1e-4`` of each series' largest value: the
 parallel order of the sums differs from the plain version's.  HBV-Edu
 members whose soil store goes negative are NaN in kernel and plain
-version alike; the NaN sets must be equal.
+version alike; the NaN sets must be equal.  The snow kernels write the
+snow step's products without fused multiply-adds, so their snow state is the
+plain version's bit for bit: the snow-only outflow must be equal, not close.
 """
 
 import os
@@ -25,10 +28,12 @@ import pandas as pd
 import pytest
 import torch
 
+from rrmpg_tpu_torch import models
 from rrmpg_tpu_torch.models import GR4J, ABCModel, HBVEdu
 from rrmpg_tpu_torch.ops import abc, fused_abc as fa
 from rrmpg_tpu_torch.ops import fused_gr4j as fg
 from rrmpg_tpu_torch.ops import fused_hbv as fh
+from rrmpg_tpu_torch.ops import fused_snow as fs
 
 pytestmark = pytest.mark.cuda
 
@@ -259,6 +264,178 @@ def test_golden_matlab_trajectory_fused_float64(cuda):
 
 
 def test_default_device_is_the_card(cuda):
-    assert GR4J().device.type == "cuda"
-    assert ABCModel().device.type == "cuda"
-    assert HBVEdu().device.type == "cuda"
+    for name in models.__all__:
+        if name != 'BaseModel':
+            assert getattr(models, name)().device.type == "cuda"
+
+
+# ---------------------------------------------------------------------------
+# The snow family: K8 (objective) and K9 (trajectories)
+# ---------------------------------------------------------------------------
+
+SNOW_INITS = (2.0, -1.0, 0.4, 0.3)       # snow pack, thermal state, s, r
+ALTITUDES = [550, 620, 700, 785, 920]
+FRAC_ICE = np.array([0.02, 0.04, 0.25, 0.51, 0.71])
+HYST_PARAMS = {"Thacc": 18.6, "Rsp": 0.22, "CTG": 0.78, "Kf": 4.02,
+               "x1": 546, "x2": 0.53, "x3": 276, "x4": 1.32}
+# variant -> (hyst, ice, snow_only, UH register lengths)
+SNOW_VARIANTS = {"plain": (False, False, False, (3, 7)),
+                 "hyst": (True, False, False, (10, 21)),
+                 "ice": (False, True, False, (10, 21)),
+                 "hyst+ice": (True, True, False, (3, 7)),
+                 "snow-only": (False, False, True, (10, 21))}
+
+
+def _snow_inputs(device, dtype, L, x4_hi, T=300, N=200, gaps=False, seed=0):
+    rng = np.random.default_rng(seed)
+    as_t = lambda a: torch.tensor(a, dtype=dtype, device=device)
+    qobs = rng.uniform(1, 5, T)
+    ndsi = rng.uniform(0, 100, (L, T))
+    if gaps:
+        qobs[::11] = np.nan
+        ndsi[0, ::5] = np.nan
+        ndsi[L - 1, 50:120] = np.nan
+    layers = (as_t(rng.uniform(0, 15, (T, L))),
+              as_t(rng.uniform(-12, 18, (T, L))),
+              as_t(np.clip(rng.uniform(-0.3, 1.2, (T, L)), 0, 1)))
+    params = {'CTG': rng.uniform(0, 1, N), 'Kf': rng.uniform(0, 10, N),
+              'Thacc': rng.uniform(1, 100, N), 'Rsp': rng.uniform(0, 1, N),
+              'x1': rng.uniform(10, 1200, N), 'x2': rng.uniform(-5, 3, N),
+              'x3': rng.uniform(20, 5000, N),
+              'x4': rng.uniform(1.1, x4_hi, N), 'DDF': rng.uniform(0, 30, N)}
+    return (layers, as_t(rng.uniform(0, 4, T)), as_t(qobs), as_t(ndsi),
+            as_t(rng.uniform(0, 0.7, L)),
+            {k: as_t(v) for k, v in params.items()})
+
+
+# The SCA statistics exist for the hysteresis variants only.
+SNOW_CASES = [(variant, mode) for variant, flags in SNOW_VARIANTS.items()
+              for mode in ("traj", "mse", "stats+masked", "sca_stats",
+                           "sca_stats+masked")
+              if flags[0] or not mode.startswith("sca_stats")]
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("L", [1, 5])
+@pytest.mark.parametrize("variant,mode", SNOW_CASES)
+def test_snow_kernel_matches_plain(cuda, dtype, L, variant, mode):
+    hyst, ice, snow_only, uh = SNOW_VARIANTS[variant]
+    masked = mode.endswith("masked")
+    sca = mode.startswith("sca_stats")
+    (prec, temp, frac), etp, qobs, ndsi, frac_ice, params = _snow_inputs(
+        cuda, dtype, L, 2.9 if uh == (3, 7) else 9.9, gaps=masked)
+    snow0, th0, s_init, r_init = SNOW_INITS
+    variant_kw = dict(hyst=hyst, ice=ice, snow_only=snow_only,
+                      num_uh1=uh[0], num_uh2=uh[1])
+    packed = fs.pack_params(params, s_init, r_init, snow_only)
+    snow, rain, consts = fs.layer_inputs(prec, frac, hyst)
+    plain_args = (packed, consts,
+                  frac_ice if ice else torch.zeros_like(frac_ice), snow0,
+                  th0, hyst, ice, snow_only, *uh)
+    fg.reset_launches()
+    if mode == "traj":
+        got = fs.snowgr4j_simulate_fused(
+            prec, temp, etp, frac, *SNOW_INITS, params,
+            frac_ice=frac_ice if ice else None, **variant_kw)
+        want = fs.snowgr4j_simulate_reference(snow, rain, temp, etp,
+                                              *plain_args)
+        kernel, (rtol, atol) = "snow_traj", TOL[dtype]["traj"]
+    else:
+        stats = mode.startswith("stats")
+        got = fs.snowgr4j_ensemble_mse_fused(
+            prec, temp, etp, frac, qobs, *SNOW_INITS, params,
+            frac_ice=frac_ice if ice else None, ndsi=ndsi if sca else None,
+            stats=stats, sca_stats=sca, masked=masked, **variant_kw)
+        want = fs.snowgr4j_objective_reference(
+            snow, rain, temp, etp, qobs, *plain_args, stats=stats,
+            masked=masked, count=int(torch.isfinite(qobs).sum()),
+            ndsi=ndsi.T.contiguous() if sca else None,
+            band_counts=(torch.isfinite(ndsi).sum(dim=1).to(dtype)
+                         if sca else None))
+        kernel = ("snow_sca_stats" if sca
+                  else "snow_stats" if stats else "snow_mse")
+        rtol, atol = TOL[dtype]["obj"]
+    torch.cuda.synchronize()
+    assert fg.LAUNCHES[kernel] == 1
+    assert got.device.type == "cuda" and got.dtype == dtype
+    assert got.shape == want.shape and bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got, want, rtol=rtol, atol=atol)
+    if snow_only and mode == "traj":
+        assert torch.equal(got, want)     # the snow state, bit for bit
+
+
+def _read(name, **kw):
+    return pd.read_csv(os.path.join(DATA_DIR, name), **kw)
+
+
+@pytest.mark.parametrize("name", ['Cemaneige', 'CemaneigeGR4J',
+                                  'CemaneigeHystGR4J',
+                                  'CemaneigeHystGR4JIce'])
+def test_golden_snow_trajectories_fused_float64(cuda, name):
+    make = lambda **kw: getattr(models, name)(device=cuda,
+                                              dtype=torch.float64, **kw)
+    if name == 'Cemaneige':
+        df = _read('cemaneige_validation_data.csv', sep=';')
+        qsim, want = make(params={'CTG': 0.25, 'Kf': 3.74}).simulate(
+            df.precipitation, df.mean_temp, df.min_temp, df.max_temp,
+            met_station_height=495, altitudes=ALTITUDES,
+            engine='fused'), df.liquid_outflow
+    elif name == 'CemaneigeGR4J':
+        params = {'CTG': 0.25, 'Kf': 3.74,
+                  'x1': np.exp(5.25483021675164),
+                  'x2': np.sinh(1.58209470624126),
+                  'x3': np.exp(4.3853181982412),
+                  'x4': np.exp(0.954786342674327) + 0.5}
+        df = _read('cemaneigegr4j_validation_data.csv', sep=';', index_col=0)
+        qsim, want = make(params=params).simulate(
+            df.precipitation, df.mean_temp, df.min_temp, df.max_temp, df.pe,
+            met_station_height=495, altitudes=ALTITUDES, s_init=0.6,
+            r_init=0.7, engine='fused'), df.qsim
+    elif name == 'CemaneigeHystGR4J':
+        df = _read('cemaneigehystgr4j_validation_data.csv', index_col=0)
+        qsim, want = make(params=HYST_PARAMS).simulate(
+            df.precipitation, df.mean_temp, df.min_temp, df.max_temp, df.pe,
+            met_station_height=700, altitudes=ALTITUDES, s_init=0.5,
+            r_init=0.4, engine='fused'), df.qsim
+    else:
+        df = _read('cemaneigehystgr4jice_validation_data.csv', index_col=0)
+        qsim, want = make(params=dict(HYST_PARAMS, DDF=5)).simulate(
+            df.precipitation, df.mean_temp, df.min_temp, df.max_temp, df.pe,
+            FRAC_ICE, met_station_height=700, altitudes=ALTITUDES,
+            s_init=0.5, r_init=0.4, sca_init=0.2, engine='fused'), df.qsim
+    assert np.allclose(qsim.cpu().numpy().ravel(), want.to_numpy())
+
+
+def test_snow_fits_launch_one_kernel_per_generation(cuda):
+    rng = np.random.default_rng(4)
+    T = 400
+    mean_t = rng.uniform(-8, 14, T)
+    forcing = (rng.uniform(0, 14, T), mean_t, mean_t - 2, mean_t + 2,
+               rng.uniform(0, 3, T), FRAC_ICE)
+    kw = dict(met_station_height=700, altitudes=ALTITUDES, engine='fused',
+              seed=0, maxiter=3)
+    qobs = rng.uniform(0.2, 5, T)
+    qobs[::13] = np.nan
+    ndsi = [rng.uniform(0, 100, T) for _ in range(5)]
+    ndsi[2][::7] = np.nan
+    model = models.CemaneigeHystGR4JIce(device=cuda)
+    fg.reset_launches()
+    res = model.fit(qobs, *forcing, loss_metric='kge', **kw)
+    res_sca = model.fit_Q_SCA(qobs, *forcing, *ndsi, **kw)
+    assert fg.LAUNCHES["snow_stats"] == res.nit + 1
+    assert fg.LAUNCHES["snow_sca_stats"] == res_sca.nit + 1
+    assert fg.LAUNCHES["snow_mse"] == fg.LAUNCHES["snow_traj"] == 0
+    assert np.isfinite(res.fun) and np.isfinite(res_sca.fun)
+
+
+def test_snow_too_many_layers_raise(cuda):
+    (prec, temp, frac), etp, _, _, _, params = _snow_inputs(
+        cuda, torch.float64, 60, 2.9, T=20, N=4)
+    with pytest.raises(ValueError, match="at most"):
+        fs.snowgr4j_simulate_fused(prec, temp, etp, frac, *SNOW_INITS,
+                                   params, hyst=True)
+    # 48 layers of two float64 states fit the narrowest block.
+    out = fs.snowgr4j_simulate_fused(prec[:, :48], temp[:, :48], etp,
+                                     frac[:, :48], *SNOW_INITS, params)
+    torch.cuda.synchronize()
+    assert out.shape == (4, 20) and bool(torch.isfinite(out).all())
