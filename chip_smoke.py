@@ -18,7 +18,11 @@ Phases, in order (each prints its lines; any failure exits non-zero):
                   snow family (K8 MSE, stats and SCA statistics with and
                   without gaps, K9 trajectories; plain, hysteresis, ice and
                   hysteresis + ice variants and the snow-only routine; 1 and
-                  5 layers; both UH register pairs);
+                  5 layers; both UH register pairs); then the state kernels
+                  (K4, K14, K10: trajectories and every state row, cold and
+                  warm; K10's snow rows bit for bit) and the warm entry of the
+                  objectives (K1/K2, K12, K8, with and without gaps), and in
+                  float64 a split run against the unbroken one;
 4. golden      -- the fused engines in float64 against the authors' Excel
                   GR4J trajectory, MATLAB HBV-Edu trajectory and the four
                   Excel snow trajectories (tests/data/);
@@ -35,22 +39,37 @@ Phases, in order (each prints its lines; any failure exits non-zero):
                   Excel sheet (131072-member Monte-Carlo, two calibrations
                   and a discharge + snow-cover calibration through K8, a
                   fused simulation through K9, and the snow-only routine
-                  through both).  Then each kernel is compared with its
-                  plain version at the shapes the main path gave it;
+                  through both); the forecast path of GR4J, HBV-Edu and the
+                  hysteresis + ice snow model on the same records (spin-up of
+                  the calibrated model over all but the last 365 days with
+                  its final state through K4 / K14 / K10, the state through a
+                  file, a 131072-member continuation of the last 365 days
+                  from that one state through the same kernels' warm entry,
+                  and two recalibrations on those days through the warm
+                  K1/K2, K12, K8), and one warm continuation of ABC and of
+                  the snow-only routine on the sequential engine.  Then each
+                  kernel is compared with its plain version at the shapes the
+                  main path gave it;
 6. times       -- each kernel against its plain version and its bound:
                   GR4J and HBV-Edu at 131072 members x 3651 days, the snow
                   kernels at 131072 x 3651 x 5 layers (hysteresis + ice),
-                  ABC at 10 000 000 steps.
+                  ABC at 10 000 000 steps; the state kernels cold and warm,
+                  and the warm objectives beside the cold ones.
+
+``--phases a,b`` (development) runs only the named phases after the build:
+kernels, golden, main, forecast, times; the result lines need them all.
 
 The last two lines are a JSON object describing the kernels and the
 result line ``{"ok": true, "device": {...}}``.
 """
 
+import argparse
 import json
 import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -77,17 +96,57 @@ KERNELS = {
     "hbv_traj": (HBV_SRC, "rrmpg_tpu/ops/pallas_hbv.py:203"),
     "snow_objective": (SNOW_SRC, "rrmpg_tpu/ops/pallas_snow.py:115"),
     "snow_traj": (SNOW_SRC, "rrmpg_tpu/ops/pallas_snow.py:213"),
+    "gr4j_traj_state": (GR4J_SRC, "rrmpg_tpu/ops/pallas_gr4j.py:179"),
+    "hbv_traj_state": (HBV_SRC, "rrmpg_tpu/ops/pallas_hbv.py:223"),
+    "snow_traj_state": (SNOW_SRC, "rrmpg_tpu/ops/pallas_snow.py:336"),
 }
-# Kernels with several modes: mode -> line of the mode in the TPU kernel.
+# Kernels with several modes: mode -> (line of the mode in the TPU kernel,
+# the key its launches, error and times are kept under).  The entry of the
+# ``kernels`` line carries the mode named in TOP_MODE at the top.
 KERNEL_MODES = {
-    "hbv_objective": {"mse": "rrmpg_tpu/ops/pallas_hbv.py:109",
-                      "stats": "rrmpg_tpu/ops/pallas_hbv.py:151"},
-    "snow_objective": {"mse": "rrmpg_tpu/ops/pallas_snow.py:264",
-                       "stats": "rrmpg_tpu/ops/pallas_snow.py:265",
-                       "sca_stats": "rrmpg_tpu/ops/pallas_snow.py:270"},
+    "gr4j_mse": {"cold": ("rrmpg_tpu/ops/pallas_gr4j.py:228", "gr4j_mse"),
+                 "warm": ("rrmpg_tpu/ops/pallas_gr4j.py:143",
+                          "gr4j_mse_warm")},
+    "gr4j_stats": {"cold": ("rrmpg_tpu/ops/pallas_gr4j.py:285",
+                            "gr4j_stats"),
+                   "warm": ("rrmpg_tpu/ops/pallas_gr4j.py:143",
+                            "gr4j_stats_warm")},
+    "hbv_objective": {"mse": ("rrmpg_tpu/ops/pallas_hbv.py:109", "hbv_mse"),
+                      "stats": ("rrmpg_tpu/ops/pallas_hbv.py:151",
+                                "hbv_stats"),
+                      "warm": ("rrmpg_tpu/ops/pallas_hbv.py:95",
+                               "hbv_warm")},
+    "snow_objective": {"mse": ("rrmpg_tpu/ops/pallas_snow.py:264",
+                               "snow_mse"),
+                       "stats": ("rrmpg_tpu/ops/pallas_snow.py:265",
+                                 "snow_stats"),
+                       "sca_stats": ("rrmpg_tpu/ops/pallas_snow.py:270",
+                                     "snow_sca_stats"),
+                       "warm": ("rrmpg_tpu/ops/pallas_snow.py:150",
+                                "snow_warm")},
+    "gr4j_traj_state": {
+        "cold": ("rrmpg_tpu/ops/pallas_gr4j.py:179", "gr4j_traj_state_cold"),
+        "warm": ("rrmpg_tpu/ops/pallas_gr4j.py:143",
+                 "gr4j_traj_state_warm")},
+    "hbv_traj_state": {
+        "cold": ("rrmpg_tpu/ops/pallas_hbv.py:223", "hbv_traj_state_cold"),
+        "warm": ("rrmpg_tpu/ops/pallas_hbv.py:95", "hbv_traj_state_warm")},
+    "snow_traj_state": {
+        "cold": ("rrmpg_tpu/ops/pallas_snow.py:336", "snow_traj_state_cold"),
+        "warm": ("rrmpg_tpu/ops/pallas_snow.py:366",
+                 "snow_traj_state_warm")},
 }
+TOP_MODE = {"gr4j_mse": "cold", "gr4j_stats": "cold",
+            "hbv_objective": "stats", "snow_objective": "stats",
+            "gr4j_traj_state": "warm", "hbv_traj_state": "warm",
+            "snow_traj_state": "warm"}
 BOUNDS_X4_WIDE = 9.9      # exercises every tap of the (10, 21) registers
 MC_MEMBERS = 131072
+FORECAST_DAYS = 365       # the segment continued and recalibrated on
+FORECAST_FIT_MAXITER = 10
+SEQUENTIAL_MEMBERS = 4096  # ABC and snow-only continuation, 'scan' engine
+# Parameters calibrated by the cold main paths, for the forecast path.
+CALIBRATED = {}
 ABC_MC_MEMBERS = 4096
 ABC_STEPS = 10_000_000
 ABC_PARAMS = {'a': 0.3, 'b': 0.2, 'c': 0.15}
@@ -325,6 +384,15 @@ class SnowData:
         self.qobs = {False: qobs, True: qobs if qobs_gap is None else qobs_gap}
         self.ndsi = {False: ndsi, True: ndsi if ndsi_gap is None else ndsi_gap}
 
+    def cut(self, lo, hi):
+        """The same data over the steps [lo, hi)."""
+        rows = lambda x: None if x is None else x[lo:hi].contiguous()
+        bands = lambda x: None if x is None else x[:, lo:hi].contiguous()
+        return SnowData(rows(self.prec), rows(self.temp), rows(self.frac),
+                        rows(self.etp), self.frac_ice, rows(self.qobs[False]),
+                        bands(self.ndsi[False]), rows(self.qobs[True]),
+                        bands(self.ndsi[True]))
+
     @classmethod
     def random(cls, rng, t_len, num_layers, dtype, temp_range=(-12, 18),
                frac_range=(-0.3, 1.2), ice_hi=0.7, qobs_range=(1, 5)):
@@ -389,6 +457,177 @@ def snow_call(fs, d, params, mode, hyst=False, ice=False, snow_only=False,
         ndsi=ndsi.T.contiguous() if sca else None,
         band_counts=(torch.isfinite(ndsi).sum(dim=1).to(ndsi.dtype)
                      if sca else None))
+
+
+
+# ---------------------------------------------------------------------------
+# The state kernels and the warm objectives: kernel and plain version on the
+# same inputs
+# ---------------------------------------------------------------------------
+
+def gr4j_rows(state):
+    """A batched GR4JState as the (2 + H, N) rows the kernel writes."""
+    return torch.cat([state.s[None], state.r[None], state.pr_history.T])
+
+
+def snow_rows(state):
+    """A batched SnowGR4JState as rows: GR4J's, then every snow leaf (the
+    layer constants last)."""
+    return torch.cat([gr4j_rows(state.gr4j)] + [leaf.T for leaf in state.snow])
+
+
+def gr4j_state_pair(fg, prec, etp, params, state, uh, inits=(0.0, 0.0)):
+    """K4 and its plain version: ((q, q_plain), (rows, rows_plain))."""
+    n1, n2 = uh
+    got_q, got_st = fg.gr4j_simulate_state_fused(prec, etp, params, state,
+                                                 *inits, n1, n2)
+    packed = fg.pack_params(params, *inits, state)
+    hist = None if state is None else fg.history_rows(state, n2, prec)
+    want_q, want_rows = fg.gr4j_simulate_state_reference(prec, etp, packed,
+                                                         hist, n1, n2)
+    return got_st, (got_q, want_q), (gr4j_rows(got_st), want_rows)
+
+
+def gr4j_warm_objective_pair(fg, prec, etp, qobs, params, state, uh, stats,
+                             masked):
+    n1, n2 = uh
+    got = fg.gr4j_ensemble_mse_fused(prec, etp, qobs, 0.0, 0.0, params, n1,
+                                     n2, stats=stats, masked=masked,
+                                     state=state)
+    count = int(torch.isfinite(qobs).sum()) if masked else qobs.shape[0]
+    want = fg.gr4j_objective_reference(
+        prec, etp, qobs, fg.pack_params(params, 0.0, 0.0, state), n1, n2,
+        stats, masked, count, fg.history_rows(state, n2, prec))
+    return got, want
+
+
+def hbv_cut(tensors, lo, hi):
+    temp, prec, month, pe_m, t_m = tensors
+    return (temp[lo:hi].contiguous(), prec[lo:hi].contiguous(),
+            month[lo:hi].contiguous(), pe_m, t_m)
+
+
+def hbv_state_kernel(fh, tensors, params, state, inits=HBV_INITS):
+    """K14 through its wrapper; ``state`` is the (snow, soil, s1, s2) tuple
+    of a warm entry or None.  Returns (q, final stores)."""
+    start = inits if state is None else (0.0, 0.0, 0.0, 0.0)
+    return fh.hbv_simulate_state_fused(*tensors, *start, params, state=state)
+
+
+def hbv_state_plain(fh, tensors, params, state, inits=HBV_INITS):
+    """The plain version of K14 on the same inputs: (q, (4, N) rows)."""
+    temp, prec, month, pe_m, t_m = tensors
+    packed = fh.pack_params(params, *(inits if state is None else state))
+    return fh.hbv_simulate_state_reference(
+        temp, prec, pe_m[month], t_m[month], packed, state is not None)
+
+
+def hbv_state_pair(fh, tensors, params, state, inits=HBV_INITS):
+    """K14 and its plain version: the kernel's final stores, then
+    ((q, q_plain), (rows, rows_plain))."""
+    got_q, got_st = hbv_state_kernel(fh, tensors, params, state, inits)
+    want_q, want_rows = hbv_state_plain(fh, tensors, params, state, inits)
+    return got_st, (got_q, want_q), (torch.stack(got_st), want_rows)
+
+
+def hbv_warm_objective_plain(fh, tensors, qobs, params, state, stats,
+                             masked):
+    temp, prec, month, pe_m, t_m = tensors
+    count = int(torch.isfinite(qobs).sum()) if masked else qobs.shape[0]
+    return fh.hbv_objective_reference(
+        temp, prec, pe_m[month], t_m[month], qobs,
+        fh.pack_params(params, *state), stats, masked, count, True)
+
+
+def hbv_warm_objective_pair(fh, tensors, qobs, params, state, stats, masked):
+    got = fh.hbv_ensemble_mse_fused(*tensors, qobs, 0.0, 0.0, 0.0, 0.0,
+                                    params, stats=stats, masked=masked,
+                                    state=state)
+    return got, hbv_warm_objective_plain(fh, tensors, qobs, params, state,
+                                         stats, masked)
+
+
+def snow_plain_inputs(fs, d, params, state, hyst, ice, uh, s_init, r_init):
+    """What the plain versions take: (snow, rain, packed, layer constants,
+    frac_ice, state rows, history, (N, L) constants of the final bundle)."""
+    snow, rain, consts = fs.layer_inputs(d.prec, d.frac, hyst)
+    frac_ice = d.frac_ice if ice else torch.zeros_like(d.frac_ice)
+    n, num_layers = params['CTG'].shape[0], d.prec.shape[1]
+    if state is None:
+        return (snow, rain, fs.pack_params(params, s_init, r_init), consts,
+                frac_ice, None, None,
+                consts.expand(n, num_layers).contiguous())
+    state_in, consts, hist = fs.warm_rows(state, hyst, num_layers, uh[1],
+                                          d.etp)
+    return (snow, rain, fs.pack_params(params, 0.0, 0.0, False, state.gr4j),
+            consts, frac_ice, state_in, hist, consts.T.contiguous())
+
+
+def snow_state_kernel(fs, d, params, state, hyst, ice, uh,
+                      inits=SNOW_CHECK_INITS):
+    """K10 through its wrapper: (q, final bundle).  A warm entry reads no
+    init scalar."""
+    snow0, th0, s_init, r_init = (0.0,) * 4 if state is not None else inits
+    return fs.snowgr4j_simulate_state_fused(
+        d.prec, d.temp, d.etp, d.frac, params, state, snow0, th0, s_init,
+        r_init, frac_ice=d.frac_ice if ice else None, hyst=hyst, ice=ice,
+        num_uh1=uh[0], num_uh2=uh[1])
+
+
+def snow_state_plain(fs, d, params, state, hyst, ice, uh,
+                     inits=SNOW_CHECK_INITS):
+    """The plain version of K10 on the same inputs: (q, final bundle)."""
+    snow0, th0, s_init, r_init = (0.0,) * 4 if state is not None else inits
+    (snow, rain, packed, consts, frac_ice, state_in, hist,
+     consts_nl) = snow_plain_inputs(fs, d, params, state, hyst, ice, uh,
+                                    s_init, r_init)
+    want_q, want_rows = fs.snowgr4j_simulate_state_reference(
+        snow, rain, d.temp, d.etp, packed, consts, frac_ice, snow0, th0, hyst,
+        ice, *uh, state_in, hist)
+    return want_q, fs.bundle_from_rows(want_rows, consts_nl, hyst, uh[1])
+
+
+def snow_state_pair(fs, d, params, state, hyst, ice, uh,
+                    inits=SNOW_CHECK_INITS):
+    """K10 and its plain version: the kernel's final bundle, then
+    ((q, q_plain), (bundle, bundle_plain))."""
+    got_q, got_st = snow_state_kernel(fs, d, params, state, hyst, ice, uh,
+                                      inits)
+    want_q, want_st = snow_state_plain(fs, d, params, state, hyst, ice, uh,
+                                       inits)
+    return got_st, (got_q, want_q), (got_st, want_st)
+
+
+def snow_warm_objective_kernel(fs, d, params, state, hyst, ice, uh, stats,
+                               masked):
+    return fs.snowgr4j_ensemble_mse_fused(
+        d.prec, d.temp, d.etp, d.frac, d.qobs[masked], 0.0, 0.0, 0.0, 0.0,
+        params, frac_ice=d.frac_ice if ice else None, hyst=hyst, ice=ice,
+        stats=stats, num_uh1=uh[0], num_uh2=uh[1], state=state,
+        masked=masked)
+
+
+def snow_warm_objective_plain(fs, d, params, state, hyst, ice, uh, stats,
+                              masked):
+    qobs = d.qobs[masked]
+    (snow, rain, packed, consts, frac_ice, state_in, hist,
+     _) = snow_plain_inputs(fs, d, params, state, hyst, ice, uh, 0.0, 0.0)
+    return fs.snowgr4j_objective_reference(
+        snow, rain, d.temp, d.etp, qobs, packed, consts, frac_ice, 0.0, 0.0,
+        hyst, ice, False, *uh, stats=stats, masked=masked,
+        count=int(torch.isfinite(qobs).sum()), state_in=state_in, hist=hist)
+
+
+def snow_warm_objective_pair(*args, **kw):
+    return (snow_warm_objective_kernel(*args, **kw),
+            snow_warm_objective_plain(*args, **kw))
+
+
+def snow_bits_unequal(got, want):
+    """Elements of the snow half of two bundles that differ in any bit (the
+    layer constants excluded: they only pass through)."""
+    return sum(int((g != w).sum())
+               for g, w in zip(got.snow[:-1], want.snow[:-1]))
 
 
 # ---------------------------------------------------------------------------
@@ -620,6 +859,197 @@ def phase_kernels_snow(n=256, t_len=300):
           f"differ from the plain version in any bit: {unequal}")
 
 
+def phase_kernels_state_gr4j(prec_np, etp_np, qobs_np, n=500, t_len=3651,
+                             warm_len=1000):
+    """K4 cold over the first ``t_len - warm_len`` steps and warm over the
+    rest, the warm K1/K2 on that rest, short segments, a long history into
+    short registers, and in float64 the split run against the unbroken K3."""
+    from rrmpg_tpu_torch.ops import fused_gr4j as fg
+
+    cut = t_len - warm_len
+    qobs_gap = qobs_np[cut:t_len].copy()
+    qobs_gap[::17] = np.nan
+    qobs_gap[400:430] = np.nan
+    n_checks = 0
+    for dtype in (F64, F32):
+        tol, name = TOL[dtype], str(dtype)[6:]
+        prec, etp = (as_tensor(a[:t_len], dtype) for a in (prec_np, etp_np))
+        head = (prec[:cut].contiguous(), etp[:cut].contiguous())
+        tail = (prec[cut:].contiguous(), etp[cut:].contiguous())
+        for uh in fg.SUPPORTED_UH:
+            params = gr4j_random_params(
+                np.random.default_rng(uh[0]), n,
+                2.9 if uh[0] == 3 else BOUNDS_X4_WIDE, dtype)
+            label = f"gr4j {name} uh={uh}"
+            state, traj, rows = gr4j_state_pair(fg, *head, params, None, uh,
+                                                (0.4, 0.3))
+            report(f"{label} K4 cold traj", *traj, *tol["traj"])
+            report(f"{label} K4 cold state rows", *rows, *tol["traj"])
+            state_b, traj_b, rows_b = gr4j_state_pair(fg, *tail, params,
+                                                      state, uh)
+            report(f"{label} K4 warm traj", *traj_b, *tol["traj"])
+            report(f"{label} K4 warm state rows", *rows_b, *tol["traj"])
+            n_checks += 4
+            # Segments shorter than the history, warm and cold.
+            short = (tail[0][:3].contiguous(), tail[1][:3].contiguous())
+            for entry, st in (("warm", state), ("cold", None)):
+                _, traj_s, rows_s = gr4j_state_pair(fg, *short, params, st,
+                                                    uh, (0.0, 0.0))
+                report(f"{label} K4 {entry} T=3 traj", *traj_s, *tol["traj"])
+                report(f"{label} K4 {entry} T=3 state rows", *rows_s,
+                       *tol["traj"])
+                n_checks += 2
+            if uh == (3, 7):
+                # A 20-tap history (a (10, 21) run of the same members)
+                # enters the (3, 7) kernel trimmed to its last 6 taps.
+                long_state, _, _ = gr4j_state_pair(fg, *head, params, None,
+                                                   (10, 21), (0.4, 0.3))
+                check(long_state.pr_history.shape == (n, 20),
+                      "the (10, 21) state does not carry 20 taps")
+                some = (tail[0][:50].contiguous(), tail[1][:50].contiguous())
+                _, traj_l, rows_l = gr4j_state_pair(fg, *some, params,
+                                                    long_state, uh)
+                report(f"{label} K4 warm, 20-tap history, traj", *traj_l,
+                       *tol["traj"])
+                report(f"{label} K4 warm, 20-tap history, state rows",
+                       *rows_l, *tol["traj"])
+                n_checks += 2
+            for masked, qo in ((False, qobs_np[cut:t_len]), (True, qobs_gap)):
+                qo = as_tensor(qo, dtype)
+                for stats in (False, True):
+                    got, want = gr4j_warm_objective_pair(
+                        fg, *tail, qo, params, state, uh, stats, masked)
+                    report(f"{label} warm {'stats' if stats else 'mse'}"
+                           f"{'+masked' if masked else ''}", got, want,
+                           *tol["obj"])
+                    n_checks += 1
+            if dtype == F64:
+                full = fg.gr4j_simulate_fused(prec, etp, 0.4, 0.3, params,
+                                              *uh)
+                report(f"{label} split K4 + K4 vs unbroken K3",
+                       torch.cat([traj[0], traj_b[0]], dim=1), full, 1e-9,
+                       1e-12)
+                n_checks += 1
+    print(f"[3 kernels] GR4J state kernel and warm objectives: {n_checks} "
+          f"checks passed at N={n}, T={cut} cold + {warm_len} warm")
+
+
+def phase_kernels_state_hbv(forcing, qobs_np, n=1000, warm_len=1000):
+    from rrmpg_tpu_torch.ops import fused_hbv as fh
+
+    t_len = len(qobs_np)
+    cut = t_len - warm_len
+    qobs_gap = qobs_np[cut:].copy()
+    qobs_gap[::17] = np.nan
+    qobs_gap[400:430] = np.nan
+    n_checks = 0
+    for dtype in (F64, F32):
+        tol, name = TOL[dtype], str(dtype)[6:]
+        tensors = hbv_tensors(forcing, dtype)
+        head, tail = hbv_cut(tensors, 0, cut), hbv_cut(tensors, cut, t_len)
+        params = hbv_random_params(np.random.default_rng(12), n, dtype,
+                                   n_dry=n // 20)
+        state, traj, rows = hbv_state_pair(fh, head, params, None)
+        state_b, traj_b, rows_b = hbv_state_pair(fh, tail, params, state)
+        for what, pair in (("K14 cold traj", traj),
+                           ("K14 cold state rows", rows),
+                           ("K14 warm traj", traj_b),
+                           ("K14 warm state rows", rows_b)):
+            report(f"hbv {name} {what}", *pair, *tol["traj"], nan_ok=True)
+            n_checks += 1
+        check(bool(torch.isnan(rows[0]).any()),
+              "no HBV member went NaN: the NaN path was not exercised")
+        for masked, qo in ((False, qobs_np[cut:]), (True, qobs_gap)):
+            qo = as_tensor(qo, dtype)
+            for stats in (False, True):
+                got, want = hbv_warm_objective_pair(fh, tail, qo, params,
+                                                    state, stats, masked)
+                report(f"hbv {name} warm {'stats' if stats else 'mse'}"
+                       f"{'+masked' if masked else ''}", got, want,
+                       *tol["obj"], nan_ok=True)
+                n_checks += 1
+        if dtype == F64:
+            full = fh.hbv_simulate_fused(*tensors, *HBV_INITS, params)
+            report(f"hbv {name} split K14 + K14 vs unbroken K13",
+                   torch.cat([traj[0], traj_b[0]], dim=1), full, 1e-9, 1e-12,
+                   nan_ok=True)
+            n_checks += 1
+    print(f"[3 kernels] HBV-Edu state kernel and warm objectives: {n_checks} "
+          f"checks passed at N={n}, T={cut} cold + {warm_len} warm")
+
+
+def phase_kernels_state_snow(n=256, t_len=300, warm_len=100):
+    """K10 cold and warm and the warm K8, every variant.  The snow rows of
+    the state are counted for bit equality with the plain version.  A cold
+    start computes its layer constants from the series it is given, so the
+    split check in float64 holds one warm hop against two."""
+    from rrmpg_tpu_torch.ops import fused_gr4j as fg
+    from rrmpg_tpu_torch.ops import fused_snow as fs
+
+    cut = t_len - warm_len
+    n_checks, unequal = 0, 0
+    for dtype in (F64, F32):
+        tol, name = TOL[dtype], str(dtype)[6:]
+        for num_layers in (1, 5):
+            d = SnowData.random(np.random.default_rng(num_layers), t_len,
+                                num_layers, dtype)
+            head, tail = d.cut(0, cut), d.cut(cut, t_len)
+            for uh in fg.SUPPORTED_UH:
+                params = snow_random_params(
+                    np.random.default_rng(uh[0]), n, dtype,
+                    2.9 if uh[0] == 3 else BOUNDS_X4_WIDE)
+                for variant, hyst, ice in SNOW_VARIANTS:
+                    label = (f"snow {name} L={num_layers} uh={uh} "
+                             f"{variant:8s}")
+                    state, traj, (got_st, want_st) = snow_state_pair(
+                        fs, head, params, None, hyst, ice, uh)
+                    report(f"{label} K10 cold traj", *traj, *tol["traj"])
+                    report(f"{label} K10 cold state rows", snow_rows(got_st),
+                           snow_rows(want_st), *tol["traj"])
+                    unequal += snow_bits_unequal(got_st, want_st)
+                    state_b, traj_b, (got_b, want_b) = snow_state_pair(
+                        fs, tail, params, state, hyst, ice, uh)
+                    report(f"{label} K10 warm traj", *traj_b, *tol["traj"])
+                    report(f"{label} K10 warm state rows", snow_rows(got_b),
+                           snow_rows(want_b), *tol["traj"])
+                    unequal += snow_bits_unequal(got_b, want_b)
+                    check(torch.equal(got_b.snow[-1], state.snow[-1]),
+                          f"{label}: the layer constants changed on the way "
+                          "through a continuation")
+                    n_checks += 4
+                    for masked in (False, True):
+                        for stats in (False, True):
+                            got, want = snow_warm_objective_pair(
+                                fs, tail, params, state, hyst, ice, uh, stats,
+                                masked)
+                            report(f"{label} warm "
+                                   f"{'stats' if stats else 'mse'}"
+                                   f"{'+masked' if masked else ''}", got,
+                                   want, *tol["obj"])
+                            n_checks += 1
+                    if dtype == F64:
+                        hop1, hop2 = tail.cut(0, 3), tail.cut(3, warm_len)
+                        q1, st1 = fs.snowgr4j_simulate_state_fused(
+                            hop1.prec, hop1.temp, hop1.etp, hop1.frac, params,
+                            state, frac_ice=d.frac_ice if ice else None,
+                            hyst=hyst, ice=ice, num_uh1=uh[0], num_uh2=uh[1])
+                        q2, st2 = fs.snowgr4j_simulate_state_fused(
+                            hop2.prec, hop2.temp, hop2.etp, hop2.frac, params,
+                            st1, frac_ice=d.frac_ice if ice else None,
+                            hyst=hyst, ice=ice, num_uh1=uh[0], num_uh2=uh[1])
+                        report(f"{label} two hops (3 + {warm_len - 3} steps) "
+                               "vs one, traj", torch.cat([q1, q2], dim=1),
+                               traj_b[0], 1e-9, 1e-12)
+                        report(f"{label} two hops vs one, state rows",
+                               snow_rows(st2), snow_rows(got_b), 1e-9, 1e-12)
+                        n_checks += 2
+    print(f"[3 kernels] snow state kernel and warm objectives: {n_checks} "
+          f"checks passed at N={n}, T={cut} cold + {warm_len} warm, L in "
+          f"(1, 5); snow state elements that differ from the plain version "
+          f"in any bit: {unequal}")
+    check(unequal == 0, "K10's snow state differs from the plain version")
+
+
 def phase_golden(forcing, qsim_matlab):
     import pandas as pd
     from rrmpg_tpu_torch.models import GR4J, HBVEdu
@@ -738,8 +1168,8 @@ def phase_main_path_gr4j(card, qobs, prec, etp):
         res_kge = GR4J().fit(qobs, prec, etp, engine='fused', seed=0,
                              maxiter=30, loss_metric='kge')
         walls["fit_kge"] = time.perf_counter() - t0
-        calibrated = GR4J(params={k: float(v)
-                                  for k, v in zip(names, res_kge.x)})
+        CALIBRATED["GR4J"] = {k: float(v) for k, v in zip(names, res_kge.x)}
+        calibrated = GR4J(params=CALIBRATED["GR4J"])
         return mc, res_mse, res_kge, calibrated, calibrated.simulate(
             prec, etp, engine='fused')
 
@@ -826,8 +1256,9 @@ def phase_main_path_hbv(card, forcing, qsim_matlab):
         res_kge = HBVEdu().fit(qobs, **forcing, **inits, engine='fused',
                                seed=0, maxiter=30, loss_metric='kge')
         walls["fit_kge"] = time.perf_counter() - t0
-        calibrated = HBVEdu(params={k: float(v)
-                                    for k, v in zip(names, res_kge.x)})
+        CALIBRATED["HBV-Edu"] = {k: float(v)
+                                 for k, v in zip(names, res_kge.x)}
+        calibrated = HBVEdu(params=CALIBRATED["HBV-Edu"])
         return mc, res_mse, res_kge, calibrated, calibrated.simulate(
             **forcing, **inits, engine='fused')
 
@@ -1024,8 +1455,9 @@ def phase_main_path_snow(card):
             qobs, *forcing, loss_metric='kge', **fit_kw))
         res_sca = timed("fit_q_sca", lambda: model_cls().fit_Q_SCA(
             qobs, *forcing, *ndsi, loss_metric='kge', **fit_kw))
-        calibrated = model_cls(params={
-            k: float(v) for k, v in zip(model_cls._param_list, res_kge.x)})
+        CALIBRATED["snow"] = {
+            k: float(v) for k, v in zip(model_cls._param_list, res_kge.x)}
+        calibrated = model_cls(params=CALIBRATED["snow"])
         qsim = timed("simulate", lambda: calibrated.simulate(
             *forcing, engine='fused', **setup))
         res_snow = timed("cemaneige_fit", lambda: Cemaneige().fit(
@@ -1104,6 +1536,316 @@ def phase_main_path_snow(card):
     return launches, max_abs, walls
 
 
+def state_leaves(state):
+    if type(state).__name__ == "SnowGR4JState":
+        return state_leaves(state.snow) + state_leaves(state.gr4j)
+    return list(state)
+
+
+def forecast_family(card, label, model_cls, cut, cold_kw, qobs, counters,
+                    nan_ok=False):
+    """The forecast cycle of one family through its entry points, the launch
+    counts read around each call: spin-up with the final state, the state
+    through a file, a full-width continuation from that one state,
+    recalibration on the last days.  ``cut(lo, hi)`` gives ``simulate``'s
+    forcing keywords over [lo, hi); ``counters`` names the launch counts of
+    the state kernel and of the MSE and statistics objectives.
+
+    Returns what the kernel comparison needs, the launches by mode key and
+    the walls."""
+    from rrmpg_tpu_torch.tools import load_state, save_state
+
+    state_name, mse_name, stats_name = counters
+    t_len = len(qobs)
+    split = t_len - FORECAST_DAYS
+    model = model_cls(params=CALIBRATED[label])
+    walls = {}
+
+    def step(key, fn, expect):
+        result, got, seconds = run_counted(fn)
+        want = expect(result)
+        check(got == want, f"{label} forecast, {key}: launch counts {got} "
+              f"differ from the expected {want}")
+        walls[key] = seconds
+        return result
+
+    q_a, state = step("spin_up", lambda: model.simulate(
+        **cut(0, split), **cold_kw, return_final_state=True, engine='fused'),
+        lambda r: {state_name: 1})
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "state.npz")
+        save_state(path, state)
+        loaded = load_state(path)
+    for a, b in zip(state_leaves(state), state_leaves(loaded)):
+        check(np.array_equal(a.cpu().numpy(), b, equal_nan=True),
+              f"{label}: the state changed on its way through the file")
+    np.random.seed(1)
+    members = model_cls().get_random_params(MC_MEMBERS)
+    tail = cut(split, t_len)
+    q_b, state_b = step("continuation", lambda: model.simulate(
+        **tail, params=members, initial_state=loaded,
+        return_final_state=True, engine='fused'),
+        lambda r: {state_name: 1})
+    fit_kw = dict(initial_state=loaded, engine='fused', seed=0,
+                  maxiter=FORECAST_FIT_MAXITER)
+    res_mse = step("fit_mse", lambda: model_cls().fit(
+        qobs[split:], **tail, **fit_kw), lambda r: {mse_name: r.nit + 1})
+    res_kge = step("fit_kge", lambda: model_cls().fit(
+        qobs[split:], **tail, loss_metric='kge', **fit_kw),
+        lambda r: {stats_name: r.nit + 1})
+
+    check(q_a.shape == (split, 1) and bool(torch.isfinite(q_a).all()),
+          f"{label} spin-up is not a finite (T, 1) series")
+    check(q_b.shape == (FORECAST_DAYS, MC_MEMBERS),
+          f"{label} continuation has shape {tuple(q_b.shape)}")
+    bad = ~torch.isfinite(q_b).all(dim=0)
+    n_bad = int(bad.sum())
+    check(n_bad == 0 or (nan_ok and n_bad < MC_MEMBERS // 2),
+          f"{label} continuation: {n_bad} members are not finite")
+    for leaf in state_leaves(state_b):
+        check(leaf.shape[0] == MC_MEMBERS, f"{label}: a final state leaf has "
+              f"shape {tuple(leaf.shape)}")
+        leaf_bad = ~torch.isfinite(leaf.reshape(MC_MEMBERS, -1)).all(dim=1)
+        check(bool((leaf_bad <= bad).all()),
+              f"{label}: a member with a finite trajectory has a non-finite "
+              "final state")
+    check_fit(model_cls, res_mse, f"{label} warm mse")
+    check_fit(model_cls, res_kge, f"{label} warm kge")
+    # The first members once more on the sequential engine, from the same
+    # state: the fused continuation must agree with it.
+    some = 64
+    q_scan = model.simulate(**tail, params=members[:some],
+                            initial_state=loaded, engine='scan')
+    report(f"forecast {label}: fused continuation vs 'scan', {some} members",
+           q_b[:, :some], q_scan, *TOL[F32]["traj"], nan_ok=nan_ok)
+    print(f"[5 main path] forecast {label} float32: spin-up T={split} in "
+          f"{walls['spin_up']:.3f} s, state through a file, continuation "
+          f"{MC_MEMBERS} members x {FORECAST_DAYS} days ({n_bad} not finite) "
+          f"in {walls['continuation']:.3f} s; warm fit mse nit={res_mse.nit} "
+          f"fun={res_mse.fun:.5f} in {walls['fit_mse']:.3f} s; warm fit kge "
+          f"nit={res_kge.nit} 1-KGE={res_kge.fun:.5f} in "
+          f"{walls['fit_kge']:.3f} s; launches as expected around each "
+          f"call; {card}")
+    launches = {f"{state_name}_cold": 1, f"{state_name}_warm": 1,
+                "mse_warm": res_mse.nit + 1, "stats_warm": res_kge.nit + 1}
+    return (model, loaded, members, res_mse, res_kge), launches, walls
+
+
+def phase_forecast(card, qobs, prec, etp, forcing, qsim_matlab):
+    """The forecast path of the three families whose kernels carry state,
+    then each kernel against its plain version at the shapes the path gave
+    it, then ABC and the snow-only routine on the sequential engine."""
+    from rrmpg_tpu_torch.models import (ABCModel, Cemaneige,
+                                        CemaneigeHystGR4JIce, GR4J, HBVEdu)
+    from rrmpg_tpu_torch.models.states import broadcast_state
+    from rrmpg_tpu_torch.ops import fused_gr4j as fg
+    from rrmpg_tpu_torch.ops import fused_hbv as fh
+    from rrmpg_tpu_torch.ops import fused_snow as fs
+
+    launches, max_abs, walls = {}, {}, {}
+    tol = TOL[F32]
+
+    def keep(key, err):
+        max_abs[key] = max(max_abs.get(key, 0.0), err)
+
+    def shared(model, loaded, num):
+        return broadcast_state(model._single_member_state(loaded), num)
+
+    # GR4J on CAMELS 01031500.
+    t_len = len(qobs)
+    split = t_len - FORECAST_DAYS
+    (model, loaded, members, res_mse, res_kge), got, w = forecast_family(
+        card, "GR4J", GR4J, lambda lo, hi: dict(prec=prec[lo:hi],
+                                                etp=etp[lo:hi]),
+        {}, qobs, ("gr4j_traj_state", "gr4j_mse", "gr4j_stats"))
+    launches.update({"gr4j_traj_state_cold": got["gr4j_traj_state_cold"],
+                     "gr4j_traj_state_warm": got["gr4j_traj_state_warm"],
+                     "gr4j_mse_warm": got["mse_warm"],
+                     "gr4j_stats_warm": got["stats_warm"]})
+    walls["GR4J"] = w
+    series = [as_tensor(a, F32) for a in (prec, etp, qobs)]
+    head = [x[:split].contiguous() for x in series]
+    tail = [x[split:].contiguous() for x in series]
+    masked = bool(np.isnan(qobs[split:]).any())
+    cal_params, _ = model._prepare_params(None)
+    _, traj, rows = gr4j_state_pair(fg, *head[:2], cal_params, None, (10, 21))
+    keep("gr4j_traj_state_cold", report(
+        "forecast shape gr4j_traj_state cold (spin-up) traj", *traj,
+        *tol["traj"]))
+    keep("gr4j_traj_state_cold", report(
+        "forecast shape gr4j_traj_state cold (spin-up) state rows", *rows,
+        *tol["traj"]))
+    mc_params, _ = model._prepare_params(members)
+    _, traj, rows = gr4j_state_pair(fg, *tail[:2], mc_params,
+                                    shared(model, loaded, MC_MEMBERS),
+                                    (10, 21))
+    keep("gr4j_traj_state_warm", report(
+        "forecast shape gr4j_traj_state warm (continuation) traj", *traj,
+        *tol["traj"]))
+    keep("gr4j_traj_state_warm", report(
+        "forecast shape gr4j_traj_state warm (continuation) state rows",
+        *rows, *tol["traj"]))
+    for key, res, stats in (("gr4j_mse_warm", res_mse, False),
+                            ("gr4j_stats_warm", res_kge, True)):
+        pop = population_params(GR4J, res)
+        pair = gr4j_warm_objective_pair(
+            fg, *tail, pop, shared(model, loaded, pop['x1'].shape[0]), (3, 7),
+            stats, masked)
+        keep(key, report(f"forecast shape {key} (fit population)", *pair,
+                         *tol["obj"]))
+
+    # HBV-Edu on the MATLAB days (observations as in its main path).
+    hbv_qobs = qsim_matlab * (24 * 60 * 60) / (HBV_AREA * 1000)
+    hbv_qobs[200:215] = np.nan
+    hbv_qobs[::97] = np.nan
+    t_len = len(hbv_qobs)
+    split = t_len - FORECAST_DAYS
+
+    def hbv_cut_kw(lo, hi):
+        return dict(forcing, temp=forcing['temp'][lo:hi],
+                    prec=forcing['prec'][lo:hi],
+                    month=forcing['month'][lo:hi])
+
+    snow0, soil0, s1_0, s2_0 = HBV_INITS
+    (model, loaded, members, res_mse, res_kge), got, w = forecast_family(
+        card, "HBV-Edu", HBVEdu, hbv_cut_kw,
+        dict(snow_init=snow0, soil_init=soil0, s1_init=s1_0, s2_init=s2_0),
+        hbv_qobs, ("hbv_traj_state", "hbv_mse", "hbv_stats"), nan_ok=True)
+    launches.update({"hbv_traj_state_cold": got["hbv_traj_state_cold"],
+                     "hbv_traj_state_warm": got["hbv_traj_state_warm"],
+                     "hbv_warm": got["mse_warm"] + got["stats_warm"]})
+    walls["HBV-Edu"] = w
+    tensors = hbv_tensors(forcing, F32)
+    head, tail = hbv_cut(tensors, 0, split), hbv_cut(tensors, split, t_len)
+    qobs_tail = as_tensor(hbv_qobs[split:], F32)
+    masked = bool(np.isnan(hbv_qobs[split:]).any())
+    cal_params, _ = model._prepare_params(None)
+    _, traj, rows = hbv_state_pair(fh, head, cal_params, None)
+    mc_params, _ = model._prepare_params(members)
+    _, traj_w, rows_w = hbv_state_pair(
+        fh, tail, mc_params, tuple(shared(model, loaded, MC_MEMBERS)))
+    for key, what, pair in (
+            ("hbv_traj_state_cold", "cold (spin-up) traj", traj),
+            ("hbv_traj_state_cold", "cold (spin-up) state rows", rows),
+            ("hbv_traj_state_warm", "warm (continuation) traj", traj_w),
+            ("hbv_traj_state_warm", "warm (continuation) state rows",
+             rows_w)):
+        keep(key, report(f"forecast shape hbv_traj_state {what}", *pair,
+                         *tol["traj"], nan_ok=True))
+    for res, stats in ((res_mse, False), (res_kge, True)):
+        pop = population_params(HBVEdu, res)
+        pair = hbv_warm_objective_pair(
+            fh, tail, qobs_tail, pop,
+            tuple(shared(model, loaded, pop['T_t'].shape[0])), stats, masked)
+        keep("hbv_warm", report(
+            f"forecast shape hbv_{'stats' if stats else 'mse'} warm (fit "
+            "population)", *pair, *tol["obj"], nan_ok=True))
+
+    # The hysteresis + ice snow model on its Excel sheet.
+    met, snow_qobs, _ = snow_main_data()
+    t_len = len(snow_qobs)
+    split = t_len - FORECAST_DAYS
+    setup = dict(met_station_height=700, altitudes=ALTITUDES,
+                 frac_ice=FRAC_ICE_GOLDEN)
+    (model, loaded, members, res_mse, res_kge), got, w = forecast_family(
+        card, "snow", CemaneigeHystGR4JIce,
+        lambda lo, hi: dict({k: v[lo:hi] for k, v in met.items()}, **setup),
+        dict(s_init=0.5, r_init=0.4), snow_qobs,
+        ("snow_traj_state", "snow_mse", "snow_stats"))
+    launches.update({"snow_traj_state_cold": got["snow_traj_state_cold"],
+                     "snow_traj_state_warm": got["snow_traj_state_warm"],
+                     "snow_warm": got["mse_warm"] + got["stats_warm"]})
+    walls["snow"] = w
+    f = model._prepare(*met.values(), FRAC_ICE_GOLDEN, 700, ALTITUDES, 0, 0,
+                       0, 0.5, 0.4)
+    d = SnowData(f.prec, f.mean_temp, f.frac_solid_prec, f.etp, f.frac_ice,
+                 as_tensor(snow_qobs, F32))
+    # The met preprocessing works step by step, so the layer forcing of a
+    # segment is the segment of the layer forcing.
+    head, tail = d.cut(0, split), d.cut(split, t_len)
+    masked = bool(np.isnan(snow_qobs[split:]).any())
+    kw = dict(hyst=True, ice=True, uh=(10, 21))
+    cal_params, _ = model._prepare_params(None)
+    _, traj, (got_st, want_st) = snow_state_pair(
+        fs, head, cal_params, None, inits=(0.0, 0.0, 0.5, 0.4), **kw)
+    mc_params, _ = model._prepare_params(members)
+    _, traj_w, (got_w, want_w) = snow_state_pair(
+        fs, tail, mc_params, shared(model, loaded, MC_MEMBERS), **kw)
+    for key, what, pair in (
+            ("snow_traj_state_cold", "cold (spin-up) traj", traj),
+            ("snow_traj_state_cold", "cold (spin-up) state rows",
+             (snow_rows(got_st), snow_rows(want_st))),
+            ("snow_traj_state_warm", "warm (continuation) traj", traj_w),
+            ("snow_traj_state_warm", "warm (continuation) state rows",
+             (snow_rows(got_w), snow_rows(want_w)))):
+        keep(key, report(f"forecast shape snow_traj_state {what}", *pair,
+                         *tol["traj"]))
+    unequal = (snow_bits_unequal(got_st, want_st)
+               + snow_bits_unequal(got_w, want_w))
+    print(f"    forecast shape snow_traj_state: snow state elements that "
+          f"differ from the plain version in any bit: {unequal}")
+    check(unequal == 0, "K10's snow state differs from the plain version at "
+          "the forecast path's shapes")
+    for res, stats in ((res_mse, False), (res_kge, True)):
+        pop = population_params(CemaneigeHystGR4JIce, res)
+        pair = snow_warm_objective_pair(
+            fs, tail, pop, shared(model, loaded, pop['CTG'].shape[0]),
+            stats=stats, masked=masked, **kw)
+        keep("snow_warm", report(
+            f"forecast shape snow_{'stats' if stats else 'mse'} warm (fit "
+            "population)", *pair, *tol["obj"]))
+
+    # ABC and the snow-only routine carry state on the sequential engine
+    # only: one warm continuation each, on the card.
+    def sequential():
+        abc_model = ABCModel(params=ABC_PARAMS)
+        split = len(prec) - FORECAST_DAYS
+        q_a, st = abc_model.simulate(prec[:split], initial_state=5.0,
+                                     return_final_state=True, engine='fused')
+        np.random.seed(2)
+        q_b, st_b = abc_model.simulate(
+            prec[split:], params=ABCModel().get_random_params(
+                SEQUENTIAL_MEMBERS), initial_state=st,
+            return_final_state=True)
+        q_one = abc_model.simulate(prec[split:], initial_state=st)
+        full = abc_model.simulate(prec, initial_state=5.0, engine='scan')
+        station = {k: met[k] for k in ("prec", "mean_temp", "min_temp",
+                                       "max_temp")}
+        snow_kw = dict(met_station_height=700, altitudes=ALTITUDES)
+        snow_model = Cemaneige(params=CEMANEIGE_GOLDEN)
+        split_s = len(snow_qobs) - FORECAST_DAYS
+        _, snow_st = snow_model.simulate(
+            **{k: v[:split_s] for k, v in station.items()}, **snow_kw,
+            return_final_state=True)
+        np.random.seed(3)
+        out, snow_st_b = snow_model.simulate(
+            **{k: v[split_s:] for k, v in station.items()}, **snow_kw,
+            params=Cemaneige().get_random_params(SEQUENTIAL_MEMBERS),
+            initial_state=snow_st, return_final_state=True)
+        return q_a, q_b, st_b, q_one, full, out, snow_st_b
+
+    (q_a, q_b, st_b, q_one, full, out, snow_st_b), got, seconds = run_counted(
+        sequential)
+    check(got == {"abc_fused_single": 1},
+          f"sequential continuations: launch counts {got}")
+    check(q_b.shape == (FORECAST_DAYS, SEQUENTIAL_MEMBERS)
+          and bool(torch.isfinite(q_b).all())
+          and st_b.storage.shape == (SEQUENTIAL_MEMBERS,),
+          "ABC warm continuation is not finite at the expected shape")
+    report("forecast ABC: cold K6 + warm 'scan' vs unbroken 'scan'",
+           torch.cat([q_a, q_one]), full, *abc_tol(full))
+    check(out.shape == (FORECAST_DAYS, SEQUENTIAL_MEMBERS)
+          and bool(torch.isfinite(out).all())
+          and snow_st_b.g.shape == (SEQUENTIAL_MEMBERS, len(ALTITUDES)),
+          "Cemaneige warm continuation is not finite at the expected shape")
+    print(f"[5 main path] forecast ABC and Cemaneige on the sequential "
+          f"engine, on the card, float32: {SEQUENTIAL_MEMBERS}-member warm "
+          f"continuations of {FORECAST_DAYS} days in {seconds:.3f} s "
+          f"(with both spin-ups); {card}")
+    launches["abc_fused_single"] = got["abc_fused_single"]
+    return launches, max_abs, walls
+
+
 def phase_times(card, prec_np, etp_np, qobs_np, forcing, qsim_matlab):
     """Kernel, plain version and bound of every kernel; returns
     ``{name: dict(ms, plain_ms, bound_ms, bound_by)}``."""
@@ -1114,12 +1856,22 @@ def phase_times(card, prec_np, etp_np, qobs_np, forcing, qsim_matlab):
     n, t_len = TIME_MEMBERS, TIME_STEPS
     rows = {}
 
-    def measure(name, kernel, plain, ops, n_bytes, reps, what):
+    def measure(name, kernel, plain, ops, n_bytes, reps, what,
+                plain_once=False):
         # plain, kernel, kernel, plain: drift shows as a plain/plain gap.
-        plain_a = device_ms(plain, 1)
+        # ``plain_once`` (the state kernels and warm objectives): the plain
+        # version is timed in one cold call and not again.
+        if plain_once:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            plain()
+            torch.cuda.synchronize()
+            plain_a = (time.perf_counter() - t0) * 1e3
+        else:
+            plain_a = device_ms(plain, 1)
         kernel_a = device_ms(kernel, reps)
         kernel_b = device_ms(kernel, reps)
-        plain_b = device_ms(plain, 1)
+        plain_b = plain_a if plain_once else device_ms(plain, 1)
         ms, plain_ms = min(kernel_a, kernel_b), min(plain_a, plain_b)
         bound, by = bound_ms(ops, n_bytes)
         rows[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound,
@@ -1156,6 +1908,42 @@ def phase_times(card, prec_np, etp_np, qobs_np, forcing, qsim_matlab):
             lambda: fg.gr4j_simulate_reference(prec, etp, packed, *uh),
             step, 4 * (2 * t_len + 6 * n + n * t_len), 5, shape)
 
+    # K4 cold and warm, and the warm K1/K2, at the same shape.  The warm
+    # entries start from the state the cold run ends in; they read H = 20
+    # history rows per member more, and K4 writes 2 + H state rows.
+    h = uh[1] - 1
+    _, state = fg.gr4j_simulate_state_fused(prec, etp, params, None, 0.0, 0.0,
+                                            *uh)
+    packed_w = fg.pack_params(params, 0.0, 0.0, state)
+    hist = fg.history_rows(state, uh[1], prec)
+    traj_bytes = 4 * (2 * t_len + 6 * n + n * t_len + (2 + h) * n)
+    measure("gr4j_traj_state_cold",
+            lambda: fg.gr4j_simulate_state_fused(prec, etp, params, None, 0.0,
+                                                 0.0, *uh),
+            lambda: fg.gr4j_simulate_state_reference(prec, etp, packed, None,
+                                                     *uh),
+            step, traj_bytes, 5, shape, plain_once=True)
+    measure("gr4j_traj_state_warm",
+            lambda: fg.gr4j_simulate_state_fused(prec, etp, params, state,
+                                                 num_uh1=uh[0],
+                                                 num_uh2=uh[1]),
+            lambda: fg.gr4j_simulate_state_reference(prec, etp, packed_w,
+                                                     hist, *uh),
+            step, traj_bytes + 4 * h * n, 5, shape, plain_once=True)
+    for mode in ("mse", "stats"):
+        stats = mode == "stats"
+        measure(
+            f"gr4j_{mode}_warm",
+            lambda: fg.gr4j_ensemble_mse_fused(prec, etp, qobs, 0.0, 0.0,
+                                               params, *uh, stats=stats,
+                                               state=state),
+            lambda: fg.gr4j_objective_reference(prec, etp, qobs, packed_w,
+                                                *uh, stats=stats, hist=hist),
+            step + OBJECTIVE_OPS[mode] * n * t_len,
+            4 * (3 * t_len + (6 + h) * n + (4 if stats else 1) * n), 5, shape,
+            plain_once=True)
+    del state, packed_w, hist
+
     # HBV-Edu, 131072 x 3651, on the first 3651 MATLAB days.
     tensors = hbv_tensors(forcing, F32, t_len)
     hbv_qobs = as_tensor(qsim_matlab[:t_len], F32)
@@ -1172,6 +1960,28 @@ def phase_times(card, prec_np, etp_np, qobs_np, forcing, qsim_matlab):
                      step + OBJECTIVE_OPS.get(mode, 0) * n * t_len,
                      4 * (n_series * t_len + 17 * n + out_bytes), 5, shape)
         print(f"    {n * t_len / (ms * 1e-3):.4e} member-steps/s")
+
+    # K14 cold and warm and the warm K12 (statistics): the same work plus
+    # four state rows per member.
+    _, hbv_state = fh.hbv_simulate_state_fused(*tensors, *HBV_INITS,
+                                               hbv_params)
+    traj_bytes = 4 * (4 * t_len + 17 * n + n * t_len + 4 * n)
+    for entry, st in (("cold", None), ("warm", hbv_state)):
+        measure(f"hbv_traj_state_{entry}",
+                lambda: hbv_state_kernel(fh, tensors, hbv_params, st),
+                lambda: hbv_state_plain(fh, tensors, hbv_params, st),
+                step, traj_bytes, 5, shape, plain_once=True)
+    measure("hbv_warm",
+            lambda: fh.hbv_ensemble_mse_fused(
+                *tensors, hbv_qobs, 0.0, 0.0, 0.0, 0.0, hbv_params,
+                stats=True, state=hbv_state),
+            lambda: hbv_warm_objective_plain(fh, tensors, hbv_qobs,
+                                             hbv_params, hbv_state, True,
+                                             False),
+            step + OBJECTIVE_OPS["stats"] * n * t_len,
+            4 * (5 * t_len + 17 * n + 4 * n), 5, shape + " stats",
+            plain_once=True)
+    del hbv_state
 
     # The snow family at the hysteresis + ice flagship shape: 131072 x 3651
     # x 5 layers, UH (3, 7), forcing and members from one numpy recipe.
@@ -1208,6 +2018,30 @@ def phase_times(card, prec_np, etp_np, qobs_np, forcing, qsim_matlab):
             3, shape)
         print(f"    {n * t_len / (ms * 1e-3):.4e} member-steps/s")
 
+    # K10 cold and warm and the warm K8 (statistics).  A warm entry reads
+    # 4L state rows, L constants and H = 6 history rows per member instead
+    # of the L shared constants; K10 writes 2 + H + 4L state rows.
+    h = uh[1] - 1
+    pair_kw = dict(hyst=True, ice=True, uh=uh, inits=(0.0, 0.0, 0.3, 0.3))
+    _, snow_state = snow_state_kernel(fs, d, snow_params, None, **pair_kw)
+    warm_read = (5 * num_layers + h) * n
+    traj_values = series + 11 * n + n * t_len + (2 + h + 4 * num_layers) * n
+    for entry, st, read in (("cold", None, 0), ("warm", snow_state,
+                                                warm_read)):
+        measure(f"snow_traj_state_{entry}",
+                lambda: snow_state_kernel(fs, d, snow_params, st, **pair_kw),
+                lambda: snow_state_plain(fs, d, snow_params, st, **pair_kw),
+                step, 4 * (traj_values + read), 3, shape, plain_once=True)
+    measure("snow_warm",
+            lambda: snow_warm_objective_kernel(
+                fs, d, snow_params, snow_state, True, True, uh, True, False),
+            lambda: snow_warm_objective_plain(
+                fs, d, snow_params, snow_state, True, True, uh, True, False),
+            step + SNOW_SUMS_OPS * n * t_len,
+            4 * (series + t_len + 11 * n + 4 * n + warm_read), 3,
+            shape + " stats", plain_once=True)
+    del snow_state
+
     # ABC, one member over 10M steps.  Three copies of the series take
     # turns, so that no launch finds its input in the 50 MB L2 cache.
     rng = np.random.default_rng(0)
@@ -1236,10 +2070,9 @@ def phase_times(card, prec_np, etp_np, qobs_np, forcing, qsim_matlab):
 
 
 def kernel_entries(launches, max_abs, times):
-    """The nine kernels of the ``kernels`` line.  K8 and K12 are one kernel
-    with several modes: the entry carries the stats mode (the Monte-Carlo
-    path) at the top, the launches of all modes together, and every mode
-    under ``modes``."""
+    """The twelve kernels of the ``kernels`` line.  A kernel with several
+    modes (KERNEL_MODES) carries the mode named in TOP_MODE at the top, the
+    launches of all its modes together, and every mode under ``modes``."""
     def entry(name, launches_n, err, row):
         source, replaces = KERNELS[name]
         return {"name": name, "route": "cuda", "source": source,
@@ -1254,43 +2087,88 @@ def kernel_entries(launches, max_abs, times):
             out.append(entry(name, launches.get(name, 0), max_abs[name],
                              times[name]))
             continue
-        family = name.split("_")[0]
-        modes = [f"{family}_{mode}" for mode in KERNEL_MODES[name]]
-        combined = entry(name, sum(launches.get(m, 0) for m in modes),
-                         max(max_abs[m] for m in modes),
-                         times[f"{family}_stats"])
+        modes = KERNEL_MODES[name]
+        keys = [key for _, key in modes.values()]
+        combined = entry(name, sum(launches.get(k, 0) for k in keys),
+                         max(max_abs[k] for k in keys),
+                         times[modes[TOP_MODE[name]][1]])
         combined["modes"] = {
-            mode: {"replaces": line,
-                   "launches": launches.get(f"{family}_{mode}", 0),
-                   "max_abs_err": max_abs[f"{family}_{mode}"],
-                   **times.get(f"{family}_{mode}", {})}
-            for mode, line in KERNEL_MODES[name].items()}
+            mode: {"replaces": line, "launches": launches.get(key, 0),
+                   "max_abs_err": max_abs[key], **times.get(key, {})}
+            for mode, (line, key) in modes.items()}
+        for mode, detail in combined["modes"].items():
+            check(detail["launches"] > 0, f"{name}, mode {mode}, was "
+                  "launched no time on the main paths")
         out.append(combined)
     return out
 
 
+PHASES = ("kernels", "golden", "main", "forecast", "times")
+
+
 def main():
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--phases", default=",".join(PHASES),
+                        help="development: the phases to run after the "
+                        "build, of " + ", ".join(PHASES))
+    phases = set(parser.parse_args().phases.split(","))
+    check(phases <= set(PHASES), f"unknown phase in {sorted(phases)}")
+    started = time.perf_counter()
+
+    def lap(what):
+        print(f"[elapsed] {time.perf_counter() - started:.0f} s after {what}")
+
     card = phase_environment()
     phase_build()
+    lap("the build")
     qobs, prec, etp = basin()
     forcing, qsim_matlab = hbv_data()
-    phase_kernels_gr4j(prec, etp, qobs)
-    phase_kernels_abc()
-    phase_kernels_hbv(forcing, qsim_matlab)
-    phase_kernels_snow()
-    phase_golden(forcing, qsim_matlab)
+    if "kernels" in phases:
+        phase_kernels_gr4j(prec, etp, qobs)
+        phase_kernels_abc()
+        phase_kernels_hbv(forcing, qsim_matlab)
+        phase_kernels_snow()
+        lap("the cold kernels against their plain versions")
+        phase_kernels_state_gr4j(prec, etp, qobs)
+        phase_kernels_state_hbv(forcing, qsim_matlab)
+        phase_kernels_state_snow()
+        lap("the state kernels and warm objectives against theirs")
+    if "golden" in phases:
+        phase_golden(forcing, qsim_matlab)
+        lap("the goldens")
     launches, max_abs = {}, {}
-    for name, result in (
-            ("GR4J", phase_main_path_gr4j(card, qobs, prec, etp)),
-            ("HBV-Edu", phase_main_path_hbv(card, forcing, qsim_matlab)),
-            ("ABC", phase_main_path_abc(card, qobs, prec)),
-            ("snow", phase_main_path_snow(card))):
-        launches.update(result[0])
-        max_abs.update(result[1])
+
+    def gather(name, result):
+        for key, count in result[0].items():
+            launches[key] = launches.get(key, 0) + count
+        for key, err in result[1].items():
+            max_abs[key] = max(max_abs.get(key, 0.0), err)
         print(f"[5 main path] {name} wall: " + ", ".join(
             f"{k} {v:.3f} s" for k, v in result[2].items()) + f"; {card}")
-    times = phase_times(card, prec, etp, qobs, forcing, qsim_matlab)
+
+    if "main" in phases:
+        gather("GR4J", phase_main_path_gr4j(card, qobs, prec, etp))
+        gather("HBV-Edu", phase_main_path_hbv(card, forcing, qsim_matlab))
+        gather("ABC", phase_main_path_abc(card, qobs, prec))
+        gather("snow", phase_main_path_snow(card))
+        lap("the four main paths")
+    if "forecast" in phases:
+        check("main" in phases, "the forecast path continues the models the "
+              "main paths calibrated: run both")
+        result = phase_forecast(card, qobs, prec, etp, forcing, qsim_matlab)
+        walls = {f"{family} {k}": v for family, w in result[2].items()
+                 for k, v in w.items()}
+        gather("forecast", (result[0], result[1], walls))
+        lap("the forecast path")
+    if "times" in phases:
+        times = phase_times(card, prec, etp, qobs, forcing, qsim_matlab)
+        lap("the times")
+    if phases != set(PHASES):
+        print(f"ran only {sorted(phases)}: no result line")
+        sys.exit(3)
     kernels = kernel_entries(launches, max_abs, times)
+    check(len(kernels) == len(KERNELS) == 12, "the kernels line must list "
+          "twelve kernels")
     for k in kernels:
         check(k["launches"] > 0, f"{k['name']} was launched no time on the "
               "main path")

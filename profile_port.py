@@ -4,8 +4,10 @@
     python3 profile_port.py        # from the repository root; needs one card
 
 Each path is driven through the entry points a user calls, in float32, at
-the shapes ``chip_smoke.py`` drives: warmed up once, run three times
-untraced (host clock, synchronised) and once under ``torch.profiler``.
+the shapes ``chip_smoke.py`` drives (the forecast path too: a 131072-member
+warm continuation of the last 365 days from one shared state and a warm
+``fit`` per family that carries state through kernels): warmed up once,
+run three times untraced (host clock, synchronised) and once under ``torch.profiler``.
 Per path one line: the untraced walls, the traced wall, the device's busy
 time (kernels and copies), its idle share (1 - busy / traced wall), and the
 device time by kernel name.  Every line carries the card's name and power
@@ -142,6 +144,48 @@ def main():
           lambda: CemaneigeHystGR4JIce(
               params=dict(cs.HYST_GOLDEN, DDF=5)).simulate(
                   *snow_forcing, engine='fused', **snow_kw))
+
+    # The forecast path: spin-up to a state, then the full-width warm
+    # continuation and the warm recalibration of the last days from it.
+    days = cs.FORECAST_DAYS
+    hbv_cold = dict(snow_init=snow, soil_init=soil, s1_init=s1, s2_init=s2)
+    families = (
+        ("GR4J", GR4J, {'x1': 350.0, 'x2': 1.0, 'x3': 90.0, 'x4': 1.7},
+         lambda lo, hi: dict(prec=prec[lo:hi], etp=etp[lo:hi]), {}, qobs),
+        ("HBV-Edu", HBVEdu, cs.HBV_GOLDEN,
+         lambda lo, hi: dict(forcing, temp=forcing['temp'][lo:hi],
+                             prec=forcing['prec'][lo:hi],
+                             month=forcing['month'][lo:hi]), hbv_cold,
+         hbv_qobs),
+        ("CemaneigeHystGR4JIce", CemaneigeHystGR4JIce,
+         dict(cs.HYST_GOLDEN, DDF=5),
+         lambda lo, hi: dict({k: v[lo:hi] for k, v in met.items()},
+                             frac_ice=cs.FRAC_ICE_GOLDEN,
+                             met_station_height=700,
+                             altitudes=cs.ALTITUDES),
+         dict(s_init=0.5, r_init=0.4), snow_qobs))
+    for label, model_cls, params, cut, cold_kw, obs in families:
+        split = len(obs) - days
+        model = model_cls(params=params)
+        _, state = model.simulate(**cut(0, split), **cold_kw,
+                                  return_final_state=True, engine='fused')
+        np.random.seed(1)
+        members = model_cls().get_random_params(n)
+        tail = cut(split, len(obs))
+        trace(card, f"{label} spin-up 1 x {split} with final state (fused)",
+              lambda: model.simulate(**cut(0, split), **cold_kw,
+                                     return_final_state=True,
+                                     engine='fused'))
+        trace(card, f"{label} warm continuation {n} x {days} from one "
+              "state, with final state (fused)", lambda: model.simulate(
+                  **tail, params=members, initial_state=state,
+                  return_final_state=True, engine='fused'))
+        for loss in ('mse', 'kge'):
+            trace(card, f"{label} warm fit {loss} (x {days}, maxiter "
+                  f"{cs.FORECAST_FIT_MAXITER})", lambda: model_cls().fit(
+                      obs[split:], **tail, initial_state=state,
+                      engine='fused', seed=0, loss_metric=loss,
+                      maxiter=cs.FORECAST_FIT_MAXITER))
 
     prec_long = np.random.default_rng(0).uniform(0, 20, cs.ABC_STEPS)
     prec_t = cs.as_tensor(prec_long, cs.F32)

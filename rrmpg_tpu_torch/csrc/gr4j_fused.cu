@@ -4,6 +4,9 @@
 //   K1  _mse_kernel    (gr4j_ensemble_mse_pallas)             -> gr4j_objective_kernel<..., STATS=false>
 //   K2  _stats_kernel  (gr4j_ensemble_mse_pallas, stats=True) -> gr4j_objective_kernel<..., STATS=true>
 //   K3  _traj_kernel   (gr4j_simulate_pallas)                 -> gr4j_traj_kernel
+//   K4  _traj_final_kernel (gr4j_simulate_pallas_state)       -> gr4j_traj_state_kernel
+// and the `warm` mode of K1/K2 (state=): the objective kernels enter from a
+// carried state when they are given a routing-input history.
 // The shared step/init they are built from (_gr4j_step, _init_block) are
 // gr4j_step / gr4j_init in gr4j_step.cuh, which the snow kernels include
 // too.
@@ -14,7 +17,8 @@
 // before step t ends.  The forcing series (prec, etp, qobs) is the same for
 // every member: one read per step that the whole warp shares.  K1/K2 move
 // only 6 parameters in and 1 or 4 numbers out per member; K3 writes the
-// (N, T) trajectory.
+// (N, T) trajectory, K4 the trajectory and 2 + H state rows per member
+// (H = NUH2 - 1 routing inputs, the window the UH filters still integrate).
 //
 // What the design does about it: one thread owns one member, and the
 // production/routing stores and both UH shift registers stay in registers
@@ -27,7 +31,10 @@
 //
 // Unlike the TPU kernels there is no (8, 128) member tiling, no padding of
 // N or T and no time-tile grid: the kernel masks i < N itself and loops to
-// T exactly.
+// T exactly.  K4 therefore needs neither the TPU kernel's state snapshot
+// inside the loop nor its history scratch shifted at every step: the state
+// is what the thread holds when its loop ends, and the last H routing inputs
+// go straight to their state rows as they are computed.
 //
 // C interface (bound with ctypes): every entry returns a cudaError_t as int
 // (0 on success) and launches on the stream it is given without
@@ -58,21 +65,56 @@ gr4j_traj_kernel(const Real* __restrict__ prec, const Real* __restrict__ etp,
   }
 }
 
+// K4: trajectories as K3, entering cold (hist == nullptr) or from a carried
+// state, plus the end-of-series state as (2 + H, N) rows [s, r, hist(H)].
+// The final history is the last H values of [incoming history or zeros |
+// p_r[0..T)]: the p_r of the last H steps, each written to its row as it is
+// computed; a segment shorter than H keeps the tail of the incoming rows.
+template <typename Real, int NUH1, int NUH2>
+__global__ void __launch_bounds__(kBlock)
+gr4j_traj_state_kernel(const Real* __restrict__ prec,
+                       const Real* __restrict__ etp,
+                       const Real* __restrict__ params,
+                       const Real* __restrict__ hist, int n, int t_len,
+                       Real* __restrict__ out, Real* __restrict__ fstate) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  constexpr int H = NUH2 - 1;
+  Member<Real, NUH1, NUH2> m;
+  gr4j_init(m, params, n, i, hist);
+  Real* state = fstate + i;  // row k of this member: state[k * n]
+  for (int j = 0; j < H - t_len; ++j) {
+    state[(size_t)(2 + j) * n] =
+        hist != nullptr ? hist[(size_t)(j + t_len) * n + i] : Real(0);
+  }
+  const int first_kept = t_len - H;  // the step whose p_r is history row 0
+  Real* row = out + (size_t)i * t_len;
+  for (int t = 0; t < t_len; ++t) {
+    Real p_r;
+    row[t] = gr4j_step_pr(m, __ldg(prec + t), __ldg(etp + t), p_r);
+    if (t >= first_kept) state[(size_t)(2 + t - first_kept) * n] = p_r;
+  }
+  state[0] = m.s;
+  state[n] = m.r;
+}
+
 // K1 (STATS=false): out[i] = mean squared error.
 // K2 (STATS=true): out[k*N + i] = time means of [err^2, q, q^2, q*qobs].
 // MASKED skips steps whose observation is NaN (the step itself still runs);
 // `count` is the number of steps averaged over (T, or the valid count).
+// With `hist` the objective is that of a warm continuation.
 template <typename Real, int NUH1, int NUH2, bool STATS, bool MASKED>
 __global__ void __launch_bounds__(kBlock)
 gr4j_objective_kernel(const Real* __restrict__ prec,
                       const Real* __restrict__ etp,
                       const Real* __restrict__ qobs,
-                      const Real* __restrict__ params, int n, int t_len,
+                      const Real* __restrict__ params,
+                      const Real* __restrict__ hist, int n, int t_len,
                       Real count, Real* __restrict__ out) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   Member<Real, NUH1, NUH2> m;
-  gr4j_init(m, params, n, i);
+  gr4j_init(m, params, n, i, hist);
   Real sse = Real(0), sum_q = Real(0), sum_q2 = Real(0), sum_qo = Real(0);
   for (int t = 0; t < t_len; ++t) {
     const Real q = gr4j_step(m, __ldg(prec + t), __ldg(etp + t));
@@ -104,27 +146,37 @@ void launch_traj(const Real* prec, const Real* etp, const Real* params, int n,
 }
 
 template <typename Real, int NUH1, int NUH2>
+void launch_traj_state(const Real* prec, const Real* etp, const Real* params,
+                       const Real* hist, int n, int t_len, Real* out,
+                       Real* fstate, cudaStream_t stream) {
+  gr4j_traj_state_kernel<Real, NUH1, NUH2>
+      <<<grid_for(n), kBlock, 0, stream>>>(prec, etp, params, hist, n, t_len,
+                                           out, fstate);
+}
+
+template <typename Real, int NUH1, int NUH2>
 void launch_objective(const Real* prec, const Real* etp, const Real* qobs,
-                      const Real* params, int n, int t_len, bool stats,
+                      const Real* params, const Real* hist, int n, int t_len,
+                      bool stats,
                       bool masked, Real count, Real* out,
                       cudaStream_t stream) {
   const dim3 grid = grid_for(n);
   if (stats && masked) {
     gr4j_objective_kernel<Real, NUH1, NUH2, true, true>
-        <<<grid, kBlock, 0, stream>>>(prec, etp, qobs, params, n, t_len,
-                                      count, out);
+        <<<grid, kBlock, 0, stream>>>(prec, etp, qobs, params, hist, n,
+                                      t_len, count, out);
   } else if (stats) {
     gr4j_objective_kernel<Real, NUH1, NUH2, true, false>
-        <<<grid, kBlock, 0, stream>>>(prec, etp, qobs, params, n, t_len,
-                                      count, out);
+        <<<grid, kBlock, 0, stream>>>(prec, etp, qobs, params, hist, n,
+                                      t_len, count, out);
   } else if (masked) {
     gr4j_objective_kernel<Real, NUH1, NUH2, false, true>
-        <<<grid, kBlock, 0, stream>>>(prec, etp, qobs, params, n, t_len,
-                                      count, out);
+        <<<grid, kBlock, 0, stream>>>(prec, etp, qobs, params, hist, n,
+                                      t_len, count, out);
   } else {
     gr4j_objective_kernel<Real, NUH1, NUH2, false, false>
-        <<<grid, kBlock, 0, stream>>>(prec, etp, qobs, params, n, t_len,
-                                      count, out);
+        <<<grid, kBlock, 0, stream>>>(prec, etp, qobs, params, hist, n,
+                                      t_len, count, out);
   }
 }
 
@@ -150,8 +202,29 @@ int simulate(const Real* prec, const Real* etp, const Real* params, int n,
 }
 
 template <typename Real>
+int simulate_state(const Real* prec, const Real* etp, const Real* params,
+                   const Real* hist, int n, int t_len, int nuh1, int nuh2,
+                   Real* out, Real* fstate, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (n <= 0 || t_len <= 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (nuh1 == 3 && nuh2 == 7) {
+    launch_traj_state<Real, 3, 7>(prec, etp, params, hist, n, t_len, out,
+                                  fstate, s);
+  } else if (nuh1 == 10 && nuh2 == 21) {
+    launch_traj_state<Real, 10, 21>(prec, etp, params, hist, n, t_len, out,
+                                    fstate, s);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+template <typename Real>
 int objective(const Real* prec, const Real* etp, const Real* qobs,
-              const Real* params, int n, int t_len, int nuh1, int nuh2,
+              const Real* params, const Real* hist, int n, int t_len,
+              int nuh1, int nuh2,
               int stats, int masked, double count, Real* out, int device,
               void* stream) {
   cudaError_t err = cudaSetDevice(device);
@@ -159,11 +232,11 @@ int objective(const Real* prec, const Real* etp, const Real* qobs,
   if (n <= 0 || t_len <= 0) return (int)cudaSuccess;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (nuh1 == 3 && nuh2 == 7) {
-    launch_objective<Real, 3, 7>(prec, etp, qobs, params, n, t_len,
+    launch_objective<Real, 3, 7>(prec, etp, qobs, params, hist, n, t_len,
                                  stats != 0, masked != 0, Real(count), out,
                                  s);
   } else if (nuh1 == 10 && nuh2 == 21) {
-    launch_objective<Real, 10, 21>(prec, etp, qobs, params, n, t_len,
+    launch_objective<Real, 10, 21>(prec, etp, qobs, params, hist, n, t_len,
                                    stats != 0, masked != 0, Real(count), out,
                                    s);
   } else {
@@ -190,22 +263,40 @@ int rrmpg_gr4j_simulate_f64(const double* prec, const double* etp,
                           device, stream);
 }
 
+int rrmpg_gr4j_simulate_state_f32(const float* prec, const float* etp,
+                                  const float* params, const float* hist,
+                                  int n, int t_len, int nuh1, int nuh2,
+                                  float* out, float* fstate, int device,
+                                  void* stream) {
+  return simulate_state<float>(prec, etp, params, hist, n, t_len, nuh1, nuh2,
+                               out, fstate, device, stream);
+}
+
+int rrmpg_gr4j_simulate_state_f64(const double* prec, const double* etp,
+                                  const double* params, const double* hist,
+                                  int n, int t_len, int nuh1, int nuh2,
+                                  double* out, double* fstate, int device,
+                                  void* stream) {
+  return simulate_state<double>(prec, etp, params, hist, n, t_len, nuh1, nuh2,
+                                out, fstate, device, stream);
+}
+
 int rrmpg_gr4j_objective_f32(const float* prec, const float* etp,
-                             const float* qobs, const float* params, int n,
-                             int t_len, int nuh1, int nuh2, int stats,
-                             int masked, double count, float* out, int device,
-                             void* stream) {
-  return objective<float>(prec, etp, qobs, params, n, t_len, nuh1, nuh2,
+                             const float* qobs, const float* params,
+                             const float* hist, int n, int t_len, int nuh1,
+                             int nuh2, int stats, int masked, double count,
+                             float* out, int device, void* stream) {
+  return objective<float>(prec, etp, qobs, params, hist, n, t_len, nuh1, nuh2,
                           stats, masked, count, out, device, stream);
 }
 
 int rrmpg_gr4j_objective_f64(const double* prec, const double* etp,
-                             const double* qobs, const double* params, int n,
-                             int t_len, int nuh1, int nuh2, int stats,
-                             int masked, double count, double* out,
-                             int device, void* stream) {
-  return objective<double>(prec, etp, qobs, params, n, t_len, nuh1, nuh2,
-                           stats, masked, count, out, device, stream);
+                             const double* qobs, const double* params,
+                             const double* hist, int n, int t_len, int nuh1,
+                             int nuh2, int stats, int masked, double count,
+                             double* out, int device, void* stream) {
+  return objective<double>(prec, etp, qobs, params, hist, n, t_len, nuh1,
+                           nuh2, stats, masked, count, out, device, stream);
 }
 
 }  // extern "C"

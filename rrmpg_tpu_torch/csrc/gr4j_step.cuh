@@ -1,10 +1,11 @@
 // The GR4J step shared by the fused kernels for NVIDIA Hopper (sm_90a).
 //
 // Replaces the shared helpers of rrmpg_tpu/ops/pallas_gr4j.py (_gr4j_step,
-// _init_block): one member's parameters and state (Member), the cold-start
-// init (gr4j_init) and one time step (gr4j_step), written once as device
-// functions.  gr4j_fused.cu (K1-K3) and snow_fused.cu (K8, K9) include this
-// header; the state and regional kernels will too.
+// _init_block): one member's parameters and state (Member), the init
+// (gr4j_init: cold, or warm from a carried routing-input history) and one
+// time step (gr4j_step; gr4j_step_pr also gives the routing input), written
+// once as device functions.  gr4j_fused.cu (K1-K4) and snow_fused.cu (K8-K10)
+// include this header; the regional kernels will too.
 //
 // One thread owns one member.  The UH register lengths are template
 // constants, so after unrolling every index into the ordinate and shift
@@ -75,12 +76,37 @@ struct Member {
   Real uh1[NUH1], uh2[NUH2];  // UH shift registers
 };
 
-// Cold start (_init_block without history): stores from the packed
-// absolute levels, UH ordinates from x4, empty shift registers.
+// Push one routing input through both UH shift registers.
+template <typename Real, int NUH1, int NUH2>
+__device__ __forceinline__ void uh_push(Member<Real, NUH1, NUH2>& m,
+                                        Real p_r) {
+  const Real pr1 = Real(0.9) * p_r;
+  const Real pr2 = Real(0.1) * p_r;
+#pragma unroll
+  for (int j = 0; j < NUH1 - 1; ++j) m.uh1[j] = m.uh1[j + 1] + m.oh1[j] * pr1;
+  m.uh1[NUH1 - 1] = m.oh1[NUH1 - 1] * pr1;
+#pragma unroll
+  for (int j = 0; j < NUH2 - 1; ++j) m.uh2[j] = m.uh2[j + 1] + m.oh2[j] * pr2;
+  m.uh2[NUH2 - 1] = m.oh2[NUH2 - 1] * pr2;
+}
+
+// _init_block: stores from the packed absolute levels, UH ordinates from x4,
+// shift registers empty (cold start, hist == nullptr) or rebuilt from the
+// carried routing inputs (warm entry).  `hist` is (NUH2 - 1, N) row-major,
+// oldest input first.  The register invariant is
+//   uh[j] = sum_m oh[j + m] * pr[t - 1 - m]
+// (each register holds the partial filter sums still owed by past inputs),
+// which is what pushing the H carried inputs through empty registers leaves
+// behind: the warm entry replays them, oldest first, in a loop that is not
+// unrolled.  A run-time pointer decides, the time loop is the same code
+// either way, and the replay costs the cold kernels no register (an unrolled
+// triangular product of history and ordinates cost K1/K2 up to 11).
 template <typename Real, int NUH1, int NUH2>
 __device__ __forceinline__ void gr4j_init(Member<Real, NUH1, NUH2>& m,
                                           const Real* __restrict__ params,
-                                          int n, int i) {
+                                          int n, int i,
+                                          const Real* __restrict__ hist =
+                                              nullptr) {
   const Real x1 = params[i];
   const Real x3 = params[2 * (size_t)n + i];
   const Real x4 = params[3 * (size_t)n + i];
@@ -100,14 +126,21 @@ __device__ __forceinline__ void gr4j_init(Member<Real, NUH1, NUH2>& m,
     m.oh2[j] = s_curve2(Real(j + 1), x4) - s_curve2(Real(j), x4);
     m.uh2[j] = Real(0);
   }
+  if (hist != nullptr) {
+    constexpr int H = NUH2 - 1;
+    const Real* col = hist + i;
+#pragma unroll 1
+    for (int k = 0; k < H; ++k) uh_push(m, col[(size_t)k * n]);
+  }
 }
 
 // One GR4J time step (_gr4j_step, pallas_gr4j.py:56-117); returns the
-// discharge.  1/x1 and 1/x3 are multiplies; the rain and evaporation arms
-// need no branch because the inactive one is exactly zero.
+// discharge and gives the routing input p_r (what the UH filters take in,
+// the state kernels' history).  1/x1 and 1/x3 are multiplies; the rain and
+// evaporation arms need no branch because the inactive one is exactly zero.
 template <typename Real, int NUH1, int NUH2>
-__device__ __forceinline__ Real gr4j_step(Member<Real, NUH1, NUH2>& m,
-                                          Real p, Real e) {
+__device__ __forceinline__ Real gr4j_step_pr(Member<Real, NUH1, NUH2>& m,
+                                             Real p, Real e, Real& p_r_out) {
   const Real one = Real(1);
   // production store (eq. 3/4 + percolation)
   const Real p_n = relu_nan(p - e);
@@ -123,16 +156,10 @@ __device__ __forceinline__ Real gr4j_step(Member<Real, NUH1, NUH2>& m,
   const Real perc = s_interim * (one - dev_rsqrt(dev_sqrt(one + zs)));
   m.s = s_interim - perc;
   const Real p_r = perc + (p_n - p_s);
+  p_r_out = p_r;
 
   // unit hydrograph shift registers
-  const Real pr1 = Real(0.9) * p_r;
-  const Real pr2 = Real(0.1) * p_r;
-#pragma unroll
-  for (int j = 0; j < NUH1 - 1; ++j) m.uh1[j] = m.uh1[j + 1] + m.oh1[j] * pr1;
-  m.uh1[NUH1 - 1] = m.oh1[NUH1 - 1] * pr1;
-#pragma unroll
-  for (int j = 0; j < NUH2 - 1; ++j) m.uh2[j] = m.uh2[j + 1] + m.oh2[j] * pr2;
-  m.uh2[NUH2 - 1] = m.oh2[NUH2 - 1] * pr2;
+  uh_push(m, p_r);
 
   // routing store (eq. 18 + non-linear outflow)
   const Real rx = m.r * m.ix3;
@@ -144,6 +171,14 @@ __device__ __forceinline__ Real gr4j_step(Member<Real, NUH1, NUH2>& m,
   m.r = r_interim - q_r;
   const Real q_d = relu_nan(m.uh2[0] + gw_exchange);
   return q_r + q_d;
+}
+
+// The step for kernels that do not keep the routing input.
+template <typename Real, int NUH1, int NUH2>
+__device__ __forceinline__ Real gr4j_step(Member<Real, NUH1, NUH2>& m,
+                                          Real p, Real e) {
+  Real p_r;
+  return gr4j_step_pr(m, p, e, p_r);
 }
 
 }  // namespace

@@ -4,14 +4,16 @@
 //   K12 _kernel        (hbv_ensemble_mse_pallas)             -> hbv_objective_kernel<..., STATS=false>
 //       _stats_kernel  (hbv_ensemble_mse_pallas, stats=True) -> hbv_objective_kernel<..., STATS=true>
 //   K13 _traj_kernel   (hbv_simulate_pallas)                 -> hbv_traj_kernel
-// and the step they share (_hbv_step), written once here as hbv_step so the
-// state kernel and the warm objectives can reuse it.
+//   K14 _traj_state_kernel (hbv_simulate_pallas_state)       -> hbv_traj_state_kernel
+// and the `warm` mode of K12 (state=), with the step they share (_hbv_step)
+// written once here as hbv_step.
 //
 // What bounds these kernels on this card: operations, and behind them the
 // serial latency of one thread.  Each member is a recurrence of T dependent
 // steps over four stores (snow, soil, near-surface, base flow) with one
 // pow() per step; K12 moves 17 numbers in and 1 or 4 out per member, K13
-// writes the (N, T) trajectory.  The four forcing series are the same for
+// writes the (N, T) trajectory, K14 the trajectory and the four final
+// stores.  The four forcing series are the same for
 // every member: one read per step that the whole warp shares.
 //
 // What the design does about it: one thread owns one member; the stores and
@@ -25,8 +27,17 @@
 // (soil/FC)^Beta, as the reference's np.power does, and that NaN reaches the
 // member's loss.  The soil store is not clamped.
 //
+// A cold start freezes the stores at t = 0 and gives q = 0 there (the
+// reference's initialization step); a warm continuation advances the carried
+// stores at every step.  That step sits before the time loop, not inside it:
+// a cold kernel writes (or scores) q = 0 for t = 0 and starts its loop at
+// t = 1, a warm one starts at t = 0.  `warm` is a run-time argument, so no
+// kernel is instantiated twice and the loop carries no first-step test.  The
+// initial stores are rows 11-14 of params either way.
+//
 // Unlike the TPU kernels there is no (8, 128) member tiling, no padding of
-// N or T and no time-tile grid.
+// N or T and no time-tile grid; K14 reads the final stores from the thread's
+// registers when its loop ends instead of snapshotting them inside it.
 //
 // C interface (bound with ctypes): every entry returns a cudaError_t as int
 // (0 on success) and launches on the stream it is given without
@@ -89,14 +100,12 @@ __device__ __forceinline__ void hbv_init(Member<Real>& m,
 }
 
 // One HBV-Edu time step (_hbv_step, pallas_hbv.py:48-106); returns the
-// discharge.  A cold start (WARM=false) treats t = 0 as the initialization
-// step: the stores stay as they are and the discharge is 0.  Division by FC
-// and PWP is a multiply by the packed reciprocals.
-template <typename Real, bool WARM>
-__device__ __forceinline__ Real hbv_step(Member<Real>& m, int t, Real temp,
+// discharge.  Division by FC and PWP is a multiply by the packed
+// reciprocals.
+template <typename Real>
+__device__ __forceinline__ Real hbv_step(Member<Real>& m, Real temp,
                                          Real prec, Real pe_month,
                                          Real t_month) {
-  if (!WARM && t == 0) return Real(0);
   const bool freezing = temp < m.T_t;
   const Real melt_pot = m.DD * (temp - m.T_t);
   const Real snow =
@@ -120,8 +129,8 @@ __device__ __forceinline__ Real hbv_step(Member<Real>& m, int t, Real temp,
   return overflow + s1 * m.K_1 + s2 * m.K_2;
 }
 
-// K13: (N, T) discharge trajectories, row-major.
-template <typename Real, bool WARM>
+// K13: (N, T) discharge trajectories, row-major (cold start).
+template <typename Real>
 __global__ void __launch_bounds__(kBlock)
 hbv_traj_kernel(const Real* __restrict__ temp, const Real* __restrict__ prec,
                 const Real* __restrict__ pe, const Real* __restrict__ tm,
@@ -132,10 +141,40 @@ hbv_traj_kernel(const Real* __restrict__ temp, const Real* __restrict__ prec,
   Member<Real> m;
   hbv_init(m, params, n, i);
   Real* row = out + (size_t)i * t_len;
-  for (int t = 0; t < t_len; ++t) {
-    row[t] = hbv_step<Real, WARM>(m, t, __ldg(temp + t), __ldg(prec + t),
-                                  __ldg(pe + t), __ldg(tm + t));
+  row[0] = Real(0);  // the initialization step
+  for (int t = 1; t < t_len; ++t) {
+    row[t] = hbv_step<Real>(m, __ldg(temp + t), __ldg(prec + t),
+                            __ldg(pe + t), __ldg(tm + t));
   }
+}
+
+// K14: trajectories as K13, cold or from carried stores (`warm`), plus the
+// end-of-series stores as (4, N) rows
+// [snow, soil, s1, s2].  A member whose soil store went negative is NaN from
+// there on, in the trajectory and in its final state.
+template <typename Real>
+__global__ void __launch_bounds__(kBlock)
+hbv_traj_state_kernel(const Real* __restrict__ temp,
+                      const Real* __restrict__ prec,
+                      const Real* __restrict__ pe, const Real* __restrict__ tm,
+                      const Real* __restrict__ params, int n, int t_len,
+                      bool warm, Real* __restrict__ out,
+                      Real* __restrict__ fstate) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  Member<Real> m;
+  hbv_init(m, params, n, i);
+  Real* row = out + (size_t)i * t_len;
+  int t = 0;
+  if (!warm) row[t++] = Real(0);  // the initialization step
+  for (; t < t_len; ++t) {
+    row[t] = hbv_step<Real>(m, __ldg(temp + t), __ldg(prec + t),
+                            __ldg(pe + t), __ldg(tm + t));
+  }
+  fstate[i] = m.snow;
+  fstate[(size_t)n + i] = m.soil;
+  fstate[2 * (size_t)n + i] = m.s1;
+  fstate[3 * (size_t)n + i] = m.s2;
 }
 
 // K12.  STATS=false: out[i] = mean squared error.  STATS=true:
@@ -143,23 +182,33 @@ hbv_traj_kernel(const Real* __restrict__ temp, const Real* __restrict__ prec,
 // whose observation is NaN (the step itself still runs); `count` is the
 // number of steps averaged over (T, or the valid count).  A NaN discharge
 // at a step with an observation makes the member's result NaN.
-template <typename Real, bool WARM, bool STATS, bool MASKED>
+// A cold start scores q = 0 against the first observation.
+template <typename Real, bool STATS, bool MASKED>
 __global__ void __launch_bounds__(kBlock)
 hbv_objective_kernel(const Real* __restrict__ temp,
                      const Real* __restrict__ prec,
                      const Real* __restrict__ pe, const Real* __restrict__ tm,
                      const Real* __restrict__ qobs,
                      const Real* __restrict__ params, int n, int t_len,
-                     Real count, Real* __restrict__ out) {
+                     bool warm, Real count, Real* __restrict__ out) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   Member<Real> m;
   hbv_init(m, params, n, i);
   Real sse = Real(0), sum_q = Real(0), sum_q2 = Real(0), sum_qo = Real(0);
-  for (int t = 0; t < t_len; ++t) {
-    const Real q = hbv_step<Real, WARM>(m, t, __ldg(temp + t),
-                                        __ldg(prec + t), __ldg(pe + t),
-                                        __ldg(tm + t));
+  int t = 0;
+  if (!warm) {
+    // The initialization step: q = 0, so only the squared error moves.
+    const Real qo = __ldg(qobs);
+    if (!(MASKED && qo != qo)) {
+      sse = qo * qo;
+      if (STATS) sum_qo = Real(0) * qo;  // NaN if the observation is
+    }
+    t = 1;
+  }
+  for (; t < t_len; ++t) {
+    const Real q = hbv_step<Real>(m, __ldg(temp + t), __ldg(prec + t),
+                                  __ldg(pe + t), __ldg(tm + t));
     const Real qo = __ldg(qobs + t);
     if (MASKED && qo != qo) continue;
     const Real diff = q - qo;
@@ -188,44 +237,60 @@ int simulate(const Real* temp, const Real* prec, const Real* pe,
   if (err != cudaSuccess) return (int)err;
   if (n <= 0 || t_len <= 0) return (int)cudaSuccess;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  hbv_traj_kernel<Real, false>
+  hbv_traj_kernel<Real>
       <<<grid_for(n), kBlock, 0, s>>>(temp, prec, pe, tm, params, n, t_len,
                                       out);
+  return (int)cudaGetLastError();
+}
+
+template <typename Real>
+int simulate_state(const Real* temp, const Real* prec, const Real* pe,
+                   const Real* tm, const Real* params, int n, int t_len,
+                   int warm, Real* out, Real* fstate, int device,
+                   void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (n <= 0 || t_len <= 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  hbv_traj_state_kernel<Real>
+      <<<grid_for(n), kBlock, 0, s>>>(temp, prec, pe, tm, params, n, t_len,
+                                      warm != 0, out, fstate);
   return (int)cudaGetLastError();
 }
 
 template <typename Real, bool STATS, bool MASKED>
 void launch_objective(const Real* temp, const Real* prec, const Real* pe,
                       const Real* tm, const Real* qobs, const Real* params,
-                      int n, int t_len, Real count, Real* out,
+                      int n, int t_len, bool warm, Real count, Real* out,
                       cudaStream_t s) {
-  hbv_objective_kernel<Real, false, STATS, MASKED>
+  hbv_objective_kernel<Real, STATS, MASKED>
       <<<grid_for(n), kBlock, 0, s>>>(temp, prec, pe, tm, qobs, params, n,
-                                      t_len, count, out);
+                                      t_len, warm, count, out);
 }
 
 template <typename Real>
 int objective(const Real* temp, const Real* prec, const Real* pe,
               const Real* tm, const Real* qobs, const Real* params, int n,
-              int t_len, int stats, int masked, double count, Real* out,
-              int device, void* stream) {
+              int t_len, int stats, int masked, int warm, double count,
+              Real* out, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (n <= 0 || t_len <= 0) return (int)cudaSuccess;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Real cnt = Real(count);
+  const bool is_warm = warm != 0;
   if (stats && masked) {
     launch_objective<Real, true, true>(temp, prec, pe, tm, qobs, params, n,
-                                       t_len, cnt, out, s);
+                                       t_len, is_warm, cnt, out, s);
   } else if (stats) {
     launch_objective<Real, true, false>(temp, prec, pe, tm, qobs, params, n,
-                                        t_len, cnt, out, s);
+                                        t_len, is_warm, cnt, out, s);
   } else if (masked) {
     launch_objective<Real, false, true>(temp, prec, pe, tm, qobs, params, n,
-                                        t_len, cnt, out, s);
+                                        t_len, is_warm, cnt, out, s);
   } else {
     launch_objective<Real, false, false>(temp, prec, pe, tm, qobs, params, n,
-                                         t_len, cnt, out, s);
+                                         t_len, is_warm, cnt, out, s);
   }
   return (int)cudaGetLastError();
 }
@@ -250,22 +315,42 @@ int rrmpg_hbv_simulate_f64(const double* temp, const double* prec,
                           stream);
 }
 
+int rrmpg_hbv_simulate_state_f32(const float* temp, const float* prec,
+                                 const float* pe, const float* tm,
+                                 const float* params, int n, int t_len,
+                                 int warm, float* out, float* fstate,
+                                 int device, void* stream) {
+  return simulate_state<float>(temp, prec, pe, tm, params, n, t_len, warm,
+                               out, fstate, device, stream);
+}
+
+int rrmpg_hbv_simulate_state_f64(const double* temp, const double* prec,
+                                 const double* pe, const double* tm,
+                                 const double* params, int n, int t_len,
+                                 int warm, double* out, double* fstate,
+                                 int device, void* stream) {
+  return simulate_state<double>(temp, prec, pe, tm, params, n, t_len, warm,
+                                out, fstate, device, stream);
+}
+
 int rrmpg_hbv_objective_f32(const float* temp, const float* prec,
                             const float* pe, const float* tm,
                             const float* qobs, const float* params, int n,
-                            int t_len, int stats, int masked, double count,
-                            float* out, int device, void* stream) {
+                            int t_len, int stats, int masked, int warm,
+                            double count, float* out, int device,
+                            void* stream) {
   return objective<float>(temp, prec, pe, tm, qobs, params, n, t_len, stats,
-                          masked, count, out, device, stream);
+                          masked, warm, count, out, device, stream);
 }
 
 int rrmpg_hbv_objective_f64(const double* temp, const double* prec,
                             const double* pe, const double* tm,
                             const double* qobs, const double* params, int n,
-                            int t_len, int stats, int masked, double count,
-                            double* out, int device, void* stream) {
+                            int t_len, int stats, int masked, int warm,
+                            double count, double* out, int device,
+                            void* stream) {
   return objective<double>(temp, prec, pe, tm, qobs, params, n, t_len, stats,
-                           masked, count, out, device, stream);
+                           masked, warm, count, out, device, stream);
 }
 
 }  // extern "C"

@@ -10,6 +10,7 @@ import numpy as np
 import torch
 
 from .config import DEFAULT_DEVICE, resolve_device
+from .models import states as _states
 from .ops.gr4j import GR4JState
 
 
@@ -82,3 +83,43 @@ def gr4j_state_from_numpy(state, device=DEFAULT_DEVICE,
     s, r, hist = field("s"), field("r"), field("pr_history")
     return GR4JState(s=s.reshape(-1), r=r.reshape(-1),
                      pr_history=hist.reshape(s.numel(), -1))
+
+
+def state_from_numpy(bundle_name, leaves, device=DEFAULT_DEVICE,
+                     dtype=torch.float32):
+    """A state bundle of this package from the leaves of the JAX package's
+    bundle of the same name, given as numpy arrays in field order
+    (``tuple(np.asarray(x) for x in jax_state)``), on the card unless
+    ``device='cpu'``.  For ``'SnowGR4JState'`` ``leaves`` is the nested
+    pair ``((snow_bundle_name, snow_leaves), gr4j_leaves)``.  Shapes are
+    kept: batched leaves stay batched, a single-member state unbatched.
+    """
+    device = resolve_device(device)
+    if bundle_name == "SnowGR4JState":
+        (snow_name, snow_leaves), gr4j_leaves = leaves
+        return _states.SnowGR4JState(
+            snow=state_from_numpy(snow_name, snow_leaves, device, dtype),
+            gr4j=state_from_numpy("GR4JState", gr4j_leaves, device, dtype))
+    try:
+        cls = _states.FLAT_BUNDLES[bundle_name]
+    except KeyError:
+        raise TypeError(
+            f"unknown state bundle {bundle_name!r}; known: "
+            f"{sorted(_states.FLAT_BUNDLES)} and 'SnowGR4JState'.") from None
+    return cls(*(torch.tensor(np.asarray(x, np.float64), dtype=dtype,
+                              device=device) for x in leaves))
+
+
+def state_to_numpy(state):
+    """``(bundle_name, leaves)`` of a state bundle, the leaves as float64
+    numpy arrays in field order -- what :func:`state_from_numpy` takes, and
+    what the JAX package's bundle of that name is built from
+    (``Bundle(*leaves)``)."""
+    name = type(state).__name__
+    if name == "SnowGR4JState":
+        snow_name, snow_leaves = state_to_numpy(state.snow)
+        return name, ((snow_name, snow_leaves),
+                      state_to_numpy(state.gr4j)[1])
+    return name, tuple(
+        (x.detach().cpu().numpy() if isinstance(x, torch.Tensor)
+         else np.asarray(x)).astype(np.float64) for x in state)

@@ -9,6 +9,15 @@ from .cemaneigehystgr4j import CemaneigeHystGR4J
 from .cemaneigehystgr4jice import CemaneigeHystGR4JIce
 from .gr4j import GR4J
 from .hbvedu import HBVEdu
+from .states import (  # noqa: F401  (the forecast-mode state bundles)
+    ABCState,
+    CemaneigeHystState,
+    CemaneigeState,
+    GR4JState,
+    HBVEduState,
+    SnowGR4JState,
+    repair_state,
+)
 
 __all__ = ['ABCModel', 'BaseModel', 'Cemaneige', 'CemaneigeGR4J',
            'CemaneigeGR4JIce', 'CemaneigeHystGR4J', 'CemaneigeHystGR4JIce',

@@ -1,9 +1,9 @@
 """Shared validation, met preprocessing and engines of the Cemaneige model
 family.
 
-Counterpart of the cold-start half of ``rrmpg_tpu/models/_snow_base.py``
-(validation and elevation-layer preprocessing once for all five snow
-classes, error types and messages as in the reference,
+Counterpart of ``rrmpg_tpu/models/_snow_base.py`` (validation and
+elevation-layer preprocessing once for all five snow classes, error types
+and messages as in the reference,
 ``rrmpg/models/cemaneige.py:132-200``).  :class:`CemaneigeBase` holds what
 every snow class needs; :class:`SnowGR4JBase` adds what the four GR4J
 compositions share -- they differ only in two flags (hysteresis, ice melt)
@@ -14,8 +14,15 @@ Engines: ``'scan'`` is plain batched PyTorch (:mod:`..ops.compositions`),
 ``'fused'`` the hand-written CUDA kernels K8 / K9 (:mod:`..ops.fused_snow`)
 for CUDA tensors, on the CPU their plain versions.
 
-Forecast mode (``initial_state`` / ``return_final_state``) waits for the
-state kernel K10 and the state bundles.
+Forecast mode of the compositions: ``return_final_state=True`` also
+returns the end-of-series :class:`~.states.SnowGR4JState`, and
+``initial_state=`` continues from one, on both engines (``'fused'``: the
+state kernel K10, discharge only); ``fit(initial_state=)`` calibrates a
+continuation segment from one shared state on both engines (``'fused'``:
+the warm entry of K8), ``fit_Q_SCA(initial_state=)`` on ``'scan'`` only.
+The state carries the layer constants of the series that produced it (the
+snow-cover threshold, or the mean annual solid precipitation): a
+continuation uses those, never its own forcing's.
 """
 
 import numbers
@@ -24,17 +31,23 @@ import typing
 import numpy as np
 import torch
 
+from ..ops.cemaneige import run_cemaneigehyst_warm
 from ..ops.compositions import (
+    _weighted_icemelt,
     run_cemaneigegr4j,
+    run_cemaneigegr4j_warm,
     run_cemaneigegr4jice,
     run_cemaneigehystgr4j,
+    run_cemaneigehystgr4j_warm,
     run_cemaneigehystgr4jice,
 )
 from ..ops.fused_snow import (
     q_sca_loss_from_stats,
     snowgr4j_ensemble_mse_fused,
     snowgr4j_simulate_fused,
+    snowgr4j_simulate_state_fused,
 )
+from ..ops.gr4j import run_gr4j_warm
 from ..ops.met import (
     calculate_solid_fraction,
     extrapolate_precipitation,
@@ -46,16 +59,15 @@ from ..utils.array_checks import check_for_negatives, validate_array_input
 from ..utils.metrics import calibration_loss
 from .basemodel import BaseModel, check_engine
 from .gr4j import GR4J, fit_uh_lengths
+from .states import (
+    CemaneigeHystState,
+    CemaneigeState,
+    SnowGR4JState,
+    broadcast_state,
+    check_state_type,
+)
 
 NUM_NDSI_BANDS = 5
-
-
-def _no_forecast_state(initial_state, return_final_state):
-    if initial_state is not None or return_final_state:
-        raise NotImplementedError(
-            "Forecast mode (initial_state / return_final_state) is not "
-            "ported yet; it needs the state kernel K10 and the state "
-            "bundles (ROADMAP.md, Queue 1, item 6).")
 
 
 def _no_mesh(mesh):
@@ -193,6 +205,23 @@ class CemaneigeBase(BaseModel):
                 f"band (a flat array); got ndim={frac_ice.ndim}.")
         return np.asarray(frac_ice, dtype=np.float64)
 
+    @staticmethod
+    def _check_no_cold_inits(initial_state, inits, names):
+        if initial_state is not None and any(v != 0 for v in inits):
+            raise ValueError(
+                "Pass either the cold-start init scalars "
+                f"({', '.join(names)}) or a full initial_state (warm "
+                "continuation), not both.")
+
+    @staticmethod
+    def _check_layers(state_layers, num_layers):
+        if state_layers != num_layers:
+            raise ValueError(
+                f"initial_state carries {state_layers} "
+                f"elevation layer(s) but the forcing resolves to "
+                f"{num_layers}; altitudes/met setup must match the run "
+                "that produced the state.")
+
     def _candidates(self, X):
         """(P, dim) candidate matrix -> dict of contiguous (P,) columns."""
         return {name: X[:, j].contiguous()
@@ -255,13 +284,16 @@ class SnowGR4JBase(CemaneigeBase):
     # The two engines
     # ------------------------------------------------------------------
 
-    def _run_scan(self, f, params, num_uh1, num_uh2):
-        """The composition on the ``'scan'`` engine; returns the op's
-        series in the reference's order, member axis first."""
+    def _run_scan(self, f, params, num_uh1, num_uh2, return_final=False):
+        """The composition on the ``'scan'`` engine (cold start); returns
+        the op's series in the reference's order, member axis first, with
+        ``return_final`` followed by the op's ``(snow_final, gr4j_final)``
+        pair."""
         snow_inits = (f.snow_pack_init, f.thermal_state_init)
         if self._hyst:
             snow_inits += (f.sca_init,)
-        tail = (*snow_inits, f.s_init, f.r_init, params, num_uh1, num_uh2)
+        tail = (*snow_inits, f.s_init, f.r_init, params, num_uh1, num_uh2,
+                return_final)
         if self._ice:
             run = (run_cemaneigehystgr4jice if self._hyst
                    else run_cemaneigegr4jice)
@@ -269,6 +301,116 @@ class SnowGR4JBase(CemaneigeBase):
                        f.frac_solid_prec, *tail)
         run = run_cemaneigehystgr4j if self._hyst else run_cemaneigegr4j
         return run(f.prec, f.mean_temp, f.etp, f.frac_solid_prec, *tail)
+
+    def _series_layout(self, outputs):
+        """The op's series (member axis first) in the reference layout,
+        member axis last: (T, N) and (T, L, N).  The rain series (last of
+        the hysteresis outputs) is (T, L), the same for every member."""
+        series = list(self._to_reference_layout(outputs))
+        if self._hyst and len(outputs) > 1:
+            rain = outputs[-1]
+            series[-1] = rain[:, :, None].expand(*rain.shape,
+                                                 outputs[0].shape[0])
+        return tuple(series)
+
+    # ------------------------------------------------------------------
+    # Forecast mode
+    # ------------------------------------------------------------------
+
+    @property
+    def _snow_state_cls(self):
+        return CemaneigeHystState if self._hyst else CemaneigeState
+
+    def _cold_inits(self, f):
+        """(values, names) of the cold-start scalars of this class."""
+        names = ('snow_pack_init', 'thermal_state_init')
+        if self._hyst:
+            names += ('sca_init',)
+        names += ('s_init', 'r_init')
+        return tuple(getattr(f, k) for k in names), names
+
+    def _warm_state(self, initial_state, num_layers, num=None):
+        """A checked ``initial_state``: batched over ``num`` members, or
+        (``num=None``) the single shared state of a calibration."""
+        check_state_type(initial_state, SnowGR4JState, type(self).__name__,
+                         snow_cls=self._snow_state_cls)
+        state = (self._single_member_state(initial_state) if num is None
+                 else self._normalize_state(initial_state, num))
+        self._check_layers(state.snow.g.shape[-1], num_layers)
+        return state
+
+    def _run_scan_final(self, f, params, num_uh1, num_uh2):
+        """Cold start on the ``'scan'`` engine; returns (series, final
+        :class:`~.states.SnowGR4JState`)."""
+        *series, (snow_final, gr4j_final) = self._run_scan(
+            f, params, num_uh1, num_uh2, return_final=True)
+        *carry, consts = snow_final
+        snow = self._snow_state_cls(*carry, consts.expand_as(carry[0]))
+        return tuple(series), SnowGR4JState(snow=snow, gr4j=gr4j_final)
+
+    def _run_scan_warm(self, f, params, state, num_uh1, num_uh2):
+        """Continue from a batched ``state`` on the ``'scan'`` engine;
+        returns (series in the class's reference order, final state)."""
+        sg = state.snow
+        forcing = (f.prec, f.mean_temp, f.etp, f.frac_solid_prec)
+        if not self._hyst:
+            (qsim, G, eTG, s_store, r_store, icemelt,
+             (snow_carry, gr4j_final)) = run_cemaneigegr4j_warm(
+                *forcing, ((sg.g, sg.etg), state.gr4j), sg.g_thresh, params,
+                num_uh1, num_uh2, frac_ice=f.frac_ice)
+            series = (qsim, G, eTG, s_store, r_store)
+            if self._ice:
+                series += (icemelt,)
+        elif not self._ice:
+            (qsim, G, eTG, s_store, r_store, sca, rain, _,
+             (snow_carry, gr4j_final)) = run_cemaneigehystgr4j_warm(
+                *forcing, ((sg.g, sg.etg, sg.sca, sg.swe_max), state.gr4j),
+                sg.psol_annual, params, num_uh1, num_uh2)
+            series = (qsim, G, eTG, s_store, r_store, sca, rain)
+        else:
+            # From the stage functions, not the composition's warm op: this
+            # class also returns the snow routine's outflow series
+            # (``cemaneigehystgr4jice_model.py:88-104``).
+            snowmelt, G, eTG, sca, rain, snow_carry = run_cemaneigehyst_warm(
+                f.prec, f.mean_temp, f.frac_solid_prec,
+                (sg.g, sg.etg, sg.sca, sg.swe_max), sg.psol_annual, params)
+            icemelt = _weighted_icemelt(f.mean_temp, G, f.frac_ice, params)
+            qsim, s_store, r_store, gr4j_final = run_gr4j_warm(
+                (snowmelt + icemelt).T, f.etp, state.gr4j, params, num_uh1,
+                num_uh2)
+            series = (qsim, G, eTG, s_store, r_store, sca, icemelt, snowmelt,
+                      rain)
+        # The warm ops return only the evolving carry; the series-derived
+        # constant (g_thresh / psol_annual) passes through.
+        snow = self._snow_state_cls(*snow_carry, sg[-1])
+        return series, SnowGR4JState(snow=snow, gr4j=gr4j_final)
+
+    def _simulate_stateful(self, f, param_dict, initial_state,
+                           return_final_state, return_storage, engine):
+        """Forecast-mode execution shared by the four compositions."""
+        num = param_dict['CTG'].shape[0]
+        n1, n2 = required_uh_lengths(param_dict['x4'])
+        state = None
+        if initial_state is not None:
+            state = self._warm_state(initial_state, f.prec.shape[1], num)
+            GR4J._check_history_depth(state.gr4j.pr_history.shape[-1], n2,
+                                      param_dict['x4'])
+        if engine == "fused":
+            # sca_init is inert (a quirk of the reference's hysteresis
+            # routine that every engine keeps).
+            qsim, final = snowgr4j_simulate_state_fused(
+                f.prec, f.mean_temp, f.etp, f.frac_solid_prec, param_dict,
+                state=state, snow_pack_init=f.snow_pack_init,
+                thermal_state_init=f.thermal_state_init, s_init=f.s_init,
+                r_init=f.r_init, frac_ice=f.frac_ice, hyst=self._hyst,
+                ice=self._ice, num_uh1=n1, num_uh2=n2)
+            series = (qsim,)
+        elif state is None:
+            series, final = self._run_scan_final(f, param_dict, n1, n2)
+        else:
+            series, final = self._run_scan_warm(f, param_dict, state, n1, n2)
+        return self._stateful_output(self._series_layout(series), final,
+                                     return_storage, return_final_state)
 
     def _fused_simulate(self, f, params):
         """Discharge-only fused simulation (K9); (N, T)."""
@@ -327,8 +469,13 @@ class SnowGR4JBase(CemaneigeBase):
         _check_return_storage(return_storage)
         check_engine(engine)
         _no_mesh(mesh)
-        _no_forecast_state(initial_state, return_final_state)
+        self._check_no_cold_inits(initial_state, *self._cold_inits(f))
         param_dict, _ = self._prepare_params(params)
+        if initial_state is not None or return_final_state:
+            self._check_stateful_engine(engine, return_storage)
+            return self._simulate_stateful(
+                f, param_dict, initial_state, return_final_state,
+                return_storage, engine)
         if engine == "fused":
             if return_storage:
                 raise ValueError(
@@ -339,16 +486,7 @@ class SnowGR4JBase(CemaneigeBase):
         outputs = self._run_scan(f, param_dict, n1, n2)
         if not return_storage:
             return outputs[0].T
-        # Reference layout, member axis last: (T, N) and (T, L, N).  The
-        # rain series (last of the hysteresis outputs) is (T, L), the same
-        # for every member.
-        n = outputs[0].shape[0]
-        series = [x.T if x.dim() == 2 else x.permute(1, 2, 0)
-                  for x in outputs]
-        if self._hyst:
-            rain = outputs[-1]
-            series[-1] = rain[:, :, None].expand(*rain.shape, n)
-        return tuple(series)
+        return self._series_layout(outputs)
 
     def _fused_stats(self, qobs, param_dict, sim_kwargs):
         """(4, N) time-mean sufficient statistics from K8: the
@@ -380,13 +518,57 @@ class SnowGR4JBase(CemaneigeBase):
             f, self._tensor(qobs), param_dict, stats=True,
             masked=bool(np.isnan(qobs).any()))
 
+    def _warm_objective(self, loss_metric, f, qobs, initial_state, engine,
+                        ndsi=None):
+        """Batched DE objective of a continuation segment: every candidate
+        starts from the one shared ``initial_state``, broadcast to the
+        candidate batch.  'fused' evaluates a generation with one launch of
+        K8's warm entry (discharge objectives); 'scan' runs the warm
+        composition and, with ``ndsi``, adds the reference's 0.75 / 5 x 0.05
+        discharge + SCA weighting."""
+        if engine == "fused" and ndsi is not None:
+            raise ValueError(
+                "fit_Q_SCA(initial_state=) supports engine='scan' "
+                "only; the fused warm kernel covers the discharge "
+                "objectives.")
+        loss = calibration_loss(loss_metric)
+        state = self._warm_state(initial_state, f.prec.shape[1])
+        if engine == "fused":
+            x4_hi = self._default_bounds['x4'][1]
+            GR4J._check_history_depth(state.gr4j.pr_history.shape[-1],
+                                      fit_uh_lengths(x4_hi)[1], [x4_hi])
+            masked = bool(torch.isnan(qobs).any())
+            fused_loss = stats_objective(
+                lambda params, stats: self._fused_objective_stats(
+                    f, qobs, params, stats=stats, masked=masked,
+                    state=broadcast_state(state, params['CTG'].shape[0])),
+                qobs, loss_metric)
+            return lambda X: fused_loss(self._candidates(X))
+
+        def objective(X):
+            series, _ = self._run_scan_warm(
+                f, self._candidates(X), broadcast_state(state, X.shape[0]),
+                NUM_UH1, NUM_UH2)
+            loss_q = loss(qobs[None, :], series[0], dim=-1)
+            if ndsi is None:
+                return loss_q
+            sca = 100.0 * series[5]                        # (N, T, L)
+            loss_sca = sum(loss(ndsi[b][None, :], sca[:, :, b], dim=-1)
+                           for b in range(NUM_NDSI_BANDS))
+            return 0.75 * loss_q + 0.05 * loss_sca
+
+        return objective
+
     def _fit(self, obs, f, loss_metric, seed, engine, initial_state,
              de_kwargs):
         check_engine(engine)
-        _no_forecast_state(initial_state, False)
         loss = calibration_loss(loss_metric)
         qobs = self._tensor(validate_array_input(obs, np.float64, 'obs'))
-        if engine == "fused":
+        self._check_no_cold_inits(initial_state, *self._cold_inits(f))
+        if initial_state is not None:
+            objective = self._warm_objective(loss_metric, f, qobs,
+                                             initial_state, engine)
+        elif engine == "fused":
             objective = self._fused_batch_objective(loss_metric, f, qobs)
         else:
             def objective(X):
@@ -399,7 +581,6 @@ class SnowGR4JBase(CemaneigeBase):
     def _fit_q_sca(self, obs, f, loss_metric, seed, engine, initial_state,
                    pareto, de_kwargs):
         check_engine(engine)
-        _no_forecast_state(initial_state, False)
         if pareto:
             raise NotImplementedError(
                 "fit_Q_SCA(pareto=True) needs the NSGA-II optimizer "
@@ -413,7 +594,11 @@ class SnowGR4JBase(CemaneigeBase):
                 f"snow-covered area of {NUM_NDSI_BANDS} elevation bands; "
                 f"'altitudes' gives {f.prec.shape[1]}.")
         ndsi = torch.stack(f.extras)                       # (5, T)
-        if engine == "fused":
+        self._check_no_cold_inits(initial_state, *self._cold_inits(f))
+        if initial_state is not None:
+            objective = self._warm_objective(loss_metric, f, qobs,
+                                             initial_state, engine, ndsi)
+        elif engine == "fused":
             objective = self._fused_q_sca_objective(loss_metric, f, qobs,
                                                     ndsi)
         else:

@@ -12,8 +12,13 @@ validation errors and ``simulate``/``fit`` signatures, with
   in one launch; on the CPU its plain version.
 
 Outputs are tensors on the model's device in the reference layout,
-member axis last: ``(T, N)``.  Forecast mode (an ``ABCState`` as
-``initial_state``, ``return_final_state``) waits for the state bundles.
+member axis last: ``(T, N)``.
+
+Forecast mode: ``return_final_state=True`` also returns the end-of-series
+:class:`~.states.ABCState` (of a cold start: the last storage row, on
+either engine), and an ``ABCState`` as ``initial_state`` continues from
+one, on the ``'scan'`` engine only; ``fit`` takes a single-member
+``ABCState`` too.
 """
 
 import numbers
@@ -21,25 +26,20 @@ import numbers
 import numpy as np
 
 from ..config import DEFAULT_DEVICE, DEFAULT_DTYPE
-from ..ops.abc import run_abcmodel, run_abcmodel_pscan
+from ..ops.abc import run_abcmodel, run_abcmodel_pscan, run_abcmodel_warm
 from ..ops.fused_abc import abc_fused_single
 from ..utils.array_checks import check_for_negatives, validate_array_input
 from ..utils.metrics import calibration_loss
 from .basemodel import BaseModel, check_engine
+from .states import ABCState, check_state_type
 
 
-def _cold_start(initial_state, return_final_state=False):
-    """The initial storage as a float; anything but a non-negative number
-    (a carried ``ABCState``) is forecast mode, which is not ported."""
-    if not isinstance(initial_state, numbers.Number) or return_final_state:
-        raise NotImplementedError(
-            "Forecast mode (an ABCState as initial_state, "
-            "return_final_state) is not ported yet; it comes with the state "
-            "bundles (ROADMAP.md, Queue 1, item 6).")
+def _cold_start(initial_state):
+    """The initial storage of a cold start as a float."""
     if initial_state < 0:
         raise TypeError(
-            "'initial_state' needs a non-negative numeric scalar; got "
-            f"{initial_state!r}.")
+            "'initial_state' needs a non-negative numeric scalar (or an "
+            f"ABCState for warm continuation); got {initial_state!r}.")
     return float(initial_state)
 
 
@@ -86,35 +86,56 @@ class ABCModel(BaseModel):
 
         Args:
             prec: (T,) precipitation (list, numpy array or pandas.Series).
-            initial_state: (optional) initial storage value.
+            initial_state: (optional) initial storage value (scalar, cold
+                start with the reference's t=0 initialization step), or an
+                :class:`~.states.ABCState` from a previous
+                ``return_final_state=True`` call to continue that
+                simulation (every step then advances the carried storage;
+                ``engine='scan'`` only).
             return_storage: (optional) also return the storage series.
             params: (optional) structured array / dict of parameter sets,
                 evaluated batched.  Defaults to the instance's parameters.
             engine: 'scan' (plain PyTorch) or 'fused' (CUDA kernel K6, one
                 launch for all members).
+            return_final_state: also return the end-of-series
+                :class:`~.states.ABCState` (member axis leading).
 
         Returns:
-            qsim (T, N), plus storage (T, N) if requested; tensors on the
-            model's device.
+            qsim (T, N), plus storage (T, N) if requested, plus the final
+            state if ``return_final_state``; tensors on the model's device.
 
         Raises:
             ValueError: If one of the inputs contains invalid values.
             TypeError: If one of the inputs has an incorrect datatype.
         """
         prec = _validate_prec(prec)
-        initial_state = _cold_start(initial_state, return_final_state)
+        warm = not isinstance(initial_state, numbers.Number)
+        if warm:
+            check_state_type(initial_state, ABCState, type(self).__name__)
+        else:
+            initial_state = _cold_start(initial_state)
         if not isinstance(return_storage, bool):
             raise TypeError(
                 "'return_storage' expects a bool, got "
                 f"{type(return_storage).__name__}.")
         check_engine(engine)
 
-        param_dict, _ = self._prepare_params(params)
-        run = abc_fused_single if engine == "fused" else run_abcmodel
-        qsim, storage = run(self._tensor(prec), initial_state, param_dict)
-        if return_storage:
-            return qsim.T, storage.T
-        return qsim.T
+        param_dict, num = self._prepare_params(params)
+        if warm:
+            self._check_stateful_supported(engine)
+            state = self._normalize_state(initial_state, num)
+            qsim, storage, final = run_abcmodel_warm(
+                self._tensor(prec), state.storage, param_dict)
+        else:
+            run = abc_fused_single if engine == "fused" else run_abcmodel
+            qsim, storage = run(self._tensor(prec), initial_state,
+                                param_dict)
+            # The storage series is the whole ABC state: its last row is
+            # the final state of a cold start.
+            final = storage[:, -1]
+        return self._stateful_output(
+            (qsim.T, storage.T), ABCState(storage=final), return_storage,
+            return_final_state)
 
     def _batch_objective(self, qobs, prec, initial_state, loss_metric):
         """The calibration objective: (P, 3) candidates -> (P,) losses.
@@ -122,13 +143,19 @@ class ABCModel(BaseModel):
         ``qobs``/``prec`` are (T,) tensors on the model's device.  A
         generation is one batched call of the plain parallel-prefix
         simulation (``rrmpg_tpu`` has no fused ABC objective either) and
-        the masked metrics.
+        the masked metrics.  ``initial_state`` is the cold-start storage (a
+        float) or a single-member :class:`~.states.ABCState` to continue
+        from.
         """
         loss = calibration_loss(loss_metric)
 
         def objective(X):
             params = {n: X[:, j] for j, n in enumerate(self._param_list)}
-            qsim, _ = run_abcmodel_pscan(prec, initial_state, params)
+            if isinstance(initial_state, ABCState):
+                qsim = run_abcmodel_warm(prec, initial_state.storage,
+                                         params)[0]
+            else:
+                qsim = run_abcmodel_pscan(prec, initial_state, params)[0]
             return loss(qobs[None, :], qsim, dim=-1)
 
         return objective
@@ -141,7 +168,10 @@ class ABCModel(BaseModel):
         Args:
             qobs: observed discharge; NaN marks a gap.
             prec: precipitation array.
-            initial_state: (optional) initial storage value.
+            initial_state: (optional) initial storage value (scalar cold
+                start), or a single-member :class:`~.states.ABCState` to
+                calibrate a continuation segment from a known initial
+                condition.
             loss_metric: 'mse' (default), 'rmse', or 'nse'/'kge'
                 minimizing ``1 - score``.
             seed: (optional) seed of the optimizer's ``torch.Generator``.
@@ -154,9 +184,15 @@ class ABCModel(BaseModel):
         from ..tools.calibration import minimize
 
         qobs = validate_array_input(qobs, np.float64, 'qobs')
+        prec = _validate_prec(prec)
+        if isinstance(initial_state, numbers.Number):
+            initial_state = _cold_start(initial_state)
+        else:
+            check_state_type(initial_state, ABCState, type(self).__name__)
+            initial_state = self._single_member_state(initial_state)
         objective = self._batch_objective(
-            self._tensor(qobs), self._tensor(_validate_prec(prec)),
-            _cold_start(initial_state), loss_metric)
+            self._tensor(qobs), self._tensor(prec), initial_state,
+            loss_metric)
         bounds = tuple(self._default_bounds[p] for p in self._param_list)
         return minimize(objective, bounds, seed=seed, device=self.device,
                         dtype=self.dtype, **de_kwargs)

@@ -18,6 +18,7 @@ import torch
 
 from ..config import (DEFAULT_DEVICE, DEFAULT_DTYPE, resolve_device,
                       resolve_dtype)
+from .states import normalize_state, single_member_state
 
 _ENGINES = ("scan", "fused")
 
@@ -147,6 +148,58 @@ class BaseModel(object):
     def get_dtype(self):
         """Return the structured numpy dtype used for parameter arrays."""
         return self._dtype
+
+    # ------------------------------------------------------------------
+    # Forecast mode (initial_state / return_final_state)
+    # ------------------------------------------------------------------
+
+    @staticmethod
+    def _check_stateful_supported(engine):
+        """Guard for forecast-mode calls on the classes that carry state on
+        the sequential engine only (ABC, the snow-only Cemaneige)."""
+        if engine != "scan":
+            raise ValueError(
+                "State-carrying simulation (initial_state / "
+                "return_final_state) supports engine='scan' only for this "
+                "model.")
+
+    @staticmethod
+    def _check_stateful_engine(engine, return_storage):
+        """Guard for forecast-mode calls on the classes whose fused kernels
+        carry state (GR4J, HBV-Edu and the snow compositions): both engines
+        work, but the fused path is discharge-only."""
+        check_engine(engine)
+        if engine == "fused" and return_storage:
+            raise ValueError(
+                "engine='fused' computes discharge only; use "
+                "engine='scan' for storage trajectories.")
+
+    def _normalize_state(self, initial_state, num):
+        """``initial_state`` broadcast to ``num`` members, on the model's
+        device in its dtype, clipped into its physical domain."""
+        return normalize_state(initial_state, num, self.dtype, self.device)
+
+    def _single_member_state(self, initial_state):
+        """``initial_state`` as the one shared initial condition of a
+        calibration (unbatched leaves)."""
+        return single_member_state(initial_state, self.dtype, self.device)
+
+    @staticmethod
+    def _to_reference_layout(series):
+        """Member axis last (the reference output convention): (N, T) ->
+        (T, N), (N, T, L) -> (T, L, N)."""
+        return tuple(x.T if x.dim() == 2 else x.permute(1, 2, 0)
+                     for x in series)
+
+    @staticmethod
+    def _stateful_output(series, final, return_storage, return_final_state):
+        """What a forecast-mode ``simulate`` returns: discharge, the further
+        series with ``return_storage``, the state with
+        ``return_final_state``; a single output is not wrapped."""
+        out = tuple(series) if return_storage else tuple(series[:1])
+        if return_final_state:
+            out = out + (final,)
+        return out if len(out) > 1 else out[0]
 
     # ------------------------------------------------------------------
     # Placement

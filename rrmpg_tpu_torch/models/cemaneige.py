@@ -10,15 +10,18 @@ and output shapes ((T, N) outflow, (T, L, N) storages), with
   K9 (:mod:`..ops.fused_snow`) for CUDA tensors; on the CPU their plain
   versions.
 
-Forecast mode (``initial_state`` / ``return_final_state``) waits for the
-state bundles.
+Forecast mode (``return_final_state`` / ``initial_state``, a
+:class:`~.states.CemaneigeState`) runs on the ``'scan'`` engine only, in
+``simulate`` and in ``fit``.  The state carries the snow-cover threshold of
+the series that produced it; a continuation uses that, not one of its own
+forcing.
 """
 
 import numpy as np
 import torch
 
 from ..config import DEFAULT_DEVICE, DEFAULT_DTYPE
-from ..ops.cemaneige import run_cemaneige
+from ..ops.cemaneige import run_cemaneige, run_cemaneige_warm
 from ..ops.fused_snow import (
     cemaneige_ensemble_mse_fused,
     cemaneige_simulate_fused,
@@ -28,11 +31,13 @@ from ..utils.metrics import calibration_loss
 from ._snow_base import (
     CemaneigeBase,
     _check_return_storage,
-    _no_forecast_state,
     _no_mesh,
     stats_objective,
 )
 from .basemodel import check_engine
+from .states import CemaneigeState, broadcast_state, check_state_type
+
+_INIT_NAMES = ('snow_pack_init', 'thermal_state_init')
 
 
 class Cemaneige(CemaneigeBase):
@@ -84,11 +89,18 @@ class Cemaneige(CemaneigeBase):
             params: (optional) structured array / dict of parameter sets,
                 evaluated batched.
             engine: 'scan' (plain PyTorch) or 'fused' (CUDA kernel K9 in
-                its snow-only mode, outflow only).
+                its snow-only mode, outflow only, cold starts only).
+            initial_state: (optional) :class:`~.states.CemaneigeState`
+                from a previous ``return_final_state=True`` call;
+                continues that simulation (``engine='scan'`` only).
+                Mutually exclusive with non-zero ``*_init`` scalars.
+            return_final_state: also return the end-of-series
+                :class:`~.states.CemaneigeState` (member axis leading).
 
         Returns:
             outflow (T, N); plus G (T, L, N) and eTG (T, L, N) if
-            ``return_storages``; tensors on the model's device.
+            ``return_storages``; plus the final state if
+            ``return_final_state``; tensors on the model's device.
 
         Raises:
             ValueError: If one of the inputs contains invalid values.
@@ -102,9 +114,26 @@ class Cemaneige(CemaneigeBase):
         _check_return_storage(return_storages, 'return_storages')
         check_engine(engine)
         _no_mesh(mesh)
-        _no_forecast_state(initial_state, return_final_state)
+        self._check_no_cold_inits(initial_state, (snow0, th0), _INIT_NAMES)
 
-        param_dict, _ = self._prepare_params(params)
+        param_dict, num = self._prepare_params(params)
+        if initial_state is not None or return_final_state:
+            self._check_stateful_supported(engine)
+            if initial_state is None:
+                *series, (G, eTG, g_thresh) = run_cemaneige(
+                    prec, mean_temp, frac_solid_prec, snow0, th0, param_dict,
+                    return_final=True)
+                g_thresh = g_thresh.expand_as(G)
+            else:
+                state = self._warm_state(initial_state, prec.shape[1], num)
+                g_thresh = state.g_thresh
+                *series, (G, eTG) = run_cemaneige_warm(
+                    prec, mean_temp, frac_solid_prec, (state.g, state.etg),
+                    g_thresh, param_dict)
+            return self._stateful_output(
+                self._to_reference_layout(series),
+                CemaneigeState(g=G, etg=eTG, g_thresh=g_thresh),
+                return_storages, return_final_state)
         if engine == "fused":
             if return_storages:
                 raise ValueError(
@@ -117,6 +146,15 @@ class Cemaneige(CemaneigeBase):
         if return_storages:
             return outflow.T, G.permute(1, 2, 0), eTG.permute(1, 2, 0)
         return outflow.T
+
+    def _warm_state(self, initial_state, num_layers, num=None):
+        """A checked ``initial_state``: batched over ``num`` members, or
+        (``num=None``) the single shared state of a calibration."""
+        check_state_type(initial_state, CemaneigeState, type(self).__name__)
+        state = (self._single_member_state(initial_state) if num is None
+                 else self._normalize_state(initial_state, num))
+        self._check_layers(state.g.shape[-1], num_layers)
+        return state
 
     def fit(self, obs, prec, mean_temp, min_temp, max_temp,
             met_station_height, snow_pack_init=0, thermal_state_init=0,
@@ -132,6 +170,10 @@ class Cemaneige(CemaneigeBase):
             seed: (optional) seed of the optimizer's ``torch.Generator``.
             engine: 'scan', or 'fused' to evaluate every DE generation with
                 one launch of K8 in its snow-only mode.
+            initial_state: (optional) single-member
+                :class:`~.states.CemaneigeState`: calibrate a continuation
+                segment from a known initial condition (``engine='scan'``
+                only).
             **de_kwargs: forwarded to
                 :func:`rrmpg_tpu_torch.tools.calibration.minimize`.
 
@@ -139,14 +181,26 @@ class Cemaneige(CemaneigeBase):
             An :class:`~rrmpg_tpu_torch.tools.calibration.OptimizeResult`.
         """
         check_engine(engine)
-        _no_forecast_state(initial_state, False)
         loss = calibration_loss(loss_metric)
         qobs = self._tensor(validate_array_input(obs, np.float64, 'obs'))
         prec, mean_temp, frac_solid_prec, snow0, th0 = self._prepare(
             prec, mean_temp, min_temp, max_temp, met_station_height,
             altitudes, snow_pack_init, thermal_state_init)
+        self._check_no_cold_inits(initial_state, (snow0, th0), _INIT_NAMES)
 
-        if engine == "fused":
+        if initial_state is not None:
+            if engine != "scan":
+                raise ValueError(
+                    "fit(initial_state=) supports engine='scan' only.")
+            state = self._warm_state(initial_state, prec.shape[1])
+
+            def objective(X):
+                st = broadcast_state(state, X.shape[0])
+                outflow = run_cemaneige_warm(
+                    prec, mean_temp, frac_solid_prec, (st.g, st.etg),
+                    st.g_thresh, self._candidates(X))[0]
+                return loss(qobs[None, :], outflow, dim=-1)
+        elif engine == "fused":
             masked = bool(torch.isnan(qobs).any())
             fused_loss = stats_objective(
                 lambda params, stats: cemaneige_ensemble_mse_fused(

@@ -12,8 +12,13 @@ with ``engine='scan'|'fused'`` in place of ``'xla'|'pallas'``:
 A model lives on the card unless built with ``device='cpu'``.
 
 Outputs are tensors on the model's device in the reference layout,
-member axis last: ``(T, N)``.  Forecast mode (``initial_state`` /
-``return_final_state``) waits for the state kernel (K4).
+member axis last: ``(T, N)``.
+
+Forecast mode: ``simulate(..., return_final_state=True)`` also returns the
+end-of-series :class:`~..ops.gr4j.GR4JState` (member axis leading), and
+``initial_state=`` continues from one, on both engines (``'fused'``: the
+state kernel K4); ``fit(initial_state=)`` calibrates a continuation segment
+from one shared state (``'fused'``: the warm entry of K1/K2).
 """
 
 import numbers
@@ -22,13 +27,15 @@ import numpy as np
 import torch
 
 from ..config import DEFAULT_DEVICE, DEFAULT_DTYPE
-from ..ops.fused_gr4j import gr4j_ensemble_mse_fused, gr4j_simulate_fused
-from ..ops.gr4j import run_gr4j
+from ..ops.fused_gr4j import (gr4j_ensemble_mse_fused, gr4j_simulate_fused,
+                              gr4j_simulate_state_fused)
+from ..ops.gr4j import GR4JState, run_gr4j, run_gr4j_warm
 from ..ops.stats import losses_from_stats
 from ..ops.uh import NUM_UH1, NUM_UH2, required_uh_lengths
 from ..utils.array_checks import check_for_negatives, validate_array_input
 from ..utils.metrics import calibration_loss
 from .basemodel import BaseModel, check_engine
+from .states import broadcast_state, check_state_type
 
 
 def fit_uh_lengths(x4_hi):
@@ -38,14 +45,6 @@ def fit_uh_lengths(x4_hi):
     n1 = min(int(np.ceil(x4_hi)), NUM_UH1)
     n2 = min(int(np.ceil(2.0 * x4_hi + 1.0)), NUM_UH2)
     return n1, n2
-
-
-def _no_forecast_state(initial_state, return_final_state):
-    if initial_state is not None or return_final_state:
-        raise NotImplementedError(
-            "Forecast mode (initial_state / return_final_state) is not "
-            "ported yet; it needs the state kernel K4 (ROADMAP.md, "
-            "Queue 1, item 6).")
 
 
 class GR4J(BaseModel):
@@ -114,11 +113,19 @@ class GR4J(BaseModel):
             params: (optional) structured array / dict of parameter sets,
                 evaluated batched.
             engine: 'scan' (plain PyTorch) or 'fused' (CUDA kernel K3,
-                discharge only).
+                or K4 in forecast mode; discharge only).
+            initial_state: (optional) :class:`~..ops.gr4j.GR4JState` from
+                a previous ``return_final_state=True`` call; continues that
+                simulation (stores and UH filter history carried across
+                the boundary).  Mutually exclusive with non-zero
+                ``s_init``/``r_init``.
+            return_final_state: also return the end-of-series
+                :class:`~..ops.gr4j.GR4JState` (member axis leading).
 
         Returns:
             qsim (T, N), plus s_store (T, N) and r_store (T, N) if
-            ``return_storage``; tensors on the model's device.
+            ``return_storage``, plus the final state if
+            ``return_final_state``; tensors on the model's device.
 
         Raises:
             ValueError: If one of the inputs contains invalid values.
@@ -132,11 +139,18 @@ class GR4J(BaseModel):
                 "'return_storage' expects a bool, got "
                 f"{type(return_storage).__name__}.")
         check_engine(engine)
-        _no_forecast_state(initial_state, return_final_state)
+        self._check_warm_inputs(initial_state, s_init, r_init,
+                                "warm continuation")
 
         param_dict, _ = self._prepare_params(params)
         n1, n2 = required_uh_lengths(param_dict['x4'])
         prec, etp = self._tensor(prec), self._tensor(etp)
+        if initial_state is not None or return_final_state:
+            self._check_stateful_engine(engine, return_storage)
+            return self._simulate_stateful(
+                prec, etp, s_init, r_init, initial_state,
+                return_final_state, return_storage, param_dict, n1, n2,
+                engine)
         if engine == "fused":
             if return_storage:
                 raise ValueError(
@@ -150,6 +164,57 @@ class GR4J(BaseModel):
         if return_storage:
             return qsim.T, s_store.T, r_store.T
         return qsim.T
+
+    def _check_warm_inputs(self, initial_state, s_init, r_init, what):
+        if initial_state is None:
+            return
+        check_state_type(initial_state, GR4JState, type(self).__name__)
+        if s_init != 0 or r_init != 0:
+            raise ValueError(
+                "Pass either fractional s_init/r_init (cold start) or "
+                f"a full initial_state ({what}), not both.")
+
+    @staticmethod
+    def _check_history_depth(h_avail, num_uh2, x4_values):
+        """The carried UH history must cover the continuation's filter
+        depth (an actionable rewording of the ops guard: the class API
+        exposes no ``num_uh2``)."""
+        h_needed = num_uh2 - 1
+        if h_avail < h_needed:
+            x4_max = float(torch.as_tensor(x4_values).max())
+            raise ValueError(
+                f"initial_state carries {h_avail} unit-hydrograph history "
+                f"taps but x4={x4_max:g} "
+                f"needs {h_needed}. The state was produced by a run with "
+                "a smaller UH filter depth; produce it with return_final_"
+                "state=True under parameters (or class bounds) whose x4 "
+                "covers the continuation's, or keep the continuation x4 "
+                "within the producing run's range.")
+
+    def _simulate_stateful(self, prec, etp, s_init, r_init, initial_state,
+                           return_final_state, return_storage, param_dict,
+                           n1, n2, engine):
+        """Forecast-mode execution: warm continuation and/or final state."""
+        state = None
+        if initial_state is not None:
+            state = self._normalize_state(initial_state,
+                                          param_dict['x1'].shape[0])
+            self._check_history_depth(state.pr_history.shape[-1], n2,
+                                      param_dict['x4'])
+        if engine == "fused":
+            qsim, final = gr4j_simulate_state_fused(
+                prec, etp, param_dict, state=state, s_init=s_init,
+                r_init=r_init, num_uh1=n1, num_uh2=n2)
+            series = (qsim,)
+        elif state is None:
+            *series, final = run_gr4j(prec, etp, s_init, r_init, param_dict,
+                                      n1, n2, return_final=True)
+        else:
+            *series, final = run_gr4j_warm(prec, etp, state, param_dict, n1,
+                                           n2)
+        return self._stateful_output(self._to_reference_layout(series),
+                                     final, return_storage,
+                                     return_final_state)
 
     def _fused_stats(self, qobs, param_dict, sim_kwargs):
         """(4, N) time-mean sufficient statistics from the fused kernel K2:
@@ -175,25 +240,37 @@ class GR4J(BaseModel):
             masked=bool(np.isnan(qobs).any()))
 
     def _batch_objective(self, qobs, prec, etp, s_init, r_init, loss_metric,
-                         engine):
+                         engine, state=None):
         """The calibration objective: (P, 4) candidates -> (P,) losses.
 
         ``qobs``/``prec``/``etp`` are (T,) tensors on the model's device.
         'fused' evaluates a whole DE generation with one launch of K1
         ('mse'/'rmse') or K2 ('nse'/'kge'); 'scan' runs the plain
-        batched simulation and the masked metrics.
+        batched simulation and the masked metrics.  ``state`` (a
+        single-member :class:`~..ops.gr4j.GR4JState`) makes every candidate
+        a warm continuation from that one shared state, broadcast to the
+        candidate batch.
         """
         check_engine(engine)
         loss = calibration_loss(loss_metric)
         if engine == "scan":
             def objective(X):
                 params = {n: X[:, j] for j, n in enumerate(self._param_list)}
-                qsim, _, _ = run_gr4j(prec, etp, s_init, r_init, params)
+                if state is None:
+                    qsim = run_gr4j(prec, etp, s_init, r_init, params)[0]
+                else:
+                    qsim = run_gr4j_warm(
+                        prec, etp, broadcast_state(state, X.shape[0]),
+                        params)[0]
                 return loss(qobs[None, :], qsim, dim=-1)
 
             return objective
 
-        n1, n2 = fit_uh_lengths(self._default_bounds['x4'][1])
+        x4_hi = self._default_bounds['x4'][1]
+        n1, n2 = fit_uh_lengths(x4_hi)
+        if state is not None:
+            self._check_history_depth(state.pr_history.shape[-1], n2,
+                                      [x4_hi])
         use_stats = loss_metric in ("nse", "kge")
         masked = bool(torch.isnan(qobs).any())
 
@@ -202,7 +279,9 @@ class GR4J(BaseModel):
                       for j, n in enumerate(self._param_list)}
             out = gr4j_ensemble_mse_fused(
                 prec, etp, qobs, s_init, r_init, params, num_uh1=n1,
-                num_uh2=n2, stats=use_stats, masked=masked)
+                num_uh2=n2, stats=use_stats, masked=masked,
+                state=(None if state is None
+                       else broadcast_state(state, X.shape[0])))
             if use_stats:
                 return 1.0 - losses_from_stats(out, qobs)[loss_metric]
             if loss_metric == "rmse":
@@ -225,6 +304,11 @@ class GR4J(BaseModel):
             seed: (optional) seed of the optimizer's ``torch.Generator``.
             engine: 'scan', or 'fused' to evaluate every DE generation
                 with one launch of the fused objective kernel.
+            initial_state: (optional) single-member
+                :class:`~..ops.gr4j.GR4JState`: calibrate a continuation
+                segment from a known initial condition (recalibration on
+                recent data), on either engine.  Mutually exclusive with
+                non-zero ``s_init``/``r_init``.
             **de_kwargs: forwarded to
                 :func:`rrmpg_tpu_torch.tools.calibration.minimize`.
 
@@ -233,13 +317,17 @@ class GR4J(BaseModel):
         """
         from ..tools.calibration import minimize
 
-        _no_forecast_state(initial_state, False)
+        calibration_loss(loss_metric)
         qobs = validate_array_input(qobs, np.float64, 'qobs')
         prec, etp = self._validate_forcings(prec, etp)
         s_init, r_init = self._validate_inits(s_init, r_init)
+        self._check_warm_inputs(initial_state, s_init, r_init,
+                                "warm calibration")
+        state = (None if initial_state is None
+                 else self._single_member_state(initial_state))
         objective = self._batch_objective(
             self._tensor(qobs), self._tensor(prec), self._tensor(etp),
-            s_init, r_init, loss_metric, engine)
+            s_init, r_init, loss_metric, engine, state)
         bounds = tuple(self._default_bounds[p] for p in self._param_list)
         return minimize(objective, bounds, seed=seed, device=self.device,
                         dtype=self.dtype, **de_kwargs)

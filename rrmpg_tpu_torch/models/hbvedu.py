@@ -10,30 +10,31 @@ with ``engine='scan'|'fused'`` in place of ``'xla'|'pallas'``:
   for CUDA tensors; on the CPU their plain versions.
 
 Outputs are tensors on the model's device in the reference layout,
-member axis last: ``(T, N)``.  Forecast mode (``initial_state`` /
-``return_final_state``) waits for the state kernel (K14).
+member axis last: ``(T, N)``.
+
+Forecast mode: ``simulate(..., return_final_state=True)`` also returns the
+end-of-series :class:`~.states.HBVEduState` (member axis leading), and
+``initial_state=`` continues from one, on both engines (``'fused'``: the
+state kernel K14); ``fit(initial_state=)`` calibrates a continuation
+segment from one shared state (``'fused'``: the warm entry of K12).  A
+continuation advances the carried storages at every step; a cold start
+keeps the reference's initialization step at ``t = 0``.
 """
 
 import numpy as np
 import torch
 
 from ..config import DEFAULT_DEVICE, DEFAULT_DTYPE
-from ..ops.fused_hbv import hbv_ensemble_mse_fused, hbv_simulate_fused
-from ..ops.hbvedu import PARAM_NAMES, run_hbvedu
+from ..ops.fused_hbv import (hbv_ensemble_mse_fused, hbv_simulate_fused,
+                             hbv_simulate_state_fused)
+from ..ops.hbvedu import PARAM_NAMES, run_hbvedu, run_hbvedu_warm
 from ..ops.stats import losses_from_stats
 from ..utils.array_checks import check_for_negatives, validate_array_input
 from ..utils.metrics import calibration_loss
 from .basemodel import BaseModel, check_engine
+from .states import HBVEduState, check_state_type
 
 _INIT_NAMES = ("snow_init", "soil_init", "s1_init", "s2_init")
-
-
-def _no_forecast_state(initial_state, return_final_state):
-    if initial_state is not None or return_final_state:
-        raise NotImplementedError(
-            "Forecast mode (initial_state / return_final_state) is not "
-            "ported yet; it needs the state kernel K14 (ROADMAP.md, "
-            "Queue 1, item 6).")
 
 
 class HBVEdu(BaseModel):
@@ -116,11 +117,18 @@ class HBVEdu(BaseModel):
             params: (optional) structured array / dict of parameter sets,
                 evaluated batched.
             engine: 'scan' (plain PyTorch) or 'fused' (CUDA kernel K13,
-                discharge only).
+                or K14 in forecast mode; discharge only).
+            initial_state: (optional) :class:`~.states.HBVEduState` from a
+                previous ``return_final_state=True`` call; continues that
+                simulation.  Mutually exclusive with non-zero ``*_init``
+                scalars.
+            return_final_state: also return the end-of-series
+                :class:`~.states.HBVEduState` (member axis leading).
 
         Returns:
             qsim (T, N); plus snow, soil, s1, s2 (each (T, N)) if
-            ``return_storage``; tensors on the model's device.
+            ``return_storage``; plus the final state if
+            ``return_final_state``; tensors on the model's device.
 
         Raises:
             ValueError: If one of the inputs contains invalid values.
@@ -137,9 +145,28 @@ class HBVEdu(BaseModel):
                 "'return_storage' expects a bool, got "
                 f"{type(return_storage).__name__}.")
         check_engine(engine)
-        _no_forecast_state(initial_state, return_final_state)
+        self._check_warm_inputs(initial_state, inits, "warm continuation")
 
         param_dict, _ = self._prepare_params(params)
+        if initial_state is not None or return_final_state:
+            self._check_stateful_engine(engine, return_storage)
+            state = None
+            if initial_state is not None:
+                state = self._normalize_state(initial_state,
+                                              param_dict['T_t'].shape[0])
+            if engine == "fused":
+                qsim, final = hbv_simulate_state_fused(
+                    *forcings, *inits, param_dict, state=state)
+                series = (qsim,)
+            elif state is None:
+                *series, final = run_hbvedu(*forcings, *inits, param_dict,
+                                            return_final=True)
+            else:
+                *series, final = run_hbvedu_warm(*forcings, tuple(state),
+                                                 param_dict)
+            return self._stateful_output(
+                self._to_reference_layout(series), HBVEduState(*final),
+                return_storage, return_final_state)
         if engine == "fused":
             if return_storage:
                 raise ValueError(
@@ -150,6 +177,15 @@ class HBVEdu(BaseModel):
         if return_storage:
             return tuple(x.T for x in outputs)
         return outputs[0].T
+
+    def _check_warm_inputs(self, initial_state, inits, what):
+        if initial_state is None:
+            return
+        check_state_type(initial_state, HBVEduState, type(self).__name__)
+        if any(v != 0 for v in inits):
+            raise ValueError(
+                "Pass either the *_init scalars (cold start) or a "
+                f"full initial_state ({what}), not both.")
 
     def _fused_stats(self, qobs, param_dict, sim_kwargs):
         """(4, N) time-mean sufficient statistics from the fused kernel
@@ -169,21 +205,28 @@ class HBVEdu(BaseModel):
             *forcings, self._tensor(qobs), *inits, param_dict, stats=True,
             masked=bool(np.isnan(qobs).any()))
 
-    def _batch_objective(self, qobs, forcings, inits, loss_metric, engine):
+    def _batch_objective(self, qobs, forcings, inits, loss_metric, engine,
+                         state=None):
         """The calibration objective: (P, 11) candidates -> (P,) losses.
 
         ``qobs`` and ``forcings`` are tensors on the model's device.
         'fused' evaluates a whole DE generation with one launch of K12
         (MSE for 'mse'/'rmse', the sufficient statistics for
         'nse'/'kge'); 'scan' runs the plain batched simulation and the
-        masked metrics.
+        masked metrics.  ``state`` (a single-member
+        :class:`~.states.HBVEduState`) makes every candidate a warm
+        continuation from those shared storages.
         """
         check_engine(engine)
         loss = calibration_loss(loss_metric)
         if engine == "scan":
             def objective(X):
                 params = {n: X[:, j] for j, n in enumerate(self._param_list)}
-                qsim = run_hbvedu(*forcings, *inits, params)[0]
+                if state is None:
+                    qsim = run_hbvedu(*forcings, *inits, params)[0]
+                else:
+                    qsim = run_hbvedu_warm(*forcings, tuple(state),
+                                           params)[0]
                 return loss(qobs[None, :], qsim, dim=-1)
 
             return objective
@@ -196,7 +239,7 @@ class HBVEdu(BaseModel):
                       for j, n in enumerate(self._param_list)}
             out = hbv_ensemble_mse_fused(
                 *forcings, qobs, *inits, params, stats=use_stats,
-                masked=masked)
+                masked=masked, state=state)
             if use_stats:
                 return 1.0 - losses_from_stats(out, qobs)[loss_metric]
             if loss_metric == "rmse":
@@ -220,6 +263,10 @@ class HBVEdu(BaseModel):
             seed: (optional) seed of the optimizer's ``torch.Generator``.
             engine: 'scan', or 'fused' to evaluate every DE generation
                 with one launch of the fused objective kernel.
+            initial_state: (optional) single-member
+                :class:`~.states.HBVEduState`: calibrate a continuation
+                segment from a known initial condition, on either engine.
+                Mutually exclusive with non-zero ``*_init`` scalars.
             **de_kwargs: forwarded to
                 :func:`rrmpg_tpu_torch.tools.calibration.minimize`.
 
@@ -230,13 +277,16 @@ class HBVEdu(BaseModel):
         """
         from ..tools.calibration import minimize
 
-        _no_forecast_state(initial_state, False)
+        calibration_loss(loss_metric)
         qobs = validate_array_input(qobs, np.float64, 'qobs')
         forcings = self._forcing_tensors(temp, prec, month, PE_m, T_m)
         inits = tuple(float(v) for v in (snow_init, soil_init, s1_init,
                                          s2_init))
+        self._check_warm_inputs(initial_state, inits, "warm calibration")
+        state = (None if initial_state is None
+                 else self._single_member_state(initial_state))
         objective = self._batch_objective(self._tensor(qobs), forcings,
-                                          inits, loss_metric, engine)
+                                          inits, loss_metric, engine, state)
         bounds = tuple(self._default_bounds[p] for p in self._param_list)
         return minimize(objective, bounds, seed=seed, device=self.device,
                         dtype=self.dtype, **de_kwargs)

@@ -1,7 +1,7 @@
 """Launching the CUDA library's entry points, and counting the launches.
 
 Shared by the fused kernel modules (:mod:`.fused_gr4j`, :mod:`.fused_abc`,
-:mod:`.fused_hbv`).  :data:`LAUNCHES` holds one count per kernel; a
+:mod:`.fused_hbv`, :mod:`.fused_snow`).  :data:`LAUNCHES` holds one count per kernel; a
 wrapper adds one where it launches its kernel and nowhere else, so a run
 can show which kernels it went through.
 """
@@ -56,6 +56,18 @@ def check_inputs(family, series, packed, rows):
                          f"in their plain version, CPU tensors); got "
                          f"{ref.device}.")
     return t_len
+
+
+def check_block(family, ref, block, shape, name):
+    """A further input block of a wrapper (state rows, a history): it must
+    have ``shape`` and be contiguous on ``ref``'s device in its dtype."""
+    if (block.device != ref.device or block.dtype != ref.dtype
+            or tuple(block.shape) != tuple(shape)
+            or not block.is_contiguous()):
+        raise ValueError(
+            f"{name} of a fused {family} kernel must be a contiguous "
+            f"{tuple(shape)} block on {ref.device}/{ref.dtype}; got "
+            f"{tuple(block.shape)} on {block.device}/{block.dtype}.")
 
 
 def valid_count(qobs, masked):

@@ -13,8 +13,11 @@ Shapes: layer forcing (T, L), ``etp`` (T,), parameters (N,), series (N, T)
 and (N, T, L).
 """
 
-from .cemaneige import run_cemaneige, run_cemaneigehyst, run_icemelt
-from .gr4j import run_gr4j
+import torch
+
+from .cemaneige import (run_cemaneige, run_cemaneige_warm, run_cemaneigehyst,
+                        run_cemaneigehyst_warm, run_icemelt)
+from .gr4j import run_gr4j, run_gr4j_warm
 from .uh import NUM_UH1, NUM_UH2
 
 
@@ -131,3 +134,77 @@ def run_cemaneigehystgr4jice(prec, mean_temp, etp, frac_ice,
         return (qsim, G, eTG, s_store, r_store, sca, icemelt, snowmelt,
                 rain, (snow_final[0], gr4j_final[0]))
     return qsim, G, eTG, s_store, r_store, sca, icemelt, snowmelt, rain
+
+
+# ---------------------------------------------------------------------------
+# Warm continuation (forecast mode): the snow routine's warm scan chained
+# into GR4J's, carrying both states.  The data-dependent per-layer constants
+# (g_thresh / annual solid precipitation) belong to the ORIGINAL series and
+# are supplied explicitly -- see run_cemaneige_warm.
+# ---------------------------------------------------------------------------
+
+def run_cemaneigegr4j_warm(prec, mean_temp, etp, frac_solid_prec, state,
+                           g_thresh, params, num_uh1=NUM_UH1,
+                           num_uh2=NUM_UH2, frac_ice=None):
+    """Continue Cemaneige(+ice) + GR4J from carried states.
+
+    Args:
+        prec, mean_temp, frac_solid_prec: (T, L) continuation forcing.
+        etp: (T,) potential evapotranspiration.
+        state: ``(snow_state, gr4j_state)`` where ``snow_state`` is the
+            ``(G, eTG)`` tuple of (N, L) tensors and ``gr4j_state`` a
+            batched :class:`~.gr4j.GR4JState`.
+        g_thresh: (L,) or (N, L) snow-cover thresholds of the original
+            series.
+        frac_ice: (L,) glacier fractions to add degree-day ice melt (the
+            Ice composition); None for plain Cemaneige + GR4J.
+
+    Returns:
+        (qsim, G, eTG, s_store, r_store, icemelt, final_state);
+        ``icemelt`` is the (N, T) weighted glacier-melt series (zeros when
+        ``frac_ice`` is None) and ``final_state`` the
+        ``((G, eTG), GR4JState)`` pair.
+    """
+    snow_state, gr4j_state = state
+    liquid, G, eTG, snow_final = run_cemaneige_warm(
+        prec, mean_temp, frac_solid_prec, snow_state, g_thresh, params)
+    if frac_ice is not None:
+        icemelt = _weighted_icemelt(mean_temp, G, frac_ice, params)
+    else:
+        icemelt = torch.zeros_like(liquid)
+    liquid = liquid + icemelt
+    qsim, s_store, r_store, gr4j_final = run_gr4j_warm(
+        liquid.T, etp, gr4j_state, params, num_uh1, num_uh2)
+    return (qsim, G, eTG, s_store, r_store, icemelt,
+            (snow_final, gr4j_final))
+
+
+def run_cemaneigehystgr4j_warm(prec, mean_temp, etp, frac_solid_prec, state,
+                               psol_annual, params, num_uh1=NUM_UH1,
+                               num_uh2=NUM_UH2, frac_ice=None):
+    """Continue Cemaneige-Hysteresis(+ice) + GR4J from carried states.
+
+    Args:
+        state: ``(snow_state, gr4j_state)`` where ``snow_state`` is the
+            ``(G, eTG, sca, swe_max)`` tuple.
+        psol_annual: (L,) or (N, L) mean annual solid precipitation of the
+            original series.
+        frac_ice: (L,) glacier fractions for the Hyst + Ice composition;
+            None for Hyst only.
+
+    Returns:
+        (qsim, G, eTG, s_store, r_store, sca, rain, icemelt, final_state);
+        ``icemelt`` is zeros when ``frac_ice`` is None.
+    """
+    snow_state, gr4j_state = state
+    liquid, G, eTG, sca, rain, snow_final = run_cemaneigehyst_warm(
+        prec, mean_temp, frac_solid_prec, snow_state, psol_annual, params)
+    if frac_ice is not None:
+        icemelt = _weighted_icemelt(mean_temp, G, frac_ice, params)
+    else:
+        icemelt = torch.zeros_like(liquid)
+    liquid = liquid + icemelt
+    qsim, s_store, r_store, gr4j_final = run_gr4j_warm(
+        liquid.T, etp, gr4j_state, params, num_uh1, num_uh2)
+    return (qsim, G, eTG, s_store, r_store, sca, rain, icemelt,
+            (snow_final, gr4j_final))

@@ -9,7 +9,15 @@ and UH shift registers in registers for the whole time loop.
   number per member (the Monte-Carlo / calibration production path);
 * K2 the same with ``stats=True`` -- (4, N) time means
   [mse, mean_q, mean_q^2, mean_q*qobs] for NSE/KGE via
-  :func:`~.stats.losses_from_stats`.
+  :func:`~.stats.losses_from_stats`;
+* K4 :func:`gr4j_simulate_state_fused` -- forecast mode: trajectories plus
+  the end-of-series :class:`~.gr4j.GR4JState`, entering cold or from a
+  carried state; K1/K2 enter from a carried state too (``state=``).
+
+A carried state is batched over the members (one row per member).  One
+state shared by every member is broadcast by the caller
+(:func:`~..models.states.broadcast_state`) before it reaches a wrapper; the
+kernels read a history row per member.
 
 The card is the port's default device: models put their tensors there,
 and on a CUDA tensor a wrapper launches its kernel or raises.  Only for
@@ -21,11 +29,12 @@ with the other kernel modules, :mod:`._launch`) counts launches per kernel.
 
 import torch
 
-from ._launch import (LAUNCHES, check_inputs, launch,  # noqa: F401
-                      register_kernels, reset_launches, valid_count)
+from ._launch import (LAUNCHES, check_block, check_inputs,  # noqa: F401
+                      launch, register_kernels, reset_launches, valid_count)
+from .gr4j import GR4JState
 from .uh import NUM_UH1, NUM_UH2, uh_ordinates
 
-register_kernels("gr4j_mse", "gr4j_stats", "gr4j_traj")
+register_kernels("gr4j_mse", "gr4j_stats", "gr4j_traj", "gr4j_traj_state")
 
 # UH register lengths the CUDA library is instantiated for.
 SUPPORTED_UH = ((3, 7), (NUM_UH1, NUM_UH2))
@@ -39,11 +48,36 @@ def _check_uh(num_uh1, num_uh2):
             "for x4 above 10.")
 
 
-def pack_params(params, s_init, r_init):
-    """(6, N) contiguous [x1, x2, x3, x4, s0, r0], with s0/r0 absolute."""
+def pack_params(params, s_init, r_init, state=None):
+    """(6, N) contiguous [x1, x2, x3, x4, s0, r0], with s0/r0 absolute: the
+    fractions ``s_init``/``r_init`` of x1/x3, or the carried levels of a
+    batched ``state``."""
     x1, x3 = params['x1'], params['x3']
-    return torch.stack([x1, params['x2'], x3, params['x4'],
-                        s_init * x1, r_init * x3]).contiguous()
+    if state is None:
+        s0, r0 = s_init * x1, r_init * x3
+    else:
+        s0, r0 = (x.to(dtype=x1.dtype).expand_as(x1)
+                  for x in (state.s, state.r))
+    return torch.stack([x1, params['x2'], x3, params['x4'], s0,
+                        r0]).contiguous()
+
+
+def history_rows(state, num_uh2, like):
+    """The routing-input history of a batched :class:`~.gr4j.GR4JState` as
+    the kernels take it: the last ``num_uh2 - 1`` inputs as contiguous
+    (H, N) rows, oldest first, in ``like``'s dtype.  A longer history (a
+    state from a run with longer UH registers) is trimmed; a shorter one
+    raises."""
+    h_needed = num_uh2 - 1
+    hist = state.pr_history
+    h = hist.shape[1]
+    if h < h_needed:
+        raise ValueError(
+            f"state.pr_history holds {h} routing inputs but num_uh2="
+            f"{num_uh2} needs {h_needed}; build the state with a matching "
+            "(or larger) num_uh2 -- a short history would silently "
+            "zero-fill pre-split routed water.")
+    return hist[:, h - h_needed:].to(dtype=like.dtype).T.contiguous()
 
 
 # ---------------------------------------------------------------------------
@@ -53,7 +87,7 @@ def pack_params(params, s_init, r_init):
 class _Members:
     """Per-member parameters and state, as the kernel keeps in registers."""
 
-    def __init__(self, packed, num_uh1, num_uh2):
+    def __init__(self, packed, num_uh1, num_uh2, hist=None):
         x1, x2, x3, x4, s0, r0 = packed
         self.x1, self.x2 = x1, x2
         self.ix1, self.ix3 = 1.0 / x1, 1.0 / x3
@@ -61,9 +95,28 @@ class _Members:
         self.oh1, self.oh2 = uh_ordinates(x4, num_uh1, num_uh2)
         self.uh1 = torch.zeros_like(self.oh1)
         self.uh2 = torch.zeros_like(self.oh2)
+        self.p_r = None
+        if hist is not None:
+            self._warm_registers(hist)
+
+    def _warm_registers(self, hist):
+        """Warm entry (``gr4j_init`` with a history): push the (H, N)
+        carried routing inputs, oldest first, through the empty registers.
+        That leaves ``uh[j] = sum_k oh[j + k] * (share * hist[H-1-k])``,
+        the partial filter sums still owed by past inputs."""
+        for p_r in hist:
+            self._push(p_r)
+
+    def _push(self, p_r):
+        """``uh_push``: uh[j] <- uh[j+1] + oh[j] * pr, uh[-1] <- oh[-1] * pr."""
+        self.uh1 = (torch.nn.functional.pad(self.uh1[:, 1:], (0, 1))
+                    + self.oh1 * (0.9 * p_r)[:, None])
+        self.uh2 = (torch.nn.functional.pad(self.uh2[:, 1:], (0, 1))
+                    + self.oh2 * (0.1 * p_r)[:, None])
 
     def step(self, p, e):
-        """One GR4J step (``gr4j_step`` in the CUDA source); returns q."""
+        """One GR4J step (``gr4j_step_pr`` in the CUDA source); returns q
+        and keeps the routing input in ``self.p_r``."""
         p_n = torch.clamp(p - e, min=0.0)
         pe_n = torch.clamp(e - p, min=0.0)
         s, x1, ix1, ix3 = self.s, self.x1, self.ix1, self.ix3
@@ -77,12 +130,9 @@ class _Members:
         perc = s_interim * (1.0 - torch.rsqrt(torch.sqrt(1.0 + zs * zs)))
         self.s = s_interim - perc
         p_r = perc + (p_n - p_s)
+        self.p_r = p_r
 
-        # Shift registers: uh[j] <- uh[j+1] + oh[j] * pr, uh[-1] <- oh[-1] * pr.
-        self.uh1 = (torch.nn.functional.pad(self.uh1[:, 1:], (0, 1))
-                    + self.oh1 * (0.9 * p_r)[:, None])
-        self.uh2 = (torch.nn.functional.pad(self.uh2[:, 1:], (0, 1))
-                    + self.oh2 * (0.1 * p_r)[:, None])
+        self._push(p_r)
 
         r = self.r
         rx = r * ix3
@@ -105,13 +155,40 @@ def gr4j_simulate_reference(prec, etp, packed, num_uh1=NUM_UH1,
     return out
 
 
+def final_history(hist, p_r_steps):
+    """The (H, N) history after a segment: the last H rows of
+    ``[hist | p_r of every step]``."""
+    full = torch.cat([hist, torch.stack(p_r_steps)])
+    return full[full.shape[0] - hist.shape[0]:]
+
+
+def gr4j_simulate_state_reference(prec, etp, packed, hist=None,
+                                  num_uh1=NUM_UH1, num_uh2=NUM_UH2):
+    """Plain version of K4: (N, T) trajectories and the (2 + H, N) state
+    rows [s, r, history].  ``hist`` is the (H, N) incoming history, oldest
+    first (warm entry), or None (cold: empty registers, zero history)."""
+    m = _Members(packed, num_uh1, num_uh2, hist)
+    n = packed.shape[1]
+    if hist is None:
+        hist = packed.new_zeros((num_uh2 - 1, n))
+    out = prec.new_empty((n, prec.shape[0]))
+    p_r_steps = []
+    for t in range(prec.shape[0]):
+        out[:, t] = m.step(prec[t], etp[t])
+        p_r_steps.append(m.p_r)
+    fstate = torch.cat([m.s[None], m.r[None],
+                        final_history(hist, p_r_steps)])
+    return out, fstate
+
+
 def gr4j_objective_reference(prec, etp, qobs, packed, num_uh1=NUM_UH1,
                              num_uh2=NUM_UH2, stats=False, masked=False,
-                             count=None):
+                             count=None, hist=None):
     """Plain version of K1 (``stats=False``, (N,)) and K2 (``stats=True``,
     (4, N)).  ``masked`` drops steps whose observation is NaN; the sums
-    are divided by ``count`` (default T)."""
-    m = _Members(packed, num_uh1, num_uh2)
+    are divided by ``count`` (default T).  With ``hist`` ((H, N), oldest
+    first) the members enter warm."""
+    m = _Members(packed, num_uh1, num_uh2, hist)
     T = prec.shape[0]
     valid = torch.isfinite(qobs) if masked else None
     acc = packed.new_zeros((4 if stats else 1, packed.shape[1]))
@@ -161,6 +238,58 @@ def gr4j_simulate_fused(prec, etp, s_init, r_init, params, num_uh1=NUM_UH1,
     return out
 
 
+def state_from_rows(fstate):
+    """(2 + H, N) state rows -> batched :class:`~.gr4j.GR4JState`."""
+    return GR4JState(s=fstate[0], r=fstate[1],
+                     pr_history=fstate[2:].T.contiguous())
+
+
+def gr4j_simulate_state_fused(prec, etp, params, state=None, s_init=0.0,
+                              r_init=0.0, num_uh1=NUM_UH1, num_uh2=NUM_UH2):
+    """Forecast-mode fused GR4J (K4); returns (qsim (N, T), final
+    :class:`~.gr4j.GR4JState`).
+
+    The counterpart of ``run_gr4j(return_final=True)`` /
+    :func:`~.gr4j.run_gr4j_warm`: chaining segments through the returned
+    state reproduces the unbroken run.
+
+    Args:
+        prec, etp: (T,) forcing tensors, T >= 1.
+        params: dict of (N,) tensors x1..x4 on the forcing's device.
+        state: (optional) batched :class:`~.gr4j.GR4JState` to continue
+            from (``pr_history`` is trimmed to the last ``num_uh2 - 1``
+            inputs); a cold start from the fractions ``s_init``/``r_init``
+            if omitted.
+        num_uh1, num_uh2: UH register lengths, one of ``SUPPORTED_UH``.
+    """
+    _check_uh(num_uh1, num_uh2)
+    packed = pack_params(params, s_init, r_init, state)
+    t_len = check_inputs("GR4J", (prec, etp), packed, 6)
+    if t_len < 1:
+        raise ValueError("a state-carrying simulation needs T >= 1.")
+    n = packed.shape[1]
+    hist = None
+    if state is not None:
+        hist = history_rows(state, num_uh2, prec)
+        check_block("GR4J", prec, hist, (num_uh2 - 1, n), "the history")
+    if prec.device.type == "cpu":
+        out, fstate = gr4j_simulate_state_reference(prec, etp, packed, hist,
+                                                    num_uh1, num_uh2)
+        return out, state_from_rows(fstate)
+    from ._build import load_library
+
+    lib = load_library()
+    out = torch.empty((n, t_len), dtype=prec.dtype, device=prec.device)
+    fstate = torch.empty((num_uh2 + 1, n), dtype=prec.dtype,
+                         device=prec.device)
+    launch("gr4j_traj_state", lib.rrmpg_gr4j_simulate_state_f32,
+           lib.rrmpg_gr4j_simulate_state_f64, prec.dtype, prec.device,
+           prec.data_ptr(), etp.data_ptr(), packed.data_ptr(),
+           None if hist is None else hist.data_ptr(), n, t_len, num_uh1,
+           num_uh2, out.data_ptr(), fstate.data_ptr())
+    return out, state_from_rows(fstate)
+
+
 def gr4j_ensemble_mse_fused(prec, etp, qobs, s_init, r_init, params,
                             num_uh1=NUM_UH1, num_uh2=NUM_UH2, stats=False,
                             masked=False, state=None):
@@ -173,28 +302,32 @@ def gr4j_ensemble_mse_fused(prec, etp, qobs, s_init, r_init, params,
     the sums, which are normalized over the valid count.  An observation
     record with no valid step raises ``ValueError``.
 
-    ``state`` (warm entry from a carried state) is not ported yet.
+    With ``state`` (a batched :class:`~.gr4j.GR4JState`) the objective is
+    that of a warm continuation: the stores enter at the carried levels and
+    the UH registers are rebuilt from the routing-input history, as in
+    :func:`gr4j_simulate_state_fused`; ``s_init``/``r_init`` are not read.
     """
-    if state is not None:
-        raise NotImplementedError(
-            "Warm entry (state=) of the fused GR4J objective is not ported "
-            "yet; see ROADMAP.md, Queue 1, item 6 (forecast state).")
     _check_uh(num_uh1, num_uh2)
-    packed = pack_params(params, s_init, r_init)
+    packed = pack_params(params, s_init, r_init, state)
     t_len = check_inputs("GR4J", (prec, etp, qobs), packed, 6)
     count = valid_count(qobs, masked)
+    n = packed.shape[1]
+    hist = None
+    if state is not None:
+        hist = history_rows(state, num_uh2, prec)
+        check_block("GR4J", prec, hist, (num_uh2 - 1, n), "the history")
     if prec.device.type == "cpu":
         return gr4j_objective_reference(prec, etp, qobs, packed, num_uh1,
-                                        num_uh2, stats, masked, count)
+                                        num_uh2, stats, masked, count, hist)
     from ._build import load_library
 
     lib = load_library()
-    n = packed.shape[1]
     out = torch.empty((4, n) if stats else (n,), dtype=prec.dtype,
                       device=prec.device)
     launch("gr4j_stats" if stats else "gr4j_mse",
            lib.rrmpg_gr4j_objective_f32, lib.rrmpg_gr4j_objective_f64,
            prec.dtype, prec.device, prec.data_ptr(), etp.data_ptr(),
-           qobs.data_ptr(), packed.data_ptr(), n, t_len, num_uh1, num_uh2,
-           int(stats), int(masked), float(count), out.data_ptr())
+           qobs.data_ptr(), packed.data_ptr(),
+           None if hist is None else hist.data_ptr(), n, t_len, num_uh1,
+           num_uh2, int(stats), int(masked), float(count), out.data_ptr())
     return out

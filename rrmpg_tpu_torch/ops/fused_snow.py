@@ -16,7 +16,18 @@ memory, for the whole time loop.
   for the Q+SCA calibration (:func:`q_sca_loss_from_stats`);
   :func:`cemaneige_ensemble_mse_fused` is its snow-only mode;
 * K9 :func:`snowgr4j_simulate_fused` -- (N, T) discharge trajectories;
-  :func:`cemaneige_simulate_fused` the snow-only outflow.
+  :func:`cemaneige_simulate_fused` the snow-only outflow;
+* K10 :func:`snowgr4j_simulate_state_fused` -- forecast mode: trajectories
+  plus the end-of-series :class:`~..models.states.SnowGR4JState`, entering
+  cold or from a carried state; K8 enters from a carried state too
+  (``state=``, the ``mse`` and ``stats`` objectives).
+
+A warm entry takes its layer constants from the state: the snow-cover
+threshold (or, with hysteresis, the mean annual solid precipitation) is a
+precompute over the ORIGINAL series, one (L,) vector per member, and a
+continuation must not recompute it from its own shorter forcing.  The state
+is batched over the members; one state shared by all is broadcast by the
+caller (:func:`~..models.states.broadcast_state`).
 
 On a CUDA tensor a wrapper launches its kernel or raises; only for tensors
 the caller put on the CPU it runs its plain PyTorch version
@@ -33,13 +44,16 @@ on the same inputs.
 
 import torch
 
-from ._launch import check_inputs, launch, register_kernels, valid_count
+from ._launch import (check_block, check_inputs, launch, register_kernels,
+                      valid_count)
 from .fused_gr4j import _Members as _GR4JMembers
-from .fused_gr4j import _check_uh
+from .fused_gr4j import (_check_uh, final_history, history_rows,
+                         state_from_rows)
 from .stats import losses_from_stats
 from .uh import NUM_UH1, NUM_UH2
 
-register_kernels("snow_mse", "snow_stats", "snow_sca_stats", "snow_traj")
+register_kernels("snow_mse", "snow_stats", "snow_sca_stats", "snow_traj",
+                 "snow_traj_state")
 
 NUM_ROWS = 11
 
@@ -51,10 +65,11 @@ def _guarded_reciprocal(x):
     return torch.where(nonzero, 1.0 / torch.where(nonzero, x, 1.0), 0.0)
 
 
-def pack_params(params, s_init, r_init, snow_only=False):
+def pack_params(params, s_init, r_init, snow_only=False, gr4j_state=None):
     """(11, N) contiguous [x1, x2, x3, x4, s0, r0, CTG, Kf, 1/Thacc, Rsp,
-    DDF] with s0/r0 absolute; parameters the variant lacks are zero rows
-    (``snow_only``: inert GR4J rows)."""
+    DDF] with s0/r0 absolute (the carried levels of a batched
+    ``gr4j_state`` on warm entry); parameters the variant lacks are zero
+    rows (``snow_only``: inert GR4J rows)."""
     ref = params['CTG']
     zeros = torch.zeros_like(ref)
 
@@ -66,8 +81,12 @@ def pack_params(params, s_init, r_init, snow_only=False):
         gr4j_rows = [ones, zeros, ones, ones, zeros, zeros]
     else:
         x1, x3 = params['x1'], params['x3']
-        gr4j_rows = [x1, params['x2'], x3, params['x4'], s_init * x1,
-                     r_init * x3]
+        if gr4j_state is None:
+            s0, r0 = s_init * x1, r_init * x3
+        else:
+            s0, r0 = (x.to(dtype=x1.dtype).expand_as(x1)
+                      for x in (gr4j_state.s, gr4j_state.r))
+        gr4j_rows = [x1, params['x2'], x3, params['x4'], s0, r0]
     return torch.stack(gr4j_rows + [
         ref, params['Kf'], _guarded_reciprocal(row('Thacc')), row('Rsp'),
         row('DDF')]).contiguous()
@@ -85,6 +104,49 @@ def layer_inputs(prec, frac_solid_prec, hyst):
             (psol if hyst else 0.9 * psol).contiguous())
 
 
+def warm_rows(state, hyst, num_layers, num_uh2, like):
+    """A batched :class:`~..models.states.SnowGR4JState` as the kernels take
+    it, in ``like``'s dtype: ``(state_in, layer_consts, hist)`` -- the
+    (4L, N) layer rows [G | eTG | sca | swe_max] (zero rows for what a plain
+    snow state lacks), the (L, N) constants of the original series and the
+    (H, N) routing-input history, oldest first."""
+    sg = state.snow
+    if hyst:
+        leaves, consts = (sg.g, sg.etg, sg.sca, sg.swe_max), sg.psol_annual
+    else:
+        zeros = torch.zeros_like(sg.g)
+        leaves, consts = (sg.g, sg.etg, zeros, zeros), sg.g_thresh
+    n = sg.g.shape[0]
+    for leaf in (*leaves, consts):
+        if tuple(leaf.shape) != (n, num_layers):
+            raise ValueError(
+                f"every snow leaf of the state must be (N, {num_layers}); "
+                f"got {tuple(leaf.shape)}.")
+    state_in = torch.cat([leaf.to(dtype=like.dtype).T for leaf in leaves])
+    return (state_in.contiguous(),
+            consts.to(dtype=like.dtype).T.contiguous(),
+            history_rows(state.gr4j, num_uh2, like))
+
+
+def bundle_from_rows(fstate, layer_consts, hyst, num_uh2):
+    """K10's (2 + H + 4L, N) state rows and the (N, L) layer constants ->
+    :class:`~..models.states.SnowGR4JState`, member axis leading."""
+    from ..models.states import (CemaneigeHystState, CemaneigeState,
+                                 SnowGR4JState)
+
+    h = num_uh2 - 1
+    num_layers = layer_consts.shape[1]
+    G, eTG, sca, swe = (
+        fstate[2 + h + k * num_layers:2 + h + (k + 1) * num_layers]
+        .T.contiguous() for k in range(4))
+    if hyst:
+        snow = CemaneigeHystState(g=G, etg=eTG, sca=sca, swe_max=swe,
+                                  psol_annual=layer_consts)
+    else:
+        snow = CemaneigeState(g=G, etg=eTG, g_thresh=layer_consts)
+    return SnowGR4JState(snow=snow, gr4j=state_from_rows(fstate[:2 + h]))
+
+
 # ---------------------------------------------------------------------------
 # Plain versions: the kernel's loop, batched over members
 # ---------------------------------------------------------------------------
@@ -94,27 +156,36 @@ class _Members:
     :class:`~.fused_gr4j._Members`, the layer states as (N, L) blocks."""
 
     def __init__(self, packed, layer_consts, frac_ice, snow0, th0, hyst, ice,
-                 snow_only, num_uh1, num_uh2):
+                 snow_only, num_uh1, num_uh2, state_in=None, hist=None):
         self.gr4j = (None if snow_only
-                     else _GR4JMembers(packed[:6], num_uh1, num_uh2))
+                     else _GR4JMembers(packed[:6], num_uh1, num_uh2, hist))
         (self.ctg, self.kf, self.ithacc, self.rsp,
          self.ddf) = (row[:, None] for row in packed[6:])
         self.one_minus_ctg = 1.0 - self.ctg
-        self.layer_consts, self.frac_ice = layer_consts, frac_ice
+        # (L,) for all members, or (L, N) rows, one column per member.
+        self.layer_consts = (layer_consts if layer_consts.dim() == 1
+                             else layer_consts.T)
+        self.frac_ice = frac_ice
+        self.warm = state_in is not None
         self.snow0, self.th0 = snow0, th0
         self.hyst, self.ice = hyst, ice
         n, L = packed.shape[1], layer_consts.shape[0]
         # A tensor, not a Python number: PyTorch divides by a Python scalar
         # as a multiply by its reciprocal, the kernel really divides.
         self.num_layers = packed.new_full((), float(L))
-        self.G = packed.new_zeros((n, L))
-        self.eTG, self.sca, self.swe = (torch.zeros_like(self.G)
-                                        for _ in range(3))
+        if self.warm:
+            self.G, self.eTG, self.sca, self.swe = (
+                state_in[k * L:(k + 1) * L].T.clone() for k in range(4))
+        else:
+            self.G = packed.new_zeros((n, L))
+            self.eTG, self.sca, self.swe = (torch.zeros_like(self.G)
+                                            for _ in range(3))
 
     def _layers(self, t, snow, rain, temp):
         """``snow_layer_step`` of the CUDA source on all layers at once;
-        returns the (N, L) liquid water."""
-        if t == 0:
+        returns the (N, L) liquid water.  Step 0 of a cold start is the
+        initialization step."""
+        if t == 0 and not self.warm:
             g = torch.full_like(self.G, self.snow0)
             th = torch.full_like(self.G, self.th0)
         else:
@@ -181,20 +252,49 @@ def snowgr4j_simulate_reference(snow, rain, temp, etp, packed, layer_consts,
     return out
 
 
+def snowgr4j_simulate_state_reference(snow, rain, temp, etp, packed,
+                                      layer_consts, frac_ice, snow0, th0,
+                                      hyst=False, ice=False, num_uh1=NUM_UH1,
+                                      num_uh2=NUM_UH2, state_in=None,
+                                      hist=None):
+    """Plain version of K10: (N, T) trajectories and the (2 + H + 4L, N)
+    state rows [s, r, history, G, eTG, sca, swe_max] (the last 2L zero
+    without ``hyst``).  ``state_in`` ((4L, N)) and ``hist`` ((H, N)) give a
+    warm entry; ``layer_consts`` is then (L, N)."""
+    m = _Members(packed, layer_consts, frac_ice, snow0, th0, hyst, ice,
+                 False, num_uh1, num_uh2, state_in, hist)
+    n = packed.shape[1]
+    if hist is None:
+        hist = packed.new_zeros((num_uh2 - 1, n))
+    out = snow.new_empty((n, snow.shape[0]))
+    p_r_steps = []
+    for t in range(snow.shape[0]):
+        out[:, t] = m.step(t, snow[t], rain[t], temp[t], etp[t])
+        p_r_steps.append(m.gr4j.p_r)
+    layer_rows = [m.G.T, m.eTG.T]
+    layer_rows += ([m.sca.T, m.swe.T] if hyst
+                   else [torch.zeros_like(m.G.T)] * 2)
+    fstate = torch.cat([m.gr4j.s[None], m.gr4j.r[None],
+                        final_history(hist, p_r_steps), *layer_rows])
+    return out, fstate
+
+
 def snowgr4j_objective_reference(snow, rain, temp, etp, qobs, packed,
                                  layer_consts, frac_ice, snow0, th0,
                                  hyst=False, ice=False, snow_only=False,
                                  num_uh1=NUM_UH1, num_uh2=NUM_UH2,
                                  stats=False, masked=False, count=None,
-                                 ndsi=None, band_counts=None):
+                                 ndsi=None, band_counts=None, state_in=None,
+                                 hist=None):
     """Plain version of K8: (N,) mean squared errors, with ``stats`` the
     (4, N) time means, with ``ndsi`` ((T, L); needs ``hyst``) the
     (4 + 4L, N) discharge and per-band SCA statistics.  ``masked`` drops
     NaN observations, discharge and each band by their own gaps; the
     discharge sums are divided by ``count`` (default T), band l's by
-    ``band_counts[l]``."""
+    ``band_counts[l]``.  ``state_in`` and ``hist`` give a warm entry, as in
+    :func:`snowgr4j_simulate_state_reference`."""
     m = _Members(packed, layer_consts, frac_ice, snow0, th0, hyst, ice,
-                 snow_only, num_uh1, num_uh2)
+                 snow_only, num_uh1, num_uh2, state_in, hist)
     T, L = snow.shape
     n = packed.shape[1]
     acc = packed.new_zeros((4, n))
@@ -229,9 +329,13 @@ def snowgr4j_objective_reference(snow, rain, temp, etp, qobs, packed,
 # ---------------------------------------------------------------------------
 
 def _prepare(prec, mean_temp, etp, frac_solid_prec, params, s_init, r_init,
-             frac_ice, hyst, ice, snow_only, num_uh1, num_uh2, extra=()):
+             frac_ice, hyst, ice, snow_only, num_uh1, num_uh2, extra=(),
+             state=None):
     """Checks and packing shared by the wrappers; returns
-    (snow, rain, temp, layer_consts, frac_ice, packed, T, L)."""
+    (snow, rain, temp, layer_consts, frac_ice, packed, T, L, state_in,
+    hist).  With a batched ``state`` the layer constants are the state's
+    (L, N) rows and ``state_in`` / ``hist`` its warm-entry rows; else both
+    are None and the constants the (L,) vector of this call's forcing."""
     if snow_only and (hyst or ice):
         raise ValueError(
             "snow_only is the standalone Cemaneige routine: it has no "
@@ -240,7 +344,12 @@ def _prepare(prec, mean_temp, etp, frac_solid_prec, params, s_init, r_init,
         _check_uh(num_uh1, num_uh2)
     if ice and frac_ice is None:
         raise ValueError("The ice-melt variants need 'frac_ice'.")
-    packed = pack_params(params, s_init, r_init, snow_only)
+    if state is not None and snow_only:
+        raise ValueError(
+            "The fused snow-only kernels start cold; carry a Cemaneige "
+            "state on engine='scan'.")
+    packed = pack_params(params, s_init, r_init, snow_only,
+                         None if state is None else state.gr4j)
     t_len = check_inputs("snow", (etp, *extra), packed, NUM_ROWS)
     layers = (prec, mean_temp, frac_solid_prec)
     if prec.dim() != 2 or prec.shape[0] != t_len or prec.shape[1] < 1:
@@ -265,8 +374,18 @@ def _prepare(prec, mean_temp, etp, frac_solid_prec, params, s_init, r_init,
             f"frac_ice must be ({num_layers},), one fraction per layer; "
             f"got {tuple(frac_ice.shape)}.")
     snow, rain, layer_consts = layer_inputs(prec, frac_solid_prec, hyst)
+    state_in = hist = None
+    if state is not None:
+        n = packed.shape[1]
+        state_in, layer_consts, hist = warm_rows(state, hyst, num_layers,
+                                                 num_uh2, etp)
+        check_block("snow", etp, state_in, (4 * num_layers, n),
+                    "the layer state")
+        check_block("snow", etp, layer_consts, (num_layers, n),
+                    "the layer constants")
+        check_block("snow", etp, hist, (num_uh2 - 1, n), "the history")
     return (snow, rain, mean_temp.contiguous(), layer_consts,
-            frac_ice.contiguous(), packed, t_len, num_layers)
+            frac_ice.contiguous(), packed, t_len, num_layers, state_in, hist)
 
 
 def _check_layer_count(lib, num_layers, rows_per_layer, dtype):
@@ -300,10 +419,9 @@ def snowgr4j_simulate_fused(prec, mean_temp, etp, frac_solid_prec,
         num_uh1, num_uh2: UH register lengths, one of
             :data:`~.fused_gr4j.SUPPORTED_UH`.
     """
-    (snow, rain, temp, layer_consts, frac_ice, packed, t_len,
-     num_layers) = _prepare(prec, mean_temp, etp, frac_solid_prec, params,
-                            s_init, r_init, frac_ice, hyst, ice, snow_only,
-                            num_uh1, num_uh2)
+    (snow, rain, temp, layer_consts, frac_ice, packed, t_len, num_layers, _,
+     _) = _prepare(prec, mean_temp, etp, frac_solid_prec, params, s_init,
+                   r_init, frac_ice, hyst, ice, snow_only, num_uh1, num_uh2)
     snow0, th0 = float(snow_pack_init), float(thermal_state_init)
     if etp.device.type == "cpu":
         return snowgr4j_simulate_reference(
@@ -312,7 +430,7 @@ def snowgr4j_simulate_fused(prec, mean_temp, etp, frac_solid_prec,
     from ._build import load_library
 
     lib = load_library()
-    _check_layer_count(lib, num_layers, 4 if hyst else 2, etp.dtype)
+    _check_layer_count(lib, num_layers, _shared_rows(hyst), etp.dtype)
     n = packed.shape[1]
     out = torch.empty((n, t_len), dtype=etp.dtype, device=etp.device)
     launch("snow_traj", lib.rrmpg_snow_simulate_f32,
@@ -322,6 +440,76 @@ def snowgr4j_simulate_fused(prec, mean_temp, etp, frac_solid_prec,
            n, t_len, num_layers, num_uh1, num_uh2, int(hyst), int(ice),
            int(snow_only), snow0, th0, out.data_ptr())
     return out
+
+
+def _shared_rows(hyst, sca_stats=False):
+    """Shared-memory values per layer and member: the layer states (2, with
+    hysteresis 4), the layer constant and, with the SCA statistics, four
+    band sums."""
+    return (4 if hyst else 2) + 1 + (4 if sca_stats else 0)
+
+
+def _pointer(x):
+    return None if x is None else x.data_ptr()
+
+
+def snowgr4j_simulate_state_fused(prec, mean_temp, etp, frac_solid_prec,
+                                  params, state=None, snow_pack_init=0.0,
+                                  thermal_state_init=0.0, s_init=0.0,
+                                  r_init=0.0, frac_ice=None, hyst=False,
+                                  ice=False, num_uh1=NUM_UH1,
+                                  num_uh2=NUM_UH2):
+    """Forecast-mode fused snow + GR4J simulation (K10); returns
+    (qsim (N, T), final :class:`~..models.states.SnowGR4JState`).
+
+    The counterpart of the warm / cold-final compositions of
+    :mod:`.compositions`: chaining segments through the returned state
+    reproduces the unbroken run.  The series-derived layer constants travel
+    with the state: a warm segment uses the ORIGINAL series' snow-cover
+    threshold / annual solid precipitation from the bundle, and returns it
+    unchanged.
+
+    Args:
+        state: (optional) batched
+            :class:`~..models.states.SnowGR4JState` to continue from
+            (its snow half a ``CemaneigeHystState`` with ``hyst``, else a
+            ``CemaneigeState``; ``pr_history`` is trimmed to the last
+            ``num_uh2 - 1`` inputs); a cold start from the init scalars
+            (reference conventions) if omitted.
+
+    Other args as :func:`snowgr4j_simulate_fused`; T >= 1.
+    """
+    (snow, rain, temp, layer_consts, frac_ice, packed, t_len, num_layers,
+     state_in, hist) = _prepare(prec, mean_temp, etp, frac_solid_prec,
+                                params, s_init, r_init, frac_ice, hyst, ice,
+                                False, num_uh1, num_uh2, state=state)
+    if t_len < 1:
+        raise ValueError("a state-carrying simulation needs T >= 1.")
+    snow0, th0 = float(snow_pack_init), float(thermal_state_init)
+    n = packed.shape[1]
+    # The constants of the final bundle, (N, L): carried ones pass through.
+    consts_nl = (layer_consts.expand(n, num_layers).contiguous()
+                 if state is None else layer_consts.T.contiguous())
+    if etp.device.type == "cpu":
+        out, fstate = snowgr4j_simulate_state_reference(
+            snow, rain, temp, etp, packed, layer_consts, frac_ice, snow0,
+            th0, hyst, ice, num_uh1, num_uh2, state_in, hist)
+        return out, bundle_from_rows(fstate, consts_nl, hyst, num_uh2)
+    from ._build import load_library
+
+    lib = load_library()
+    _check_layer_count(lib, num_layers, _shared_rows(hyst), etp.dtype)
+    out = torch.empty((n, t_len), dtype=etp.dtype, device=etp.device)
+    fstate = torch.empty((num_uh2 + 1 + 4 * num_layers, n), dtype=etp.dtype,
+                         device=etp.device)
+    launch("snow_traj_state", lib.rrmpg_snow_simulate_state_f32,
+           lib.rrmpg_snow_simulate_state_f64, etp.dtype, etp.device,
+           snow.data_ptr(), rain.data_ptr(), temp.data_ptr(), etp.data_ptr(),
+           packed.data_ptr(), layer_consts.data_ptr(), frac_ice.data_ptr(),
+           _pointer(state_in), _pointer(hist), n, t_len, num_layers, num_uh1,
+           num_uh2, int(hyst), int(ice), int(state is not None), snow0, th0,
+           out.data_ptr(), fstate.data_ptr())
+    return out, bundle_from_rows(fstate, consts_nl, hyst, num_uh2)
 
 
 def _band_counts(ndsi, masked):
@@ -358,22 +546,28 @@ def snowgr4j_ensemble_mse_fused(prec, mean_temp, etp, frac_solid_prec, qobs,
     (discharge and every NDSI band), and normalizes each over its own valid
     count.  A record or a band with no valid step raises ``ValueError``.
 
-    Other args as :func:`snowgr4j_simulate_fused`.  ``state`` (warm entry
-    from a carried state) is not ported yet.
+    With ``state`` (a batched :class:`~..models.states.SnowGR4JState`) the
+    objective is that of a warm continuation, as in
+    :func:`snowgr4j_simulate_state_fused`: the snowpack and GR4J state enter
+    from the bundle, the layer constants are the bundle's, and the init
+    scalars are not read.  ``mse`` and ``stats`` only.
+
+    Other args as :func:`snowgr4j_simulate_fused`.
     """
-    if state is not None:
-        raise NotImplementedError(
-            "Warm entry (state=) of the fused snow objective is not ported "
-            "yet; see ROADMAP.md, Queue 1, item 6 (forecast state).")
+    if state is not None and sca_stats:
+        raise ValueError(
+            "Warm (state=) evaluation supports the mse/stats objectives; "
+            "Q+SCA calibration from a carried state runs on engine='scan'.")
     if sca_stats and not hyst:
         raise ValueError("sca_stats requires the hysteresis variant.")
     if sca_stats and (snow_only or ndsi is None):
         raise ValueError(
             "sca_stats needs 'ndsi' of shape (L, T) and a GR4J composition.")
-    (snow, rain, temp, layer_consts, frac_ice, packed, t_len,
-     num_layers) = _prepare(prec, mean_temp, etp, frac_solid_prec, params,
-                            s_init, r_init, frac_ice, hyst, ice, snow_only,
-                            num_uh1, num_uh2, extra=(qobs,))
+    (snow, rain, temp, layer_consts, frac_ice, packed, t_len, num_layers,
+     state_in, hist) = _prepare(prec, mean_temp, etp, frac_solid_prec,
+                                params, s_init, r_init, frac_ice, hyst, ice,
+                                snow_only, num_uh1, num_uh2, extra=(qobs,),
+                                state=state)
     snow0, th0 = float(snow_pack_init), float(thermal_state_init)
     count = valid_count(qobs, masked)
     ndsi_t = band_counts = None
@@ -390,12 +584,11 @@ def snowgr4j_ensemble_mse_fused(prec, mean_temp, etp, frac_solid_prec, qobs,
         return snowgr4j_objective_reference(
             snow, rain, temp, etp, qobs, packed, layer_consts, frac_ice,
             snow0, th0, hyst, ice, snow_only, num_uh1, num_uh2, stats, masked,
-            count, ndsi_t, band_counts)
+            count, ndsi_t, band_counts, state_in, hist)
     from ._build import load_library
 
     lib = load_library()
-    _check_layer_count(lib, num_layers,
-                       (4 if hyst else 2) + (4 if sca_stats else 0),
+    _check_layer_count(lib, num_layers, _shared_rows(hyst, sca_stats),
                        etp.dtype)
     n = packed.shape[1]
     if sca_stats:
@@ -408,12 +601,11 @@ def snowgr4j_ensemble_mse_fused(prec, mean_temp, etp, frac_solid_prec, qobs,
     launch(kernel, lib.rrmpg_snow_objective_f32, lib.rrmpg_snow_objective_f64,
            etp.dtype, etp.device, snow.data_ptr(), rain.data_ptr(),
            temp.data_ptr(), etp.data_ptr(), qobs.data_ptr(),
-           ndsi_t.data_ptr() if sca_stats else None, packed.data_ptr(),
-           layer_consts.data_ptr(), frac_ice.data_ptr(),
-           band_counts.data_ptr() if sca_stats else None, n, t_len,
-           num_layers, num_uh1, num_uh2, int(hyst), int(ice), int(snow_only),
-           int(stats), int(sca_stats), int(masked), snow0, th0, float(count),
-           out.data_ptr())
+           _pointer(ndsi_t), packed.data_ptr(), layer_consts.data_ptr(),
+           frac_ice.data_ptr(), _pointer(band_counts), _pointer(state_in),
+           _pointer(hist), n, t_len, num_layers, num_uh1, num_uh2, int(hyst),
+           int(ice), int(snow_only), int(stats), int(sca_stats), int(masked),
+           int(state is not None), snow0, th0, float(count), out.data_ptr())
     return out
 
 

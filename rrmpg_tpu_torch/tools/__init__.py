@@ -1,4 +1,7 @@
-"""Experiment tools: Monte-Carlo ensembles and global calibration."""
+"""Experiment tools: Monte-Carlo ensembles, global calibration and state
+files."""
 
 from .calibration import OptimizeResult, differential_evolution, minimize
+from .checkpoint import (load_checkpoint, load_state, save_checkpoint,
+                         save_state)
 from .monte_carlo import monte_carlo

@@ -181,12 +181,14 @@ def test_simulate_errors():
         model.simulate(prec, return_storage=1)
     with pytest.raises(ValueError, match="engine"):
         model.simulate(prec, engine='pallas')
-    with pytest.raises(NotImplementedError, match="item 6"):
-        model.simulate(prec, return_final_state=True)
-    with pytest.raises(NotImplementedError, match="item 6"):
+    qsim, state = model.simulate(prec, return_final_state=True)
+    assert type(state).__name__ == "ABCState" and state.storage.shape == (1,)
+    with pytest.raises(TypeError, match="must be a ABCState"):
         model.simulate(prec, initial_state=object())
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(TypeError, match="must be a ABCState"):
         model.fit(prec, prec, initial_state=object())
+    with pytest.raises(ValueError, match="engine='scan' only"):
+        model.simulate(prec, initial_state=state, engine='fused')
     with pytest.raises(ValueError, match="loss_metric"):
         model.fit(prec, prec, loss_metric='mae')
 

@@ -5,10 +5,12 @@ JAX, so it runs on a GPU machine without it:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
-Each kernel (GR4J K1 MSE, K2 stats, K3 trajectories; ABC K6 single launch,
-K7 three launches; the snow family's K8 objective and K9 trajectories;
-HBV-Edu K12 objective, K13 trajectories) is held against its plain PyTorch
-version on the same CUDA tensors.  Tolerances:
+Each kernel (GR4J K1 MSE, K2 stats, K3 trajectories, K4 trajectories +
+state; ABC K6 single launch, K7 three launches; the snow family's K8
+objective, K9 trajectories and K10 trajectories + state; HBV-Edu K12
+objective, K13 trajectories, K14 trajectories + state; and the warm entry
+of the objectives) is held against its plain PyTorch version on the same
+CUDA tensors.  Tolerances:
 float64 ``rtol=1e-9, atol=1e-12`` (the same operations in another order);
 float32 trajectories ``rtol=5e-3, atol=1e-3`` and objectives
 ``rtol=2e-2`` (rounding compounds over the recurrence; rrmpg_tpu's own
@@ -434,8 +436,320 @@ def test_snow_too_many_layers_raise(cuda):
     with pytest.raises(ValueError, match="at most"):
         fs.snowgr4j_simulate_fused(prec, temp, etp, frac, *SNOW_INITS,
                                    params, hyst=True)
-    # 48 layers of two float64 states fit the narrowest block.
+    # 48 layers of two float64 states and the layer constant fit the
+    # narrowest block.
     out = fs.snowgr4j_simulate_fused(prec[:, :48], temp[:, :48], etp,
                                      frac[:, :48], *SNOW_INITS, params)
     torch.cuda.synchronize()
     assert out.shape == (4, 20) and bool(torch.isfinite(out).all())
+
+
+# ---------------------------------------------------------------------------
+# Forecast mode: the state kernels K4, K14, K10 and the warm objectives
+# ---------------------------------------------------------------------------
+
+OBJECTIVE_MODES = ["mse", "stats", "mse+masked", "stats+masked"]
+
+
+def _gr4j_rows(state):
+    return torch.cat([state.s[None], state.r[None], state.pr_history.T])
+
+
+def _gr4j_state_plain(prec, etp, params, state, uh, inits):
+    packed = fg.pack_params(params, *inits, state)
+    hist = None if state is None else fg.history_rows(state, uh[1], prec)
+    return fg.gr4j_simulate_state_reference(prec, etp, packed, hist, *uh)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("n1,n2,x4_max", [(3, 7, 2.9), (10, 21, 9.9)])
+@pytest.mark.parametrize("warm_len", [200, 4, 1])
+def test_gr4j_state_kernel_matches_plain(cuda, dtype, n1, n2, x4_max,
+                                         warm_len):
+    """K4 cold over 300 steps, then warm from its own state; ``warm_len``
+    below H = n2 - 1 keeps the tail of the incoming history."""
+    prec, etp, _, params = _inputs(cuda, dtype, x4_max=x4_max)
+    uh, inits, cut = (n1, n2), (0.4, 0.3), 300
+    rtol, atol = TOL[dtype]["traj"]
+    fg.reset_launches()
+    q_a, st = fg.gr4j_simulate_state_fused(prec[:cut], etp[:cut], params,
+                                           None, *inits, *uh)
+    tail = slice(cut, cut + warm_len)
+    q_b, st_b = fg.gr4j_simulate_state_fused(prec[tail], etp[tail], params,
+                                             st, num_uh1=n1, num_uh2=n2)
+    torch.cuda.synchronize()
+    assert fg.LAUNCHES["gr4j_traj_state"] == 2
+    want_a, rows_a = _gr4j_state_plain(prec[:cut], etp[:cut], params, None,
+                                       uh, inits)
+    want_b, rows_b = _gr4j_state_plain(prec[tail], etp[tail], params, st, uh,
+                                       inits)
+    assert st_b.pr_history.shape == (params['x1'].shape[0], n2 - 1)
+    for got, want in ((q_a, want_a), (_gr4j_rows(st), rows_a),
+                      (q_b, want_b), (_gr4j_rows(st_b), rows_b)):
+        assert got.dtype == dtype and bool(torch.isfinite(got).all())
+        torch.testing.assert_close(got, want, rtol=rtol, atol=atol)
+    # Split invariance against the unbroken K3 run.
+    full = fg.gr4j_simulate_fused(prec[:cut + warm_len], etp[:cut + warm_len],
+                                  *inits, params, *uh)
+    torch.testing.assert_close(torch.cat([q_a, q_b], dim=1), full,
+                               rtol=1e-9 if dtype == torch.float64 else rtol,
+                               atol=atol)
+
+
+def test_gr4j_long_history_enters_short_registers(cuda):
+    """A 20-input history from a (10, 21) run is trimmed for a (3, 7)
+    kernel; a 6-input history cannot enter a (10, 21) kernel."""
+    prec, etp, _, params = _inputs(cuda, torch.float64, x4_max=2.9)
+    _, st = fg.gr4j_simulate_state_fused(prec[:300], etp[:300], params, None,
+                                         0.4, 0.3, 10, 21)
+    got, got_st = fg.gr4j_simulate_state_fused(prec[300:], etp[300:], params,
+                                               st, num_uh1=3, num_uh2=7)
+    want, rows = _gr4j_state_plain(prec[300:], etp[300:], params, st, (3, 7),
+                                   (0.0, 0.0))
+    torch.testing.assert_close(got, want, rtol=1e-9, atol=1e-12)
+    torch.testing.assert_close(_gr4j_rows(got_st), rows, rtol=1e-9,
+                               atol=1e-12)
+    with pytest.raises(ValueError, match="holds 6 routing inputs"):
+        fg.gr4j_simulate_state_fused(prec[:9], etp[:9], params, got_st)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("n1,n2,x4_max", [(3, 7, 2.9), (10, 21, 9.9)])
+@pytest.mark.parametrize("mode", OBJECTIVE_MODES)
+def test_gr4j_warm_objective_matches_plain(cuda, dtype, n1, n2, x4_max, mode):
+    stats, masked = mode.startswith("stats"), mode.endswith("masked")
+    prec, etp, qobs, params = _inputs(cuda, dtype, x4_max=x4_max,
+                                      gaps=masked)
+    _, st = fg.gr4j_simulate_state_fused(prec[:300], etp[:300], params, None,
+                                         0.4, 0.3, n1, n2)
+    tail = slice(300, None)
+    fg.reset_launches()
+    got = fg.gr4j_ensemble_mse_fused(prec[tail], etp[tail], qobs[tail], 0.0,
+                                     0.0, params, n1, n2, stats=stats,
+                                     masked=masked, state=st)
+    torch.cuda.synchronize()
+    assert fg.LAUNCHES["gr4j_stats" if stats else "gr4j_mse"] == 1
+    want = fg.gr4j_objective_reference(
+        prec[tail], etp[tail], qobs[tail],
+        fg.pack_params(params, 0.0, 0.0, st), n1, n2, stats, masked,
+        int(torch.isfinite(qobs[tail]).sum()),
+        fg.history_rows(st, n2, prec))
+    assert bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got, want, rtol=TOL[dtype]["obj"][0],
+                               atol=TOL[dtype]["obj"][1])
+
+
+def _hbv_cut(forcings, lo, hi):
+    temp, prec, month, pe_m, t_m = forcings
+    return (temp[lo:hi].contiguous(), prec[lo:hi].contiguous(),
+            month[lo:hi].contiguous(), pe_m, t_m)
+
+
+def _hbv_series(forcings):
+    temp, prec, month, pe_m, t_m = forcings
+    return temp, prec, pe_m[month], t_m[month]
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("warm_len", [200, 1])
+def test_hbv_state_kernel_matches_plain(cuda, dtype, warm_len):
+    """K14 cold, then warm from its own stores; NaN members (negative soil
+    under pow) are NaN in trajectory and state, in the same positions."""
+    forcings, _, params = _hbv_inputs(cuda, dtype)
+    inits, cut = (0.0, 100.0, 3.0, 10.0), 300
+    rtol, atol = TOL[dtype]["traj"]
+    head, tail = _hbv_cut(forcings, 0, cut), _hbv_cut(forcings, cut,
+                                                      cut + warm_len)
+    fg.reset_launches()
+    q_a, st = fh.hbv_simulate_state_fused(*head, *inits, params)
+    q_b, st_b = fh.hbv_simulate_state_fused(*tail, 0.0, 0.0, 0.0, 0.0, params,
+                                            state=st)
+    torch.cuda.synchronize()
+    assert fg.LAUNCHES["hbv_traj_state"] == 2
+    want_a, rows_a = fh.hbv_simulate_state_reference(
+        *_hbv_series(head), fh.pack_params(params, *inits))
+    want_b, rows_b = fh.hbv_simulate_state_reference(
+        *_hbv_series(tail), fh.pack_params(params, *st), True)
+    _assert_close_nan_aware(q_a, want_a, rtol, atol)
+    _assert_close_nan_aware(torch.stack(st), rows_a, rtol, atol)
+    _assert_close_nan_aware(q_b, want_b, rtol, atol)
+    _assert_close_nan_aware(torch.stack(st_b), rows_b, rtol, atol)
+    full = fh.hbv_simulate_fused(*_hbv_cut(forcings, 0, cut + warm_len),
+                                 *inits, params)
+    _assert_close_nan_aware(torch.cat([q_a, q_b], dim=1), full,
+                            1e-9 if dtype == torch.float64 else rtol, atol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("mode", OBJECTIVE_MODES)
+def test_hbv_warm_objective_matches_plain(cuda, dtype, mode):
+    stats, masked = mode.startswith("stats"), mode.endswith("masked")
+    forcings, qobs, params = _hbv_inputs(cuda, dtype, gaps=masked)
+    _, st = fh.hbv_simulate_state_fused(*_hbv_cut(forcings, 0, 300), 0.0,
+                                        100.0, 3.0, 10.0, params)
+    tail, qobs = _hbv_cut(forcings, 300, 500), qobs[300:].contiguous()
+    fg.reset_launches()
+    got = fh.hbv_ensemble_mse_fused(*tail, qobs, 0.0, 0.0, 0.0, 0.0, params,
+                                    stats=stats, masked=masked, state=st)
+    torch.cuda.synchronize()
+    assert fg.LAUNCHES["hbv_stats" if stats else "hbv_mse"] == 1
+    want = fh.hbv_objective_reference(
+        *_hbv_series(tail), qobs, fh.pack_params(params, *st), stats, masked,
+        int(torch.isfinite(qobs).sum()), True)
+    _assert_close_nan_aware(got, want, *TOL[dtype]["obj"])
+
+
+STATE_VARIANTS = {k: v for k, v in SNOW_VARIANTS.items() if k != "snow-only"}
+
+
+def _snow_plain_inputs(prec, frac, frac_ice, params, state, hyst, ice, uh,
+                       like):
+    """(snow, rain, packed, layer constants, frac_ice, state rows, history,
+    (N, L) constants of the final bundle) for the plain versions."""
+    snow, rain, consts = fs.layer_inputs(prec, frac, hyst)
+    frac_ice = frac_ice if ice else torch.zeros_like(frac_ice)
+    n, num_layers = params['CTG'].shape[0], prec.shape[1]
+    if state is None:
+        return (snow, rain, fs.pack_params(params, *SNOW_INITS[2:]), consts,
+                frac_ice, None, None,
+                consts.expand(n, num_layers).contiguous())
+    state_in, consts, hist = fs.warm_rows(state, hyst, num_layers, uh[1],
+                                          like)
+    return (snow, rain, fs.pack_params(params, 0.0, 0.0, False, state.gr4j),
+            consts, frac_ice, state_in, hist, consts.T.contiguous())
+
+
+def _snow_state_pair(layers, etp, frac_ice, params, state, hyst, ice, uh):
+    """K10 and its plain version on the same inputs: two (q, bundle)."""
+    prec, temp, frac = layers
+    snow0, th0, s_init, r_init = (0.0,) * 4 if state is not None \
+        else SNOW_INITS
+    got = fs.snowgr4j_simulate_state_fused(
+        prec, temp, etp, frac, params, state, snow0, th0, s_init, r_init,
+        frac_ice=frac_ice if ice else None, hyst=hyst, ice=ice,
+        num_uh1=uh[0], num_uh2=uh[1])
+    (snow, rain, packed, consts, ice_frac, state_in, hist,
+     consts_nl) = _snow_plain_inputs(prec, frac, frac_ice, params, state,
+                                     hyst, ice, uh, etp)
+    want_q, rows = fs.snowgr4j_simulate_state_reference(
+        snow, rain, temp, etp, packed, consts, ice_frac, snow0, th0, hyst,
+        ice, *uh, state_in, hist)
+    return got, (want_q, fs.bundle_from_rows(rows, consts_nl, hyst, uh[1]))
+
+
+def _assert_snow_states_agree(got, want, rtol, atol):
+    torch.testing.assert_close(_gr4j_rows(got.gr4j), _gr4j_rows(want.gr4j),
+                               rtol=rtol, atol=atol)
+    assert got.snow._fields == want.snow._fields
+    for g, w in zip(got.snow, want.snow):
+        assert torch.equal(g, w)          # the snow state, bit for bit
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("L", [1, 5])
+@pytest.mark.parametrize("variant", list(STATE_VARIANTS))
+@pytest.mark.parametrize("warm_len", [100, 3])
+def test_snow_state_kernel_matches_plain(cuda, dtype, L, variant, warm_len):
+    """K10 cold over 200 steps, then warm from its own bundle (per-member
+    layer constants of the first segment, passed through unchanged)."""
+    hyst, ice, _, uh = STATE_VARIANTS[variant]
+    layers, etp, _, _, frac_ice, params = _snow_inputs(
+        cuda, dtype, L, 2.9 if uh == (3, 7) else 9.9)
+    rtol, atol = TOL[dtype]["traj"]
+    cut = 200
+    head = [x[:cut].contiguous() for x in layers]
+    tail = [x[cut:cut + warm_len].contiguous() for x in layers]
+    fg.reset_launches()
+    (q_a, st), (want_a, want_st) = _snow_state_pair(
+        head, etp[:cut].contiguous(), frac_ice, params, None, hyst, ice, uh)
+    (q_b, st_b), (want_b, want_st_b) = _snow_state_pair(
+        tail, etp[cut:cut + warm_len].contiguous(), frac_ice, params, st,
+        hyst, ice, uh)
+    torch.cuda.synchronize()
+    assert fg.LAUNCHES["snow_traj_state"] == 2
+    for got, want in ((q_a, want_a), (q_b, want_b)):
+        assert got.dtype == dtype and bool(torch.isfinite(got).all())
+        torch.testing.assert_close(got, want, rtol=rtol, atol=atol)
+    _assert_snow_states_agree(st, want_st, rtol, atol)
+    _assert_snow_states_agree(st_b, want_st_b, rtol, atol)
+    assert torch.equal(st_b.snow[-1], st.snow[-1])   # constants pass through
+    # Split invariance needs the first segment's constants, so the unbroken
+    # run is the plain version entering cold with them.
+    if dtype == torch.float64:
+        prec, temp, frac = (x[:cut + warm_len].contiguous() for x in layers)
+        snow, rain, _ = fs.layer_inputs(prec, frac, hyst)
+        consts = fs.layer_inputs(head[0], head[2], hyst)[2]
+        full = fs.snowgr4j_simulate_reference(
+            snow, rain, temp, etp[:cut + warm_len].contiguous(),
+            fs.pack_params(params, *SNOW_INITS[2:]), consts,
+            frac_ice if ice else torch.zeros_like(frac_ice), *SNOW_INITS[:2],
+            hyst, ice, False, *uh)
+        torch.testing.assert_close(torch.cat([q_a, q_b], dim=1), full,
+                                   rtol=1e-9, atol=1e-12)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("L", [1, 5])
+@pytest.mark.parametrize("variant", list(STATE_VARIANTS))
+@pytest.mark.parametrize("mode", ["mse", "stats+masked"])
+def test_snow_warm_objective_matches_plain(cuda, dtype, L, variant, mode):
+    hyst, ice, _, uh = STATE_VARIANTS[variant]
+    stats, masked = mode.startswith("stats"), mode.endswith("masked")
+    layers, etp, qobs, _, frac_ice, params = _snow_inputs(
+        cuda, dtype, L, 2.9 if uh == (3, 7) else 9.9, gaps=masked)
+    cut = 200
+    head = [x[:cut].contiguous() for x in layers]
+    prec, temp, frac = (x[cut:].contiguous() for x in layers)
+    etp_b, qobs_b = etp[cut:].contiguous(), qobs[cut:].contiguous()
+    (_, st), _ = _snow_state_pair(head, etp[:cut].contiguous(), frac_ice,
+                                  params, None, hyst, ice, uh)
+    fg.reset_launches()
+    got = fs.snowgr4j_ensemble_mse_fused(
+        prec, temp, etp_b, frac, qobs_b, 0.0, 0.0, 0.0, 0.0, params,
+        frac_ice=frac_ice if ice else None, hyst=hyst, ice=ice, stats=stats,
+        num_uh1=uh[0], num_uh2=uh[1], state=st, masked=masked)
+    torch.cuda.synchronize()
+    assert fg.LAUNCHES["snow_stats" if stats else "snow_mse"] == 1
+    (snow, rain, packed, consts, ice_frac, state_in, hist,
+     _) = _snow_plain_inputs(prec, frac, frac_ice, params, st, hyst, ice, uh,
+                             etp_b)
+    want = fs.snowgr4j_objective_reference(
+        snow, rain, temp, etp_b, qobs_b, packed, consts, ice_frac, 0.0, 0.0,
+        hyst, ice, False, *uh, stats=stats, masked=masked,
+        count=int(torch.isfinite(qobs_b).sum()), state_in=state_in,
+        hist=hist)
+    assert got.shape == want.shape and bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got, want, rtol=TOL[dtype]["obj"][0],
+                               atol=TOL[dtype]["obj"][1])
+
+
+def test_forecast_cycle_on_the_card(cuda, tmp_path):
+    """Spin-up, state through a file, ensemble continuation and warm
+    recalibration of GR4J through the class, counted by launches."""
+    from rrmpg_tpu_torch.tools import load_state, save_state
+
+    rng = np.random.default_rng(5)
+    prec, etp = rng.uniform(0, 15, 600), rng.uniform(0, 4, 600)
+    truth = {'x1': 500.0, 'x2': 0.5, 'x3': 80.0, 'x4': 2.0}
+    model = GR4J(params=truth, device=cuda, dtype=torch.float64)
+    full = model.simulate(prec, etp, s_init=0.5, r_init=0.4, engine='fused')
+    fg.reset_launches()
+    q_a, st = model.simulate(prec[:400], etp[:400], s_init=0.5, r_init=0.4,
+                             return_final_state=True, engine='fused')
+    save_state(str(tmp_path / "state.npz"), st)
+    st = load_state(str(tmp_path / "state.npz"))
+    np.random.seed(0)
+    q_b, st_b = model.simulate(prec[400:], etp[400:],
+                               params=GR4J().get_random_params(50),
+                               initial_state=st, return_final_state=True,
+                               engine='fused')
+    q_one = model.simulate(prec[400:], etp[400:], initial_state=st,
+                           engine='fused')
+    assert fg.LAUNCHES["gr4j_traj_state"] == 3
+    assert q_b.shape == (200, 50) and st_b.s.shape == (50,)
+    torch.testing.assert_close(torch.cat([q_a, q_one]), full, rtol=1e-9,
+                               atol=1e-12)
+    res = model.fit(q_one.cpu().numpy().ravel(), prec[400:], etp[400:],
+                    initial_state=st, engine='fused', seed=0, maxiter=4)
+    assert fg.LAUNCHES["gr4j_mse"] == res.nit + 1
+    assert np.isfinite(res.fun)

@@ -141,11 +141,23 @@ def test_all_nan_qobs_raises():
 
 
 def test_warm_entry_not_ported_yet():
+    """The name is from when ``state=`` was refused; it is ported now: the
+    warm objective is the mean squared error of the warm trajectory
+    (rtol 1e-12: the same plain steps, summed in time order), and a state
+    whose history is too short for the registers raises."""
     prec, etp, qobs, params = _inputs(20, 4)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        fg.gr4j_ensemble_mse_fused(
-            _t(prec), _t(etp), _t(qobs), 0.0, 0.0,
-            _p64(params), state=object())
+    p64 = _p64(params)
+    _, state = fg.gr4j_simulate_state_fused(_t(prec), _t(etp), p64, None,
+                                            0.4, 0.3)
+    qsim, _ = fg.gr4j_simulate_state_fused(_t(prec), _t(etp), p64, state)
+    got = fg.gr4j_ensemble_mse_fused(_t(prec), _t(etp), _t(qobs), 0.0, 0.0,
+                                     p64, state=state)
+    want = ((qsim - _t(qobs)) ** 2).mean(dim=1)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-12)
+    short = state._replace(pr_history=state.pr_history[:, -6:])
+    with pytest.raises(ValueError, match="holds 6 routing inputs"):
+        fg.gr4j_ensemble_mse_fused(_t(prec), _t(etp), _t(qobs), 0.0, 0.0,
+                                   p64, state=short)
 
 
 def test_mixed_dtypes_and_foreign_devices_raise():

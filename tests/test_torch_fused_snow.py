@@ -294,8 +294,9 @@ def test_gaps_without_a_valid_step_raise():
 
 def test_kernel_module_input_checks():
     case = _Case(N=3, seed=9)
-    with pytest.raises(NotImplementedError, match="Queue 1, item 6"):
-        case.objective(state=object())
+    with pytest.raises(ValueError, match="mse/stats objectives"):
+        case.objective(True, False, ndsi=case.t_ndsi, sca_stats=True,
+                       state=object())
     with pytest.raises(ValueError, match="hysteresis"):
         case.objective(False, False, ndsi=case.t_ndsi, sca_stats=True)
     with pytest.raises(ValueError, match="ndsi"):

@@ -191,9 +191,14 @@ def test_kernel_module_input_checks():
         fused_hbv.hbv_ensemble_mse_fused(
             *tensors, torch.full((30,), torch.nan, dtype=F64), *INITS, p64,
             masked=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        fused_hbv.hbv_ensemble_mse_fused(*tensors, torch.tensor(qobs),
-                                         *INITS, p64, state=object())
+    # state= enters warm: every step advances the stores (rtol 1e-12: the
+    # plain steps of the warm scan, summed in time order).
+    got = fused_hbv.hbv_ensemble_mse_fused(*tensors, torch.tensor(qobs),
+                                           0.0, 0.0, 0.0, 0.0, p64,
+                                           state=INITS)
+    qsim = hbvedu.run_hbvedu_warm(*tensors, INITS, p64)[0]
+    want = ((qsim - torch.tensor(qobs)) ** 2).mean(dim=1)
+    _assert_close_nan_aware(got.numpy(), want.numpy(), rtol=1e-12, atol=0.0)
     with pytest.raises(ValueError, match="one device"):
         fused_hbv.hbv_simulate_fused(*tensors, *INITS,
                                      {k: v.float() for k, v in p64.items()})
@@ -245,10 +250,13 @@ def test_simulate_storage_and_errors():
         model.simulate(**dict(forcing, temp=forcing['temp'][:-1]))
     with pytest.raises(TypeError, match="return_storage"):
         model.simulate(**forcing, return_storage=1)
-    with pytest.raises(NotImplementedError, match="K14"):
-        model.simulate(**forcing, return_final_state=True)
-    with pytest.raises(NotImplementedError, match="K14"):
+    qsim, state = model.simulate(**forcing, return_final_state=True)
+    assert torch.equal(qsim, model.simulate(**forcing))
+    assert type(state).__name__ == "HBVEduState" and state.soil.shape == (1,)
+    with pytest.raises(TypeError, match="must be a HBVEduState"):
         model.fit(forcing['prec'], **forcing, initial_state=object())
+    with pytest.raises(ValueError, match="not both"):
+        model.simulate(**forcing, soil_init=100., initial_state=state)
 
 
 @pytest.mark.parametrize("engine", ["scan", "fused"])

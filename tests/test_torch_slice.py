@@ -80,8 +80,13 @@ def test_simulate_storage_and_errors():
         model.simulate(prec, etp[:-1])
     with pytest.raises(ValueError, match="s_init"):
         model.simulate(prec, etp, s_init=1.5)
-    with pytest.raises(NotImplementedError, match="K4"):
-        model.simulate(prec, etp, return_final_state=True)
+    q2, state = model.simulate(prec, etp, return_final_state=True)
+    assert torch.equal(q2, model.simulate(prec, etp))
+    assert type(state).__name__ == "GR4JState"
+    assert state.s.shape == (1,) and state.pr_history.shape == (1, 20)
+    with pytest.raises(ValueError, match="discharge only"):
+        model.simulate(prec, etp, return_storage=True, engine='fused',
+                       return_final_state=True)
 
 
 @pytest.mark.parametrize("engine", ["scan", "fused"])
@@ -347,7 +352,8 @@ def test_port_never_imports_jax():
     proc = subprocess.run([sys.executable, '-c', code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr[-2000:]
-    for path in [*pkg.rglob('*.py'), REPO / 'chip_smoke.py']:
+    for path in [*pkg.rglob('*.py'), REPO / 'chip_smoke.py',
+                 REPO / 'profile_port.py']:
         for line in path.read_text().splitlines():
             stripped = line.strip()
             assert not stripped.startswith(('import jax', 'from jax',

@@ -275,20 +275,29 @@ def test_frac_ice_and_init_validation():
 def test_deferred_features_name_their_queue_item(name):
     model, kw = _model(name), _forcing(name, T=30)
     obs = np.ones(30)
-    with pytest.raises(NotImplementedError, match="Queue 1, item 6"):
-        model.simulate(**kw, return_final_state=True)
-    with pytest.raises(NotImplementedError, match="Queue 1, item 6"):
-        model.simulate(**kw, initial_state=object())
-    with pytest.raises(NotImplementedError, match="Queue 1, item 6"):
-        model.fit(obs, **kw, initial_state=object())
+    # Forecast mode (item 6) is ported: a final state comes back, and what
+    # is not a state bundle is refused by type.
+    bundle = 'CemaneigeState' if name == 'Cemaneige' else 'SnowGR4JState'
+    _, state = model.simulate(**kw, return_final_state=True)
+    assert type(state).__name__ == bundle
+    warm_kw = {k: v for k, v in kw.items() if not k.endswith('_init')}
+    with pytest.raises(ValueError, match="not both"):
+        model.simulate(**kw, initial_state=state)
+    with pytest.raises(TypeError, match=f"must be a {bundle}"):
+        model.simulate(**warm_kw, initial_state=object())
+    with pytest.raises(TypeError, match=f"must be a {bundle}"):
+        model.fit(obs, **warm_kw, initial_state=object())
     with pytest.raises(NotImplementedError, match="Queue 1, item 9"):
         model.simulate(**kw, mesh=object())
     if name in HYST_CLASSES:
         with pytest.raises(NotImplementedError, match="Queue 1, item 8"):
             model.fit_Q_SCA(obs, **kw, **_ndsi(30, 0), pareto=True)
-        with pytest.raises(NotImplementedError, match="Queue 1, item 6"):
-            model.fit_Q_SCA(obs, **kw, **_ndsi(30, 0),
+        with pytest.raises(TypeError, match="must be a SnowGR4JState"):
+            model.fit_Q_SCA(obs, **warm_kw, **_ndsi(30, 0),
                             initial_state=object())
+        with pytest.raises(ValueError, match="engine='scan'"):
+            model.fit_Q_SCA(obs, **warm_kw, **_ndsi(30, 0), engine='fused',
+                            initial_state=state)
 
 
 @pytest.mark.parametrize("name", CLASSES)
