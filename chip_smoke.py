@@ -22,7 +22,11 @@ Phases, in order (each prints its lines; any failure exits non-zero):
                   (K4, K14, K10: trajectories and every state row, cold and
                   warm; K10's snow rows bit for bit) and the warm entry of the
                   objectives (K1/K2, K12, K8, with and without gaps), and in
-                  float64 a split run against the unbroken one;
+                  float64 a split run against the unbroken one; then the
+                  regional kernels (K5, K11: one and three catchments, the
+                  three with a short record and gaps, MSE and statistics,
+                  both UH register pairs, every snow variant at 1 and 5
+                  layers);
 4. golden      -- the fused engines in float64 against the authors' Excel
                   GR4J trajectory, MATLAB HBV-Edu trajectory and the four
                   Excel snow trajectories (tests/data/);
@@ -47,23 +51,34 @@ Phases, in order (each prints its lines; any failure exits non-zero):
                   from that one state through the same kernels' warm entry,
                   and two recalibrations on those days through the warm
                   K1/K2, K12, K8), and one warm continuation of ABC and of
-                  the snow-only routine on the sequential engine.  Then each
-                  kernel is compared with its plain version at the shapes the
-                  main path gave it;
+                  the snow-only routine on the sequential engine; the regional
+                  path (eight CAMELS-format basins written from 01031500 with
+                  scaled forcing, one record ending at half and one with 10 %
+                  gaps, through ``load_basins(join='outer')``; the regional
+                  GR4J objective through K5 and the regional hysteresis + ice
+                  snow objective through K11, 8 catchments x 131072 members,
+                  'mse' and 'kge'; GLUE weights and prediction limits over a
+                  20000-member CemaneigeGR4J Monte-Carlo through K9).  Then
+                  each kernel is compared with its plain version at the shapes
+                  the main path gave it;
 6. times       -- each kernel against its plain version and its bound:
                   GR4J and HBV-Edu at 131072 members x 3651 days, the snow
                   kernels at 131072 x 3651 x 5 layers (hysteresis + ice),
                   ABC at 10 000 000 steps; the state kernels cold and warm,
-                  and the warm objectives beside the cold ones.
+                  and the warm objectives beside the cold ones; K5 at 8
+                  catchments x 131072 x 3651 (UH (3, 7) and (10, 21)) and K11
+                  at 8 x 131072 x 3651 x 5 layers.
 
 ``--phases a,b`` (development) runs only the named phases after the build:
-kernels, golden, main, forecast, times; the result lines need them all.
+kernels, golden, main, forecast, regional, times; the result lines need them
+all.
 
 The last two lines are a JSON object describing the kernels and the
 result line ``{"ok": true, "device": {...}}``.
 """
 
 import argparse
+import functools
 import json
 import os
 import re
@@ -99,6 +114,8 @@ KERNELS = {
     "gr4j_traj_state": (GR4J_SRC, "rrmpg_tpu/ops/pallas_gr4j.py:179"),
     "hbv_traj_state": (HBV_SRC, "rrmpg_tpu/ops/pallas_hbv.py:223"),
     "snow_traj_state": (SNOW_SRC, "rrmpg_tpu/ops/pallas_snow.py:336"),
+    "gr4j_regional": (GR4J_SRC, "rrmpg_tpu/ops/pallas_gr4j.py:680"),
+    "snow_regional": (SNOW_SRC, "rrmpg_tpu/ops/pallas_snow.py:1027"),
 }
 # Kernels with several modes: mode -> (line of the mode in the TPU kernel,
 # the key its launches, error and times are kept under).  The entry of the
@@ -1846,6 +1863,473 @@ def phase_forecast(card, qobs, prec, etp, forcing, qsim_matlab):
     return launches, max_abs, walls
 
 
+# ---------------------------------------------------------------------------
+# The regional path: K5 and K11, (catchment x member) in one launch
+# ---------------------------------------------------------------------------
+
+def regional_counts(qobs, masked):
+    """(C,) steps each catchment of a (C, T) record averages over, counted
+    here and not by the wrappers' helper."""
+    if not masked:
+        return torch.full((qobs.shape[0],), float(qobs.shape[1]),
+                          dtype=qobs.dtype, device=qobs.device)
+    return torch.isfinite(qobs).sum(dim=1).to(qobs.dtype)
+
+
+def regional_gr4j_plain(fg, prec, etp, qobs, params, uh, masked,
+                        inits=(0.4, 0.3)):
+    """The plain version of K5 in its widest mode: (4, C, N) statistics,
+    whose row 0 is the MSE."""
+    return fg.gr4j_regional_objective_reference(
+        prec, etp, qobs, fg.pack_params(params, *inits), *uh, stats=True,
+        masked=masked, counts=regional_counts(qobs, masked))
+
+
+def regional_snow_call(fs, d, params, hyst, ice, uh, masked, stats=True,
+                       inits=SNOW_CHECK_INITS, plain=False):
+    """K11 through its wrapper or, with ``plain``, the plain version in its
+    widest mode ((4, C, N) statistics).  ``d`` holds (C, T, L) ``prec``,
+    ``temp``, ``frac``, (C, T) ``etp`` and ``qobs`` and (C, L)
+    ``frac_ice``."""
+    snow0, th0, s_init, r_init = inits
+    qobs = d["qobs"]
+    if not plain:
+        return fs.snowgr4j_regional_mse_fused(
+            d["prec"], d["temp"], d["etp"], d["frac"], qobs, snow0, th0,
+            s_init, r_init, params, frac_ice=d["frac_ice"] if ice else None,
+            hyst=hyst, ice=ice, stats=stats, num_uh1=uh[0], num_uh2=uh[1],
+            masked=masked)
+    snow, rain, consts = fs.layer_inputs(d["prec"], d["frac"], hyst)
+    frac_ice = d["frac_ice"] if ice else torch.zeros_like(d["frac_ice"])
+    return fs.snowgr4j_regional_objective_reference(
+        snow, rain, d["temp"], d["etp"], qobs, fs.pack_params(
+            params, s_init, r_init), consts, frac_ice, snow0, th0, hyst, ice,
+        *uh, stats=True, masked=masked, counts=regional_counts(qobs, masked))
+
+
+def regional_snow_random(rng, c, t_len, num_layers, dtype, gaps):
+    """(C, T, L) layer forcing, (C, T) etp and observations (catchment 0's
+    record cut short and NaN gaps in the others with ``gaps``) and (C, L)
+    glacier fractions, from one numpy recipe."""
+    shape = (c, t_len, num_layers)
+    qobs = rng.uniform(0, 5, (c, t_len))
+    if gaps:
+        qobs[0, t_len * 2 // 3:] = np.nan
+        qobs[1:, ::13] = np.nan
+    d = dict(prec=rng.uniform(0, 15, shape), temp=rng.uniform(-12, 18, shape),
+             frac=np.clip(rng.uniform(-0.3, 1.2, shape), 0, 1),
+             etp=rng.uniform(0, 4, (c, t_len)), qobs=qobs,
+             frac_ice=rng.uniform(0, 0.7, (c, num_layers)))
+    return {k: as_tensor(v, dtype) for k, v in d.items()}
+
+
+def phase_kernels_regional(prec_np, etp_np, qobs_np, n=256, t_len=1000,
+                           snow_t_len=300):
+    """K5 and K11 against their plain versions: float64 and float32, one
+    and three catchments (three with a short record and gaps, masked), MSE
+    and statistics; K5 at both UH register pairs on scaled copies of the
+    CAMELS forcing, K11 in every variant at 1 and 5 layers."""
+    from rrmpg_tpu_torch.ops import fused_gr4j as fg
+    from rrmpg_tpu_torch.ops import fused_snow as fs
+
+    rng = np.random.default_rng(11)
+    scale = rng.uniform(0.8, 1.2, (3, 1))
+    qobs_gap = np.tile(qobs_np[:t_len], (3, 1))
+    qobs_gap[0, t_len // 2:] = np.nan
+    qobs_gap[1, rng.random(t_len) < 0.1] = np.nan
+    n_checks = 0
+    for dtype in (F64, F32):
+        tol = TOL[dtype]["obj"]
+        name = str(dtype)[6:]
+        for c, masked in ((1, False), (3, True)):
+            prec, etp = (as_tensor(a[:t_len] * scale[:c], dtype)
+                         for a in (prec_np, etp_np))
+            qobs = as_tensor(qobs_gap[:c] if masked
+                             else np.tile(qobs_np[:t_len], (c, 1)), dtype)
+            for uh in fg.SUPPORTED_UH:
+                params = gr4j_random_params(
+                    np.random.default_rng(uh[0]), n,
+                    2.9 if uh[0] == 3 else BOUNDS_X4_WIDE, dtype)
+                want = regional_gr4j_plain(fg, prec, etp, qobs, params, uh,
+                                           masked)
+                for stats in (False, True):
+                    got = fg.gr4j_regional_objective_fused(
+                        prec, etp, qobs, 0.4, 0.3, params, *uh, stats=stats,
+                        masked=masked)
+                    report(f"gr4j_regional {name} C={c} uh={uh} "
+                           f"{'stats' if stats else 'mse'}"
+                           f"{'+masked' if masked else ''}", got,
+                           want if stats else want[0], *tol)
+                    n_checks += 1
+            for num_layers in (1, 5):
+                d = regional_snow_random(np.random.default_rng(num_layers),
+                                         c, snow_t_len, num_layers, dtype,
+                                         masked)
+                for uh in fg.SUPPORTED_UH:
+                    params = snow_random_params(
+                        np.random.default_rng(uh[0]), n, dtype,
+                        2.9 if uh[0] == 3 else BOUNDS_X4_WIDE)
+                    for variant, hyst, ice in SNOW_VARIANTS:
+                        kw = dict(hyst=hyst, ice=ice, uh=uh, masked=masked)
+                        want = regional_snow_call(fs, d, params, plain=True,
+                                                  **kw)
+                        for stats in (False, True):
+                            got = regional_snow_call(fs, d, params,
+                                                     stats=stats, **kw)
+                            report(f"snow_regional {name} C={c} "
+                                   f"L={num_layers} uh={uh} {variant:8s} "
+                                   f"{'stats' if stats else 'mse'}"
+                                   f"{'+masked' if masked else ''}", got,
+                                   want if stats else want[0], *tol)
+                            n_checks += 1
+    print(f"[3 kernels] regional: {n_checks} kernel-vs-plain checks passed "
+          f"(K5 N={n} T={t_len}; K11 N={n} T={snow_t_len}; C in (1, 3))")
+
+
+REGION_BASINS = 8
+REGION_CHECK_MEMBERS = 4096    # members per catchment held against plain
+GLUE_MEMBERS = 20000
+GLUE_DAYS = 3652
+
+
+def write_region(directory, seed=0):
+    """CAMELS-format files of REGION_BASINS basins made from the bundled
+    01031500: each basin's precipitation scaled by a seeded factor in
+    [0.8, 1.2] and its PET by one in [0.9, 1.1] (as
+    ``examples/05_uncertainty_regional.py`` does); basin 0's discharge
+    record ends at half (-999 after it), basin 1's has 10 % scattered -999
+    gaps."""
+    import pandas as pd
+    from rrmpg_tpu_torch.data.camelsloader import BUNDLED_DIR
+
+    met_path = BUNDLED_DIR / "01031500_lump_cida_forcing_leap.txt"
+    flow_path = BUNDLED_DIR / "01031500_05_model_output.txt"
+    head = met_path.read_text().splitlines()[:4]
+    met = pd.read_csv(met_path, sep=r"\s+", header=3)
+    flow = pd.read_csv(flow_path, sep=r"\s+", header=0)
+    rng = np.random.default_rng(seed)
+    for b in range(REGION_BASINS):
+        basin = f"{90000000 + b:08d}"
+        m, f = met.copy(), flow.copy()
+        m["prcp(mm/day)"] *= rng.uniform(0.8, 1.2)
+        f["PET"] *= rng.uniform(0.9, 1.1)
+        obs = f["OBS_RUN"].to_numpy().copy()
+        if b == 0:
+            obs[len(obs) // 2:] = -999.0
+        elif b == 1:
+            obs[rng.random(len(obs)) < 0.1] = -999.0
+        f["OBS_RUN"] = obs
+        (directory / f"{basin}_lump_cida_forcing_leap.txt").write_text(
+            "\n".join(head) + "\n"
+            + m.to_csv(sep=" ", header=False, index=False))
+        f.to_csv(directory / f"{basin}_05_model_output.txt", sep=" ",
+                 index=False)
+
+
+def region_snow_arrays(seed=1):
+    """The hysteresis + ice Excel sheet's 5-layer forcing for
+    REGION_BASINS catchments, as numpy: (C, T, L) precipitation scaled per
+    catchment by a seeded factor in [0.8, 1.2], temperature and solid
+    fraction, (C, T) PET scaled by one in [0.9, 1.1], the sheet's discharge
+    with its gaps (catchment 0's record ending at half), and (C, L) glacier
+    fractions scaled per catchment by one in [0.5, 1.5]."""
+    from rrmpg_tpu_torch.models import CemaneigeHystGR4JIce
+
+    met, qobs, _ = snow_main_data()
+    f = CemaneigeHystGR4JIce(dtype=F64)._prepare(
+        *met.values(), FRAC_ICE_GOLDEN, 700, ALTITUDES, 0, 0, 0, 0.5, 0.4)
+    prec, temp, frac, etp = (x.cpu().numpy() for x in (
+        f.prec, f.mean_temp, f.frac_solid_prec, f.etp))
+    rng = np.random.default_rng(seed)
+    c = REGION_BASINS
+    qobs_ct = np.tile(qobs, (c, 1))
+    qobs_ct[0, len(qobs) // 2:] = np.nan
+    return dict(
+        prec=np.stack([prec * rng.uniform(0.8, 1.2) for _ in range(c)]),
+        temp=np.stack([temp] * c), frac=np.stack([frac] * c),
+        etp=np.stack([etp * rng.uniform(0.9, 1.1) for _ in range(c)]),
+        qobs=qobs_ct,
+        frac_ice=np.stack([np.clip(FRAC_ICE_GOLDEN * rng.uniform(0.5, 1.5),
+                                   0, 1) for _ in range(c)]))
+
+
+def weighted_quantile_np(values, weights, q):
+    """One weighted quantile of one time step, in numpy: the first sorted
+    member whose normalized cumulative weight reaches ``q``."""
+    order = np.argsort(values, kind="stable")
+    cdf = np.cumsum(weights[order])
+    return values[order][np.argmax(cdf / cdf[-1] >= q)]
+
+
+def phase_regional(card):
+    """The regional path through the public entry points: eight CAMELS
+    basins written from the bundled one, ``load_basins(join='outer')``, the
+    regional GR4J objective (K5) and the regional snow objective (K11) at
+    8 x 131072 members for 'mse' and 'kge', and GLUE on a 20000-member
+    Monte-Carlo of CemaneigeGR4J (K9); then each regional launch against its
+    plain version on the first REGION_CHECK_MEMBERS members."""
+    from rrmpg_tpu_torch import interop
+    from rrmpg_tpu_torch.data import CAMELSLoader
+    from rrmpg_tpu_torch.models import (CemaneigeGR4J, CemaneigeHystGR4JIce,
+                                        GR4J)
+    from rrmpg_tpu_torch.ops import fused_gr4j as fg
+    from rrmpg_tpu_torch.ops import fused_snow as fs
+    from rrmpg_tpu_torch.parallel import (regional_gr4j_objective,
+                                          regional_snow_objective)
+    from rrmpg_tpu_torch.tools import (glue_weights, monte_carlo,
+                                       prediction_limits)
+
+    n = MC_MEMBERS
+    np.random.seed(4)
+    gr4j_members = GR4J().get_random_params(n)
+    snow_members = CemaneigeHystGR4JIce().get_random_params(n)
+    snow_np = region_snow_arrays()
+    loader = CAMELSLoader()
+    df = loader.load_basin('01031500').iloc[:GLUE_DAYS]
+    glue_qobs = df['QObs(mm/d)'].to_numpy()
+    glue_met = dict(prec=df['prcp(mm/day)'].to_numpy(),
+                    mean_temp=((df['tmax(C)'] + df['tmin(C)']) / 2).to_numpy(),
+                    min_temp=df['tmin(C)'].to_numpy(),
+                    max_temp=df['tmax(C)'].to_numpy(),
+                    etp=df['PET'].to_numpy())
+    height = loader.get_station_height('01031500')
+    walls, out = {}, {}
+
+    def timed(key, fn):
+        t0 = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize()
+        walls[key] = time.perf_counter() - t0
+        return result
+
+    with tempfile.TemporaryDirectory() as tmp:
+        write_region(Path(tmp))
+
+        def drive():
+            index, arrays = timed("load_basins", lambda: CAMELSLoader(
+                tmp).load_basins(join='outer'))
+            prec, etp, qobs = interop.regional_forcing_from_numpy(
+                arrays['prcp(mm/day)'], arrays['PET'], arrays['QObs(mm/d)'],
+                device=DEVICE)
+            params = interop.params_from_numpy(gr4j_members, device=DEVICE)
+            for loss in ('mse', 'kge'):
+                out[f"gr4j {loss}"] = timed(
+                    f"gr4j {loss}", lambda: regional_gr4j_objective(
+                        prec, etp, qobs, 0.3, 0.3, params, loss_metric=loss))
+            etp_s, qobs_s, prec_s, temp_s, frac_s, frac_ice = (
+                interop.regional_forcing_from_numpy(
+                    snow_np["etp"], snow_np["qobs"],
+                    layers=(snow_np["prec"], snow_np["temp"],
+                            snow_np["frac"]),
+                    frac_ice=snow_np["frac_ice"], device=DEVICE))
+            snow_params = interop.params_from_numpy(snow_members,
+                                                    device=DEVICE)
+            for loss in ('mse', 'kge'):
+                out[f"snow {loss}"] = timed(
+                    f"snow {loss}", lambda: regional_snow_objective(
+                        prec_s, temp_s, etp_s, frac_s, qobs_s, 0.0, 0.0, 0.5,
+                        0.4, snow_params, frac_ice=frac_ice, hyst=True,
+                        ice=True, loss_metric=loss))
+            np.random.seed(5)
+            mc = timed("glue monte_carlo", lambda: monte_carlo(
+                CemaneigeGR4J(), num=GLUE_MEMBERS, qobs=glue_qobs,
+                **glue_met, met_station_height=height, metrics=('nse',),
+                engine='fused'))
+            weights = timed("glue weights", lambda: glue_weights(
+                mc['nse'], behavioral_threshold=0.3))
+            limits = timed("glue limits", lambda: prediction_limits(
+                mc['qsim'], weights, quantiles=(0.05, 0.5, 0.95)))
+            return (index, arrays, (prec, etp, qobs, params),
+                    (prec_s, temp_s, etp_s, frac_s, qobs_s, frac_ice,
+                     snow_params), mc, weights, limits)
+
+        (index, arrays, gr4j_in, snow_in, mc, weights, limits), launches, \
+            _ = run_counted(drive)
+
+    qobs_np = arrays['QObs(mm/d)']
+    t_len = len(index)
+    n_valid = np.isfinite(qobs_np).sum(axis=1)
+    check(n_valid[0] < t_len // 2 + 400 and n_valid[1] < 0.95 * t_len
+          and np.isfinite(arrays['prcp(mm/day)']).all(),
+          f"load_basins: the ragged records did not come through "
+          f"(valid days {n_valid.tolist()} of {t_len})")
+    for key, losses in out.items():
+        check(losses.shape == (REGION_BASINS, n)
+              and bool(torch.isfinite(losses).all()),
+              f"regional {key}: losses of shape {tuple(losses.shape)}, "
+              "not all finite")
+    expect = {"gr4j_regional": 2, "snow_regional": 2, "snow_traj": 1}
+    check(launches == expect,
+          f"launch counts {launches} differ from the expected {expect}")
+    lo, med, hi = limits
+    valid = np.isfinite(glue_qobs)
+    coverage = float(np.mean((glue_qobs[valid] >= lo[valid])
+                             & (glue_qobs[valid] <= hi[valid])))
+    behavioural = int((weights > 0).sum())
+    check(limits.shape == (3, GLUE_DAYS) and np.isfinite(limits).all()
+          and bool(np.all(lo <= med) and np.all(med <= hi))
+          and behavioural > 0 and abs(float(weights.sum()) - 1.0) < 1e-6,
+          "GLUE: prediction limits not finite and ordered, or no "
+          "behavioural member")
+    qsim = mc['qsim']
+    for t in range(0, GLUE_DAYS, 365):
+        for k, q in enumerate((0.05, 0.5, 0.95)):
+            want = weighted_quantile_np(qsim[t].astype(np.float64), weights,
+                                        q)
+            check(np.isclose(limits[k, t], want, rtol=1e-6),
+                  f"GLUE: limit {q} at step {t} is {limits[k, t]}, numpy "
+                  f"gives {want}")
+    best = {k: v.min(dim=1).values.double().cpu().numpy()
+            for k, v in out.items()}
+    print(f"[5 main path] regional, {REGION_BASINS} CAMELS-format basins "
+          f"(load_basins join='outer', T={t_len}, valid days "
+          f"{n_valid.tolist()}) x {n} members float32: GR4J mse in "
+          f"{walls['gr4j mse']:.3f} s, best per catchment "
+          f"{np.round(best['gr4j mse'], 3).tolist()}; kge in "
+          f"{walls['gr4j kge']:.3f} s, best 1-KGE "
+          f"{np.round(best['gr4j kge'], 3).tolist()}; {card}")
+    print(f"[5 main path] regional snow, hyst+ice Excel forcing T="
+          f"{snow_np['qobs'].shape[1]} x {len(ALTITUDES)} layers x "
+          f"{REGION_BASINS} catchments x {n} members: mse in "
+          f"{walls['snow mse']:.3f} s, kge in {walls['snow kge']:.3f} s, best "
+          f"1-KGE {np.round(best['snow kge'], 3).tolist()}; {card}")
+    print(f"[5 main path] GLUE, CemaneigeGR4J {GLUE_MEMBERS} members x "
+          f"{GLUE_DAYS} days of 01031500: {behavioural} behavioural (NSE > "
+          f"0.3), 90 % band covers {coverage:.1%} of the observations, best "
+          f"NSE {np.nanmax(mc['nse']):.3f}; monte_carlo "
+          f"{walls['glue monte_carlo']:.3f} s, limits "
+          f"{walls['glue limits']:.3f} s; launches {launches} == expected; "
+          f"{card}")
+
+    # Each regional launch against its plain version on the first members
+    # of every catchment (these launches are not counted above).
+    m = REGION_CHECK_MEMBERS
+    max_abs = {}
+    prec, etp, qobs, params = gr4j_in
+    sub = {k: v[:m].contiguous() for k, v in params.items()}
+    masked = bool(torch.isnan(qobs).any())
+    want = regional_gr4j_plain(fg, prec, etp, qobs, sub, (10, 21), masked,
+                               (0.3, 0.3))
+    for stats in (False, True):
+        got = fg.gr4j_regional_objective_fused(prec, etp, qobs, 0.3, 0.3,
+                                               sub, stats=stats,
+                                               masked=masked)
+        err = report(f"main-path shape gr4j_regional "
+                     f"({'stats' if stats else 'mse'}, first {m} members)",
+                     got, want if stats else want[0], *TOL[F32]["obj"])
+        max_abs["gr4j_regional"] = max(max_abs.get("gr4j_regional", 0.0),
+                                       err)
+    prec_s, temp_s, etp_s, frac_s, qobs_s, frac_ice, snow_params = snow_in
+    d = dict(prec=prec_s, temp=temp_s, frac=frac_s, etp=etp_s, qobs=qobs_s,
+             frac_ice=frac_ice)
+    sub = {k: v[:m].contiguous() for k, v in snow_params.items()}
+    kw = dict(hyst=True, ice=True, uh=(10, 21), masked=True,
+              inits=(0.0, 0.0, 0.5, 0.4))
+    want = regional_snow_call(fs, d, sub, plain=True, **kw)
+    for stats in (False, True):
+        err = report(f"main-path shape snow_regional "
+                     f"({'stats' if stats else 'mse'}, first {m} members)",
+                     regional_snow_call(fs, d, sub, stats=stats, **kw),
+                     want if stats else want[0], *TOL[F32]["obj"])
+        max_abs["snow_regional"] = max(max_abs.get("snow_regional", 0.0),
+                                       err)
+    return launches, max_abs, walls
+
+
+def measure_row(rows, card, name, kernel, plain, ops, n_bytes, reps, what):
+    """Time ``kernel`` and its ``plain`` version, print one ``[6 times]``
+    line and keep ``rows[name] = dict(ms, plain_ms, bound_ms, bound_by)``;
+    returns the kernel's ms.  The kernel is timed in two rounds (a gap
+    between them is drift); the plain version, seconds long, in one cold
+    call on the host clock."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    plain()
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    kernel_a = device_ms(kernel, reps)
+    kernel_b = device_ms(kernel, reps)
+    ms = min(kernel_a, kernel_b)
+    bound, by = bound_ms(ops, n_bytes)
+    rows[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by)
+    print(f"[6 times] {name} float32 {what}: kernel {kernel_a:.4f}/"
+          f"{kernel_b:.4f} ms, plain {plain_ms:.2f} ms, "
+          f"bound {bound:.4f} ms by {by} (operations "
+          f"{ops / PEAK_F32_FLOPS * 1e3:.4f} ms, bytes "
+          f"{n_bytes / PEAK_BYTES_PER_S * 1e3:.4f} ms), kernel/bound "
+          f"{ms / bound:.1f}x; {card}")
+    return ms
+
+
+def snow_time_inputs(n, t_len, num_layers):
+    """The snow kernels' timing inputs: (T, L) forcing and members over
+    the flagship bounds, from one numpy recipe."""
+    rng = np.random.default_rng(2)
+    d = SnowData.random(rng, t_len, num_layers, F32, temp_range=(-10, 15),
+                        frac_range=(0, 1), ice_hi=0.5, qobs_range=(0, 5))
+    params = {k: as_tensor(rng.uniform(lo, hi, n), F32)
+              for k, (lo, hi) in (
+                  ('CTG', (0, 1)), ('Kf', (0, 6)), ('Thacc', (5, 50)),
+                  ('Rsp', (0.1, 1)), ('x1', (100, 1200)), ('x2', (-5, 3)),
+                  ('x3', (20, 300)), ('x4', (1.1, 2.9)), ('DDF', (1, 10)))}
+    return d, params
+
+
+def times_regional(measure, prec_np, etp_np, qobs_np):
+    """K5 and K11 against their plain versions and bounds (``measure`` is
+    :func:`measure_row` with its rows and card bound)."""
+    # K5 at C = 8 catchments x 131072 members x 3651 days, UH (3, 7) (the
+    # regional shape of bench.py:258-276) and (10, 21), and K11 at 8 x
+    # 131072 x 3651 x 5 layers, hysteresis + ice, UH (3, 7): each
+    # catchment's forcing a scaled copy, one parameter set per member shared
+    # by all.  The plain versions advance all catchments in one time loop
+    # and are timed once.
+    from rrmpg_tpu_torch.ops import fused_gr4j as fg
+    from rrmpg_tpu_torch.ops import fused_snow as fs
+
+    n, t_len, c = TIME_MEMBERS, TIME_STEPS, REGION_BASINS
+    num_layers, uh = 5, fg.SUPPORTED_UH[0]
+    rng = np.random.default_rng(8)
+    scale = rng.uniform(0.8, 1.2, (c, 1))
+    prec_ct, etp_ct = (as_tensor(a[:t_len] * scale, F32)
+                       for a in (prec_np, etp_np))
+    qobs_ct = as_tensor(np.tile(qobs_np[:t_len], (c, 1)), F32)
+    counts = regional_counts(qobs_ct, False)
+    for uh_r, key in (((3, 7), "gr4j_regional_uh37"),
+                      ((10, 21), "gr4j_regional")):
+        members = gr4j_random_params(rng, n, 2.9, F32)
+        packed = fg.pack_params(members, 0.0, 0.0)
+        measure(key,
+                lambda: fg.gr4j_regional_objective_fused(
+                    prec_ct, etp_ct, qobs_ct, 0.0, 0.0, members, *uh_r),
+                lambda: fg.gr4j_regional_objective_reference(
+                    prec_ct, etp_ct, qobs_ct, packed, *uh_r, counts=counts),
+                (GR4J_STEP_OPS[uh_r] + OBJECTIVE_OPS["mse"]) * c * n * t_len,
+                4 * (3 * c * t_len + 6 * n + c + c * n), 3,
+                f"C={c} uh={uh_r} N={n} T={t_len} mse")
+    del prec_ct, etp_ct, qobs_ct
+    d, snow_params = snow_time_inputs(n, t_len, num_layers)
+    factors = [float(f) for f in scale[:, 0]]
+    region = dict(prec=torch.stack([d.prec * f for f in factors]),
+                  temp=torch.stack([d.temp] * c),
+                  frac=torch.stack([d.frac] * c),
+                  etp=torch.stack([d.etp * f for f in factors]),
+                  qobs=torch.stack([d.qobs[False]] * c),
+                  frac_ice=torch.stack([d.frac_ice] * c))
+    kw = dict(hyst=True, ice=True, uh=uh, masked=False,
+              inits=(0.0, 0.0, 0.3, 0.3))
+    series = c * (3 * t_len * num_layers + 2 * t_len + 2 * num_layers)
+    measure("snow_regional",
+            lambda: regional_snow_call(fs, region, snow_params, stats=False,
+                                       **kw),
+            lambda: regional_snow_call(fs, region, snow_params, plain=True,
+                                       **kw),
+            (num_layers * (SNOW_LAYER_OPS[True] + SNOW_ICE_OPS + 1) + 2
+             + GR4J_STEP_OPS[uh] + SNOW_SUMS_OPS) * c * n * t_len,
+            4 * (series + 11 * n + c + c * n), 3,
+            f"C={c} hyst+ice uh={uh} N={n} T={t_len} L={num_layers} mse")
+
+
 def phase_times(card, prec_np, etp_np, qobs_np, forcing, qsim_matlab):
     """Kernel, plain version and bound of every kernel; returns
     ``{name: dict(ms, plain_ms, bound_ms, bound_by)}``."""
@@ -1856,33 +2340,7 @@ def phase_times(card, prec_np, etp_np, qobs_np, forcing, qsim_matlab):
     n, t_len = TIME_MEMBERS, TIME_STEPS
     rows = {}
 
-    def measure(name, kernel, plain, ops, n_bytes, reps, what,
-                plain_once=False):
-        # plain, kernel, kernel, plain: drift shows as a plain/plain gap.
-        # ``plain_once`` (the state kernels and warm objectives): the plain
-        # version is timed in one cold call and not again.
-        if plain_once:
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            plain()
-            torch.cuda.synchronize()
-            plain_a = (time.perf_counter() - t0) * 1e3
-        else:
-            plain_a = device_ms(plain, 1)
-        kernel_a = device_ms(kernel, reps)
-        kernel_b = device_ms(kernel, reps)
-        plain_b = plain_a if plain_once else device_ms(plain, 1)
-        ms, plain_ms = min(kernel_a, kernel_b), min(plain_a, plain_b)
-        bound, by = bound_ms(ops, n_bytes)
-        rows[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound,
-                          bound_by=by)
-        print(f"[6 times] {name} float32 {what}: kernel {kernel_a:.4f}/"
-              f"{kernel_b:.4f} ms, plain {plain_a:.2f}/{plain_b:.2f} ms, "
-              f"bound {bound:.4f} ms by {by} (operations "
-              f"{ops / PEAK_F32_FLOPS * 1e3:.4f} ms, bytes "
-              f"{n_bytes / PEAK_BYTES_PER_S * 1e3:.4f} ms), kernel/bound "
-              f"{ms / bound:.1f}x; {card}")
-        return ms
+    measure = functools.partial(measure_row, rows, card)
 
     # GR4J, 131072 x 3651.
     prec, etp, qobs = (as_tensor(a[:t_len], F32)
@@ -1922,14 +2380,14 @@ def phase_times(card, prec_np, etp_np, qobs_np, forcing, qsim_matlab):
                                                  0.0, *uh),
             lambda: fg.gr4j_simulate_state_reference(prec, etp, packed, None,
                                                      *uh),
-            step, traj_bytes, 5, shape, plain_once=True)
+            step, traj_bytes, 5, shape)
     measure("gr4j_traj_state_warm",
             lambda: fg.gr4j_simulate_state_fused(prec, etp, params, state,
                                                  num_uh1=uh[0],
                                                  num_uh2=uh[1]),
             lambda: fg.gr4j_simulate_state_reference(prec, etp, packed_w,
                                                      hist, *uh),
-            step, traj_bytes + 4 * h * n, 5, shape, plain_once=True)
+            step, traj_bytes + 4 * h * n, 5, shape)
     for mode in ("mse", "stats"):
         stats = mode == "stats"
         measure(
@@ -1940,8 +2398,7 @@ def phase_times(card, prec_np, etp_np, qobs_np, forcing, qsim_matlab):
             lambda: fg.gr4j_objective_reference(prec, etp, qobs, packed_w,
                                                 *uh, stats=stats, hist=hist),
             step + OBJECTIVE_OPS[mode] * n * t_len,
-            4 * (3 * t_len + (6 + h) * n + (4 if stats else 1) * n), 5, shape,
-            plain_once=True)
+            4 * (3 * t_len + (6 + h) * n + (4 if stats else 1) * n), 5, shape)
     del state, packed_w, hist
 
     # HBV-Edu, 131072 x 3651, on the first 3651 MATLAB days.
@@ -1970,7 +2427,7 @@ def phase_times(card, prec_np, etp_np, qobs_np, forcing, qsim_matlab):
         measure(f"hbv_traj_state_{entry}",
                 lambda: hbv_state_kernel(fh, tensors, hbv_params, st),
                 lambda: hbv_state_plain(fh, tensors, hbv_params, st),
-                step, traj_bytes, 5, shape, plain_once=True)
+                step, traj_bytes, 5, shape)
     measure("hbv_warm",
             lambda: fh.hbv_ensemble_mse_fused(
                 *tensors, hbv_qobs, 0.0, 0.0, 0.0, 0.0, hbv_params,
@@ -1979,8 +2436,7 @@ def phase_times(card, prec_np, etp_np, qobs_np, forcing, qsim_matlab):
                                              hbv_params, hbv_state, True,
                                              False),
             step + OBJECTIVE_OPS["stats"] * n * t_len,
-            4 * (5 * t_len + 17 * n + 4 * n), 5, shape + " stats",
-            plain_once=True)
+            4 * (5 * t_len + 17 * n + 4 * n), 5, shape + " stats")
     del hbv_state
 
     # The snow family at the hysteresis + ice flagship shape: 131072 x 3651
@@ -1988,15 +2444,7 @@ def phase_times(card, prec_np, etp_np, qobs_np, forcing, qsim_matlab):
     from rrmpg_tpu_torch.ops import fused_snow as fs
 
     num_layers, uh = 5, fg.SUPPORTED_UH[0]
-    rng = np.random.default_rng(2)
-    d = SnowData.random(rng, t_len, num_layers, F32, temp_range=(-10, 15),
-                        frac_range=(0, 1), ice_hi=0.5, qobs_range=(0, 5))
-    snow_params = {k: as_tensor(rng.uniform(lo, hi, n), F32)
-                   for k, (lo, hi) in (
-                       ('CTG', (0, 1)), ('Kf', (0, 6)), ('Thacc', (5, 50)),
-                       ('Rsp', (0.1, 1)), ('x1', (100, 1200)),
-                       ('x2', (-5, 3)), ('x3', (20, 300)),
-                       ('x4', (1.1, 2.9)), ('DDF', (1, 10)))}
+    d, snow_params = snow_time_inputs(n, t_len, num_layers)
     kw = dict(hyst=True, ice=True, uh=uh, inits=(0.0, 0.0, 0.3, 0.3))
     shape = f"hyst+ice uh={uh} N={n} T={t_len} L={num_layers}"
     step = (num_layers * (SNOW_LAYER_OPS[True] + SNOW_ICE_OPS + 1) + 2
@@ -2031,7 +2479,7 @@ def phase_times(card, prec_np, etp_np, qobs_np, forcing, qsim_matlab):
         measure(f"snow_traj_state_{entry}",
                 lambda: snow_state_kernel(fs, d, snow_params, st, **pair_kw),
                 lambda: snow_state_plain(fs, d, snow_params, st, **pair_kw),
-                step, 4 * (traj_values + read), 3, shape, plain_once=True)
+                step, 4 * (traj_values + read), 3, shape)
     measure("snow_warm",
             lambda: snow_warm_objective_kernel(
                 fs, d, snow_params, snow_state, True, True, uh, True, False),
@@ -2039,8 +2487,9 @@ def phase_times(card, prec_np, etp_np, qobs_np, forcing, qsim_matlab):
                 fs, d, snow_params, snow_state, True, True, uh, True, False),
             step + SNOW_SUMS_OPS * n * t_len,
             4 * (series + t_len + 11 * n + 4 * n + warm_read), 3,
-            shape + " stats", plain_once=True)
-    del snow_state
+            shape + " stats")
+    del snow_state, d, snow_params
+    times_regional(measure, prec_np, etp_np, qobs_np)
 
     # ABC, one member over 10M steps.  Three copies of the series take
     # turns, so that no launch finds its input in the 50 MB L2 cache.
@@ -2070,7 +2519,7 @@ def phase_times(card, prec_np, etp_np, qobs_np, forcing, qsim_matlab):
 
 
 def kernel_entries(launches, max_abs, times):
-    """The twelve kernels of the ``kernels`` line.  A kernel with several
+    """The fourteen kernels of the ``kernels`` line.  A kernel with several
     modes (KERNEL_MODES) carries the mode named in TOP_MODE at the top, the
     launches of all its modes together, and every mode under ``modes``."""
     def entry(name, launches_n, err, row):
@@ -2103,7 +2552,7 @@ def kernel_entries(launches, max_abs, times):
     return out
 
 
-PHASES = ("kernels", "golden", "main", "forecast", "times")
+PHASES = ("kernels", "golden", "main", "forecast", "regional", "times")
 
 
 def main():
@@ -2133,6 +2582,8 @@ def main():
         phase_kernels_state_hbv(forcing, qsim_matlab)
         phase_kernels_state_snow()
         lap("the state kernels and warm objectives against theirs")
+        phase_kernels_regional(prec, etp, qobs)
+        lap("the regional kernels against theirs")
     if "golden" in phases:
         phase_golden(forcing, qsim_matlab)
         lap("the goldens")
@@ -2160,6 +2611,9 @@ def main():
                  for k, v in w.items()}
         gather("forecast", (result[0], result[1], walls))
         lap("the forecast path")
+    if "regional" in phases:
+        gather("regional", phase_regional(card))
+        lap("the regional path")
     if "times" in phases:
         times = phase_times(card, prec, etp, qobs, forcing, qsim_matlab)
         lap("the times")
@@ -2167,8 +2621,8 @@ def main():
         print(f"ran only {sorted(phases)}: no result line")
         sys.exit(3)
     kernels = kernel_entries(launches, max_abs, times)
-    check(len(kernels) == len(KERNELS) == 12, "the kernels line must list "
-          "twelve kernels")
+    check(len(kernels) == len(KERNELS) == 14, "the kernels line must list "
+          "fourteen kernels")
     for k in kernels:
         check(k["launches"] > 0, f"{k['name']} was launched no time on the "
               "main path")

@@ -6,7 +6,9 @@
 Each path is driven through the entry points a user calls, in float32, at
 the shapes ``chip_smoke.py`` drives (the forecast path too: a 131072-member
 warm continuation of the last 365 days from one shared state and a warm
-``fit`` per family that carries state through kernels): warmed up once,
+``fit`` per family that carries state through kernels; the regional path: the
+GR4J and snow objectives over 8 catchments x 131072 members, and GLUE over a
+20000-member Monte-Carlo): warmed up once,
 run three times untraced (host clock, synchronised) and once under ``torch.profiler``.
 Per path one line: the untraced walls, the traced wall, the device's busy
 time (kernels and copies), its idle share (1 - busy / traced wall), and the
@@ -15,7 +17,9 @@ limit.  The numbers of PERF.md section 5 come from here.
 """
 
 import sys
+import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -186,6 +190,58 @@ def main():
                       obs[split:], **tail, initial_state=state,
                       engine='fused', seed=0, loss_metric=loss,
                       maxiter=cs.FORECAST_FIT_MAXITER))
+
+    # The regional path: the eight CAMELS-format basins of chip_smoke.py
+    # loaded with load_basins(join='outer'), the snow region from the Excel
+    # sheet, members sampled per call; then GLUE.
+    from rrmpg_tpu_torch import interop
+    from rrmpg_tpu_torch.data import CAMELSLoader
+    from rrmpg_tpu_torch.models import CemaneigeGR4J
+    from rrmpg_tpu_torch.parallel import (regional_gr4j_objective,
+                                          regional_snow_objective)
+    from rrmpg_tpu_torch.tools import glue_weights, prediction_limits
+
+    with tempfile.TemporaryDirectory() as tmp:
+        cs.write_region(Path(tmp))
+        _, arrays = CAMELSLoader(tmp).load_basins(join='outer')
+    region = interop.regional_forcing_from_numpy(
+        arrays['prcp(mm/day)'], arrays['PET'], arrays['QObs(mm/d)'])
+    c, t_region = region[0].shape
+    for loss in ('mse', 'kge'):
+        trace(card, f"regional GR4J {loss} {c} catchments x {n} x "
+              f"{t_region} (K5)", seeded(lambda: regional_gr4j_objective(
+                  *region, 0.3, 0.3, interop.params_from_numpy(
+                      GR4J().get_random_params(n)), loss_metric=loss)))
+    snow_np = cs.region_snow_arrays()
+    etp_s, qobs_s, *layers, frac_ice = interop.regional_forcing_from_numpy(
+        snow_np["etp"], snow_np["qobs"],
+        layers=(snow_np["prec"], snow_np["temp"], snow_np["frac"]),
+        frac_ice=snow_np["frac_ice"])
+    for loss in ('mse', 'kge'):
+        trace(card, f"regional CemaneigeHystGR4JIce {loss} {c} catchments x "
+              f"{n} x {etp_s.shape[1]} x {layers[0].shape[2]} layers (K11)",
+              seeded(lambda: regional_snow_objective(
+                  layers[0], layers[1], etp_s, layers[2], qobs_s, 0.0, 0.0,
+                  0.5, 0.4, interop.params_from_numpy(
+                      CemaneigeHystGR4JIce().get_random_params(n)),
+                  frac_ice=frac_ice, hyst=True, ice=True, loss_metric=loss)))
+    df = CAMELSLoader().load_basin('01031500').iloc[:cs.GLUE_DAYS]
+    glue_qobs = df['QObs(mm/d)'].to_numpy()
+    glue_kw = dict(prec=df['prcp(mm/day)'].to_numpy(),
+                   mean_temp=((df['tmax(C)'] + df['tmin(C)']) / 2).to_numpy(),
+                   min_temp=df['tmin(C)'].to_numpy(),
+                   max_temp=df['tmax(C)'].to_numpy(), etp=df['PET'].to_numpy(),
+                   met_station_height=CAMELSLoader().get_station_height(
+                       '01031500'))
+    glue_mc = seeded(lambda: monte_carlo(
+        CemaneigeGR4J(), num=cs.GLUE_MEMBERS, qobs=glue_qobs, **glue_kw,
+        metrics=('nse',), engine='fused'))
+    trace(card, f"GLUE monte_carlo CemaneigeGR4J {cs.GLUE_MEMBERS} x "
+          f"{cs.GLUE_DAYS} with trajectories (K9)", glue_mc)
+    mc = glue_mc()
+    trace(card, f"GLUE weights and 3 prediction limits over {cs.GLUE_DAYS} "
+          f"x {cs.GLUE_MEMBERS}", lambda: prediction_limits(
+              mc['qsim'], glue_weights(mc['nse'], behavioral_threshold=0.3)))
 
     prec_long = np.random.default_rng(0).uniform(0, 20, cs.ABC_STEPS)
     prec_t = cs.as_tensor(prec_long, cs.F32)

@@ -15,5 +15,6 @@ from . import config
 from . import data
 from . import models
 from . import ops
+from . import parallel
 from . import tools
 from . import utils

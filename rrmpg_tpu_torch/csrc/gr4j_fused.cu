@@ -5,6 +5,8 @@
 //   K2  _stats_kernel  (gr4j_ensemble_mse_pallas, stats=True) -> gr4j_objective_kernel<..., STATS=true>
 //   K3  _traj_kernel   (gr4j_simulate_pallas)                 -> gr4j_traj_kernel
 //   K4  _traj_final_kernel (gr4j_simulate_pallas_state)       -> gr4j_traj_state_kernel
+//   K5  gr4j_regional_mse_pallas (the K1/K2 body over a third,
+//       catchment grid axis)                                  -> gr4j_regional_kernel
 // and the `warm` mode of K1/K2 (state=): the objective kernels enter from a
 // carried state when they are given a routing-input history.
 // The shared step/init they are built from (_gr4j_step, _init_block) are
@@ -28,6 +30,16 @@
 // SM; the forcing reads go through __ldg, which the warp serves as one
 // broadcast.  The objective accumulates in registers.  K3's per-step stores
 // stride across members (row-major (N, T)); that is left as it is for now.
+//
+// Regional mode (K5).  One launch sweeps C catchments x N members that share
+// one parameter set per member: block row c = blockIdx.y is catchment c,
+// whose series start at c * T of the (C, T) arrays, whose valid count is
+// element c of a (C,) device array, and whose results go straight to their
+// place in (C, N) or (4, C, N).  Every member of a catchment reads the same
+// forcing, so the warp still shares each read.  K5 is a kernel of its own
+// rather than K1/K2 with run-time catchment offsets: those offsets moved the
+// single-catchment kernels' register counts (float32 (10, 21) MSE: 80 -> 86)
+// and their time.
 //
 // Unlike the TPU kernels there is no (8, 128) member tiling, no padding of
 // N or T and no time-tile grid: the kernel masks i < N itself and loops to
@@ -136,6 +148,50 @@ gr4j_objective_kernel(const Real* __restrict__ prec,
   }
 }
 
+// K5: K1/K2 over gridDim.y = C catchments.  prec, etp and qobs are (C, T),
+// the (6, N) parameters are shared by every catchment, counts[c] is the
+// number of steps catchment c averages over, and row k of catchment c goes
+// to out[(k * C + c) * N + i]: (C, N), or (4, C, N) with STATS.
+template <typename Real, int NUH1, int NUH2, bool STATS, bool MASKED>
+__global__ void __launch_bounds__(kBlock)
+gr4j_regional_kernel(const Real* __restrict__ prec,
+                     const Real* __restrict__ etp,
+                     const Real* __restrict__ qobs,
+                     const Real* __restrict__ params,
+                     const Real* __restrict__ counts, int n, int t_len,
+                     Real* __restrict__ out) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const size_t first = (size_t)blockIdx.y * t_len;  // catchment's step 0
+  prec += first;
+  etp += first;
+  qobs += first;
+  Member<Real, NUH1, NUH2> m;
+  gr4j_init(m, params, n, i);
+  Real sse = Real(0), sum_q = Real(0), sum_q2 = Real(0), sum_qo = Real(0);
+  for (int t = 0; t < t_len; ++t) {
+    const Real q = gr4j_step(m, __ldg(prec + t), __ldg(etp + t));
+    const Real qo = __ldg(qobs + t);
+    if (MASKED && qo != qo) continue;
+    const Real diff = q - qo;
+    sse += diff * diff;
+    if (STATS) {
+      sum_q += q;
+      sum_q2 += q * q;
+      sum_qo += q * qo;
+    }
+  }
+  const Real count = counts[blockIdx.y];
+  const size_t row = (size_t)gridDim.y * n;  // distance between out rows
+  Real* o = out + (size_t)blockIdx.y * n + i;
+  o[0] = sse / count;
+  if (STATS) {
+    o[row] = sum_q / count;
+    o[2 * row] = sum_q2 / count;
+    o[3 * row] = sum_qo / count;
+  }
+}
+
 inline dim3 grid_for(int n) { return dim3((n + kBlock - 1) / kBlock); }
 
 template <typename Real, int NUH1, int NUH2>
@@ -177,6 +233,31 @@ void launch_objective(const Real* prec, const Real* etp, const Real* qobs,
     gr4j_objective_kernel<Real, NUH1, NUH2, false, false>
         <<<grid, kBlock, 0, stream>>>(prec, etp, qobs, params, hist, n,
                                       t_len, count, out);
+  }
+}
+
+template <typename Real, int NUH1, int NUH2>
+void launch_regional(const Real* prec, const Real* etp, const Real* qobs,
+                     const Real* params, const Real* counts, int n, int t_len,
+                     int catchments, bool stats, bool masked, Real* out,
+                     cudaStream_t stream) {
+  const dim3 grid((n + kBlock - 1) / kBlock, catchments);
+  if (stats && masked) {
+    gr4j_regional_kernel<Real, NUH1, NUH2, true, true>
+        <<<grid, kBlock, 0, stream>>>(prec, etp, qobs, params, counts, n,
+                                      t_len, out);
+  } else if (stats) {
+    gr4j_regional_kernel<Real, NUH1, NUH2, true, false>
+        <<<grid, kBlock, 0, stream>>>(prec, etp, qobs, params, counts, n,
+                                      t_len, out);
+  } else if (masked) {
+    gr4j_regional_kernel<Real, NUH1, NUH2, false, true>
+        <<<grid, kBlock, 0, stream>>>(prec, etp, qobs, params, counts, n,
+                                      t_len, out);
+  } else {
+    gr4j_regional_kernel<Real, NUH1, NUH2, false, false>
+        <<<grid, kBlock, 0, stream>>>(prec, etp, qobs, params, counts, n,
+                                      t_len, out);
   }
 }
 
@@ -245,6 +326,28 @@ int objective(const Real* prec, const Real* etp, const Real* qobs,
   return (int)cudaGetLastError();
 }
 
+template <typename Real>
+int regional(const Real* prec, const Real* etp, const Real* qobs,
+             const Real* params, const Real* counts, int n, int t_len,
+             int catchments, int nuh1, int nuh2, int stats, int masked,
+             Real* out, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (n <= 0 || t_len <= 0 || catchments <= 0) return (int)cudaSuccess;
+  if (catchments > 65535) return (int)cudaErrorInvalidValue;  // gridDim.y
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (nuh1 == 3 && nuh2 == 7) {
+    launch_regional<Real, 3, 7>(prec, etp, qobs, params, counts, n, t_len,
+                                catchments, stats != 0, masked != 0, out, s);
+  } else if (nuh1 == 10 && nuh2 == 21) {
+    launch_regional<Real, 10, 21>(prec, etp, qobs, params, counts, n, t_len,
+                                  catchments, stats != 0, masked != 0, out, s);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -297,6 +400,32 @@ int rrmpg_gr4j_objective_f64(const double* prec, const double* etp,
                              double* out, int device, void* stream) {
   return objective<double>(prec, etp, qobs, params, hist, n, t_len, nuh1,
                            nuh2, stats, masked, count, out, device, stream);
+}
+
+// K5: prec, etp, qobs (C, T); params (6, N) shared by every catchment;
+// counts (C,) the steps each catchment averages over; out (C, N), or
+// (4, C, N) with `stats`.
+int rrmpg_gr4j_regional_objective_f32(const float* prec, const float* etp,
+                                      const float* qobs, const float* params,
+                                      const float* counts, int n, int t_len,
+                                      int catchments, int nuh1, int nuh2,
+                                      int stats, int masked, float* out,
+                                      int device, void* stream) {
+  return regional<float>(prec, etp, qobs, params, counts, n, t_len,
+                         catchments, nuh1, nuh2, stats, masked, out, device,
+                         stream);
+}
+
+int rrmpg_gr4j_regional_objective_f64(const double* prec, const double* etp,
+                                      const double* qobs,
+                                      const double* params,
+                                      const double* counts, int n, int t_len,
+                                      int catchments, int nuh1, int nuh2,
+                                      int stats, int masked, double* out,
+                                      int device, void* stream) {
+  return regional<double>(prec, etp, qobs, params, counts, n, t_len,
+                          catchments, nuh1, nuh2, stats, masked, out, device,
+                          stream);
 }
 
 }  // extern "C"

@@ -4,8 +4,8 @@
 // _init_block): one member's parameters and state (Member), the init
 // (gr4j_init: cold, or warm from a carried routing-input history) and one
 // time step (gr4j_step; gr4j_step_pr also gives the routing input), written
-// once as device functions.  gr4j_fused.cu (K1-K4) and snow_fused.cu (K8-K10)
-// include this header; the regional kernels will too.
+// once as device functions.  gr4j_fused.cu (K1-K5) and snow_fused.cu (K8-K11)
+// include this header.
 //
 // One thread owns one member.  The UH register lengths are template
 // constants, so after unrolling every index into the ordinate and shift

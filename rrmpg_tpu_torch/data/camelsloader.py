@@ -4,7 +4,10 @@ Counterpart of ``rrmpg_tpu.data.CAMELSLoader`` (reference
 ``rrmpg/data/camelsloader.py:14-129``): Daymet forcing and model-output
 files per basin, PET and observed discharge joined, a datetime index,
 trimmed to complete hydrological years (Oct 1 - Sep 30).  ``-999``
-discharge sentinels come back as NaN.
+discharge sentinels come back as NaN.  :meth:`CAMELSLoader.load_basins`
+stacks several basins into aligned (C, T) arrays for regional mode; it
+stays numpy / pandas (``interop.regional_forcing_from_numpy`` makes the
+tensors).
 
 By default it reads the files bundled with the JAX package, in place at
 ``rrmpg_tpu/data/camels/``, by path: importing ``rrmpg_tpu`` would import
@@ -15,6 +18,7 @@ CAMELS: Addor, Newman, Mizukami & Clark (2017), doi:10.5065/D6G73C3Q.
 
 from pathlib import Path
 
+import numpy as np
 import pandas as pd
 
 BUNDLED_DIR = (Path(__file__).resolve().parents[2] / "rrmpg_tpu" / "data"
@@ -108,3 +112,60 @@ class CAMELSLoader(object):
         with open(met_file, 'r') as fp:
             fp.readline()
             return float(fp.readline().strip())
+
+    def load_basins(self, basin_numbers=None, columns=None, join='inner'):
+        """Load several basins as aligned (C, T) arrays for regional mode.
+
+        With ``join='inner'`` (default) only days present in every basin
+        are kept.  With ``join='outer'`` basins of unequal record length
+        are padded to the union of their dates with NaN: the regional
+        objectives mask NaN *observations*, so ragged discharge records
+        calibrate correctly, but a model cannot step over NaN *forcing*,
+        so a padded forcing column raises.
+
+        Args:
+            basin_numbers: basins to load (default: all available).
+            columns: columns to extract (default: every column shared by
+                all basins).
+            join: ``'inner'`` (intersection of dates) or ``'outer'``
+                (union, NaN-padded observations).
+
+        Returns:
+            ``(index, arrays)``: the common datetime index and a dict
+            mapping column name to a ``(num_basins, T)`` numpy array, in
+            ``basin_numbers`` order.
+        """
+        if join not in ('inner', 'outer'):
+            raise ValueError(
+                f"join must be 'inner' or 'outer', got {join!r}.")
+        if basin_numbers is None:
+            basin_numbers = self.VALID_BASINS
+        frames = [self.load_basin(b) for b in basin_numbers]
+
+        index = frames[0].index
+        for df in frames[1:]:
+            index = (index.intersection(df.index) if join == 'inner'
+                     else index.union(df.index))
+        if len(index) == 0:
+            raise ValueError(
+                "The requested basins share no common dates; their "
+                "periods of record do not overlap.")
+        if columns is None:
+            columns = [c for c in frames[0].columns
+                       if all(c in df.columns for df in frames)]
+
+        arrays = {c: np.stack([df.reindex(index)[c].to_numpy()
+                               for df in frames])
+                  for c in columns}
+        if join == 'outer':
+            for c, arr in arrays.items():
+                if c == 'QObs(mm/d)':
+                    continue  # NaN observations are masked downstream
+                if not np.isfinite(arr).all():
+                    raise ValueError(
+                        f"join='outer' padded forcing column {c!r} with "
+                        "NaN (the basins' forcing records do not fully "
+                        "overlap); models cannot step over forcing "
+                        "gaps. Restrict columns=, infill the forcing, "
+                        "or use join='inner'.")
+        return index, arrays

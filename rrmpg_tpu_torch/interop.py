@@ -67,6 +67,49 @@ def layer_forcing_from_numpy(prec, mean_temp, frac_solid_prec, frac_ice=None,
     return out
 
 
+def regional_forcing_from_numpy(*series, layers=None, frac_ice=None,
+                                device=DEFAULT_DEVICE, dtype=torch.float32):
+    """The regional objectives' inputs as tensors, on the card unless
+    ``device='cpu'``: each of ``series`` (C, T) (``prec, etp, qobs`` for
+    GR4J; ``etp, qobs`` for the snow compositions), then, where given, the
+    three (C, T, L) ``layers`` (``prec, mean_temp, frac_solid_prec``) and
+    ``frac_ice``, (L,) shared or (C, L) per catchment -- the arrays the JAX
+    regional objectives take as they are (e.g. ``load_basins``' columns)."""
+    device = resolve_device(device)
+
+    def tensor(a):
+        return torch.tensor(np.asarray(a, np.float64), dtype=dtype,
+                            device=device)
+
+    out = tuple(tensor(a) for a in series)
+    shapes = [tuple(x.shape) for x in out]
+    if any(len(s) != 2 or s != shapes[0] for s in shapes):
+        raise ValueError(
+            f"regional series must share one (C, T) shape; got {shapes}.")
+    if layers is not None:
+        layers = tuple(tensor(a) for a in layers)
+        shape = tuple(layers[0].shape)
+        if (len(layers) != 3 or len(shape) != 3
+                or any(tuple(x.shape) != shape for x in layers)
+                or (shapes and shape[:2] != shapes[0])):
+            raise ValueError(
+                "prec, mean_temp and frac_solid_prec must share one "
+                "(C, T, L) shape, with the (C, T) of the series; got "
+                f"{[tuple(x.shape) for x in layers]} and {shapes}.")
+        out += layers
+    if frac_ice is not None:
+        frac_ice = tensor(frac_ice)
+        if layers is None:
+            raise ValueError("frac_ice needs the layer forcing (layers=).")
+        c, _, num_layers = layers[0].shape
+        if tuple(frac_ice.shape) not in ((num_layers,), (c, num_layers)):
+            raise ValueError(
+                f"frac_ice must be ({num_layers},) or ({c}, {num_layers}); "
+                f"got {tuple(frac_ice.shape)}.")
+        out += (frac_ice,)
+    return out
+
+
 def gr4j_state_from_numpy(state, device=DEFAULT_DEVICE,
                           dtype=torch.float32):
     """Batched :class:`~rrmpg_tpu_torch.ops.gr4j.GR4JState` from the fields

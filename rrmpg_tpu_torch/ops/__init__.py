@@ -21,6 +21,7 @@ from .fused_abc import abc_fused, abc_fused_single
 from .fused_gr4j import (
     SUPPORTED_UH,
     gr4j_ensemble_mse_fused,
+    gr4j_regional_objective_fused,
     gr4j_simulate_fused,
 )
 from .fused_hbv import hbv_ensemble_mse_fused, hbv_simulate_fused
@@ -30,6 +31,7 @@ from .fused_snow import (
     q_sca_components_from_stats,
     q_sca_loss_from_stats,
     snowgr4j_ensemble_mse_fused,
+    snowgr4j_regional_mse_fused,
     snowgr4j_simulate_fused,
 )
 from .gr4j import GR4JState, run_gr4j, run_gr4j_warm

@@ -37,6 +37,9 @@ _D = ctypes.c_double
 # GR4J objective: prec, etp, qobs, params, hist, n, t, nuh1, nuh2, stats,
 # masked, count, out, device, stream
 _GR4J_OBJECTIVE = (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _D, _P, _I, _P)
+# GR4J regional objective (K5): prec, etp, qobs, params, counts, n, t,
+# catchments, nuh1, nuh2, stats, masked, out, device, stream
+_GR4J_REGIONAL = (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _I, _P)
 # GR4J trajectories + state: prec, etp, params, hist, n, t, nuh1, nuh2, out,
 # fstate, device, stream
 _GR4J_STATE = (_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _I, _P)
@@ -71,6 +74,11 @@ _SNOW_STATE = (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
 _SNOW_OBJECTIVE = (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                    _I, _I, _I, _I, _I, _I, _I, _I, _I, _D, _D, _D, _P, _I,
                    _P)
+# Snow regional objective (K11): snow, rain, temp, etp, qobs, params,
+# layer_consts, frac_ice, counts, n, t, layers, catchments, nuh1, nuh2, hyst,
+# ice, stats, masked, snow0, th0, out, device, stream
+_SNOW_REGIONAL = (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                  _I, _I, _I, _I, _D, _D, _P, _I, _P)
 _SIGNATURES = {
     # prec, etp, params, n, t, nuh1, nuh2, out, device, stream
     "rrmpg_gr4j_simulate_f32": (_P, _P, _P, _I, _I, _I, _I, _P, _I, _P),
@@ -79,6 +87,8 @@ _SIGNATURES = {
     "rrmpg_gr4j_simulate_state_f64": _GR4J_STATE,
     "rrmpg_gr4j_objective_f32": _GR4J_OBJECTIVE,
     "rrmpg_gr4j_objective_f64": _GR4J_OBJECTIVE,
+    "rrmpg_gr4j_regional_objective_f32": _GR4J_REGIONAL,
+    "rrmpg_gr4j_regional_objective_f64": _GR4J_REGIONAL,
     "rrmpg_abc_chunk_size": (_I,),
     "rrmpg_abc_single_f32": _ABC_SINGLE,
     "rrmpg_abc_single_f64": _ABC_SINGLE,
@@ -97,13 +107,16 @@ _SIGNATURES = {
     "rrmpg_snow_simulate_state_f64": _SNOW_STATE,
     "rrmpg_snow_objective_f32": _SNOW_OBJECTIVE,
     "rrmpg_snow_objective_f64": _SNOW_OBJECTIVE,
+    "rrmpg_snow_regional_objective_f32": _SNOW_REGIONAL,
+    "rrmpg_snow_regional_objective_f64": _SNOW_REGIONAL,
 }
 
 
 # The sources with dozens of kernel instantiations are optimised on several
-# threads where nvcc can (``-split-compile``): the snow source with its 60
-# instantiations decides the build time, 37 s so instead of 68 s (NVIDIA H100
-# machine, 8 cores, CUDA 12.9).  The option moves a few register counts by
+# threads where nvcc can (``-split-compile``): the snow source, 60
+# instantiations then, decided the build time, 37 s so instead of 68 s (NVIDIA
+# H100 machine, 8 cores, CUDA 12.9); with K11's 16 more the whole build takes
+# 46 s.  The option moves a few register counts by
 # one or two; the small sources build in 4 s and stay as they were.
 SPLIT_COMPILE_SOURCES = ("gr4j_fused.cu", "snow_fused.cu")
 SPLIT_COMPILE_THREADS = 4

@@ -70,6 +70,50 @@ def check_block(family, ref, block, shape, name):
             f"{tuple(block.shape)} on {block.device}/{block.dtype}.")
 
 
+def check_regional_inputs(family, series, packed, rows):
+    """The checks of :func:`check_inputs` for a regional wrapper: ``series``
+    are (C, T) tensors, one row per catchment, and ``packed`` the (rows, N)
+    parameter block every catchment shares.  Returns (C, T)."""
+    ref = series[0]
+    if ref.dtype not in FLOAT_DTYPES:
+        raise TypeError(f"fused {family} kernels take float32 or float64, "
+                        f"got {ref.dtype}.")
+    if ref.dim() != 2 or ref.shape[0] < 1 or any(
+            tuple(x.shape) != tuple(ref.shape) for x in series):
+        raise ValueError(
+            f"regional series must all be (C, T), one row per catchment; "
+            f"got {[tuple(x.shape) for x in series]}.")
+    check_inputs(family, [x[0] for x in series], packed, rows)
+    for x in series:
+        if not x.is_contiguous():
+            raise ValueError(
+                f"fused {family} kernel inputs must be contiguous.")
+    return tuple(ref.shape)
+
+
+def valid_counts(qobs, masked):
+    """``(counts, masked)`` for a (C, T) record: the (C,) steps each
+    catchment averages over, on the record's device and in its dtype, and
+    whether the objective masks.  ``masked=None`` masks where the record
+    has a NaN; a masked catchment with no finite observation raises,
+    naming it.  Detection and check share one read back to the host."""
+    num_catchments, t_len = qobs.shape
+    if masked is not False:
+        counts = torch.isfinite(qobs).sum(dim=1)
+        on_host = counts.tolist()
+        if masked is None:
+            masked = any(k < t_len for k in on_host)
+    if not masked:
+        return qobs.new_full((num_catchments,), float(t_len)), False
+    empty = [c for c, k in enumerate(on_host) if k == 0]
+    if empty:
+        raise ValueError(
+            f"catchment {empty[0]} has no finite observation (all-NaN "
+            f"catchments: {empty}): a masked objective over zero valid "
+            "steps is undefined.")
+    return counts.to(qobs.dtype), True
+
+
 def valid_count(qobs, masked):
     """Steps a masked objective averages over; raises if there is none."""
     if not masked:

@@ -12,7 +12,12 @@ and UH shift registers in registers for the whole time loop.
   :func:`~.stats.losses_from_stats`;
 * K4 :func:`gr4j_simulate_state_fused` -- forecast mode: trajectories plus
   the end-of-series :class:`~.gr4j.GR4JState`, entering cold or from a
-  carried state; K1/K2 enter from a carried state too (``state=``).
+  carried state; K1/K2 enter from a carried state too (``state=``);
+* K5 :func:`gr4j_regional_objective_fused` -- K1/K2 over C catchments in one
+  launch: (C, T) series, one (N,) parameter set shared by every catchment,
+  (C, N) losses or (4, C, N) statistics, each catchment normalized over its
+  own valid count (the regional Monte-Carlo / calibration path,
+  :mod:`~..parallel.regional`).
 
 A carried state is batched over the members (one row per member).  One
 state shared by every member is broadcast by the caller
@@ -30,11 +35,13 @@ with the other kernel modules, :mod:`._launch`) counts launches per kernel.
 import torch
 
 from ._launch import (LAUNCHES, check_block, check_inputs,  # noqa: F401
-                      launch, register_kernels, reset_launches, valid_count)
+                      check_regional_inputs, launch, register_kernels,
+                      reset_launches, valid_count, valid_counts)
 from .gr4j import GR4JState
 from .uh import NUM_UH1, NUM_UH2, uh_ordinates
 
-register_kernels("gr4j_mse", "gr4j_stats", "gr4j_traj", "gr4j_traj_state")
+register_kernels("gr4j_mse", "gr4j_stats", "gr4j_traj", "gr4j_traj_state",
+                 "gr4j_regional")
 
 # UH register lengths the CUDA library is instantiated for.
 SUPPORTED_UH = ((3, 7), (NUM_UH1, NUM_UH2))
@@ -207,6 +214,51 @@ def gr4j_objective_reference(prec, etp, qobs, packed, num_uh1=NUM_UH1,
     return out if stats else out[0]
 
 
+def catchment_members(packed, num_catchments):
+    """(rows, N) packed parameters -> (rows, C * N): catchment c's members
+    are columns c * N .. c * N + N - 1, the kernel's (C, N) output order."""
+    return packed.repeat(1, num_catchments)
+
+
+def per_member(series_t, n):
+    """A (C,) or (C, L) slice of catchment series at one step -> one row per
+    member of :func:`catchment_members`' layout, (C * N,) or (C * N, L)."""
+    c = series_t.shape[0]
+    return series_t.unsqueeze(1).expand(c, n, *series_t.shape[1:]).reshape(
+        c * n, *series_t.shape[1:])
+
+
+def gr4j_regional_objective_reference(prec, etp, qobs, packed,
+                                      num_uh1=NUM_UH1, num_uh2=NUM_UH2,
+                                      stats=False, masked=False, counts=None):
+    """Plain version of K5: (C, N) mean squared errors, with ``stats`` the
+    (4, C, N) time means.  ``prec``, ``etp``, ``qobs`` are (C, T); every
+    catchment runs the same (6, N) ``packed`` members, all catchments in
+    one time loop over C * N members.  ``masked`` drops NaN observations;
+    catchment c's sums are divided by ``counts[c]`` (a (C,) tensor,
+    default T)."""
+    num_catchments, t_len = prec.shape
+    n = packed.shape[1]
+    m = _Members(catchment_members(packed, num_catchments), num_uh1, num_uh2)
+    valid = torch.isfinite(qobs) if masked else None
+    acc = packed.new_zeros((4 if stats else 1, num_catchments * n))
+    for t in range(t_len):
+        q = m.step(per_member(prec[:, t], n), per_member(etp[:, t], n))
+        qo = per_member(qobs[:, t], n)
+        diff = q - qo
+        terms = [diff * diff]
+        if stats:
+            terms += [q, q * q, q * qo]
+        terms = torch.stack(terms)
+        if masked:
+            terms = torch.where(per_member(valid[:, t], n), terms, 0.0)
+        acc += terms
+    if counts is None:
+        counts = prec.new_full((num_catchments,), float(t_len))
+    out = acc.reshape(-1, num_catchments, n) / counts[:, None]
+    return out if stats else out[0]
+
+
 # ---------------------------------------------------------------------------
 # Wrappers
 # ---------------------------------------------------------------------------
@@ -330,4 +382,47 @@ def gr4j_ensemble_mse_fused(prec, etp, qobs, s_init, r_init, params,
            qobs.data_ptr(), packed.data_ptr(),
            None if hist is None else hist.data_ptr(), n, t_len, num_uh1,
            num_uh2, int(stats), int(masked), float(count), out.data_ptr())
+    return out
+
+
+def gr4j_regional_objective_fused(prec, etp, qobs, s_init, r_init, params,
+                                  num_uh1=NUM_UH1, num_uh2=NUM_UH2,
+                                  stats=False, masked=False):
+    """Fused regional GR4J objective (K5): every member over every
+    catchment in one launch.
+
+    Returns (C, N) mean squared errors, or with ``stats=True`` a
+    (4, C, N) tensor of time means [mse, mean_q, mean_q^2, mean_q*qobs]
+    (the layout of ``rrmpg_tpu``'s ``gr4j_regional_mse_pallas``).
+
+    Args:
+        prec, etp, qobs: (C, T) tensors, one row per catchment; records of
+            unequal length are NaN-padded in ``qobs`` and run ``masked``.
+        s_init, r_init: store initializations as fractions of x1 / x3.
+        params: dict of (N,) tensors x1..x4, shared by every catchment.
+        num_uh1, num_uh2: UH register lengths, one of ``SUPPORTED_UH``.
+        masked: treat NaN observations as gaps; each catchment is
+            normalized over its own valid count.  A catchment with no valid
+            step raises ``ValueError`` naming it (the JAX kernel returns
+            inf/NaN there).  ``None`` masks where ``qobs`` has a NaN.
+    """
+    _check_uh(num_uh1, num_uh2)
+    packed = pack_params(params, s_init, r_init)
+    num_catchments, t_len = check_regional_inputs("GR4J", (prec, etp, qobs),
+                                                  packed, 6)
+    counts, masked = valid_counts(qobs, masked)
+    if prec.device.type == "cpu":
+        return gr4j_regional_objective_reference(
+            prec, etp, qobs, packed, num_uh1, num_uh2, stats, masked, counts)
+    from ._build import load_library
+
+    lib = load_library()
+    n = packed.shape[1]
+    shape = (4, num_catchments, n) if stats else (num_catchments, n)
+    out = torch.empty(shape, dtype=prec.dtype, device=prec.device)
+    launch("gr4j_regional", lib.rrmpg_gr4j_regional_objective_f32,
+           lib.rrmpg_gr4j_regional_objective_f64, prec.dtype, prec.device,
+           prec.data_ptr(), etp.data_ptr(), qobs.data_ptr(),
+           packed.data_ptr(), counts.data_ptr(), n, t_len, num_catchments,
+           num_uh1, num_uh2, int(stats), int(masked), out.data_ptr())
     return out

@@ -20,7 +20,12 @@ memory, for the whole time loop.
 * K10 :func:`snowgr4j_simulate_state_fused` -- forecast mode: trajectories
   plus the end-of-series :class:`~..models.states.SnowGR4JState`, entering
   cold or from a carried state; K8 enters from a carried state too
-  (``state=``, the ``mse`` and ``stats`` objectives).
+  (``state=``, the ``mse`` and ``stats`` objectives);
+* K11 :func:`snowgr4j_regional_mse_fused` -- K8's objective over C
+  catchments in one launch: (C, T, L) layer forcing, (N,) members shared by
+  every catchment, each catchment's layer constants from its own forcing and
+  its own glacier fractions, (C, N) losses or (4, C, N) statistics
+  (:mod:`~..parallel.regional`).
 
 A warm entry takes its layer constants from the state: the snow-cover
 threshold (or, with hysteresis, the mean annual solid precipitation) is a
@@ -44,16 +49,16 @@ on the same inputs.
 
 import torch
 
-from ._launch import (check_block, check_inputs, launch, register_kernels,
-                      valid_count)
+from ._launch import (check_block, check_inputs, check_regional_inputs,
+                      launch, register_kernels, valid_count, valid_counts)
 from .fused_gr4j import _Members as _GR4JMembers
-from .fused_gr4j import (_check_uh, final_history, history_rows,
-                         state_from_rows)
+from .fused_gr4j import (_check_uh, catchment_members, final_history,
+                         history_rows, per_member, state_from_rows)
 from .stats import losses_from_stats
 from .uh import NUM_UH1, NUM_UH2
 
 register_kernels("snow_mse", "snow_stats", "snow_sca_stats", "snow_traj",
-                 "snow_traj_state")
+                 "snow_traj_state", "snow_regional")
 
 NUM_ROWS = 11
 
@@ -96,10 +101,11 @@ def layer_inputs(prec, frac_solid_prec, hyst):
     """(snow, rain, layer_consts): the (T, L) solid and liquid
     precipitation and the (L,) series constant of each layer, the
     snow-cover threshold (plain) or the mean annual solid precipitation
-    (``hyst``)."""
+    (``hyst``).  For (C, T, L) forcing the constants are (C, L), each
+    catchment's from its own series."""
     snow = prec * frac_solid_prec
     rain = prec - snow
-    psol = 365.25 * snow.mean(dim=0)
+    psol = 365.25 * snow.mean(dim=-2)
     return (snow.contiguous(), rain.contiguous(),
             (psol if hyst else 0.9 * psol).contiguous())
 
@@ -321,6 +327,41 @@ def snowgr4j_objective_reference(snow, rain, temp, etp, qobs, packed,
     if ndsi is not None:
         bands = band_acc / band_counts[:, None, None]
         return torch.cat([out, bands.reshape(4 * L, n)])
+    return out if stats else out[0]
+
+
+def snowgr4j_regional_objective_reference(snow, rain, temp, etp, qobs, packed,
+                                          layer_consts, frac_ice, snow0, th0,
+                                          hyst=False, ice=False,
+                                          num_uh1=NUM_UH1, num_uh2=NUM_UH2,
+                                          stats=False, masked=False,
+                                          counts=None):
+    """Plain version of K11: (C, N) mean squared errors, with ``stats`` the
+    (4, C, N) time means.  ``snow``, ``rain``, ``temp`` are (C, T, L),
+    ``etp`` and ``qobs`` (C, T), ``layer_consts`` and ``frac_ice`` (C, L);
+    every catchment runs the same (11, N) ``packed`` members, all
+    catchments in one time loop over C * N members.  ``masked`` drops NaN
+    observations; catchment c's sums are divided by ``counts[c]`` (a (C,)
+    tensor, default T)."""
+    num_catchments, t_len, _ = snow.shape
+    n = packed.shape[1]
+    m = _Members(catchment_members(packed, num_catchments),
+                 per_member(layer_consts, n).T, per_member(frac_ice, n),
+                 snow0, th0, hyst, ice, False, num_uh1, num_uh2)
+    acc = packed.new_zeros((4, num_catchments * n))
+    valid = torch.isfinite(qobs) if masked else None
+    for t in range(t_len):
+        q = m.step(t, per_member(snow[:, t], n), per_member(rain[:, t], n),
+                   per_member(temp[:, t], n), per_member(etp[:, t], n))
+        qo = per_member(qobs[:, t], n)
+        diff = q - qo
+        terms = torch.stack([diff * diff, q, q * q, q * qo])
+        if masked:
+            terms = torch.where(per_member(valid[:, t], n), terms, 0.0)
+        acc += terms
+    if counts is None:
+        counts = etp.new_full((num_catchments,), float(t_len))
+    out = acc.reshape(4, num_catchments, n) / counts[:, None]
     return out if stats else out[0]
 
 
@@ -606,6 +647,89 @@ def snowgr4j_ensemble_mse_fused(prec, mean_temp, etp, frac_solid_prec, qobs,
            _pointer(hist), n, t_len, num_layers, num_uh1, num_uh2, int(hyst),
            int(ice), int(snow_only), int(stats), int(sca_stats), int(masked),
            int(state is not None), snow0, th0, float(count), out.data_ptr())
+    return out
+
+
+def snowgr4j_regional_mse_fused(prec, mean_temp, etp, frac_solid_prec, qobs,
+                                snow_pack_init, thermal_state_init, s_init,
+                                r_init, params, frac_ice=None, hyst=False,
+                                ice=False, stats=False, num_uh1=NUM_UH1,
+                                num_uh2=NUM_UH2, masked=False):
+    """Fused regional coupled-model objective (K11): every member over
+    every catchment in one launch.
+
+    Returns (C, N) mean squared errors, or with ``stats=True`` a (4, C, N)
+    tensor of time means [mse, mean_q, mean_q^2, mean_q*qobs] (the layout
+    of ``rrmpg_tpu``'s ``snowgr4j_regional_mse_pallas``).
+
+    Args:
+        prec, mean_temp, frac_solid_prec: (C, T, L) layer forcing; each
+            catchment's snow-cover threshold / mean annual solid
+            precipitation comes from its own series.
+        etp, qobs: (C, T) tensors.
+        snow_pack_init, thermal_state_init, s_init, r_init: scalars
+            (reference init conventions), shared by every catchment.
+        params: dict of (N,) tensors (as :func:`snowgr4j_simulate_fused`),
+            shared by every catchment.
+        frac_ice: (L,) glacier fractions shared by every catchment, or
+            (C, L), one row per catchment (``ice``).
+        hyst, ice: the variant.
+        masked: treat NaN observations as gaps; each catchment is
+            normalized over its own valid count, and one with no valid step
+            raises ``ValueError`` naming it.  ``None`` masks where ``qobs``
+            has a NaN.
+    """
+    _check_uh(num_uh1, num_uh2)
+    if ice and frac_ice is None:
+        raise ValueError("The ice-melt variants need 'frac_ice'.")
+    packed = pack_params(params, s_init, r_init)
+    num_catchments, t_len = check_regional_inputs("snow", (etp, qobs), packed,
+                                                  NUM_ROWS)
+    layers = (prec, mean_temp, frac_solid_prec)
+    if (prec.dim() != 3 or tuple(prec.shape[:2]) != (num_catchments, t_len)
+            or prec.shape[2] < 1
+            or any(x.shape != prec.shape for x in layers)):
+        raise ValueError(
+            f"regional layer forcing must be (C, T, L) with C={num_catchments},"
+            f" T={t_len} and L >= 1, one shape for prec, mean_temp and "
+            f"frac_solid_prec; got {[tuple(x.shape) for x in layers]}.")
+    num_layers = prec.shape[2]
+    if frac_ice is None:
+        frac_ice = prec.new_zeros(num_layers)
+    for x in (*layers, frac_ice):
+        if x.device != etp.device or x.dtype != etp.dtype:
+            raise ValueError(
+                "every input of a fused snow kernel must share one device "
+                f"and dtype; got {x.device}/{x.dtype} and "
+                f"{etp.device}/{etp.dtype}.")
+    if tuple(frac_ice.shape) not in ((num_layers,),
+                                     (num_catchments, num_layers)):
+        raise ValueError(
+            f"frac_ice must be ({num_layers},) or ({num_catchments}, "
+            f"{num_layers}); got {tuple(frac_ice.shape)}.")
+    frac_ice = frac_ice.expand(num_catchments, num_layers).contiguous()
+    counts, masked = valid_counts(qobs, masked)
+    snow, rain, layer_consts = layer_inputs(prec, frac_solid_prec, hyst)
+    temp = mean_temp.contiguous()
+    snow0, th0 = float(snow_pack_init), float(thermal_state_init)
+    if etp.device.type == "cpu":
+        return snowgr4j_regional_objective_reference(
+            snow, rain, temp, etp, qobs, packed, layer_consts, frac_ice,
+            snow0, th0, hyst, ice, num_uh1, num_uh2, stats, masked, counts)
+    from ._build import load_library
+
+    lib = load_library()
+    _check_layer_count(lib, num_layers, _shared_rows(hyst), etp.dtype)
+    n = packed.shape[1]
+    shape = (4, num_catchments, n) if stats else (num_catchments, n)
+    out = torch.empty(shape, dtype=etp.dtype, device=etp.device)
+    launch("snow_regional", lib.rrmpg_snow_regional_objective_f32,
+           lib.rrmpg_snow_regional_objective_f64, etp.dtype, etp.device,
+           snow.data_ptr(), rain.data_ptr(), temp.data_ptr(), etp.data_ptr(),
+           qobs.data_ptr(), packed.data_ptr(), layer_consts.data_ptr(),
+           frac_ice.data_ptr(), counts.data_ptr(), n, t_len, num_layers,
+           num_catchments, num_uh1, num_uh2, int(hyst), int(ice), int(stats),
+           int(masked), snow0, th0, out.data_ptr())
     return out
 
 

@@ -8,9 +8,11 @@ JAX, so it runs on a GPU machine without it:
 Each kernel (GR4J K1 MSE, K2 stats, K3 trajectories, K4 trajectories +
 state; ABC K6 single launch, K7 three launches; the snow family's K8
 objective, K9 trajectories and K10 trajectories + state; HBV-Edu K12
-objective, K13 trajectories, K14 trajectories + state; and the warm entry
-of the objectives) is held against its plain PyTorch version on the same
-CUDA tensors.  Tolerances:
+objective, K13 trajectories, K14 trajectories + state; the warm entry of
+the objectives; the regional K5 and K11, one and three catchments in a
+launch) is held against its plain PyTorch version on the same CUDA tensors,
+and the regional objectives on the card against the same calls on CPU
+tensors.  Tolerances:
 float64 ``rtol=1e-9, atol=1e-12`` (the same operations in another order);
 float32 trajectories ``rtol=5e-3, atol=1e-3`` and objectives
 ``rtol=2e-2`` (rounding compounds over the recurrence; rrmpg_tpu's own
@@ -753,3 +755,152 @@ def test_forecast_cycle_on_the_card(cuda, tmp_path):
                     initial_state=st, engine='fused', seed=0, maxiter=4)
     assert fg.LAUNCHES["gr4j_mse"] == res.nit + 1
     assert np.isfinite(res.fun)
+
+
+# ---------------------------------------------------------------------------
+# Regional: K5 (GR4J) and K11 (snow + GR4J), C catchments in one launch
+# ---------------------------------------------------------------------------
+
+def _regional_qobs(rng, C, T, gaps):
+    qobs = rng.uniform(0, 5, (C, T))
+    if gaps:
+        qobs[0, T // 2:] = np.nan           # a record that ends early
+        qobs[C - 1, ::11] = np.nan          # scattered gaps
+    return qobs
+
+
+def _regional_counts(qobs, masked):
+    if not masked:
+        return torch.full((qobs.shape[0],), float(qobs.shape[1]),
+                          dtype=qobs.dtype, device=qobs.device)
+    return torch.isfinite(qobs).sum(dim=1).to(qobs.dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("C", [1, 3])
+@pytest.mark.parametrize("n1,n2,x4_max", [(3, 7, 2.9), (10, 21, 9.9)])
+@pytest.mark.parametrize("mode", ["mse", "stats", "mse+masked",
+                                  "stats+masked"])
+def test_regional_gr4j_kernel_matches_plain(cuda, dtype, C, n1, n2, x4_max,
+                                            mode):
+    masked, stats = mode.endswith("masked"), mode.startswith("stats")
+    rng = np.random.default_rng(C)
+    as_t = lambda a: torch.tensor(a, dtype=dtype, device=cuda)
+    prec, etp = as_t(rng.uniform(0, 15, (C, 400))), as_t(
+        rng.uniform(0, 4, (C, 400)))
+    qobs = as_t(_regional_qobs(rng, C, 400, masked))
+    _, _, _, params = _inputs(cuda, dtype, x4_max=x4_max)
+    fg.reset_launches()
+    got = fg.gr4j_regional_objective_fused(prec, etp, qobs, 0.4, 0.3, params,
+                                           n1, n2, stats=stats, masked=masked)
+    want = fg.gr4j_regional_objective_reference(
+        prec, etp, qobs, fg.pack_params(params, 0.4, 0.3), n1, n2, stats,
+        masked, _regional_counts(qobs, masked))
+    torch.cuda.synchronize()
+    assert fg.LAUNCHES["gr4j_regional"] == 1
+    assert got.shape == ((4, C, 300) if stats else (C, 300))
+    assert bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got, want, rtol=TOL[dtype]["obj"][0],
+                               atol=TOL[dtype]["obj"][1])
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_regional_one_catchment_is_k1(cuda, dtype):
+    """K5 with C = 1 runs the step and sums of K1/K2 (its own kernel, the
+    same device functions) over the same series: the same numbers as the
+    single-catchment launch, bit for bit."""
+    prec, etp, qobs, params = _inputs(cuda, dtype, gaps=True)
+    for stats in (False, True):
+        single = fg.gr4j_ensemble_mse_fused(prec, etp, qobs, 0.4, 0.3,
+                                            params, stats=stats, masked=True)
+        regional = fg.gr4j_regional_objective_fused(
+            prec[None], etp[None], qobs[None], 0.4, 0.3, params,
+            stats=stats, masked=True)
+        assert torch.equal(regional[:, 0] if stats else regional[0], single)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("C", [1, 3])
+@pytest.mark.parametrize("L", [1, 5])
+@pytest.mark.parametrize("variant", ["plain", "hyst", "ice", "hyst+ice"])
+@pytest.mark.parametrize("mode", ["mse", "stats+masked"])
+def test_regional_snow_kernel_matches_plain(cuda, dtype, C, L, variant,
+                                            mode):
+    hyst, ice = {"plain": (False, False), "hyst": (True, False),
+                 "ice": (False, True), "hyst+ice": (True, True)}[variant]
+    masked, stats = mode.endswith("masked"), mode.startswith("stats")
+    rng = np.random.default_rng(10 * C + L)
+    as_t = lambda a: torch.tensor(a, dtype=dtype, device=cuda)
+    T = 300
+    prec = as_t(rng.uniform(0, 15, (C, T, L)))
+    temp = as_t(rng.uniform(-12, 18, (C, T, L)))
+    frac = as_t(np.clip(rng.uniform(-0.3, 1.2, (C, T, L)), 0, 1))
+    etp = as_t(rng.uniform(0, 4, (C, T)))
+    qobs = as_t(_regional_qobs(rng, C, T, masked))
+    frac_ice = as_t(rng.uniform(0, 0.7, (C, L)))
+    *_, params = _snow_inputs(cuda, dtype, L, 9.9)
+    snow0, th0, s_init, r_init = SNOW_INITS
+    fg.reset_launches()
+    got = fs.snowgr4j_regional_mse_fused(
+        prec, temp, etp, frac, qobs, snow0, th0, s_init, r_init, params,
+        frac_ice=frac_ice if ice else None, hyst=hyst, ice=ice, stats=stats,
+        masked=masked)
+    snow, rain, consts = fs.layer_inputs(prec, frac, hyst)
+    want = fs.snowgr4j_regional_objective_reference(
+        snow, rain, temp, etp, qobs, fs.pack_params(params, s_init, r_init),
+        consts, frac_ice if ice else torch.zeros_like(frac_ice), snow0, th0,
+        hyst, ice, stats=stats, masked=masked,
+        counts=_regional_counts(qobs, masked))
+    torch.cuda.synchronize()
+    assert fg.LAUNCHES["snow_regional"] == 1
+    assert got.shape == ((4, C, 200) if stats else (C, 200))
+    assert bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got, want, rtol=TOL[dtype]["obj"][0],
+                               atol=TOL[dtype]["obj"][1])
+
+
+def test_regional_objectives_through_entry_points(cuda):
+    """The public regional objectives on the card against the same calls
+    on CPU tensors (the plain versions), float64, ragged records, every
+    loss metric; one launch per call."""
+    from rrmpg_tpu_torch import interop
+    from rrmpg_tpu_torch.parallel import (regional_gr4j_objective,
+                                          regional_snow_objective)
+
+    rng = np.random.default_rng(4)
+    C, T, L, N = 3, 365, 5, 256
+    qobs = _regional_qobs(rng, C, T, True)
+    gr4j_np = (rng.uniform(0, 15, (C, T)), rng.uniform(0, 4, (C, T)), qobs)
+    layers_np = (rng.uniform(0, 15, (C, T, L)), rng.uniform(-12, 18, (C, T, L)),
+                 rng.uniform(0, 1, (C, T, L)))
+    frac_ice_np = rng.uniform(0, 0.7, L)
+    gr4j_params = {'x1': rng.uniform(100, 1200, N),
+                   'x2': rng.uniform(-5, 3, N), 'x3': rng.uniform(20, 300, N),
+                   'x4': rng.uniform(1.1, 2.9, N)}
+    snow_params = dict(gr4j_params, CTG=rng.uniform(0, 1, N),
+                       Kf=rng.uniform(0, 10, N), Thacc=rng.uniform(1, 100, N),
+                       Rsp=rng.uniform(0, 1, N), DDF=rng.uniform(0, 30, N))
+    results = {}
+    for device in (cuda, "cpu"):
+        kw = dict(device=device, dtype=torch.float64)
+        prec, etp, qo = interop.regional_forcing_from_numpy(*gr4j_np, **kw)
+        etp_s, qo_s, lp, lt, lf, fi = interop.regional_forcing_from_numpy(
+            gr4j_np[1], qobs, layers=layers_np, frac_ice=frac_ice_np, **kw)
+        gp = interop.params_from_numpy(gr4j_params, **kw)
+        sp = interop.params_from_numpy(snow_params, **kw)
+        for metric in ("mse", "rmse", "nse", "kge"):
+            fg.reset_launches()
+            results[(device, "gr4j", metric)] = regional_gr4j_objective(
+                prec, etp, qo, 0.3, 0.3, gp, loss_metric=metric).cpu()
+            results[(device, "snow", metric)] = regional_snow_objective(
+                lp, lt, etp_s, lf, qo_s, 0.0, 0.0, 0.5, 0.4, sp,
+                frac_ice=fi, hyst=True, ice=True, loss_metric=metric).cpu()
+            if device is cuda:
+                assert fg.LAUNCHES["gr4j_regional"] == 1
+                assert fg.LAUNCHES["snow_regional"] == 1
+    for (device, family, metric), got in results.items():
+        if device == "cpu":
+            continue
+        want = results[("cpu", family, metric)]
+        assert got.shape == (C, N) and bool(torch.isfinite(got).all())
+        torch.testing.assert_close(got, want, rtol=1e-9, atol=1e-12)
