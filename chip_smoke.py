@@ -17,8 +17,12 @@ Phases, in order (each prints its lines; any failure exits non-zero):
                   and without gaps, K13 trajectories; NaN-aware) and the
                   snow family (K8 MSE, stats and SCA statistics with and
                   without gaps, K9 trajectories; plain, hysteresis, ice and
-                  hysteresis + ice variants and the snow-only routine; 1 and
-                  5 layers; both UH register pairs); then the state kernels
+                  hysteresis + ice variants and the snow-only routine; 1, 2,
+                  5 and 7 layers (K8 keeps 1 and 5 in registers, any other
+                  count in shared memory; K9 at 1 and 5); both UH register
+                  pairs; K8 and K12 also at T = 37 and 128 around their
+                  64-step staging tiles, N = 200, gaps at tile edges); then
+                  the state kernels
                   (K4, K14, K10: trajectories and every state row, cold and
                   warm; K10's snow rows bit for bit) and the warm entry of the
                   objectives (K1/K2, K12, K8, with and without gaps), and in
@@ -65,19 +69,25 @@ Phases, in order (each prints its lines; any failure exits non-zero):
                   GR4J and HBV-Edu at 131072 members x 3651 days, the snow
                   kernels at 131072 x 3651 x 5 layers (hysteresis + ice),
                   ABC at 10 000 000 steps; the state kernels cold and warm,
-                  and the warm objectives beside the cold ones; K5 at 8
-                  catchments x 131072 x 3651 (UH (3, 7) and (10, 21)) and K11
-                  at 8 x 131072 x 3651 x 5 layers.
+                  and the warm objectives beside the cold ones; K8 and K12
+                  also at the shapes of a fit generation (135 x 1827 x 5
+                  layers, 165 x 3652), over N = 16896 .. 262144 at T = 3651,
+                  and the SASS instructions of their time loops by class;
+                  K5 at 8 catchments x 131072 x 3651 (UH (3, 7) and (10,
+                  21)) and K11 at 8 x 131072 x 3651 x 5 layers.
 
 ``--phases a,b`` (development) runs only the named phases after the build:
 kernels, golden, main, forecast, regional, times; the result lines need them
-all.
+all.  ``--compare DIR[,DIR...]`` (development) builds the kernel sources in
+each DIR (another version's ``rrmpg_tpu_torch/csrc``) beside this
+checkout's and times K8 and K12 of both in turns; it exits 3.
 
 The last two lines are a JSON object describing the kernels and the
 result line ``{"ok": true, "device": {...}}``.
 """
 
 import argparse
+import contextlib
 import functools
 import json
 import os
@@ -100,6 +110,7 @@ GR4J_SRC = "rrmpg_tpu_torch/csrc/gr4j_fused.cu"
 ABC_SRC = "rrmpg_tpu_torch/csrc/abc_scan.cu"
 HBV_SRC = "rrmpg_tpu_torch/csrc/hbv_fused.cu"
 SNOW_SRC = "rrmpg_tpu_torch/csrc/snow_fused.cu"
+SNOW_OBJECTIVE_SRC = "rrmpg_tpu_torch/csrc/snow_objective.cu"
 # name -> (source, the TPU kernel it replaces)
 KERNELS = {
     "gr4j_mse": (GR4J_SRC, "rrmpg_tpu/ops/pallas_gr4j.py:228"),
@@ -109,7 +120,8 @@ KERNELS = {
     "abc_fused": (ABC_SRC, "rrmpg_tpu/ops/pallas_linear_scan.py:28"),
     "hbv_objective": (HBV_SRC, "rrmpg_tpu/ops/pallas_hbv.py:109"),
     "hbv_traj": (HBV_SRC, "rrmpg_tpu/ops/pallas_hbv.py:203"),
-    "snow_objective": (SNOW_SRC, "rrmpg_tpu/ops/pallas_snow.py:115"),
+    "snow_objective": (SNOW_OBJECTIVE_SRC,
+                       "rrmpg_tpu/ops/pallas_snow.py:115"),
     "snow_traj": (SNOW_SRC, "rrmpg_tpu/ops/pallas_snow.py:213"),
     "gr4j_traj_state": (GR4J_SRC, "rrmpg_tpu/ops/pallas_gr4j.py:179"),
     "hbv_traj_state": (HBV_SRC, "rrmpg_tpu/ops/pallas_hbv.py:223"),
@@ -194,6 +206,10 @@ SNOW_VARIANTS = (("plain", False, False), ("hyst", True, False),
                  ("ice", False, True), ("hyst+ice", True, True))
 SNOW_CHECK_INITS = (2.0, -1.0, 0.4, 0.3)  # snow pack, thermal state, s, r
 SNOW_FIT_MAXITER = 20
+# Steps of forcing K8 and K12 stage per tile, and a member count that ends
+# in a ragged block of 128: the edges the kernels phase checks.
+STAGE_TILE = 64
+EDGE_MEMBERS = 200
 # Tolerances of the kernel-vs-plain checks, (rtol, atol).  float64: the same
 # operations in another order (FMA contraction) and libdevice vs ATen
 # tanh/pow.  float32: rounding compounds over thousands of steps of the
@@ -409,6 +425,21 @@ class SnowData:
                         rows(self.etp), self.frac_ice, rows(self.qobs[False]),
                         bands(self.ndsi[False]), rows(self.qobs[True]),
                         bands(self.ndsi[True]))
+
+    def tile_edge_gaps(self):
+        """This data with gaps (masked copies only) on both sides of every
+        64-step tile edge: discharge, the first NDSI band, and a run
+        across the first edge in the last band."""
+        qobs, ndsi = self.qobs[True].clone(), self.ndsi[True].clone()
+        t_len = qobs.shape[0]
+        edges = [t for t in (STAGE_TILE - 1, STAGE_TILE, 2 * STAGE_TILE - 1,
+                             2 * STAGE_TILE) if t < t_len]
+        qobs[edges] = torch.nan
+        ndsi[0, edges] = torch.nan
+        ndsi[-1, STAGE_TILE - 4:STAGE_TILE + 6] = torch.nan
+        return SnowData(self.prec, self.temp, self.frac, self.etp,
+                        self.frac_ice, self.qobs[False], self.ndsi[False],
+                        qobs, ndsi)
 
     @classmethod
     def random(cls, rng, t_len, num_layers, dtype, temp_range=(-12, 18),
@@ -675,6 +706,10 @@ def phase_environment():
     return card
 
 
+# A kernel's name and template arguments in a mangled symbol.
+KERNEL_NAME = re.compile(r"_cu_[0-9a-f]{8}\d+([a-z0-9_]+_kernel)I(\w+?)EEv")
+
+
 def template_args(mangled):
     """'fLi10ELi21ELb1E' -> 'float, 10, 21, true'."""
     args = [{"d": "double", "f": "float"}.get(mangled[0], mangled[0])]
@@ -683,30 +718,37 @@ def template_args(mangled):
     return ", ".join(args)
 
 
-def phase_build():
-    from rrmpg_tpu_torch.ops._build import load_library
-
-    lib = load_library()
-    print(f"[2 build] {lib.path.name} built in {lib.build_seconds:.1f} s "
-          f"(0.0 = found built)")
-    # One line per kernel instantiation from nvcc's -Xptxas -v output.
-    kernel, spill, n_kernels = None, 0, 0
-    for ln in lib.log.splitlines():
+def ptxas_table(log):
+    """{kernel<template arguments>: (registers, bytes of spill stores)} of
+    every instantiation in nvcc's -Xptxas -v output."""
+    table, kernel, spill = {}, None, 0
+    for ln in log.splitlines():
         if "Compiling entry function" in ln:
-            m = re.search(r"_cu_[0-9a-f]{8}\d+([a-z0-9_]+_kernel)I(\w+?)EEv",
-                          ln)
+            m = re.search(KERNEL_NAME, ln)
             kernel, spill = (m.group(1) + "<" + template_args(m.group(2))
                              + ">") if m else ln.split("'")[1], 0
         elif "spill stores" in ln:
             spill = max(spill, int(ln.split("bytes spill stores")[0]
                                    .split(",")[-1]))
         elif "Used" in ln and "registers" in ln and kernel:
-            regs = ln.split("Used")[1].split("registers")[0].strip()
-            print(f"    ptxas: {kernel}: {regs} registers, {spill} bytes "
-                  "spill stores")
+            regs = int(ln.split("Used")[1].split("registers")[0])
+            table[kernel] = (regs, spill)
             kernel = None
-            n_kernels += 1
-    check(n_kernels > 0, "no kernel found in the build log")
+    return table
+
+
+def phase_build():
+    from rrmpg_tpu_torch.ops._build import load_library
+
+    lib = load_library()
+    print(f"[2 build] {lib.path.name} built in {lib.build_seconds:.1f} s "
+          f"(0.0 = found built)")
+    # One line per kernel instantiation.
+    table = ptxas_table(lib.log)
+    for kernel, (regs, spill) in table.items():
+        print(f"    ptxas: {kernel}: {regs} registers, {spill} bytes "
+              "spill stores")
+    check(len(table) > 0, "no kernel found in the build log")
 
 
 def phase_kernels_gr4j(prec_np, etp_np, qobs_np, n=500, t_len=3651):
@@ -801,8 +843,26 @@ def phase_kernels_hbv(forcing, qobs_np, n=1000):
                    *TOL[dtype]["traj" if mode == "traj" else "obj"],
                    nan_ok=True)
             n_checks += 1
+        # K12 at the edges of its staging: T shorter than a tile and two
+        # whole tiles (T = 3652 above ends in a ragged one), N not a
+        # multiple of the block, gaps on both sides of the tile edges.
+        params = hbv_random_params(np.random.default_rng(13), EDGE_MEMBERS,
+                                   dtype, n_dry=EDGE_MEMBERS // 20)
+        for edge_t in (37, 128):
+            gaps = qobs_np[:edge_t].copy()
+            gaps[[t for t in (STAGE_TILE - 1, STAGE_TILE, 2 * STAGE_TILE - 1)
+                  if t < edge_t]] = np.nan
+            for mode, masked in (("mse", False), ("stats", True)):
+                qobs = as_tensor(gaps if masked else qobs_np[:edge_t], dtype)
+                args = (fh, hbv_tensors(forcing, dtype, edge_t), qobs, params,
+                        mode, masked)
+                report(f"hbv {str(dtype)[6:]} T={edge_t} N={EDGE_MEMBERS} "
+                       f"{mode}{'+masked' if masked else ''}",
+                       hbv_kernel(*args), hbv_plain(*args),
+                       *TOL[dtype]["obj"], nan_ok=True)
+                n_checks += 1
     print(f"[3 kernels] HBV-Edu: {n_checks} kernel-vs-plain checks passed at "
-          f"N={n}, T={len(qobs_np)}")
+          f"N={n}, T={len(qobs_np)} and N={EDGE_MEMBERS}, T in (37, 128)")
 
 
 def phase_kernels_snow(n=256, t_len=300):
@@ -813,7 +873,11 @@ def phase_kernels_snow(n=256, t_len=300):
     products are written without fused multiply-adds, so both sides take
     the same branches and no member has to be set aside; the snow-only
     outflow, which is the snow state alone, is also counted for bit
-    equality."""
+    equality.  K8 runs its layers in registers at 1 and 5 layers and in
+    shared-memory columns at any other count (2 and 7 here); T = 300 ends
+    in a ragged 64-step tile, and a second pass at T = 37 (shorter than a
+    tile) and T = 128 (two whole tiles) with N = 200 (a ragged last block)
+    and gaps at the tile edges covers the edges of the staging."""
     from rrmpg_tpu_torch.ops import fused_gr4j as fg
     from rrmpg_tpu_torch.ops import fused_snow as fs
 
@@ -821,15 +885,17 @@ def phase_kernels_snow(n=256, t_len=300):
     for dtype in (F64, F32):
         tol = TOL[dtype]
         name = str(dtype)[6:]
-        for num_layers in (1, 5):
+        for num_layers in (1, 2, 5, 7):
             d = SnowData.random(np.random.default_rng(num_layers), t_len,
                                 num_layers, dtype)
+            # K9 (trajectories) keeps its run-time layer loop: 1 and 5.
+            traj = num_layers in (1, 5)
             # The snow-only routine (no GR4J, no UH registers).
             params = snow_random_params(np.random.default_rng(3), n, dtype,
                                         2.9)
-            cases = [("traj", False)] + [(mode, masked)
-                                         for masked in (False, True)
-                                         for mode in ("mse", "stats")]
+            cases = [("traj", False)] * traj + [
+                (mode, masked) for masked in (False, True)
+                for mode in ("mse", "stats")]
             for mode, masked in cases:
                 kw = dict(snow_only=True, masked=masked)
                 got = snow_call(fs, d, params, mode, **kw)
@@ -848,32 +914,56 @@ def phase_kernels_snow(n=256, t_len=300):
                     kw = dict(hyst=hyst, ice=ice, uh=uh)
                     label = (f"snow {name} L={num_layers} uh={uh} "
                              f"{variant:8s}")
-                    report(f"{label} traj", snow_call(fs, d, params, "traj",
-                                                      **kw),
-                           snow_call(fs, d, params, "traj", plain=True, **kw),
-                           *tol["traj"])
-                    n_checks += 1
+                    if traj:
+                        report(f"{label} traj",
+                               snow_call(fs, d, params, "traj", **kw),
+                               snow_call(fs, d, params, "traj", plain=True,
+                                         **kw), *tol["traj"])
+                        n_checks += 1
                     for masked in (False, True):
-                        # One plain run gives every mode's numbers: MSE is
-                        # row 0 of the statistics, which are rows 0..3 of
-                        # the SCA statistics.
-                        widest = "sca_stats" if hyst else "stats"
-                        want = snow_call(fs, d, params, widest, plain=True,
-                                         masked=masked, **kw)
-                        for mode in ("mse", "stats", "sca_stats"):
-                            if mode == "sca_stats" and not hyst:
-                                continue
-                            got = snow_call(fs, d, params, mode,
-                                            masked=masked, **kw)
-                            ref = {"mse": want[0], "stats": want[:4],
-                                   "sca_stats": want}[mode]
-                            report(f"{label} {mode}"
-                                   f"{'+masked' if masked else ''}", got,
-                                   ref, *tol["obj"])
-                            n_checks += 1
+                        n_checks += snow_objective_checks(
+                            fs, d, params, label, masked, kw, tol["obj"])
+        # The edges of the staging: T shorter than a tile and a whole
+        # number of tiles, N not a multiple of the block, gaps on both
+        # sides of every tile edge.
+        for edge_t in (37, 128):
+            for num_layers in (1, 2, 5, 7):
+                d = SnowData.random(np.random.default_rng(edge_t), edge_t,
+                                    num_layers, dtype).tile_edge_gaps()
+                params = snow_random_params(np.random.default_rng(4),
+                                            EDGE_MEMBERS, dtype, 2.9)
+                label = (f"snow {name} T={edge_t} N={EDGE_MEMBERS} "
+                         f"L={num_layers}")
+                kw = dict(snow_only=True, masked=True)
+                report(f"{label} snow-only stats+masked",
+                       snow_call(fs, d, params, "stats", **kw),
+                       snow_call(fs, d, params, "stats", plain=True, **kw),
+                       *tol["obj"])
+                n_checks += 1 + snow_objective_checks(
+                    fs, d, params, f"{label} hyst+ice", True,
+                    dict(hyst=True, ice=True, uh=(3, 7)), tol["obj"])
     print(f"[3 kernels] snow: {n_checks} kernel-vs-plain checks passed at "
-          f"N={n}, T={t_len}, L in (1, 5); snow-only outflow elements that "
-          f"differ from the plain version in any bit: {unequal}")
+          f"N={n}, T={t_len}, L in (1, 2, 5, 7) (K9 at 1 and 5), and at "
+          f"T in (37, 128), N={EDGE_MEMBERS}; snow-only outflow elements "
+          f"that differ from the plain version in any bit: {unequal}")
+
+
+def snow_objective_checks(fs, d, params, label, masked, kw, tol):
+    """K8's modes (MSE, statistics and with hysteresis the SCA statistics)
+    against one plain run of the widest: MSE is row 0 of the statistics,
+    which are rows 0..3 of the SCA statistics.  Returns the count."""
+    widest = "sca_stats" if kw["hyst"] else "stats"
+    want = snow_call(fs, d, params, widest, plain=True, masked=masked, **kw)
+    n_checks = 0
+    for mode in ("mse", "stats", "sca_stats"):
+        if mode == "sca_stats" and not kw["hyst"]:
+            continue
+        got = snow_call(fs, d, params, mode, masked=masked, **kw)
+        ref = {"mse": want[0], "stats": want[:4], "sca_stats": want}[mode]
+        report(f"{label} {mode}{'+masked' if masked else ''}", got, ref,
+               *tol)
+        n_checks += 1
+    return n_checks
 
 
 def phase_kernels_state_gr4j(prec_np, etp_np, qobs_np, n=500, t_len=3651,
@@ -2330,6 +2420,359 @@ def times_regional(measure, prec_np, etp_np, qobs_np):
             f"C={c} hyst+ice uh={uh} N={n} T={t_len} L={num_layers} mse")
 
 
+# ---------------------------------------------------------------------------
+# K8 and K12 up close: SASS of the time loop, time against N, fit shapes
+# ---------------------------------------------------------------------------
+
+CUOBJDUMP = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin",
+                         "cuobjdump")
+SASS_LINE = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P[T0-9]+\s+)?"
+                       r"([A-Z][A-Z0-9_.]*)([^;]*);")
+# Classes of SASS opcodes, by the opcode's first word.
+SASS_CLASSES = (
+    ("mufu", ("MUFU",)),
+    ("fp64", ("DADD", "DMUL", "DFMA", "DSETP", "DMNMX", "DSET")),
+    ("fp32", ("FADD", "FMUL", "FFMA", "FMNMX", "FSETP", "FSEL", "FSET",
+              "FCHK", "FRND", "FSWZADD")),
+    ("lds/sts", ("LDS", "STS", "LDSM")),
+    ("ldg", ("LDG", "LDGSTS", "LD", "UBLKCP", "UTMALDG")),
+    ("branch", ("BRA", "BSSY", "BSYNC", "CALL", "RET", "EXIT", "BREAK",
+                "BRX", "JMP", "WARPSYNC", "BAR", "SYNCS", "DEPBAR",
+                "LDGDEPBAR")),
+)
+# The instantiations whose time loop is read: (kernel, template arguments
+# as the build lines print them).  K8 at the bench shape (statistics and
+# SCA statistics, hysteresis + ice, UH (3, 7); 5 layers in registers, and
+# the run-time layer count; the names without a layer count are those of
+# the earlier design, which --compare may build), K12's three modes.
+SASS_TARGETS = (
+    ("snow_objective_kernel", "float, 3, 7, true, true, false, false, 5"),
+    ("snow_objective_kernel", "float, 3, 7, true, true, false, true, 5"),
+    ("snow_objective_kernel", "float, 3, 7, true, true, false, false, 0"),
+    ("snow_objective_kernel", "float, 3, 7, true, true, false, false"),
+    ("snow_objective_kernel", "float, 3, 7, true, true, false, true"),
+    ("hbv_objective_kernel", "float, false, false"),
+    ("hbv_objective_kernel", "float, true, false"),
+    ("hbv_objective_kernel", "float, false, true"),
+)
+# Probes of what one operation costs in SASS (each minus probe_add).
+PROBE_SRC = r"""
+#define PROBE(name, expr)                                                   \
+  extern "C" __global__ void name(const float* x, const float* y,          \
+                                  float* o) {                              \
+    const int i = threadIdx.x;                                             \
+    const float a = x[i], b = y[i];                                        \
+    o[i] = expr;                                                           \
+  }
+PROBE(probe_add, a + b)
+PROBE(probe_div, a / b)
+PROBE(probe_powf, powf(a, b))
+PROBE(probe_exp2_log2, exp2f(b * log2f(a)))
+"""
+SWEEP_MEMBERS = (16896, 33792, 67584, 131072, 262144)
+# The times of a fit generation's shape, carried in the kernels line.
+FIT_SHAPE_ROWS = {"snow_objective": "snow_mse_fit",
+                  "hbv_objective": "hbv_mse_fit"}
+SNOW_FIT_SHAPE = (135, 1827, 5)     # members (15 x 9 parameters), days, layers
+SNOW_FIT_UH = (10, 21)              # from the hysteresis classes' x4 bound, 10
+HBV_FIT_SHAPE = (165, 3652)         # members (15 x 11 parameters), days
+
+
+def sass_class(opcode):
+    base = opcode.split(".")[0]
+    for name, bases in SASS_CLASSES:
+        if base in bases:
+            return name
+    return "other"
+
+
+def sass_functions(path):
+    """{mangled name: [(address, opcode, operands)]} of every kernel in a
+    library or cubin, from ``cuobjdump -sass``."""
+    listing = subprocess.run([CUOBJDUMP, "-sass", str(path)],
+                             capture_output=True, text=True, check=True).stdout
+    funcs, current = {}, None
+    for ln in listing.splitlines():
+        if "Function :" in ln:
+            current = funcs.setdefault(ln.split("Function :")[1].strip(), [])
+        elif current is not None:
+            m = SASS_LINE.search(ln)
+            if m:
+                current.append((int(m.group(1), 16), m.group(2),
+                                m.group(3)))
+    return funcs
+
+
+def sass_loops(instrs):
+    """(first, last) address of every loop: a branch back to an earlier
+    address (the trap at a kernel's end branches to itself)."""
+    spans = set()
+    for addr, opcode, operands in instrs:
+        m = re.search(r"0x([0-9a-f]+)", operands)
+        if opcode.split(".")[0] == "BRA" and m and int(m.group(1), 16) < addr:
+            spans.add((int(m.group(1), 16), addr))
+    return spans
+
+
+def time_loop_profile(instrs):
+    """The time loop of a kernel: the largest loop, or inside it a loop of
+    at least 40 % of its size (a step loop inside a tile loop).  Returns
+    (instructions of that loop outside its inner loops, by class; sizes of
+    its inner loops), or None without a loop."""
+    spans = sass_loops(instrs)
+    if not spans:
+        return None
+
+    def inside(span):
+        return [i for i in instrs if span[0] <= i[0] <= span[1]]
+
+    loop = max(spans, key=lambda s: len(inside(s)))
+    while True:
+        big = [s for s in spans if s != loop and loop[0] <= s[0]
+               and s[1] <= loop[1]
+               and len(inside(s)) >= 0.4 * len(inside(loop))]
+        if not big:
+            break
+        loop = max(big, key=lambda s: len(inside(s)))
+    nested = [s for s in spans if s != loop and loop[0] <= s[0]
+              and s[1] <= loop[1]]
+    outer = [s for s in nested if not any(
+        t != s and t[0] <= s[0] and s[1] <= t[1] for t in nested)]
+    own = [i for i in inside(loop)
+           if not any(s[0] <= i[0] <= s[1] for s in outer)]
+    classes = {}
+    for _, opcode, _ in own:
+        classes[sass_class(opcode)] = classes.get(sass_class(opcode), 0) + 1
+    return classes, sorted(len(inside(s)) for s in outer)
+
+
+def sass_step_counts(lib):
+    """{(kernel, template arguments): time_loop_profile} of SASS_TARGETS in
+    a built library."""
+    wanted = set(SASS_TARGETS)
+    found = {}
+    for name, instrs in sass_functions(lib.path).items():
+        m = re.search(KERNEL_NAME, name)
+        if m and (m.group(1), template_args(m.group(2))) in wanted:
+            found[(m.group(1), template_args(m.group(2)))] = (
+                time_loop_profile(instrs))
+    return found
+
+
+def sass_summary(profile):
+    """One line's worth of a time_loop_profile."""
+    if profile is None:
+        return "no loop found"
+    classes, inner = profile
+    text = f"{sum(classes.values())} per step (" + ", ".join(
+        f"{k} {classes.get(k, 0)}" for k, _ in SASS_CLASSES) + (
+        f", other {classes.get('other', 0)})")
+    if inner:
+        text += f" + inner loop(s) of {inner} per trip"
+    return text
+
+
+def probe_costs():
+    """SASS instructions of an IEEE float division, powf and
+    exp2f(y * log2f(x)) on sm_90a, each beyond an addition's kernel."""
+    from rrmpg_tpu_torch.ops._build import NVCC_FLAGS, _find_nvcc
+
+    with tempfile.TemporaryDirectory() as tmp:
+        src, cubin = Path(tmp) / "probe.cu", Path(tmp) / "probe.cubin"
+        src.write_text(PROBE_SRC)
+        flags = [f for f in NVCC_FLAGS if f not in ("-Xptxas", "-v")]
+        subprocess.run([_find_nvcc(), *flags, "-cubin", "-o", str(cubin),
+                        str(src)], check=True, capture_output=True)
+        funcs = sass_functions(cubin)
+    sizes = {name: sum(1 for _, op, _ in instrs if op != "NOP")
+             for name, instrs in funcs.items()}
+    return {name: size - sizes["probe_add"] for name, size in sizes.items()
+            if name != "probe_add"}
+
+
+def k8_k12_calls(d, snow_params, tensors, hbv_qobs, hbv_params):
+    """The K8 and K12 calls of the bench shape, by mode, as zero-argument
+    functions through the wrappers (for timing, so no plain version)."""
+    from rrmpg_tpu_torch.ops import fused_hbv as fh
+    from rrmpg_tpu_torch.ops import fused_snow as fs
+
+    kw = dict(hyst=True, ice=True, uh=(3, 7), inits=(0.0, 0.0, 0.3, 0.3))
+    calls = {f"snow_{mode}": functools.partial(snow_call, fs, d, snow_params,
+                                               mode, **kw)
+             for mode in ("mse", "stats")}
+    # The warm entries continue from the state a cold run ends in (K10 and
+    # K14, the same in both designs).
+    _, snow_state = snow_state_kernel(fs, d, snow_params, None, **kw)
+    calls["snow_warm"] = functools.partial(
+        snow_warm_objective_kernel, fs, d, snow_params, snow_state, True, True,
+        (3, 7), True, False)
+    calls.update({f"hbv_{mode}": functools.partial(
+        hbv_kernel, fh, tensors, hbv_qobs, hbv_params, mode)
+        for mode in ("mse", "stats")})
+    _, hbv_state = fh.hbv_simulate_state_fused(*tensors, *HBV_INITS,
+                                               hbv_params)
+    calls["hbv_warm"] = functools.partial(
+        fh.hbv_ensemble_mse_fused, *tensors, hbv_qobs, 0.0, 0.0, 0.0, 0.0,
+        hbv_params, stats=True, state=hbv_state)
+    calls["snow_sca_stats"] = functools.partial(
+        snow_call, fs, d, snow_params, "sca_stats", **kw)
+    return calls
+
+
+def fit_shape_calls(forcing, qsim_matlab):
+    """K8 and K12 at the shapes of a ``fit`` generation: the snow fit's 135
+    members x 1827 days x 5 layers (MSE, gaps in discharge, hysteresis +
+    ice, UH (10, 21)) and the HBV-Edu fit's 165 members x 3652 days (MSE
+    with gaps).  Returns {name: (call, plain call, operations, bytes,
+    description)}."""
+    from rrmpg_tpu_torch.ops import fused_hbv as fh
+    from rrmpg_tpu_torch.ops import fused_snow as fs
+
+    n, t_len, num_layers = SNOW_FIT_SHAPE
+    d, params = snow_time_inputs(n, t_len, num_layers)
+    kw = dict(hyst=True, ice=True, uh=SNOW_FIT_UH, masked=True,
+              inits=(0.0, 0.0, 0.3, 0.3))
+    snow_ops = ((num_layers * (SNOW_LAYER_OPS[True] + SNOW_ICE_OPS + 1) + 2
+                 + GR4J_STEP_OPS[SNOW_FIT_UH] + SNOW_SUMS_OPS) * n * t_len)
+    snow_bytes = 4 * (3 * t_len * num_layers + 2 * t_len + 2 * num_layers
+                      + 11 * n + n)
+    hn, ht = HBV_FIT_SHAPE
+    tensors = hbv_tensors(forcing, F32, ht)
+    qobs = qsim_matlab[:ht] * (24 * 60 * 60) / (HBV_AREA * 1000)
+    qobs[200:215] = np.nan
+    qobs[::97] = np.nan
+    qobs = as_tensor(qobs, F32)
+    hbv_params = hbv_random_params(np.random.default_rng(4), hn, F32)
+    args = (fh, tensors, qobs, hbv_params, "mse", True)
+    return {
+        "snow_mse_fit": (
+            lambda: snow_call(fs, d, params, "mse", **kw),
+            lambda: snow_call(fs, d, params, "mse", plain=True, **kw),
+            snow_ops, snow_bytes,
+            f"fit shape hyst+ice uh={SNOW_FIT_UH} N={n} T={t_len} "
+            f"L={num_layers} mse+masked"),
+        "hbv_mse_fit": (
+            lambda: hbv_kernel(*args), lambda: hbv_plain(*args),
+            (HBV_STEP_OPS + OBJECTIVE_OPS["mse"]) * hn * ht,
+            4 * (5 * ht + 17 * hn + hn),
+            f"fit shape N={hn} T={ht} mse+masked"),
+    }
+
+
+def sweep_calls(forcing, qsim_matlab, members):
+    """K8 statistics (131072-shape recipe, hysteresis + ice, UH (3, 7), 5
+    layers) and K12 statistics at T = 3651 with ``members`` members."""
+    from rrmpg_tpu_torch.ops import fused_hbv as fh
+    from rrmpg_tpu_torch.ops import fused_snow as fs
+
+    d, params = snow_time_inputs(members, TIME_STEPS, 5)
+    tensors = hbv_tensors(forcing, F32, TIME_STEPS)
+    qobs = as_tensor(qsim_matlab[:TIME_STEPS], F32)
+    hbv_params = hbv_random_params(np.random.default_rng(2), members, F32)
+    kw = dict(hyst=True, ice=True, uh=(3, 7), inits=(0.0, 0.0, 0.3, 0.3))
+    return {"snow_stats": lambda: snow_call(fs, d, params, "stats", **kw),
+            "hbv_stats": lambda: hbv_kernel(fh, tensors, qobs, hbv_params,
+                                            "stats")}
+
+
+def print_sass(card, label, lib):
+    for (kernel, targs), profile in sorted(sass_step_counts(lib).items()):
+        print(f"[6 times] SASS {label}{kernel}<{targs}> time loop: "
+              f"{sass_summary(profile)}; {card}")
+
+
+@contextlib.contextmanager
+def using_library(lib):
+    """Let the wrappers launch from ``lib`` (another build of the sources
+    with the same C interface) instead of the checkout's own library."""
+    from rrmpg_tpu_torch.ops import _build
+
+    saved = _build.load_library
+    _build.load_library = lambda: lib
+    try:
+        yield
+    finally:
+        _build.load_library = saved
+
+
+def phase_compare(card, other_dirs, forcing, qsim_matlab):
+    """Development: build the kernel sources in each of ``other_dirs``
+    (another version's ``rrmpg_tpu_torch/csrc``) beside this checkout's,
+    and time K8 and K12 of each against this one's in turns (other, this,
+    this, other) at the bench shape, the fit shapes and over SWEEP_MEMBERS,
+    with the SASS of the time loops and the registers that differ.  Times
+    only: the kernels phase checks this checkout's kernels."""
+    from rrmpg_tpu_torch.ops._build import BUILD_DIR, build_library, \
+        load_library
+
+    this = load_library()
+    others = []
+    for k, src in enumerate(other_dirs):
+        lib = build_library(src, BUILD_DIR / f"compare{k}")
+        print(f"[compare] {src}: {lib.path.name} built in "
+              f"{lib.build_seconds:.1f} s")
+        # Registers and spills where the two builds differ.
+        theirs, ours = ptxas_table(lib.log), ptxas_table(this.log)
+        for kernel in sorted(set(theirs) | set(ours)):
+            if theirs.get(kernel) != ours.get(kernel):
+                print(f"    ptxas {kernel}: {src} {theirs.get(kernel)}, "
+                      f"this {ours.get(kernel)} (registers, spill bytes)")
+        others.append((str(src), lib))
+    for label, lib in [("this", this)] + others:
+        print_sass(card, f"{label}: ", lib)
+    for name, extra in probe_costs().items():
+        print(f"[compare] {name}: {extra} SASS instructions beyond an "
+              "addition's kernel (sm_90a, -O3)")
+
+    def turns(name, fn, reps, what):
+        for label, lib in others:
+            ms = []
+            for use in (lib, this, this, lib):
+                with using_library(use):
+                    ms.append(device_ms(fn, reps))
+            print(f"[compare] {name} {what}: {label} {ms[0]:.4f} / "
+                  f"{ms[3]:.4f} ms, this {ms[1]:.4f} / {ms[2]:.4f} ms, "
+                  f"this/{label} {min(ms[1:3]) / min(ms[0], ms[3]):.3f}; "
+                  f"{card}")
+
+    n, t_len = TIME_MEMBERS, TIME_STEPS
+    d, snow_params = snow_time_inputs(n, t_len, 5)
+    tensors = hbv_tensors(forcing, F32, t_len)
+    hbv_qobs = as_tensor(qsim_matlab[:t_len], F32)
+    hbv_params = hbv_random_params(np.random.default_rng(2), n, F32)
+    bench = k8_k12_calls(d, snow_params, tensors, hbv_qobs, hbv_params)
+    sca = bench.pop("snow_sca_stats")
+    for name, fn in bench.items():
+        turns(name, fn, 3, f"N={n} T={t_len}")
+    for name, (fn, _, _, _, what) in fit_shape_calls(forcing,
+                                                     qsim_matlab).items():
+        turns(name, fn, 20, what)
+    for members in SWEEP_MEMBERS:
+        for name, fn in sweep_calls(forcing, qsim_matlab, members).items():
+            turns(name, fn, 3, f"sweep N={members} T={t_len}")
+    turns("snow_sca_stats", sca, 3, f"N={n} T={t_len}")
+
+
+def times_k8_k12(measure, card, forcing, qsim_matlab):
+    """K8 and K12 beyond the bench shape: at the shapes of a ``fit``
+    generation (against plain version and bound), over SWEEP_MEMBERS at
+    T = 3651 (kernel only: time against N says whether the SMs' issue or
+    one thread's latency binds), and the SASS of their time loops."""
+    from rrmpg_tpu_torch.ops._build import load_library
+
+    for name, (fn, plain, ops, n_bytes, what) in fit_shape_calls(
+            forcing, qsim_matlab).items():
+        measure(name, fn, plain, ops, n_bytes, 20, what)
+    for members in SWEEP_MEMBERS:
+        for name, fn in sweep_calls(forcing, qsim_matlab, members).items():
+            ms = device_ms(fn, 3)
+            print(f"[6 times] sweep {name} float32 N={members} "
+                  f"T={TIME_STEPS}: kernel {ms:.4f} ms, "
+                  f"{members * TIME_STEPS / (ms * 1e-3):.4e} member-steps/s; "
+                  f"{card}")
+    print_sass(card, "", load_library())
+
+
 def phase_times(card, prec_np, etp_np, qobs_np, forcing, qsim_matlab):
     """Kernel, plain version and bound of every kernel; returns
     ``{name: dict(ms, plain_ms, bound_ms, bound_by)}``."""
@@ -2489,6 +2932,7 @@ def phase_times(card, prec_np, etp_np, qobs_np, forcing, qsim_matlab):
             4 * (series + t_len + 11 * n + 4 * n + warm_read), 3,
             shape + " stats")
     del snow_state, d, snow_params
+    times_k8_k12(measure, card, forcing, qsim_matlab)
     times_regional(measure, prec_np, etp_np, qobs_np)
 
     # ABC, one member over 10M steps.  Three copies of the series take
@@ -2548,6 +2992,8 @@ def kernel_entries(launches, max_abs, times):
         for mode, detail in combined["modes"].items():
             check(detail["launches"] > 0, f"{name}, mode {mode}, was "
                   "launched no time on the main paths")
+        if name in FIT_SHAPE_ROWS:
+            combined["fit_shape"] = times[FIT_SHAPE_ROWS[name]]
         out.append(combined)
     return out
 
@@ -2560,7 +3006,12 @@ def main():
     parser.add_argument("--phases", default=",".join(PHASES),
                         help="development: the phases to run after the "
                         "build, of " + ", ".join(PHASES))
-    phases = set(parser.parse_args().phases.split(","))
+    parser.add_argument("--compare", metavar="DIR[,DIR...]",
+                        help="development: time K8 and K12 built from the "
+                        "kernel sources in each DIR against this "
+                        "checkout's, in turns, then stop")
+    args = parser.parse_args()
+    phases = set(args.phases.split(","))
     check(phases <= set(PHASES), f"unknown phase in {sorted(phases)}")
     started = time.perf_counter()
 
@@ -2572,6 +3023,10 @@ def main():
     lap("the build")
     qobs, prec, etp = basin()
     forcing, qsim_matlab = hbv_data()
+    if args.compare:
+        phase_compare(card, args.compare.split(","), forcing, qsim_matlab)
+        lap("the comparison")
+        sys.exit(3)
     if "kernels" in phases:
         phase_kernels_gr4j(prec, etp, qobs)
         phase_kernels_abc()

@@ -19,13 +19,20 @@
 // What the design does about it: one thread owns one member; the stores and
 // the 13 constants stay in registers for the whole time loop, the objective
 // accumulates in registers, and latency is hidden by running many members
-// per SM.  The forcing reads go through __ldg, which the warp serves as one
-// broadcast.  K13's per-step stores stride across members (row-major
-// (N, T)); that is left as it is for now.
+// per SM.  K13 and K14 read the forcing through __ldg, which the warp serves
+// as one broadcast; their per-step stores stride across members (row-major
+// (N, T)); that is left as it is for now.  K12 at 131072 members is bound by
+// the SMs' issue rate (its time grows with N from ~34k members on, PERF.md
+// section 6), and float32 powf is ~94 SASS instructions of a ~160-instruction
+// step: K12 stages its forcing in shared memory with cp.async (no device
+// read on the recurrence) and takes the soil power in float32 as
+// exp2(Beta * log2(x)) (~34 instructions) where that is pow on the model's
+// domain (soil_pow).
 //
 // pow() is IEEE pow (no fast-math): a negative soil store gives NaN through
 // (soil/FC)^Beta, as the reference's np.power does, and that NaN reaches the
-// member's loss.  The soil store is not clamped.
+// member's loss; K12's soil_pow keeps powf for it.  The soil store is not
+// clamped.
 //
 // A cold start freezes the stores at t = 0 and gives q = 0 there (the
 // reference's initialization step); a warm continuation advances the carried
@@ -50,12 +57,28 @@
 
 #include <cstddef>
 
+#include "async_copy.cuh"
+
 namespace {
 
 constexpr int kBlock = 128;
+// K12: steps of forcing staged per buffer (two buffers).
+constexpr int kTile = 64;
 
 __device__ __forceinline__ float dev_pow(float x, float y) { return powf(x, y); }
 __device__ __forceinline__ double dev_pow(double x, double y) { return pow(x, y); }
+
+// K12's (soil / FC)^Beta.  float32: exp2(Beta * log2(x)) where x >= 0 and
+// Beta != 0 (0 for x = 0 and Beta > 0), IEEE powf elsewhere, so a negative
+// soil store gives powf's NaN and Beta = 0 gives 1: the NaN members are
+// powf's.  float64 keeps pow.
+__device__ __forceinline__ float soil_pow(float x, float beta) {
+  return (x >= 0.0f && beta != 0.0f) ? exp2f(beta * log2f(x))
+                                     : powf(x, beta);
+}
+__device__ __forceinline__ double soil_pow(double x, double beta) {
+  return pow(x, beta);
+}
 
 // max(x, 0) and min(x, y) that propagate NaN, as jnp.maximum / jnp.minimum
 // and torch.clamp / torch.minimum do.
@@ -101,8 +124,8 @@ __device__ __forceinline__ void hbv_init(Member<Real>& m,
 
 // One HBV-Edu time step (_hbv_step, pallas_hbv.py:48-106); returns the
 // discharge.  Division by FC and PWP is a multiply by the packed
-// reciprocals.
-template <typename Real>
+// reciprocals.  SOIL_POW: the soil power through soil_pow (K12).
+template <typename Real, bool SOIL_POW = false>
 __device__ __forceinline__ Real hbv_step(Member<Real>& m, Real temp,
                                          Real prec, Real pe_month,
                                          Real t_month) {
@@ -113,7 +136,9 @@ __device__ __forceinline__ Real hbv_step(Member<Real>& m, Real temp,
   const Real liquid =
       freezing ? Real(0) : prec + min_nan(m.snow, melt_pot);
 
-  const Real prec_eff = liquid * dev_pow(m.soil * m.iFC, m.Beta);
+  const Real prec_eff =
+      liquid * (SOIL_POW ? soil_pow(m.soil * m.iFC, m.Beta)
+                         : dev_pow(m.soil * m.iFC, m.Beta));
   const Real pe = (Real(1) + m.C * (temp - t_month)) * pe_month;
   const Real ea = m.soil > m.PWP ? pe : pe * (m.soil * m.iPWP);
   const Real soil = m.soil + liquid - prec_eff - ea;
@@ -183,6 +208,12 @@ hbv_traj_state_kernel(const Real* __restrict__ temp,
 // number of steps averaged over (T, or the valid count).  A NaN discharge
 // at a step with an observation makes the member's result NaN.
 // A cold start scores q = 0 against the first observation.
+//
+// The five series (temp, prec, pe, tm, qobs) are staged: the block copies
+// them tile by tile (kTile steps) into shared memory with cp.async,
+// double-buffered, so no read of device memory sits on the recurrence.
+// Every thread takes part in the copies and barriers; threads past N run
+// the last member and write nothing.
 template <typename Real, bool STATS, bool MASKED>
 __global__ void __launch_bounds__(kBlock)
 hbv_objective_kernel(const Real* __restrict__ temp,
@@ -191,12 +222,13 @@ hbv_objective_kernel(const Real* __restrict__ temp,
                      const Real* __restrict__ qobs,
                      const Real* __restrict__ params, int n, int t_len,
                      bool warm, Real count, Real* __restrict__ out) {
+  constexpr int kSeries = 5;
+  __shared__ Real stage[2][kSeries][kTile];
+  const Real* series[kSeries] = {temp, prec, pe, tm, qobs};
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
   Member<Real> m;
-  hbv_init(m, params, n, i);
+  hbv_init(m, params, n, min(i, n - 1));
   Real sse = Real(0), sum_q = Real(0), sum_q2 = Real(0), sum_qo = Real(0);
-  int t = 0;
   if (!warm) {
     // The initialization step: q = 0, so only the squared error moves.
     const Real qo = __ldg(qobs);
@@ -204,21 +236,48 @@ hbv_objective_kernel(const Real* __restrict__ temp,
       sse = qo * qo;
       if (STATS) sum_qo = Real(0) * qo;  // NaN if the observation is
     }
-    t = 1;
   }
-  for (; t < t_len; ++t) {
-    const Real q = hbv_step<Real>(m, __ldg(temp + t), __ldg(prec + t),
-                                  __ldg(pe + t), __ldg(tm + t));
-    const Real qo = __ldg(qobs + t);
-    if (MASKED && qo != qo) continue;
-    const Real diff = q - qo;
-    sse += diff * diff;
-    if (STATS) {
-      sum_q += q;
-      sum_q2 += q * q;
-      sum_qo += q * qo;
+  const int tiles = (t_len + kTile - 1) / kTile;
+  for (int s = threadIdx.x; s < min(kTile, t_len); s += blockDim.x) {
+#pragma unroll
+    for (int c = 0; c < kSeries; ++c) copy_async(&stage[0][c][s], series[c] + s);
+  }
+  copy_commit();
+#pragma unroll 1
+  for (int k = 0; k < tiles; ++k) {
+    const int t0 = k * kTile;
+    if (k + 1 < tiles) {
+      const int next = t0 + kTile;
+      for (int s = threadIdx.x; s < min(kTile, t_len - next);
+           s += blockDim.x) {
+#pragma unroll
+        for (int c = 0; c < kSeries; ++c) {
+          copy_async(&stage[(k + 1) & 1][c][s], series[c] + next + s);
+        }
+      }
     }
+    copy_commit();  // possibly empty: the group count stays one per tile
+    copy_wait_older();
+    __syncthreads();
+    const Real(*buf)[kTile] = stage[k & 1];
+    const int steps = min(kTile, t_len - t0);
+#pragma unroll 1
+    for (int s = (k == 0 && !warm) ? 1 : 0; s < steps; ++s) {
+      const Real q = hbv_step<Real, true>(m, buf[0][s], buf[1][s], buf[2][s],
+                                          buf[3][s]);
+      const Real qo = buf[4][s];
+      if (MASKED && qo != qo) continue;
+      const Real diff = q - qo;
+      sse += diff * diff;
+      if (STATS) {
+        sum_q += q;
+        sum_q2 += q * q;
+        sum_qo += q * qo;
+      }
+    }
+    __syncthreads();  // the buffer is refilled two tiles on
   }
+  if (i >= n) return;
   out[i] = sse / count;
   if (STATS) {
     out[(size_t)n + i] = sum_q / count;

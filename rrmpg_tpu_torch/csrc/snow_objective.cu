@@ -1,0 +1,474 @@
+// K8: the fused Cemaneige snow + GR4J objective for NVIDIA Hopper (sm_90a).
+//
+// Replaces the Pallas kernel template of rrmpg_tpu/ops/pallas_snow.py
+// (_make_kernel, objective modes, with its per-layer step
+// _snow_step_layer):
+//   K8  snowgr4j_ensemble_mse_pallas / cemaneige_ensemble_mse_pallas
+//         -> snow_objective_kernel<..., SCA=false>  (MSE, or the four
+//            discharge statistics)
+//         -> snow_objective_kernel<..., SCA=true>   (discharge statistics
+//            plus four statistics of 100*SCA against NDSI per band)
+// and its `warm` mode (state=): the kernel enters from a carried state when
+// it is given its rows (first_step = -1, as in snow_fused.cu).
+//
+// What bounds it on this card: operations.  A step is L independent layer
+// updates (each with an IEEE division) followed by one GR4J step, T times
+// in sequence; K8 moves 11 parameters in and 1, 4 or 4 + 4L numbers out per
+// member, and the forcing is the same for every member.  With the layer
+// states in shared-memory columns (the run-time-L kernel) a 5-layer step
+// issues ~830 SASS instructions and the kernel is bound by the SMs' issue
+// rate from ~67584 members on, by one thread's latency below (PERF.md
+// section 6); the register design below issues ~570.
+//
+// What the design does about it:
+// * The layer count is a template constant NL where the data has one:
+//   NL = 5 (every snow sheet of the repository, its examples and the bench
+//   shape) and NL = 1 (the lumped case).  The layer states, constants and
+//   glacier shares (and with SCA the band sums) then live in registers,
+//   the layer loop is unrolled, and the NL independent layer chains of a
+//   step interleave in the instruction stream: a step costs about one layer
+//   chain plus the GR4J chain instead of NL layer chains.  Any other L runs
+//   the same kernel as NL = 0 with snow_fused.cu's shared-memory columns
+//   (snow_step.cuh), chosen at compile time.
+// * The forcing of a step ((T, L) snow, rain and temperature, etp, qobs and
+//   with SCA the (T, L) NDSI) is staged: the block copies it tile by tile
+//   (64 steps) into shared memory with cp.async, double-buffered, so the
+//   next tile lands while this one is computed and no read of device memory
+//   sits on the recurrence; a step reads broadcasts from shared memory.
+//   Each element is one 4- or 8-byte copy (async_copy.cuh), so a series
+//   that a slice starts at any element needs no alignment beyond its
+//   type's.  Every thread of a
+//   block takes part in the copies and barriers; threads past N run the
+//   last member and write nothing.
+// * The arithmetic of a step is snow_step.cuh's, unchanged: the same
+//   operations in the same order, every mul_rn product and IEEE division,
+//   the layer sum in layer order; only where the state lives, how the
+//   layers are scheduled and how the forcing arrives differ from the
+//   run-time-L kernels.
+//
+// out[i] = mean squared error; with `stats` (always with SCA) rows 1..3 hold
+// the time means of [q, q^2, q*qobs]; with SCA rows 4 + 4l + j hold, for
+// band l, the means of [(100 sca - ndsi)^2, 100 sca, (100 sca)^2,
+// 100 sca * ndsi].  `masked` skips a NaN observation (the step itself still
+// runs), discharge and each band by their own gaps; the discharge sums are
+// divided by `count`, band l's by band_counts[l].
+//
+// C interface (bound with ctypes), as snow_fused.cu's: the entry returns a
+// cudaError_t as int (0 on success) and launches on the stream it is given
+// without synchronising.  params is an (11, N) row-major array
+// [x1, x2, x3, x4, s0, r0, CTG, Kf, 1/Thacc, Rsp, DDF]; snow, rain, temp and
+// ndsi are (T, L) row-major; frac_ice and band_counts are (L,);
+// layer_consts is (L,), or (L, N) with `consts_per_member`; warm entry:
+// state_in (4L, N) [G | eTG | sca | swe_max] and hist (H, N), else null.
+
+#include <cuda_runtime.h>
+
+#include <cstddef>
+
+#include "async_copy.cuh"
+#include "snow_step.cuh"
+
+namespace {
+
+// Steps of forcing staged per buffer (two buffers); the run-time-L kernel
+// halves it where many layers would not fit.
+constexpr int kTile = 64;
+// Shared memory a block may use after opting in (H100: 227 KB).
+constexpr size_t kSharedOptIn = 232448;
+
+// The layer series of one step of forcing (snow, rain, temperature and
+// with SCA the NDSI).  A staging buffer holds one record per step,
+// [snow (L) | rain (L) | temp (L) (| ndsi (L)) | etp | qobs], so a step
+// reads its forcing at fixed offsets from one pointer.
+template <bool SCA>
+__host__ __device__ constexpr int layer_series() {
+  return SCA ? 4 : 3;
+}
+
+// Copy steps [t0, t0 + steps) of the forcing into the records of `buf`
+// (`record` values each); consecutive threads read consecutive elements.
+template <typename Real, bool SNOW_ONLY, bool SCA>
+__device__ __forceinline__ void stage_tile(const SnowArgs<Real>& a, Real* buf,
+                                           int t0, int steps, int L,
+                                           int record) {
+  const size_t first = (size_t)t0 * L;
+  for (int j = threadIdx.x; j < steps * L; j += blockDim.x) {
+    Real* cell = buf + (j / L) * record + j % L;
+    copy_async(cell, a.snow + first + j);
+    copy_async(cell + L, a.rain + first + j);
+    copy_async(cell + 2 * L, a.temp + first + j);
+    if (SCA) copy_async(cell + 3 * L, a.ndsi + first + j);
+  }
+  Real* series = buf + layer_series<SCA>() * L;
+  for (int j = threadIdx.x; j < steps; j += blockDim.x) {
+    if (!SNOW_ONLY) copy_async(series + j * record, a.etp + t0 + j);
+    copy_async(series + j * record + 1, a.qobs + t0 + j);
+  }
+}
+
+// The layers of one member with a compile-time count: states, constants,
+// glacier shares and band sums in registers.
+template <typename Real, int NL, bool SCA>
+struct LayerRegs {
+  Real G[NL], eTG[NL], sca[NL], swe[NL], cst[NL], fice[NL];
+  Real band[SCA ? NL : 1][4];
+};
+
+template <typename Real, int NL, bool HYST, bool ICE, bool SCA>
+__device__ __forceinline__ void layer_regs_init(LayerRegs<Real, NL, SCA>& ly,
+                                                const SnowArgs<Real>& a,
+                                                int i) {
+  const size_t n = a.n;
+#pragma unroll
+  for (int l = 0; l < NL; ++l) {
+    ly.cst[l] = a.consts_per_member ? a.layer_consts[(size_t)l * n + i]
+                                    : a.layer_consts[l];
+    ly.fice[l] = ICE ? a.frac_ice[l] : Real(0);
+    const bool warm = a.state_in != nullptr;
+    ly.G[l] = warm ? a.state_in[(size_t)l * n + i] : Real(0);
+    ly.eTG[l] = warm ? a.state_in[(size_t)(NL + l) * n + i] : Real(0);
+    ly.sca[l] = (HYST && warm) ? a.state_in[(size_t)(2 * NL + l) * n + i]
+                               : Real(0);
+    ly.swe[l] = (HYST && warm) ? a.state_in[(size_t)(3 * NL + l) * n + i]
+                               : Real(0);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) ly.band[SCA ? l : 0][j] = Real(0);
+  }
+}
+
+// All NL layers of one member, one time step, from the step's staged
+// record `row`: returns the GR4J precipitation, as snow_catchment_step.
+template <typename Real, int NL, bool HYST, bool ICE, bool SCA>
+__device__ __forceinline__ Real layer_regs_step(const SnowMember<Real>& c,
+                                                LayerRegs<Real, NL, SCA>& ly,
+                                                bool first, const Real* row,
+                                                int masked) {
+  Real liquid_sum = Real(0), ice_sum = Real(0);
+#pragma unroll
+  for (int l = 0; l < NL; ++l) {
+    const Real temp_l = row[2 * NL + l];
+    liquid_sum += snow_layer_step<Real, HYST>(
+        c, first, row[l], row[NL + l], temp_l, ly.cst[l], ly.G[l],
+        ly.eTG[l], ly.sca[l], ly.swe[l]);
+    if constexpr (ICE) {
+      const Real melt = relu_nan(mul_rn(c.ddf, temp_l));
+      ice_sum += mul_rn(ly.G[l] > Real(1) ? Real(0) : melt, ly.fice[l]);
+    }
+    if constexpr (SCA) {
+      const Real s100 = Real(100) * ly.sca[l];
+      const Real nd = row[3 * NL + l];
+      if (!(masked && nd != nd)) {
+        const Real d = s100 - nd;
+        ly.band[l][0] += d * d;
+        ly.band[l][1] += s100;
+        ly.band[l][2] += s100 * s100;
+        ly.band[l][3] += s100 * nd;
+      }
+    }
+  }
+  const Real p = liquid_sum / Real(NL);
+  return ICE ? p + ice_sum : p;
+}
+
+// The run-time-L step: snow_catchment_step of snow_step.cuh with the
+// forcing read from the step's staged record instead of device memory.
+// `state` is the thread's shared-memory column, rows `stride` apart.
+template <typename Real, bool HYST, bool ICE, bool SCA>
+__device__ __forceinline__ Real column_step(const SnowMember<Real>& c,
+                                            const SnowArgs<Real>& a,
+                                            bool first, const Real* row,
+                                            Real* state, int stride) {
+  const int L = a.num_layers;
+  Real liquid_sum = Real(0), ice_sum = Real(0);
+  // Not unrolled: a partly unrolled loop spilled a register (float32, ice).
+#pragma unroll 1
+  for (int l = 0; l < L; ++l) {
+    Real* cell = state + (size_t)l * stride;
+    const size_t rows = (size_t)L * stride;  // distance between state rows
+    Real G = cell[0], eTG = cell[rows];
+    Real sca = Real(0), swe = Real(0);
+    if (HYST) {
+      sca = cell[2 * rows];
+      swe = cell[3 * rows];
+    }
+    const Real temp_l = row[2 * L + l];
+    liquid_sum += snow_layer_step<Real, HYST>(
+        c, first, row[l], row[L + l], temp_l,
+        cell[layer_state_rows<HYST>() * rows], G, eTG, sca, swe);
+    cell[0] = G;
+    cell[rows] = eTG;
+    if (HYST) {
+      cell[2 * rows] = sca;
+      cell[3 * rows] = swe;
+    }
+    if (ICE) {
+      const Real melt = relu_nan(mul_rn(c.ddf, temp_l));
+      ice_sum += mul_rn(G > Real(1) ? Real(0) : melt, __ldg(a.frac_ice + l));
+    }
+    if (SCA) {
+      const Real s100 = Real(100) * sca;
+      const Real nd = row[3 * L + l];
+      if (!(a.masked && nd != nd)) {
+        Real* acc = state + ((size_t)(layer_state_rows<HYST>() + 1) * L +
+                             (size_t)4 * l) * stride;
+        const Real d = s100 - nd;
+        acc[0] += d * d;
+        acc[stride] += s100;
+        acc[2 * stride] += s100 * s100;
+        acc[3 * stride] += s100 * nd;
+      }
+    }
+  }
+  const Real p = liquid_sum / Real(L);
+  return ICE ? p + ice_sum : p;
+}
+
+// K8.  NL = 0 takes the layer count from the arguments; `tile_arg` is then
+// the staged steps per buffer (NL > 0 stages kTile).  The staged records
+// sit at one pointer per step with every value at a fixed offset from it:
+// a layout of one block per series (snow of every step, then rain, ...)
+// read through two pointers, one of them offset, was miscompiled by the
+// CUDA 12.9 ptxas at NL = 5 with SCA and UH (3, 7) (the etp address lost
+// the offset; the read left the block's shared memory).
+template <typename Real, int NUH1, int NUH2, bool HYST, bool ICE,
+          bool SNOW_ONLY, bool SCA, int NL>
+__global__ void __launch_bounds__(kBlock)
+snow_objective_kernel(SnowArgs<Real> a, int tile_arg) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  const bool active = i < a.n;
+  const int im = active ? i : a.n - 1;  // past N: the last member, unwritten
+  const int L = NL > 0 ? NL : a.num_layers;
+  const int tile = NL > 0 ? kTile : tile_arg;
+  const int record = layer_series<SCA>() * L + 2;  // values per staged step
+  const int buffer = tile * record;
+  extern __shared__ __align__(16) unsigned char snow_shared[];
+  Real* shared = reinterpret_cast<Real*>(snow_shared);
+  // [ layer columns (NL = 0) | staging buffer 0 | staging buffer 1 ]
+  const int stride = blockDim.x;
+  const size_t columns =
+      NL > 0 ? 0 : (size_t)state_rows<HYST, SCA>() * L * stride;
+  Real* state = shared + threadIdx.x;
+  Real* stage = shared + columns;
+
+  SnowMember<Real> c;
+  snow_init(c, a.params, a.n, im, a.snow0, a.th0);
+  Member<Real, NUH1, NUH2> m;
+  if constexpr (!SNOW_ONLY) gr4j_init(m, a.params, a.n, im, a.hist);
+  LayerRegs<Real, (NL > 0 ? NL : 1), SCA> ly;
+  if constexpr (NL > 0) {
+    layer_regs_init<Real, NL, HYST, ICE, SCA>(ly, a, im);
+  } else {
+    snow_state_init<Real, HYST, SCA>(a, im, state, stride);
+  }
+
+  Real sse = Real(0), sum_q = Real(0), sum_q2 = Real(0), sum_qo = Real(0);
+  const int tiles = (a.t_len + tile - 1) / tile;
+  stage_tile<Real, SNOW_ONLY, SCA>(a, stage, 0, min(tile, a.t_len), L,
+                                   record);
+  copy_commit();
+#pragma unroll 1
+  for (int k = 0; k < tiles; ++k) {
+    const int t0 = k * tile;
+    if (k + 1 < tiles) {
+      stage_tile<Real, SNOW_ONLY, SCA>(a, stage + ((k + 1) & 1) * buffer,
+                                       t0 + tile,
+                                       min(tile, a.t_len - t0 - tile), L,
+                                       record);
+    }
+    copy_commit();  // possibly empty: the group count stays one per tile
+    copy_wait_older();
+    __syncthreads();
+    const Real* buf = stage + (k & 1) * buffer;
+    const int steps = min(tile, a.t_len - t0);
+#pragma unroll 1
+    for (int s = 0; s < steps; ++s) {
+      const bool first = t0 + s == a.first_step;
+      const Real* row = buf + s * record;
+      const Real* series = row + layer_series<SCA>() * L;  // etp, qobs
+      Real q;
+      if constexpr (NL > 0) {
+        q = layer_regs_step<Real, NL, HYST, ICE, SCA>(c, ly, first, row,
+                                                      a.masked);
+      } else {
+        q = column_step<Real, HYST, ICE, SCA>(c, a, first, row, state,
+                                              stride);
+      }
+      if constexpr (!SNOW_ONLY) q = gr4j_step(m, q, series[0]);
+      const Real qo = series[1];
+      if (a.masked && qo != qo) continue;
+      const Real diff = q - qo;
+      sse += diff * diff;
+      sum_q += q;
+      sum_q2 += q * q;
+      sum_qo += q * qo;
+    }
+    __syncthreads();  // the buffer is refilled two tiles on
+  }
+  if (!active) return;
+  const size_t n = a.n;
+  a.out[i] = sse / a.count;
+  if (a.stats || SCA) {
+    a.out[n + i] = sum_q / a.count;
+    a.out[2 * n + i] = sum_q2 / a.count;
+    a.out[3 * n + i] = sum_qo / a.count;
+  }
+  if constexpr (SCA && NL > 0) {
+#pragma unroll
+    for (int l = 0; l < NL; ++l) {
+      const Real band_count = __ldg(a.band_counts + l);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        a.out[(4 + (size_t)4 * l + j) * n + i] = ly.band[l][j] / band_count;
+      }
+    }
+  } else if constexpr (SCA) {
+    for (int l = 0; l < L; ++l) {
+      const Real band_count = __ldg(a.band_counts + l);
+      for (int j = 0; j < 4; ++j) {
+        const size_t k = (size_t)4 * l + j;
+        a.out[(4 + k) * n + i] =
+            state[((size_t)(layer_state_rows<HYST>() + 1) * L + k) * stride] /
+            band_count;
+      }
+    }
+  }
+}
+
+// One launch: 128 threads and two staging buffers for NL > 0; for NL = 0
+// the block of snow_fused.cu (layer columns within 48 KB) and the widest
+// tile whose buffers fit beside them in what a block may opt in to.
+template <typename Real, int NUH1, int NUH2, bool HYST, bool ICE,
+          bool SNOW_ONLY, bool SCA, int NL>
+int launch_layers(const SnowArgs<Real>& a, cudaStream_t stream) {
+  const int L = a.num_layers;
+  const int rows = state_rows<HYST, SCA>();
+  const int block = NL > 0 ? kBlock : block_for(rows, L, sizeof(Real));
+  if (block == 0) return (int)cudaErrorInvalidValue;
+  const size_t columns =
+      NL > 0 ? 0 : (size_t)rows * L * sizeof(Real) * block;
+  const size_t per_step = (size_t)(layer_series<SCA>() * L + 2) * sizeof(Real);
+  int tile = kTile;
+  while (NL == 0 && tile > 1 && columns + 2 * tile * per_step > kSharedOptIn) {
+    tile /= 2;
+  }
+  const size_t shared = columns + 2 * (size_t)tile * per_step;
+  if (shared > kSharedOptIn) return (int)cudaErrorInvalidValue;
+  auto kernel =
+      snow_objective_kernel<Real, NUH1, NUH2, HYST, ICE, SNOW_ONLY, SCA, NL>;
+  if (shared > (size_t)kSharedLimit) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shared);
+    if (err != cudaSuccess) return (int)err;
+  }
+  kernel<<<(a.n + block - 1) / block, block, shared, stream>>>(a, tile);
+  return (int)cudaGetLastError();
+}
+
+// NL from the call's layer count: 5 and 1 in registers, any other count
+// in shared-memory columns.
+template <typename Real, int NUH1, int NUH2, bool HYST, bool ICE,
+          bool SNOW_ONLY, bool SCA>
+int launch_objective(const SnowArgs<Real>& a, cudaStream_t s) {
+  if (a.num_layers == 5) {
+    return launch_layers<Real, NUH1, NUH2, HYST, ICE, SNOW_ONLY, SCA, 5>(a,
+                                                                         s);
+  }
+  if (a.num_layers == 1) {
+    return launch_layers<Real, NUH1, NUH2, HYST, ICE, SNOW_ONLY, SCA, 1>(a,
+                                                                         s);
+  }
+  return launch_layers<Real, NUH1, NUH2, HYST, ICE, SNOW_ONLY, SCA, 0>(a, s);
+}
+
+// The instantiations: every snow variant (plain, HYST, ICE, HYST + ICE) at
+// both UH register pairs of gr4j_fused.cu, the SCA statistics for the two
+// HYST variants, and the snow-only routine, which has no GR4J at all; each
+// at NL = 5, 1 and 0.
+template <typename Real, int NUH1, int NUH2>
+int objective_variant(const SnowArgs<Real>& a, bool hyst, bool ice, bool sca,
+                      cudaStream_t s) {
+  if (sca) {
+    if (!hyst) return (int)cudaErrorInvalidValue;
+    if (ice) {
+      return launch_objective<Real, NUH1, NUH2, true, true, false, true>(a, s);
+    }
+    return launch_objective<Real, NUH1, NUH2, true, false, false, true>(a, s);
+  }
+  if (hyst && ice) {
+    return launch_objective<Real, NUH1, NUH2, true, true, false, false>(a, s);
+  }
+  if (hyst) {
+    return launch_objective<Real, NUH1, NUH2, true, false, false, false>(a, s);
+  }
+  if (ice) {
+    return launch_objective<Real, NUH1, NUH2, false, true, false, false>(a, s);
+  }
+  return launch_objective<Real, NUH1, NUH2, false, false, false, false>(a, s);
+}
+
+template <typename Real>
+int objective(const SnowArgs<Real>& a, int nuh1, int nuh2, int hyst, int ice,
+              int snow_only, int sca, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (a.n <= 0 || a.t_len <= 0) return (int)cudaSuccess;
+  if (a.num_layers <= 0) return (int)cudaErrorInvalidValue;
+  if ((a.state_in == nullptr) != (a.hist == nullptr)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (snow_only) {
+    if (hyst || ice || sca || a.hist != nullptr) {
+      return (int)cudaErrorInvalidValue;
+    }
+    return launch_objective<Real, 1, 1, false, false, true, false>(a, s);
+  }
+  if (nuh1 == 3 && nuh2 == 7) {
+    return objective_variant<Real, 3, 7>(a, hyst != 0, ice != 0, sca != 0, s);
+  }
+  if (nuh1 == 10 && nuh2 == 21) {
+    return objective_variant<Real, 10, 21>(a, hyst != 0, ice != 0, sca != 0,
+                                           s);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+}  // namespace
+
+extern "C" {
+
+int rrmpg_snow_objective_f32(
+    const float* snow, const float* rain, const float* temp, const float* etp,
+    const float* qobs, const float* ndsi, const float* params,
+    const float* layer_consts, const float* frac_ice,
+    const float* band_counts, const float* state_in, const float* hist, int n,
+    int t_len, int num_layers, int nuh1, int nuh2, int hyst, int ice,
+    int snow_only, int stats, int sca, int masked, int consts_per_member,
+    double snow0, double th0, double count, float* out, int device,
+    void* stream) {
+  return objective<float>(
+      make_args<float>(snow, rain, temp, etp, qobs, ndsi, params,
+                       layer_consts, frac_ice, band_counts, state_in, hist, n,
+                       t_len, num_layers, stats, masked, consts_per_member,
+                       snow0, th0, count, out, nullptr),
+      nuh1, nuh2, hyst, ice, snow_only, sca, device, stream);
+}
+
+int rrmpg_snow_objective_f64(
+    const double* snow, const double* rain, const double* temp,
+    const double* etp, const double* qobs, const double* ndsi,
+    const double* params, const double* layer_consts, const double* frac_ice,
+    const double* band_counts, const double* state_in, const double* hist,
+    int n, int t_len, int num_layers, int nuh1, int nuh2, int hyst, int ice,
+    int snow_only, int stats, int sca, int masked, int consts_per_member,
+    double snow0, double th0, double count, double* out, int device,
+    void* stream) {
+  return objective<double>(
+      make_args<double>(snow, rain, temp, etp, qobs, ndsi, params,
+                        layer_consts, frac_ice, band_counts, state_in, hist,
+                        n, t_len, num_layers, stats, masked,
+                        consts_per_member, snow0, th0, count, out, nullptr),
+      nuh1, nuh2, hyst, ice, snow_only, sca, device, stream);
+}
+
+}  // extern "C"

@@ -57,7 +57,7 @@ from ..ops.stats import losses_from_stats
 from ..ops.uh import NUM_UH1, NUM_UH2, required_uh_lengths
 from ..utils.array_checks import check_for_negatives, validate_array_input
 from ..utils.metrics import calibration_loss
-from .basemodel import BaseModel, check_engine
+from .basemodel import BaseModel, _no_mesh, check_engine
 from .gr4j import GR4J, fit_uh_lengths
 from .states import (
     CemaneigeHystState,
@@ -68,13 +68,6 @@ from .states import (
 )
 
 NUM_NDSI_BANDS = 5
-
-
-def _no_mesh(mesh):
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh= (an ensemble split across devices) is not ported yet; "
-            "see ROADMAP.md, Queue 1, item 9 (multi-device).")
 
 
 def _check_return_storage(value, name='return_storage'):
@@ -231,8 +224,8 @@ class CemaneigeBase(BaseModel):
         from ..tools.calibration import minimize
 
         bounds = tuple(self._default_bounds[p] for p in self._param_list)
-        return minimize(objective, bounds, seed=seed, device=self.device,
-                        dtype=self.dtype, **de_kwargs)
+        return minimize(objective, bounds, seed=seed, batched=True,
+                        device=self.device, dtype=self.dtype, **de_kwargs)
 
 
 class _Forcing(typing.NamedTuple):

@@ -30,7 +30,7 @@ from ..ops.abc import run_abcmodel, run_abcmodel_pscan, run_abcmodel_warm
 from ..ops.fused_abc import abc_fused_single
 from ..utils.array_checks import check_for_negatives, validate_array_input
 from ..utils.metrics import calibration_loss
-from .basemodel import BaseModel, check_engine
+from .basemodel import BaseModel, _no_mesh, check_engine
 from .states import ABCState, check_state_type
 
 
@@ -81,7 +81,8 @@ class ABCModel(BaseModel):
         return params
 
     def simulate(self, prec, initial_state=0, return_storage=False,
-                 params=None, engine="scan", return_final_state=False):
+                 params=None, mesh=None, engine="scan",
+                 return_final_state=False):
         """Simulate streamflow for the passed precipitation.
 
         Args:
@@ -95,6 +96,8 @@ class ABCModel(BaseModel):
             return_storage: (optional) also return the storage series.
             params: (optional) structured array / dict of parameter sets,
                 evaluated batched.  Defaults to the instance's parameters.
+            mesh: not ported yet; must be None (the ensemble split across
+                devices of ``rrmpg_tpu``).
             engine: 'scan' (plain PyTorch) or 'fused' (CUDA kernel K6, one
                 launch for all members).
             return_final_state: also return the end-of-series
@@ -108,6 +111,7 @@ class ABCModel(BaseModel):
             ValueError: If one of the inputs contains invalid values.
             TypeError: If one of the inputs has an incorrect datatype.
         """
+        _no_mesh(mesh)
         prec = _validate_prec(prec)
         warm = not isinstance(initial_state, numbers.Number)
         if warm:
@@ -194,5 +198,5 @@ class ABCModel(BaseModel):
             self._tensor(qobs), self._tensor(prec), initial_state,
             loss_metric)
         bounds = tuple(self._default_bounds[p] for p in self._param_list)
-        return minimize(objective, bounds, seed=seed, device=self.device,
-                        dtype=self.dtype, **de_kwargs)
+        return minimize(objective, bounds, seed=seed, batched=True,
+                        device=self.device, dtype=self.dtype, **de_kwargs)

@@ -28,6 +28,13 @@ def check_engine(engine):
         raise ValueError("engine must be 'scan' or 'fused'.")
 
 
+def _no_mesh(mesh):
+    if mesh is not None:
+        raise NotImplementedError(
+            "mesh= (an ensemble split across devices) is not ported yet; "
+            "see ROADMAP.md, Queue 1, item 9 (multi-device).")
+
+
 class BaseModel(object):
     """Base class for all rainfall-runoff models."""
 

@@ -31,10 +31,9 @@ from ..utils.metrics import calibration_loss
 from ._snow_base import (
     CemaneigeBase,
     _check_return_storage,
-    _no_mesh,
     stats_objective,
 )
-from .basemodel import check_engine
+from .basemodel import _no_mesh, check_engine
 from .states import CemaneigeState, broadcast_state, check_state_type
 
 _INIT_NAMES = ('snow_pack_init', 'thermal_state_init')

@@ -34,7 +34,7 @@ from ..ops.stats import losses_from_stats
 from ..ops.uh import NUM_UH1, NUM_UH2, required_uh_lengths
 from ..utils.array_checks import check_for_negatives, validate_array_input
 from ..utils.metrics import calibration_loss
-from .basemodel import BaseModel, check_engine
+from .basemodel import BaseModel, _no_mesh, check_engine
 from .states import broadcast_state, check_state_type
 
 
@@ -100,7 +100,7 @@ class GR4J(BaseModel):
         return s_init, r_init
 
     def simulate(self, prec, etp, s_init=0, r_init=0, return_storage=False,
-                 params=None, engine="scan", initial_state=None,
+                 params=None, mesh=None, engine="scan", initial_state=None,
                  return_final_state=False):
         """Simulate streamflow for the given forcings.
 
@@ -112,6 +112,8 @@ class GR4J(BaseModel):
             return_storage: also return the s/r store series ('scan' only).
             params: (optional) structured array / dict of parameter sets,
                 evaluated batched.
+            mesh: not ported yet; must be None (the ensemble split across
+                devices of ``rrmpg_tpu``).
             engine: 'scan' (plain PyTorch) or 'fused' (CUDA kernel K3,
                 or K4 in forecast mode; discharge only).
             initial_state: (optional) :class:`~..ops.gr4j.GR4JState` from
@@ -132,6 +134,7 @@ class GR4J(BaseModel):
             TypeError: If one of the inputs has an incorrect datatype.
             RuntimeError: If prec and etp differ in length.
         """
+        _no_mesh(mesh)
         prec, etp = self._validate_forcings(prec, etp)
         s_init, r_init = self._validate_inits(s_init, r_init)
         if not isinstance(return_storage, bool):
@@ -329,5 +332,5 @@ class GR4J(BaseModel):
             self._tensor(qobs), self._tensor(prec), self._tensor(etp),
             s_init, r_init, loss_metric, engine, state)
         bounds = tuple(self._default_bounds[p] for p in self._param_list)
-        return minimize(objective, bounds, seed=seed, device=self.device,
-                        dtype=self.dtype, **de_kwargs)
+        return minimize(objective, bounds, seed=seed, batched=True,
+                        device=self.device, dtype=self.dtype, **de_kwargs)

@@ -31,7 +31,7 @@ from ..ops.hbvedu import PARAM_NAMES, run_hbvedu, run_hbvedu_warm
 from ..ops.stats import losses_from_stats
 from ..utils.array_checks import check_for_negatives, validate_array_input
 from ..utils.metrics import calibration_loss
-from .basemodel import BaseModel, check_engine
+from .basemodel import BaseModel, _no_mesh, check_engine
 from .states import HBVEduState, check_state_type
 
 _INIT_NAMES = ("snow_init", "soil_init", "s1_init", "s2_init")
@@ -101,7 +101,7 @@ class HBVEdu(BaseModel):
 
     def simulate(self, temp, prec, month, PE_m, T_m, snow_init=0,
                  soil_init=0, s1_init=0, s2_init=0, return_storage=False,
-                 params=None, engine="scan", initial_state=None,
+                 params=None, mesh=None, engine="scan", initial_state=None,
                  return_final_state=False):
         """Simulate rainfall-runoff for the given forcings.
 
@@ -116,6 +116,8 @@ class HBVEdu(BaseModel):
                 only).
             params: (optional) structured array / dict of parameter sets,
                 evaluated batched.
+            mesh: not ported yet; must be None (the ensemble split across
+                devices of ``rrmpg_tpu``).
             engine: 'scan' (plain PyTorch) or 'fused' (CUDA kernel K13,
                 or K14 in forecast mode; discharge only).
             initial_state: (optional) :class:`~.states.HBVEduState` from a
@@ -137,6 +139,7 @@ class HBVEdu(BaseModel):
                 is a size mismatch between precipitation, temperature and
                 the month array.
         """
+        _no_mesh(mesh)
         forcings = self._forcing_tensors(temp, prec, month, PE_m, T_m)
         inits = tuple(float(v) for v in (snow_init, soil_init, s1_init,
                                          s2_init))
@@ -288,5 +291,5 @@ class HBVEdu(BaseModel):
         objective = self._batch_objective(self._tensor(qobs), forcings,
                                           inits, loss_metric, engine, state)
         bounds = tuple(self._default_bounds[p] for p in self._param_list)
-        return minimize(objective, bounds, seed=seed, device=self.device,
-                        dtype=self.dtype, **de_kwargs)
+        return minimize(objective, bounds, seed=seed, batched=True,
+                        device=self.device, dtype=self.dtype, **de_kwargs)

@@ -118,7 +118,7 @@ _SIGNATURES = {
 # H100 machine, 8 cores, CUDA 12.9); with K11's 16 more the whole build takes
 # 46 s.  The option moves a few register counts by
 # one or two; the small sources build in 4 s and stay as they were.
-SPLIT_COMPILE_SOURCES = ("gr4j_fused.cu", "snow_fused.cu")
+SPLIT_COMPILE_SOURCES = ("gr4j_fused.cu", "snow_fused.cu", "snow_objective.cu")
 SPLIT_COMPILE_THREADS = 4
 
 
@@ -165,22 +165,31 @@ class KernelLibrary:
 @functools.lru_cache(maxsize=1)
 def load_library():
     """Build (if needed) and load the kernel library; cached per process."""
-    sources = sorted(SRC_DIR.glob("*.cu"))
+    return build_library(SRC_DIR, BUILD_DIR)
+
+
+def build_library(src_dir, build_dir):
+    """Build (if needed) and load the library of the sources in
+    ``src_dir`` (``*.cu``, sharing ``*.cuh``) under ``build_dir``.  The
+    port uses :func:`load_library`; another directory serves to compare
+    two versions of the sources in one process."""
+    src_dir, build_dir = Path(src_dir), Path(build_dir)
+    sources = sorted(src_dir.glob("*.cu"))
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in (*sources, *sorted(SRC_DIR.glob("*.cuh"))):
+    for src in (*sources, *sorted(src_dir.glob("*.cuh"))):
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
     tag = digest.hexdigest()[:16]
-    lib_path = BUILD_DIR / f"librrmpg_kernels_{tag}.so"
-    log_path = BUILD_DIR / f"librrmpg_kernels_{tag}.log"
+    lib_path = build_dir / f"librrmpg_kernels_{tag}.so"
+    log_path = build_dir / f"librrmpg_kernels_{tag}.log"
     if lib_path.is_file():
         log = log_path.read_text() if log_path.is_file() else ""
         return KernelLibrary(lib_path, 0.0, log)
 
     nvcc = _find_nvcc()
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    build_dir.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp, \
+    with tempfile.TemporaryDirectory(dir=build_dir) as tmp, \
             contextlib.ExitStack() as files:
         tmp = Path(tmp)
         # One compiler per source, all started together; each writes its

@@ -2,7 +2,11 @@
 
 Counterpart of ``rrmpg_tpu/ops/pallas_hbv.py``.  The kernels are CUDA C++
 in ``rrmpg_tpu_torch/csrc/hbv_fused.cu``: one thread per member, the four
-stores and the member's constants in registers for the whole time loop.
+stores and the member's constants in registers for the whole time loop;
+K12 stages its five series 64 steps at a time in shared memory and, in
+float32, takes the soil power as ``exp2(Beta * log2(x))`` where ``x >= 0``
+and ``Beta != 0`` (IEEE ``powf`` elsewhere, so its NaN members are the
+plain version's).
 
 * K13 :func:`hbv_simulate_fused` -- (N, T) discharge trajectories;
 * K12 :func:`hbv_ensemble_mse_fused` -- fused simulate + MSE, one number

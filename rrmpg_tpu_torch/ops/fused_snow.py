@@ -3,10 +3,14 @@ versions.
 
 Counterpart of ``rrmpg_tpu/ops/pallas_snow.py``.  One kernel family covers
 the standalone snow routine and its four GR4J compositions (plain /
-hysteresis x with / without glacier ice melt).  The kernels are CUDA C++ in
-``rrmpg_tpu_torch/csrc/snow_fused.cu``: one thread per member, the GR4J
-stores and UH registers in registers, the per-layer snow states in shared
-memory, for the whole time loop.
+hysteresis x with / without glacier ice melt).  The kernels are CUDA C++,
+K8 in ``rrmpg_tpu_torch/csrc/snow_objective.cu`` and K9-K11 in
+``snow_fused.cu``, sharing the snow step of ``snow_step.cuh``: one thread
+per member, the GR4J stores and UH registers in registers for the whole
+time loop.  The per-layer snow states live in shared memory, except in K8
+at 1 and 5 layers, whose layer count is a compile-time constant and whose
+layer states are registers; K8 also stages the forcing of 64 steps at a
+time in shared memory.  Any layer count runs.
 
 * K8 :func:`snowgr4j_ensemble_mse_fused` -- fused simulate + objective:
   (N,) mean squared errors, with ``stats=True`` the (4, N) time means

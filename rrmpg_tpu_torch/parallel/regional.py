@@ -22,7 +22,7 @@ raises ``ValueError`` naming it.
 import numpy as np
 import torch
 
-from ..models._snow_base import _no_mesh
+from ..models.basemodel import _no_mesh
 from ..ops import fused_gr4j as _fg
 from ..ops import fused_snow as _fs
 from ..ops._launch import valid_counts

@@ -6,9 +6,12 @@ dithered mutation in [0.5, 1), binomial crossover 0.7, population
 ``popsize * dim``, out-of-bounds components resampled uniformly, and
 scipy's convergence test ``std(E) <= atol + tol * |mean(E)|``.
 
-The objective is batched: it maps the (P, dim) population to (P,) losses
-in one call, so a fused kernel evaluates a whole generation with one
-launch.  The generation loop is a Python loop on the device; it waits
+The objective maps one (dim,) candidate to a scalar loss and is mapped
+over the population (``torch.func.vmap``, or a loop where the objective
+cannot be vmapped), as ``rrmpg_tpu``'s default; with ``batched=True`` it
+maps the whole (P, dim) population to (P,) losses in one call, so a fused
+kernel evaluates a whole generation with one launch (the model classes
+calibrate this way).  The generation loop is a Python loop on the device; it waits
 for the device once per generation, for the convergence test.  Random
 numbers come from a ``torch.Generator`` seeded from ``seed``; they differ
 from ``jax.random``'s, so trajectories differ from ``rrmpg_tpu``'s while
@@ -60,14 +63,48 @@ def _converged(energies, tol, atol):
     return bool(std <= atol + tol * torch.abs(energies.mean()))
 
 
+def _population_objective(objective, batched, pop_size):
+    """``objective`` as a map from the (P, dim) population to its (P,)
+    energies: itself with ``batched``, else mapped over the members (vmap,
+    or a loop where vmap cannot trace it).  Energies of any other shape
+    raise ``ValueError``."""
+    if batched:
+        mapped = objective
+    else:
+        vmapped = torch.func.vmap(objective)
+
+        def mapped(pop):
+            try:
+                return vmapped(pop)
+            except RuntimeError:
+                return torch.stack([torch.as_tensor(objective(x))
+                                    for x in pop])
+
+    def energies_of(pop):
+        energies = torch.as_tensor(mapped(pop))
+        if tuple(energies.shape) != (pop_size,):
+            form = ("(P, dim) -> (P,)" if batched
+                    else "(dim,) -> scalar, mapped over the population")
+            raise ValueError(
+                f"the objective ({form}) gave energies of shape "
+                f"{tuple(energies.shape)} for a population of {pop_size}; "
+                f"expected ({pop_size},). A population-wide objective "
+                "needs batched=True.")
+        return energies
+
+    return energies_of
+
+
 def differential_evolution(objective, bounds, popsize=15, maxiter=1000,
                            tol=0.01, atol=0.0, mutation=(0.5, 1.0),
-                           recombination=0.7, seed=None,
+                           recombination=0.7, seed=None, batched=False,
                            device=DEFAULT_DEVICE, dtype=DEFAULT_DTYPE):
     """Global minimization by differential evolution.
 
     Args:
-        objective: maps a (P, dim) tensor of candidates to (P,) losses.
+        objective: maps a (dim,) candidate to a scalar loss; with
+            ``batched=True`` it maps the (P, dim) population to (P,)
+            losses in one call.
         bounds: sequence of (low, high) pairs, one per dimension.
         popsize: population multiplier; population = popsize * dim.
         maxiter: maximum number of generations.
@@ -77,6 +114,9 @@ def differential_evolution(objective, bounds, popsize=15, maxiter=1000,
         recombination: crossover probability.
         seed: int seed of the ``torch.Generator`` on ``device`` that draws
             every random number (0 if None).
+        batched: whether ``objective`` takes the whole population (see
+            above); energies of another shape than (P,) raise
+            ``ValueError``.
         device, dtype: where (the card by default) and in which float type
             the population lives.
 
@@ -106,6 +146,7 @@ def differential_evolution(objective, bounds, popsize=15, maxiter=1000,
         return torch.randint(0, high, (n,), generator=generator,
                              device=device)
 
+    objective = _population_objective(objective, batched, pop_size)
     pop = _latin_hypercube(generator, pop_size, dim, dtype, device)
     energies = objective(scale(pop))
     nit = 0

@@ -15,7 +15,7 @@ Results are host numpy arrays, as in the reference.
 import numpy as np
 import torch
 
-from ..models.basemodel import BaseModel
+from ..models.basemodel import BaseModel, _no_mesh
 from ..ops.stats import losses_from_stats
 from ..utils import metrics as _metrics
 from ..utils.array_checks import validate_array_input
@@ -31,8 +31,8 @@ _STATS_METRICS = {'mse': 'mse', 'rmse': 'rmse', 'nse': 'nse',
                   'beta_nse': 'beta', 'r': 'r'}
 
 
-def monte_carlo(model, num, qobs=None, metrics=('mse',), batch_size=None,
-                return_qsim=True, **kwargs):
+def monte_carlo(model, num, qobs=None, mesh=None, metrics=('mse',),
+                batch_size=None, return_qsim=True, **kwargs):
     """Perform a Monte-Carlo simulation with ``num`` random parameter sets.
 
     Args:
@@ -40,6 +40,9 @@ def monte_carlo(model, num, qobs=None, metrics=('mse',), batch_size=None,
         num: number of simulations.
         qobs: (optional) observed streamflow; if given, the requested
             ``metrics`` of each simulation are returned.
+        mesh: not ported yet; must be None (``rrmpg_tpu`` shards the
+            ensemble over it); anything else raises
+            ``NotImplementedError`` before any sampling.
         metrics: any of 'mse', 'rmse', 'nse', 'kge', 'alpha_nse',
             'beta_nse', 'r' (default ('mse',), the reference's contract).
         batch_size: (optional) evaluate the ensemble in member chunks of
@@ -57,6 +60,7 @@ def monte_carlo(model, num, qobs=None, metrics=('mse',), batch_size=None,
         ValueError: If any input contains invalid values.
         TypeError: If any input has a wrong datatype.
     """
+    _no_mesh(mesh)
     if not isinstance(model, BaseModel):
         raise TypeError(
             f"monte_carlo needs an rrmpg_tpu_torch model instance (a "

@@ -23,6 +23,10 @@ members whose soil store goes negative are NaN in kernel and plain
 version alike; the NaN sets must be equal.  The snow kernels write the
 snow step's products without fused multiply-adds, so their snow state is the
 plain version's bit for bit: the snow-only outflow must be equal, not close.
+K8 (layers in registers at 1 and 5 layers, in shared memory otherwise) and
+K12 stage their forcing 64 steps at a time; their cases at T shorter than,
+equal to and not a multiple of a tile, with N = 200 (a ragged last block)
+and gaps at the tile edges, check the staging with the same tolerances.
 """
 
 import os
@@ -904,3 +908,223 @@ def test_regional_objectives_through_entry_points(cuda):
         want = results[("cpu", family, metric)]
         assert got.shape == (C, N) and bool(torch.isfinite(got).all())
         torch.testing.assert_close(got, want, rtol=1e-9, atol=1e-12)
+
+
+# ---------------------------------------------------------------------------
+# K8 and K12 redesigned: forcing staged in 64-step tiles, K8's layers in
+# registers for 1 and 5 layers.  The edges of a tile and of a block.
+# ---------------------------------------------------------------------------
+
+TILE = 64                     # steps per staged tile (snow_objective.cu)
+EDGE_STEPS = [37, 64, 150]    # shorter than a tile, one tile, a ragged last
+EDGE_MEMBERS = 200            # one full block of 128 and a ragged one of 72
+
+
+def _tile_edge_gaps(qobs, ndsi):
+    """NaN observations on both sides of every tile edge (steps 63/64 and
+    127/128): discharge, the first NDSI band, and a run across the first
+    edge in the last band."""
+    T = qobs.shape[0]
+    edges = [t for t in (TILE - 1, TILE, 2 * TILE - 1, 2 * TILE) if t < T]
+    qobs, ndsi = qobs.clone(), ndsi.clone()
+    qobs[edges] = torch.nan
+    ndsi[0, edges] = torch.nan
+    ndsi[-1, TILE - 4:min(TILE + 6, T)] = torch.nan
+    return qobs, ndsi
+
+
+# (variant, mode): the widest SCA mode, a discharge mode, the snow-only one.
+EDGE_SNOW_CASES = [("hyst+ice", "sca_stats"), ("plain", "stats"),
+                   ("hyst", "mse"), ("snow-only", "stats")]
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("L", [1, 2, 5, 7])
+@pytest.mark.parametrize("T", EDGE_STEPS)
+@pytest.mark.parametrize("variant,mode", EDGE_SNOW_CASES)
+def test_snow_objective_tile_and_block_edges(cuda, dtype, L, T, variant,
+                                             mode):
+    """K8 at 1 and 5 layers (registers) and 2 and 7 (shared-memory
+    columns), T shorter than a tile, one tile and a ragged last tile, N not
+    a multiple of the block, gaps in discharge and NDSI at the tile edges;
+    against the plain version."""
+    hyst, ice, snow_only, uh = SNOW_VARIANTS[variant]
+    sca, stats = mode == "sca_stats", mode == "stats"
+    (prec, temp, frac), etp, qobs, ndsi, frac_ice, params = _snow_inputs(
+        cuda, dtype, L, 2.9 if uh == (3, 7) else 9.9, T=T, N=EDGE_MEMBERS,
+        seed=T + L)
+    qobs, ndsi = _tile_edge_gaps(qobs, ndsi)
+    snow0, th0, s_init, r_init = SNOW_INITS
+    packed = fs.pack_params(params, s_init, r_init, snow_only)
+    snow, rain, consts = fs.layer_inputs(prec, frac, hyst)
+    fg.reset_launches()
+    got = fs.snowgr4j_ensemble_mse_fused(
+        prec, temp, etp, frac, qobs, *SNOW_INITS, params,
+        frac_ice=frac_ice if ice else None, ndsi=ndsi if sca else None,
+        hyst=hyst, ice=ice, snow_only=snow_only, stats=stats, sca_stats=sca,
+        num_uh1=uh[0], num_uh2=uh[1], masked=True)
+    want = fs.snowgr4j_objective_reference(
+        snow, rain, temp, etp, qobs, packed, consts,
+        frac_ice if ice else torch.zeros_like(frac_ice), snow0, th0, hyst,
+        ice, snow_only, *uh, stats=stats, masked=True,
+        count=int(torch.isfinite(qobs).sum()),
+        ndsi=ndsi.T.contiguous() if sca else None,
+        band_counts=(torch.isfinite(ndsi).sum(dim=1).to(dtype)
+                     if sca else None))
+    torch.cuda.synchronize()
+    kernel = "snow_sca_stats" if sca else "snow_stats" if stats else "snow_mse"
+    assert fg.LAUNCHES[kernel] == 1
+    assert got.shape == want.shape and bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got, want, rtol=TOL[dtype]["obj"][0],
+                               atol=TOL[dtype]["obj"][1])
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("L", [1, 2, 5])
+@pytest.mark.parametrize("stats", [False, True])
+def test_snow_warm_objective_across_a_tile_edge(cuda, dtype, L, stats):
+    """K8's warm entry (first_step = -1) over a 100-step continuation that
+    crosses the first tile edge, from the state K10 ends a 70-step cold run
+    in; gaps at the edge."""
+    hyst, ice, _, uh = STATE_VARIANTS["hyst+ice"]
+    layers, etp, qobs, ndsi, frac_ice, params = _snow_inputs(
+        cuda, dtype, L, 2.9, T=170, N=EDGE_MEMBERS, seed=L)
+    cut = 70
+    head = [x[:cut].contiguous() for x in layers]
+    tail = [x[cut:].contiguous() for x in layers]
+    etp_b = etp[cut:].contiguous()
+    qobs_b, _ = _tile_edge_gaps(qobs[cut:].contiguous(), ndsi[:, cut:])
+    (_, st), _ = _snow_state_pair(head, etp[:cut].contiguous(), frac_ice,
+                                  params, None, hyst, ice, uh)
+    fg.reset_launches()
+    got = fs.snowgr4j_ensemble_mse_fused(
+        *tail[:2], etp_b, tail[2], qobs_b, 0.0, 0.0, 0.0, 0.0, params,
+        frac_ice=frac_ice, hyst=hyst, ice=ice, stats=stats, num_uh1=uh[0],
+        num_uh2=uh[1], state=st, masked=True)
+    (snow, rain, packed, consts, ice_frac, state_in, hist,
+     _) = _snow_plain_inputs(tail[0], tail[2], frac_ice, params, st, hyst,
+                             ice, uh, etp_b)
+    want = fs.snowgr4j_objective_reference(
+        snow, rain, tail[1], etp_b, qobs_b, packed, consts, ice_frac, 0.0,
+        0.0, hyst, ice, False, *uh, stats=stats, masked=True,
+        count=int(torch.isfinite(qobs_b).sum()), state_in=state_in,
+        hist=hist)
+    torch.cuda.synchronize()
+    assert fg.LAUNCHES["snow_stats" if stats else "snow_mse"] == 1
+    assert bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got, want, rtol=TOL[dtype]["obj"][0],
+                               atol=TOL[dtype]["obj"][1])
+
+
+@pytest.mark.parametrize("name", ['Cemaneige', 'CemaneigeGR4J',
+                                  'CemaneigeHystGR4J',
+                                  'CemaneigeHystGR4JIce'])
+def test_golden_snow_through_the_objective_float64(cuda, name):
+    """The four Excel sheets (5 layers, so K8's register path) through K8
+    in float64: the statistics of the kernel's discharge against the Excel
+    column give a mean squared error within np.allclose's reach and the
+    Excel column's mean."""
+    make = lambda **kw: getattr(models, name)(device=cuda,
+                                              dtype=torch.float64, **kw)
+    fg.reset_launches()
+    if name == 'Cemaneige':
+        df = _read('cemaneige_validation_data.csv', sep=';')
+        want = df.liquid_outflow.to_numpy()
+        model = make(params={'CTG': 0.25, 'Kf': 3.74})
+        prec, temp, frac, snow0, th0 = model._prepare(
+            df.precipitation, df.mean_temp, df.min_temp, df.max_temp, 495,
+            ALTITUDES, 0, 0)
+        stats = fs.cemaneige_ensemble_mse_fused(
+            prec, temp, frac, torch.tensor(want, device=cuda), snow0, th0,
+            model._prepare_params(None)[0], stats=True)
+    else:
+        kw = dict(met_station_height=495, altitudes=ALTITUDES, s_init=0.6,
+                  r_init=0.7)
+        if name == 'CemaneigeGR4J':
+            params = {'CTG': 0.25, 'Kf': 3.74,
+                      'x1': np.exp(5.25483021675164),
+                      'x2': np.sinh(1.58209470624126),
+                      'x3': np.exp(4.3853181982412),
+                      'x4': np.exp(0.954786342674327) + 0.5}
+            df = _read('cemaneigegr4j_validation_data.csv', sep=';',
+                       index_col=0)
+        else:
+            params = HYST_PARAMS
+            kw.update(met_station_height=700, s_init=0.5, r_init=0.4)
+            df = _read(f'{name.lower()}_validation_data.csv', index_col=0)
+        if name == 'CemaneigeHystGR4JIce':
+            params = dict(HYST_PARAMS, DDF=5)
+            kw.update(frac_ice=FRAC_ICE, sca_init=0.2)
+        want = df.qsim.to_numpy()
+        model = make(params=params)
+        f = model._prepare(df.precipitation, df.mean_temp, df.min_temp,
+                           df.max_temp, df.pe, kw.get('frac_ice'),
+                           kw['met_station_height'], ALTITUDES, 0, 0,
+                           kw.get('sca_init', 0), kw['s_init'], kw['r_init'])
+        # UH (10, 21): the Excel x4 of CemaneigeGR4J (3.1) lies above the
+        # class bound whose registers the calibration path uses.
+        stats = fs.snowgr4j_ensemble_mse_fused(
+            f.prec, f.mean_temp, f.etp, f.frac_solid_prec,
+            torch.tensor(want, device=cuda), f.snow_pack_init,
+            f.thermal_state_init, f.s_init, f.r_init,
+            model._prepare_params(None)[0], frac_ice=f.frac_ice,
+            hyst=model._hyst, ice=model._ice, stats=True)
+    torch.cuda.synchronize()
+    assert fg.LAUNCHES["snow_stats"] == 1
+    stats = stats.cpu().numpy().reshape(4, -1)[:, 0]
+    # np.allclose of every step: |q - want| <= 1e-8 + 1e-5 |want|.
+    assert stats[0] <= np.mean((1e-8 + 1e-5 * np.abs(want)) ** 2)
+    assert np.isclose(stats[1], want.mean(), rtol=1e-5, atol=1e-8)
+
+
+EDGE_HBV_MODES = ["mse", "stats+masked"]
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("T", EDGE_STEPS + [3652])
+@pytest.mark.parametrize("mode", EDGE_HBV_MODES)
+def test_hbv_objective_tile_and_block_edges(cuda, dtype, T, mode):
+    """K12 at T shorter than a tile, one tile, ragged last tiles, N not a
+    multiple of the block, gaps at the tile edges; NaN members (negative
+    soil under the Beta power) the same set as the plain version's."""
+    stats, masked = mode.startswith("stats"), mode.endswith("masked")
+    forcings, qobs, params = _hbv_inputs(cuda, dtype, T=T, N=EDGE_MEMBERS,
+                                         seed=T)
+    if masked:
+        qobs, _ = _tile_edge_gaps(qobs, qobs[None])
+    inits = (0.0, 100.0, 3.0, 10.0)
+    fg.reset_launches()
+    got = fh.hbv_ensemble_mse_fused(*forcings, qobs, *inits, params,
+                                    stats=stats, masked=masked)
+    want = fh.hbv_objective_reference(
+        *_hbv_series(forcings), qobs, fh.pack_params(params, *inits), stats,
+        masked, int(torch.isfinite(qobs).sum()) if masked else T)
+    torch.cuda.synchronize()
+    assert fg.LAUNCHES["hbv_stats" if stats else "hbv_mse"] == 1
+    _assert_close_nan_aware(got, want, *TOL[dtype]["obj"])
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("mode", EDGE_HBV_MODES)
+def test_hbv_warm_objective_across_a_tile_edge(cuda, dtype, mode):
+    """K12's warm entry over a 100-step continuation that crosses the first
+    tile edge, from the stores K14 ends a 70-step cold run in."""
+    stats, masked = mode.startswith("stats"), mode.endswith("masked")
+    forcings, qobs, params = _hbv_inputs(cuda, dtype, T=170, N=EDGE_MEMBERS)
+    cut = 70
+    head, tail = _hbv_cut(forcings, 0, cut), _hbv_cut(forcings, cut, 170)
+    qobs_b = qobs[cut:].contiguous()
+    if masked:
+        qobs_b, _ = _tile_edge_gaps(qobs_b, qobs_b[None])
+    _, state = fh.hbv_simulate_state_fused(*head, 0.0, 100.0, 3.0, 10.0,
+                                           params)
+    fg.reset_launches()
+    got = fh.hbv_ensemble_mse_fused(*tail, qobs_b, 0.0, 0.0, 0.0, 0.0,
+                                    params, stats=stats, masked=masked,
+                                    state=state)
+    want = fh.hbv_objective_reference(
+        *_hbv_series(tail), qobs_b, fh.pack_params(params, *state), stats,
+        masked, int(torch.isfinite(qobs_b).sum()) if masked else 100, True)
+    torch.cuda.synchronize()
+    assert fg.LAUNCHES["hbv_stats" if stats else "hbv_mse"] == 1
+    _assert_close_nan_aware(got, want, *TOL[dtype]["obj"])

@@ -247,10 +247,10 @@ def test_de_minimizes_and_is_reproducible():
     def sphere(X):
         return ((X - torch.tensor([1.0, -2.0, 3.0], dtype=F64)) ** 2).sum(1)
 
-    a = differential_evolution(sphere, bounds, seed=3, device='cpu',
-                               dtype=F64)
-    b = differential_evolution(sphere, bounds, seed=3, device='cpu',
-                               dtype=F64)
+    a = differential_evolution(sphere, bounds, seed=3, batched=True,
+                               device='cpu', dtype=F64)
+    b = differential_evolution(sphere, bounds, seed=3, batched=True,
+                               device='cpu', dtype=F64)
     assert a.success and a.fun < 1e-3
     np.testing.assert_allclose(a.x, [1.0, -2.0, 3.0], atol=0.05)
     np.testing.assert_array_equal(a.population, b.population)
@@ -265,7 +265,7 @@ def test_de_quarantines_nonfinite_members():
         return torch.where(X[:, 0] > 0.9, torch.nan, out)
 
     res = differential_evolution(objective, bounds, seed=0, maxiter=5,
-                                 device='cpu', dtype=F64)
+                                 batched=True, device='cpu', dtype=F64)
     assert np.isfinite(res.fun)
     members, energies = res.nonfinite_members()
     assert members.shape[1] == 2 and not np.isfinite(energies).any()
