@@ -10,7 +10,11 @@ Phases, in order (each prints its lines; any failure exits non-zero):
 3. kernels     -- every fused kernel against its plain PyTorch version on
                   the same CUDA tensors, float64 and float32: GR4J (K1 MSE,
                   K2 stats, K3 trajectories; both UH register pairs, with
-                  and without NaN gaps in qobs), ABC (K6 single launch, K7
+                  and without NaN gaps in qobs; K1/K2 also at T = 1, 37, 65
+                  and 128 around their staging tiles, N = 200 and 33793
+                  (the split kernel and one member a thread), gaps at tile
+                  edges, and warm across a tile edge), ABC (K6 single
+                  launch, K7
                   three launches; T in {1, 1000, 70000, 1000003}, c in
                   {0, 0.12, 1}; against the doubling scan, the sequential
                   loop and each other), HBV-Edu (K12 MSE and stats with
@@ -30,7 +34,8 @@ Phases, in order (each prints its lines; any failure exits non-zero):
                   regional kernels (K5, K11: one and three catchments, the
                   three with a short record and gaps, MSE and statistics,
                   both UH register pairs, every snow variant at 1 and 5
-                  layers);
+                  layers; K11 also at 1, 2, 5 and 7 layers, T = 37 and 128,
+                  N = 200, gaps at tile edges and a record cut short);
 4. golden      -- the fused engines in float64 against the authors' Excel
                   GR4J trajectory, MATLAB HBV-Edu trajectory and the four
                   Excel snow trajectories (tests/data/);
@@ -69,10 +74,11 @@ Phases, in order (each prints its lines; any failure exits non-zero):
                   GR4J and HBV-Edu at 131072 members x 3651 days, the snow
                   kernels at 131072 x 3651 x 5 layers (hysteresis + ice),
                   ABC at 10 000 000 steps; the state kernels cold and warm,
-                  and the warm objectives beside the cold ones; K8 and K12
-                  also at the shapes of a fit generation (135 x 1827 x 5
-                  layers, 165 x 3652), over N = 16896 .. 262144 at T = 3651,
-                  and the SASS instructions of their time loops by class;
+                  and the warm objectives beside the cold ones; K8, K12 and
+                  K1/K2 also at the shapes of a fit generation (135 x 1827
+                  x 5 layers, 165 x 3652, 60 x 12418), K8, K12 and K2 over
+                  N = 16896 .. 262144 at T = 3651, and the SASS
+                  instructions of the objectives' time loops by class;
                   K5 at 8 catchments x 131072 x 3651 (UH (3, 7) and (10,
                   21)) and K11 at 8 x 131072 x 3651 x 5 layers.
 
@@ -80,7 +86,9 @@ Phases, in order (each prints its lines; any failure exits non-zero):
 kernels, golden, main, forecast, regional, times; the result lines need them
 all.  ``--compare DIR[,DIR...]`` (development) builds the kernel sources in
 each DIR (another version's ``rrmpg_tpu_torch/csrc``) beside this
-checkout's and times K8 and K12 of both in turns; it exits 3.
+checkout's, times K1, K2, K8, K11 and K12 of both in turns with the largest
+output difference between the builds, and holds K1/K2 of both to each
+other bit for bit on the goldens and edge inputs; it exits 3.
 
 The last two lines are a JSON object describing the kernels and the
 result line ``{"ok": true, "device": {...}}``.
@@ -127,7 +135,8 @@ KERNELS = {
     "hbv_traj_state": (HBV_SRC, "rrmpg_tpu/ops/pallas_hbv.py:223"),
     "snow_traj_state": (SNOW_SRC, "rrmpg_tpu/ops/pallas_snow.py:336"),
     "gr4j_regional": (GR4J_SRC, "rrmpg_tpu/ops/pallas_gr4j.py:680"),
-    "snow_regional": (SNOW_SRC, "rrmpg_tpu/ops/pallas_snow.py:1027"),
+    "snow_regional": (SNOW_OBJECTIVE_SRC,
+                      "rrmpg_tpu/ops/pallas_snow.py:1027"),
 }
 # Kernels with several modes: mode -> (line of the mode in the TPU kernel,
 # the key its launches, error and times are kept under).  The entry of the
@@ -228,11 +237,12 @@ PEAK_F32_FLOPS = 67e12
 # Floating-point operations of one step, counted from the CUDA sources with
 # +, -, *, /, compare-and-select and each tanh / sqrt / rsqrt / pow call as
 # one operation (a lower count than what the card really issues, so the bound
-# stays a bound).  gr4j_step: production store 37, UH registers
-# 2 + (2*NUH1 - 1) + (2*NUH2 - 1), routing store and outflow 21.
+# stays a bound).  GR4J step: production store 28 (one arm a step, as
+# gr4j_production computes it: the two-arm gr4j_step_pr does 37), UH
+# registers 2 + (2*NUH1 - 1) + (2*NUH2 - 1), routing store and outflow 21.
 # hbv_step: snow 10, soil 14, reservoirs and discharge 17.  ABC: a*P,
 # alpha*S + B, coeff*P + c*S_prev.  Objective sums: 3 (MSE) or 8 (stats).
-GR4J_STEP_OPS = {(3, 7): 37 + 2 + 5 + 13 + 21, (10, 21): 37 + 2 + 19 + 41 + 21}
+GR4J_STEP_OPS = {(3, 7): 28 + 2 + 5 + 13 + 21, (10, 21): 28 + 2 + 19 + 41 + 21}
 HBV_STEP_OPS = 10 + 14 + 17
 ABC_STEP_OPS = 6
 OBJECTIVE_OPS = {"mse": 3, "stats": 8}
@@ -788,6 +798,72 @@ def phase_kernels_gr4j(prec_np, etp_np, qobs_np, n=500, t_len=3651):
                 n_checks += 1
     print(f"[3 kernels] GR4J: {n_checks} kernel-vs-plain checks passed at "
           f"N={n}, T={t_len}")
+    gr4j_edge_checks(prec_np, etp_np, qobs_np)
+
+
+def tile_edge_gaps(qobs):
+    """A copy of a (..., T) numpy record with NaN on both sides of its
+    64-step tile edges (steps 63/64 and 127/128)."""
+    qobs = qobs.copy()
+    edges = [t for t in (STAGE_TILE - 1, STAGE_TILE, 2 * STAGE_TILE - 1,
+                         2 * STAGE_TILE) if t < qobs.shape[-1]]
+    qobs[..., edges] = np.nan
+    return qobs
+
+
+def gr4j_edge_checks(prec_np, etp_np, qobs_np):
+    """K1/K2 around their staging tiles (64 steps; 32 in the split kernel):
+    T = 1, 37, 65 and 128 (one step, shorter than a tile, a last tile of
+    one step, whole tiles), gaps on both sides of the tile edges, both UH
+    register pairs, MSE and statistics; cold, and warm over 100 steps
+    across a tile edge from the state K4 ends 30 cold steps in.  N = 200
+    (the split kernel, a ragged last block) and one more than the split
+    kernel takes (one member a thread, a last block of one member)."""
+    from rrmpg_tpu_torch.ops import fused_gr4j as fg
+
+    n_checks = 0
+    sizes = (EDGE_MEMBERS, fg.split_members() + 1)
+    for dtype, uh, n in ((d, u, k) for d in (F64, F32)
+                         for u in fg.SUPPORTED_UH for k in sizes):
+        tol, name = TOL[dtype]["obj"], str(dtype)[6:]
+        params = gr4j_random_params(
+            np.random.default_rng(uh[1]), n,
+            2.9 if uh[0] == 3 else BOUNDS_X4_WIDE, dtype)
+        packed = fg.pack_params(params, 0.4, 0.3)
+        for t_len in (1, 37, 65, 128):
+            prec, etp = (as_tensor(a[:t_len], dtype)
+                         for a in (prec_np, etp_np))
+            qobs = as_tensor(tile_edge_gaps(qobs_np[:t_len]), dtype)
+            want = fg.gr4j_objective_reference(
+                prec, etp, qobs, packed, *uh, stats=True, masked=True,
+                count=int(torch.isfinite(qobs).sum()))
+            for stats in (False, True):
+                report(f"gr4j {name} T={t_len} N={n} uh={uh} "
+                       f"{'stats' if stats else 'mse'}+masked",
+                       fg.gr4j_ensemble_mse_fused(
+                           prec, etp, qobs, 0.4, 0.3, params, *uh,
+                           stats=stats, masked=True),
+                       want if stats else want[0], *tol)
+                n_checks += 1
+        cut, t_len = 30, 130
+        prec, etp = (as_tensor(a[:t_len], dtype)
+                     for a in (prec_np, etp_np))
+        state, _, _ = gr4j_state_pair(
+            fg, prec[:cut].contiguous(), etp[:cut].contiguous(), params,
+            None, uh, (0.4, 0.3))
+        tail = (prec[cut:].contiguous(), etp[cut:].contiguous(),
+                as_tensor(tile_edge_gaps(qobs_np[cut:t_len]), dtype))
+        for stats in (False, True):
+            got, want = gr4j_warm_objective_pair(fg, *tail, params, state,
+                                                 uh, stats, True)
+            report(f"gr4j {name} warm T={t_len - cut} across a tile edge "
+                   f"N={n} uh={uh} "
+                   f"{'stats' if stats else 'mse'}+masked", got, want,
+                   *tol)
+            n_checks += 1
+    print(f"[3 kernels] GR4J K1/K2 tile and block edges: {n_checks} "
+          f"kernel-vs-plain checks passed at T in (1, 37, 65, 128) and a "
+          f"warm 100-step continuation, N in {sizes}")
 
 
 def phase_kernels_abc():
@@ -1997,15 +2073,19 @@ def regional_snow_call(fs, d, params, hyst, ice, uh, masked, stats=True,
         *uh, stats=True, masked=masked, counts=regional_counts(qobs, masked))
 
 
-def regional_snow_random(rng, c, t_len, num_layers, dtype, gaps):
+def regional_snow_random(rng, c, t_len, num_layers, dtype, gaps,
+                         edges=False):
     """(C, T, L) layer forcing, (C, T) etp and observations (catchment 0's
-    record cut short and NaN gaps in the others with ``gaps``) and (C, L)
+    record cut short and NaN gaps in the others with ``gaps``, and with
+    ``edges`` NaN on both sides of every 64-step tile edge) and (C, L)
     glacier fractions, from one numpy recipe."""
     shape = (c, t_len, num_layers)
     qobs = rng.uniform(0, 5, (c, t_len))
     if gaps:
         qobs[0, t_len * 2 // 3:] = np.nan
         qobs[1:, ::13] = np.nan
+    if edges:
+        qobs = tile_edge_gaps(qobs)
     d = dict(prec=rng.uniform(0, 15, shape), temp=rng.uniform(-12, 18, shape),
              frac=np.clip(rng.uniform(-0.3, 1.2, shape), 0, 1),
              etp=rng.uniform(0, 4, (c, t_len)), qobs=qobs,
@@ -2072,8 +2152,34 @@ def phase_kernels_regional(prec_np, etp_np, qobs_np, n=256, t_len=1000,
                                    f"{'+masked' if masked else ''}", got,
                                    want if stats else want[0], *tol)
                             n_checks += 1
+        # K11 around its 64-step staging tiles: layers in registers (1, 5)
+        # and in shared-memory columns (2, 7), T shorter than a tile and two
+        # whole tiles, N = 200 (a ragged last block), gaps at the tile edges
+        # and a record cut short.
+        for edge_t in (37, 128):
+            for num_layers in (1, 2, 5, 7):
+                params = snow_random_params(np.random.default_rng(4),
+                                            EDGE_MEMBERS, dtype, 2.9)
+                for c in (1, 3):
+                    d = regional_snow_random(
+                        np.random.default_rng(edge_t + num_layers), c,
+                        edge_t, num_layers, dtype, True, edges=True)
+                    for variant, hyst, ice in SNOW_VARIANTS:
+                        kw = dict(hyst=hyst, ice=ice, uh=(3, 7), masked=True)
+                        want = regional_snow_call(fs, d, params, plain=True,
+                                                  **kw)
+                        for stats in (False, True):
+                            got = regional_snow_call(fs, d, params,
+                                                     stats=stats, **kw)
+                            report(f"snow_regional {name} T={edge_t} "
+                                   f"N={EDGE_MEMBERS} C={c} L={num_layers} "
+                                   f"{variant:8s} "
+                                   f"{'stats' if stats else 'mse'}+masked",
+                                   got, want if stats else want[0], *tol)
+                            n_checks += 1
     print(f"[3 kernels] regional: {n_checks} kernel-vs-plain checks passed "
-          f"(K5 N={n} T={t_len}; K11 N={n} T={snow_t_len}; C in (1, 3))")
+          f"(K5 N={n} T={t_len}; K11 N={n} T={snow_t_len}, and at T in (37, "
+          f"128), N={EDGE_MEMBERS}, L in (1, 2, 5, 7); C in (1, 3))")
 
 
 REGION_BASINS = 8
@@ -2375,10 +2481,8 @@ def times_regional(measure, prec_np, etp_np, qobs_np):
     # by all.  The plain versions advance all catchments in one time loop
     # and are timed once.
     from rrmpg_tpu_torch.ops import fused_gr4j as fg
-    from rrmpg_tpu_torch.ops import fused_snow as fs
 
     n, t_len, c = TIME_MEMBERS, TIME_STEPS, REGION_BASINS
-    num_layers, uh = 5, fg.SUPPORTED_UH[0]
     rng = np.random.default_rng(8)
     scale = rng.uniform(0.8, 1.2, (c, 1))
     prec_ct, etp_ct = (as_tensor(a[:t_len] * scale, F32)
@@ -2398,30 +2502,12 @@ def times_regional(measure, prec_np, etp_np, qobs_np):
                 4 * (3 * c * t_len + 6 * n + c + c * n), 3,
                 f"C={c} uh={uh_r} N={n} T={t_len} mse")
     del prec_ct, etp_ct, qobs_ct
-    d, snow_params = snow_time_inputs(n, t_len, num_layers)
-    factors = [float(f) for f in scale[:, 0]]
-    region = dict(prec=torch.stack([d.prec * f for f in factors]),
-                  temp=torch.stack([d.temp] * c),
-                  frac=torch.stack([d.frac] * c),
-                  etp=torch.stack([d.etp * f for f in factors]),
-                  qobs=torch.stack([d.qobs[False]] * c),
-                  frac_ice=torch.stack([d.frac_ice] * c))
-    kw = dict(hyst=True, ice=True, uh=uh, masked=False,
-              inits=(0.0, 0.0, 0.3, 0.3))
-    series = c * (3 * t_len * num_layers + 2 * t_len + 2 * num_layers)
-    measure("snow_regional",
-            lambda: regional_snow_call(fs, region, snow_params, stats=False,
-                                       **kw),
-            lambda: regional_snow_call(fs, region, snow_params, plain=True,
-                                       **kw),
-            (num_layers * (SNOW_LAYER_OPS[True] + SNOW_ICE_OPS + 1) + 2
-             + GR4J_STEP_OPS[uh] + SNOW_SUMS_OPS) * c * n * t_len,
-            4 * (series + 11 * n + c + c * n), 3,
-            f"C={c} hyst+ice uh={uh} N={n} T={t_len} L={num_layers} mse")
+    fn, plain, ops, n_bytes, what = regional_snow_bench_call()
+    measure("snow_regional", fn, plain, ops, n_bytes, 3, what)
 
 
 # ---------------------------------------------------------------------------
-# K8 and K12 up close: SASS of the time loop, time against N, fit shapes
+# The objectives up close: SASS of the time loop, time against N, fit shapes
 # ---------------------------------------------------------------------------
 
 CUOBJDUMP = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin",
@@ -2443,17 +2529,29 @@ SASS_CLASSES = (
 # The instantiations whose time loop is read: (kernel, template arguments
 # as the build lines print them).  K8 at the bench shape (statistics and
 # SCA statistics, hysteresis + ice, UH (3, 7); 5 layers in registers, and
-# the run-time layer count; the names without a layer count are those of
-# the earlier design, which --compare may build), K12's three modes.
+# the run-time layer count), K12's three modes, K1/K2 at the bench shape
+# (UH (10, 21)) and the fit's (UH (3, 7), no gaps in CAMELS 01031500; the
+# split kernel runs there: its production and routing loops are the two
+# inner loops of its tile loop, each run by its own warps), and
+# K11 at the regional bench shape (hysteresis + ice, UH (3, 7); 5 layers
+# in registers and the run-time count; snow_regional_kernel is the name of
+# its earlier design, which --compare may build).
 SASS_TARGETS = (
     ("snow_objective_kernel", "float, 3, 7, true, true, false, false, 5"),
     ("snow_objective_kernel", "float, 3, 7, true, true, false, true, 5"),
     ("snow_objective_kernel", "float, 3, 7, true, true, false, false, 0"),
-    ("snow_objective_kernel", "float, 3, 7, true, true, false, false"),
-    ("snow_objective_kernel", "float, 3, 7, true, true, false, true"),
     ("hbv_objective_kernel", "float, false, false"),
     ("hbv_objective_kernel", "float, true, false"),
     ("hbv_objective_kernel", "float, false, true"),
+    ("gr4j_objective_kernel", "float, 10, 21, false, false"),
+    ("gr4j_objective_kernel", "float, 10, 21, true, false"),
+    ("gr4j_objective_kernel", "float, 3, 7, false, false"),
+    ("gr4j_objective_kernel", "float, 3, 7, true, false"),
+    ("gr4j_objective_split_kernel", "float, 3, 7, false, false"),
+    ("gr4j_objective_split_kernel", "float, 3, 7, true, false"),
+    ("snow_regional_objective_kernel", "float, 3, 7, true, true, 5"),
+    ("snow_regional_objective_kernel", "float, 3, 7, true, true, 0"),
+    ("snow_regional_kernel", "float, 3, 7, true, true"),
 )
 # Probes of what one operation costs in SASS (each minus probe_add).
 PROBE_SRC = r"""
@@ -2470,9 +2568,14 @@ PROBE(probe_powf, powf(a, b))
 PROBE(probe_exp2_log2, exp2f(b * log2f(a)))
 """
 SWEEP_MEMBERS = (16896, 33792, 67584, 131072, 262144)
+# K2 also below one block of 128 per SM (its split kernel runs up to 33792).
+GR4J_SWEEP_SMALL = (2112, 4224, 8448)
 # The times of a fit generation's shape, carried in the kernels line.
 FIT_SHAPE_ROWS = {"snow_objective": "snow_mse_fit",
-                  "hbv_objective": "hbv_mse_fit"}
+                  "hbv_objective": "hbv_mse_fit",
+                  "gr4j_mse": "gr4j_mse_fit", "gr4j_stats": "gr4j_stats_fit"}
+GR4J_FIT_SHAPE = (60, 12418)        # members (15 x 4 parameters), CAMELS days
+GR4J_FIT_UH = (3, 7)                # plain GR4J's x4 bound, 2.9
 SNOW_FIT_SHAPE = (135, 1827, 5)     # members (15 x 9 parameters), days, layers
 SNOW_FIT_UH = (10, 21)              # from the hysteresis classes' x4 bound, 10
 HBV_FIT_SHAPE = (165, 3652)         # members (15 x 11 parameters), days
@@ -2619,12 +2722,36 @@ def k8_k12_calls(d, snow_params, tensors, hbv_qobs, hbv_params):
     return calls
 
 
+def gr4j_fit_shape_calls():
+    """K1 and K2 at the shape of a GR4J ``fit`` generation on CAMELS
+    01031500: 60 members x 12418 days, UH (3, 7), the basin's own
+    discharge (no gaps), cold from empty stores.  As fit_shape_calls."""
+    from rrmpg_tpu_torch.ops import fused_gr4j as fg
+
+    n, t_len = GR4J_FIT_SHAPE
+    qobs, prec, etp = (as_tensor(a[:t_len], F32) for a in basin())
+    params = gr4j_random_params(np.random.default_rng(5), n, 2.9, F32)
+    packed = fg.pack_params(params, 0.0, 0.0)
+    calls = {}
+    for mode in ("mse", "stats"):
+        stats = mode == "stats"
+        calls[f"gr4j_{mode}_fit"] = (
+            functools.partial(fg.gr4j_ensemble_mse_fused, prec, etp, qobs,
+                              0.0, 0.0, params, *GR4J_FIT_UH, stats=stats),
+            functools.partial(fg.gr4j_objective_reference, prec, etp, qobs,
+                              packed, *GR4J_FIT_UH, stats=stats),
+            (GR4J_STEP_OPS[GR4J_FIT_UH] + OBJECTIVE_OPS[mode]) * n * t_len,
+            4 * (3 * t_len + 6 * n + (4 if stats else 1) * n),
+            f"fit shape uh={GR4J_FIT_UH} N={n} T={t_len} {mode}")
+    return calls
+
+
 def fit_shape_calls(forcing, qsim_matlab):
-    """K8 and K12 at the shapes of a ``fit`` generation: the snow fit's 135
-    members x 1827 days x 5 layers (MSE, gaps in discharge, hysteresis +
-    ice, UH (10, 21)) and the HBV-Edu fit's 165 members x 3652 days (MSE
-    with gaps).  Returns {name: (call, plain call, operations, bytes,
-    description)}."""
+    """K8, K12, K1 and K2 at the shapes of a ``fit`` generation: the snow
+    fit's 135 members x 1827 days x 5 layers (MSE, gaps in discharge,
+    hysteresis + ice, UH (10, 21)), the HBV-Edu fit's 165 members x 3652
+    days (MSE with gaps) and the GR4J fit's (gr4j_fit_shape_calls).
+    Returns {name: (call, plain call, operations, bytes, description)}."""
     from rrmpg_tpu_torch.ops import fused_hbv as fh
     from rrmpg_tpu_torch.ops import fused_snow as fs
 
@@ -2644,7 +2771,7 @@ def fit_shape_calls(forcing, qsim_matlab):
     qobs = as_tensor(qobs, F32)
     hbv_params = hbv_random_params(np.random.default_rng(4), hn, F32)
     args = (fh, tensors, qobs, hbv_params, "mse", True)
-    return {
+    return {**gr4j_fit_shape_calls(), 
         "snow_mse_fit": (
             lambda: snow_call(fs, d, params, "mse", **kw),
             lambda: snow_call(fs, d, params, "mse", plain=True, **kw),
@@ -2661,7 +2788,8 @@ def fit_shape_calls(forcing, qsim_matlab):
 
 def sweep_calls(forcing, qsim_matlab, members):
     """K8 statistics (131072-shape recipe, hysteresis + ice, UH (3, 7), 5
-    layers) and K12 statistics at T = 3651 with ``members`` members."""
+    layers), K12 statistics and K2 (UH (10, 21), CAMELS 01031500) at
+    T = 3651 with ``members`` members."""
     from rrmpg_tpu_torch.ops import fused_hbv as fh
     from rrmpg_tpu_torch.ops import fused_snow as fs
 
@@ -2672,7 +2800,19 @@ def sweep_calls(forcing, qsim_matlab, members):
     kw = dict(hyst=True, ice=True, uh=(3, 7), inits=(0.0, 0.0, 0.3, 0.3))
     return {"snow_stats": lambda: snow_call(fs, d, params, "stats", **kw),
             "hbv_stats": lambda: hbv_kernel(fh, tensors, qobs, hbv_params,
-                                            "stats")}
+                                            "stats"),
+            "gr4j_stats": gr4j_sweep_call(members)}
+
+
+def gr4j_sweep_call(members):
+    """K2 at T = 3651 (CAMELS 01031500, UH (10, 21)) with ``members``
+    members, as one zero-argument call."""
+    from rrmpg_tpu_torch.ops import fused_gr4j as fg
+
+    qobs, prec, etp = (as_tensor(a[:TIME_STEPS], F32) for a in basin())
+    params = gr4j_random_params(np.random.default_rng(1), members, 2.9, F32)
+    return functools.partial(fg.gr4j_ensemble_mse_fused, prec, etp, qobs,
+                             0.0, 0.0, params, 10, 21, stats=True)
 
 
 def print_sass(card, label, lib):
@@ -2695,20 +2835,194 @@ def using_library(lib):
         _build.load_library = saved
 
 
+def output_difference(got, want):
+    """(largest absolute difference where both are finite, whether the two
+    are equal element for element with NaN where the other has NaN)."""
+    got, want = got.double(), want.double()
+    nan_got, nan_want = torch.isnan(got), torch.isnan(want)
+    both = ~(nan_got | nan_want)
+    diff = float((got[both] - want[both]).abs().max()) if bool(
+        both.any()) else 0.0
+    same = bool(torch.equal(nan_got, nan_want)) and bool(
+        torch.equal(got[both], want[both]))
+    return diff, same
+
+
+def gr4j_bench_calls():
+    """K1 and K2 at the bench shape: 131072 members x 3651 CAMELS days,
+    UH (10, 21), members over plain GR4J's bounds."""
+    from rrmpg_tpu_torch.ops import fused_gr4j as fg
+
+    qobs, prec, etp = (as_tensor(a[:TIME_STEPS], F32) for a in basin())
+    params = gr4j_random_params(np.random.default_rng(1), TIME_MEMBERS, 2.9,
+                                F32)
+    return {f"gr4j_{mode}": functools.partial(
+        fg.gr4j_ensemble_mse_fused, prec, etp, qobs, 0.0, 0.0, params, 10, 21,
+        stats=mode == "stats") for mode in ("mse", "stats")}
+
+
+def gr4j_equality_calls():
+    """K1/K2 calls on which two builds of the same arithmetic must agree
+    bit for bit: the Excel GR4J sheet (its golden parameters among 255
+    random members) and the whole CAMELS 01031500 record (37 days with
+    p == e), float64 and float32, both UH register pairs, MSE and
+    statistics, cold and warm (from the state K4 ends the first half in);
+    and edge inputs (300 steps, every seventh with p == e): NaN forcing at
+    two steps, an inf and a NaN initial store.  Returns {name: call}."""
+    import pandas as pd
+    from rrmpg_tpu_torch.ops import fused_gr4j as fg
+
+    sheet = pd.read_csv(REPO / "tests" / "data" / "gr4j_example_data.csv")
+    records = {"excel": (sheet.prec.to_numpy(), sheet.etp.to_numpy(),
+                         sheet.qobs.to_numpy()),
+               "camels": tuple(basin()[k] for k in (1, 2, 0))}
+    rng = np.random.default_rng(7)
+    edge_p = rng.uniform(0, 15, 300)
+    edge_e = rng.uniform(0, 4, 300)
+    edge_e[::7] = edge_p[::7]
+    edge_q = rng.uniform(0, 5, 300)
+    calls = {}
+    for dtype in (F64, F32):
+        name = str(dtype)[6:]
+        for uh in ((3, 7), (10, 21)):
+            params = gr4j_random_params(np.random.default_rng(uh[0]), 256,
+                                        2.9 if uh[0] == 3 else
+                                        BOUNDS_X4_WIDE, dtype)
+            for k, v in GR4J_GOLDEN.items():
+                params[k][0] = v
+            for record, (p, e, q) in records.items():
+                p, e, q = (as_tensor(a, dtype) for a in (p, e, q))
+                half = p.shape[0] // 2
+                _, state = fg.gr4j_simulate_state_fused(
+                    p[:half].contiguous(), e[:half].contiguous(), params,
+                    None, 0.6, 0.7, *uh)
+                tail = [x[half:].contiguous() for x in (p, e, q)]
+                for stats in (False, True):
+                    mode = "stats" if stats else "mse"
+                    calls[f"{record} {name} uh={uh} {mode}"] = (
+                        functools.partial(fg.gr4j_ensemble_mse_fused, p, e,
+                                          q, 0.6, 0.7, params, *uh,
+                                          stats=stats))
+                    calls[f"{record} {name} uh={uh} {mode} warm"] = (
+                        functools.partial(fg.gr4j_ensemble_mse_fused, *tail,
+                                          0.0, 0.0, params, *uh,
+                                          stats=stats, state=state))
+            p, e, q = (as_tensor(a, dtype) for a in (edge_p, edge_e, edge_q))
+            nan_p, nan_e = p.clone(), e.clone()
+            nan_p[100] = torch.nan
+            nan_e[200] = torch.nan
+            for label, forcing, s_init in (
+                    ("p == e", (p, e), 0.4), ("NaN forcing", (nan_p, nan_e),
+                                              0.4),
+                    ("inf store", (p, e), float("inf")),
+                    ("NaN store", (p, e), float("nan"))):
+                calls[f"edge {label} {name} uh={uh} stats"] = (
+                    functools.partial(fg.gr4j_ensemble_mse_fused, *forcing, q,
+                                      s_init, 0.3, params, *uh, stats=True))
+    return calls
+
+
+def shared_source_calls():
+    """The kernels that share a changed source with K1/K2 or K11 (K3, K4
+    and K5 with K1/K2's `gr4j_step.cuh`, K9 and K10 its two-arm step through
+    `snow_step.cuh`; K8 is timed with K12) at their bench shapes, as
+    zero-argument calls that return one tensor: {name: call}."""
+    from rrmpg_tpu_torch.ops import fused_gr4j as fg
+    from rrmpg_tpu_torch.ops import fused_snow as fs
+
+    n, t_len, c = TIME_MEMBERS, TIME_STEPS, REGION_BASINS
+    qobs_np, prec_np, etp_np = basin()
+    prec, etp = (as_tensor(a[:t_len], F32) for a in (prec_np, etp_np))
+    params = gr4j_random_params(np.random.default_rng(1), n, 2.9, F32)
+    _, state = fg.gr4j_simulate_state_fused(prec, etp, params, None, 0.0, 0.0,
+                                            10, 21)
+    scale = np.random.default_rng(8).uniform(0.8, 1.2, (c, 1))
+    prec_ct, etp_ct = (as_tensor(a[:t_len] * scale, F32)
+                       for a in (prec_np, etp_np))
+    qobs_ct = as_tensor(np.tile(qobs_np[:t_len], (c, 1)), F32)
+    d, snow_params = snow_time_inputs(n, t_len, 5)
+    kw = dict(hyst=True, ice=True, uh=(3, 7), inits=(0.0, 0.0, 0.3, 0.3))
+    _, snow_state = snow_state_kernel(fs, d, snow_params, None, **kw)
+    return {
+        "gr4j_traj": lambda: fg.gr4j_simulate_fused(prec, etp, 0.0, 0.0,
+                                                    params, 10, 21),
+        "gr4j_traj_state_cold": lambda: fg.gr4j_simulate_state_fused(
+            prec, etp, params, None, 0.0, 0.0, 10, 21)[0],
+        "gr4j_traj_state_warm": lambda: fg.gr4j_simulate_state_fused(
+            prec, etp, params, state, num_uh1=10, num_uh2=21)[0],
+        "gr4j_regional_uh37": lambda: fg.gr4j_regional_objective_fused(
+            prec_ct, etp_ct, qobs_ct, 0.0, 0.0, params, 3, 7),
+        "gr4j_regional": lambda: fg.gr4j_regional_objective_fused(
+            prec_ct, etp_ct, qobs_ct, 0.0, 0.0, params, 10, 21),
+        "snow_traj": lambda: snow_call(fs, d, snow_params, "traj", **kw),
+        "snow_traj_state_cold": lambda: snow_state_kernel(
+            fs, d, snow_params, None, **kw)[0],
+        "snow_traj_state_warm": lambda: snow_state_kernel(
+            fs, d, snow_params, snow_state, **kw)[0],
+    }
+
+
+def sass_by_kernel(path):
+    """{kernel<template arguments>: [(opcode, operands)]} of a library."""
+    out = {}
+    for name, instrs in sass_functions(path).items():
+        m = re.search(KERNEL_NAME, name)
+        if m:
+            key = f"{m.group(1)}<{template_args(m.group(2))}>"
+            out[key] = [(op, args) for _, op, args in instrs]
+    return out
+
+
+def regional_snow_bench_call():
+    """K11 at the regional bench shape, 8 catchments x 131072 members x
+    3651 days x 5 layers, hysteresis + ice, UH (3, 7), MSE: each
+    catchment's forcing a scaled copy of one recipe, one parameter set per
+    member shared by all.  Returns (call, plain call, operations, bytes,
+    description)."""
+    from rrmpg_tpu_torch.ops import fused_snow as fs
+
+    n, t_len, c, num_layers, uh = (TIME_MEMBERS, TIME_STEPS, REGION_BASINS,
+                                   5, (3, 7))
+    scale = np.random.default_rng(8).uniform(0.8, 1.2, (c, 1))
+    d, snow_params = snow_time_inputs(n, t_len, num_layers)
+    factors = [float(f) for f in scale[:, 0]]
+    region = dict(prec=torch.stack([d.prec * f for f in factors]),
+                  temp=torch.stack([d.temp] * c),
+                  frac=torch.stack([d.frac] * c),
+                  etp=torch.stack([d.etp * f for f in factors]),
+                  qobs=torch.stack([d.qobs[False]] * c),
+                  frac_ice=torch.stack([d.frac_ice] * c))
+    kw = dict(hyst=True, ice=True, uh=uh, masked=False,
+              inits=(0.0, 0.0, 0.3, 0.3))
+    series = c * (3 * t_len * num_layers + 2 * t_len + 2 * num_layers)
+    return (lambda: regional_snow_call(fs, region, snow_params, stats=False,
+                                       **kw),
+            lambda: regional_snow_call(fs, region, snow_params, plain=True,
+                                       **kw),
+            (num_layers * (SNOW_LAYER_OPS[True] + SNOW_ICE_OPS + 1) + 2
+             + GR4J_STEP_OPS[uh] + SNOW_SUMS_OPS) * c * n * t_len,
+            4 * (series + 11 * n + c + c * n),
+            f"C={c} hyst+ice uh={uh} N={n} T={t_len} L={num_layers} mse")
+
+
 def phase_compare(card, other_dirs, forcing, qsim_matlab):
     """Development: build the kernel sources in each of ``other_dirs``
     (another version's ``rrmpg_tpu_torch/csrc``) beside this checkout's,
-    and time K8 and K12 of each against this one's in turns (other, this,
-    this, other) at the bench shape, the fit shapes and over SWEEP_MEMBERS,
-    with the SASS of the time loops and the registers that differ.  Times
-    only: the kernels phase checks this checkout's kernels."""
+    and time K1, K2, K8, K11 and K12 of each against this one's in turns
+    (other, this, this, other) at the bench shapes, the fit shapes and over
+    SWEEP_MEMBERS, and K3, K4, K5, K9, K10 (which share their sources) at
+    their bench shapes, with the largest output difference between the two
+    builds for each timed call, the SASS of the time loops, the
+    instantiations whose SASS differs and the registers that differ; then
+    K1/K2 of both builds on the goldens and edge inputs, bit for bit.
+    Times only: the kernels phase checks this checkout's kernels."""
     from rrmpg_tpu_torch.ops._build import BUILD_DIR, build_library, \
         load_library
 
     this = load_library()
     others = []
     for k, src in enumerate(other_dirs):
-        lib = build_library(src, BUILD_DIR / f"compare{k}")
+        lib = build_library(src, BUILD_DIR / f"compare{k}", strict=False)
         print(f"[compare] {src}: {lib.path.name} built in "
               f"{lib.build_seconds:.1f} s")
         # Registers and spills where the two builds differ.
@@ -2718,14 +3032,30 @@ def phase_compare(card, other_dirs, forcing, qsim_matlab):
                 print(f"    ptxas {kernel}: {src} {theirs.get(kernel)}, "
                       f"this {ours.get(kernel)} (registers, spill bytes)")
         others.append((str(src), lib))
+    ours = sass_by_kernel(this.path)
+    for label, lib in others:
+        theirs = sass_by_kernel(lib.path)
+        both = sorted(set(ours) & set(theirs))
+        differ = [k for k in both if ours[k] != theirs[k]]
+        print(f"[compare] SASS against {label}: {len(both) - len(differ)} "
+              f"of the {len(both)} instantiations in both builds identical "
+              f"instruction for instruction; differing: {differ}")
     for label, lib in [("this", this)] + others:
         print_sass(card, f"{label}: ", lib)
     for name, extra in probe_costs().items():
         print(f"[compare] {name}: {extra} SASS instructions beyond an "
               "addition's kernel (sm_90a, -O3)")
 
+    def outputs(fn, lib):
+        with using_library(lib):
+            out = fn()
+        torch.cuda.synchronize()
+        return out
+
     def turns(name, fn, reps, what):
         for label, lib in others:
+            diff, same = output_difference(outputs(fn, this),
+                                           outputs(fn, lib))
             ms = []
             for use in (lib, this, this, lib):
                 with using_library(use):
@@ -2733,9 +3063,16 @@ def phase_compare(card, other_dirs, forcing, qsim_matlab):
             print(f"[compare] {name} {what}: {label} {ms[0]:.4f} / "
                   f"{ms[3]:.4f} ms, this {ms[1]:.4f} / {ms[2]:.4f} ms, "
                   f"this/{label} {min(ms[1:3]) / min(ms[0], ms[3]):.3f}; "
+                  f"largest output difference {diff:.3e}, bit-equal {same}; "
                   f"{card}")
 
     n, t_len = TIME_MEMBERS, TIME_STEPS
+    for name, fn in gr4j_bench_calls().items():
+        turns(name, fn, 5, f"uh=(10, 21) N={n} T={t_len}")
+    fn, _, _, _, what = regional_snow_bench_call()
+    turns("snow_regional", fn, 3, what)
+    for name, fn in shared_source_calls().items():
+        turns(name, fn, 3, f"N={n} T={t_len}")
     d, snow_params = snow_time_inputs(n, t_len, 5)
     tensors = hbv_tensors(forcing, F32, t_len)
     hbv_qobs = as_tensor(qsim_matlab[:t_len], F32)
@@ -2744,17 +3081,27 @@ def phase_compare(card, other_dirs, forcing, qsim_matlab):
     sca = bench.pop("snow_sca_stats")
     for name, fn in bench.items():
         turns(name, fn, 3, f"N={n} T={t_len}")
+    del d, bench
     for name, (fn, _, _, _, what) in fit_shape_calls(forcing,
                                                      qsim_matlab).items():
         turns(name, fn, 20, what)
+    for members in GR4J_SWEEP_SMALL:
+        turns("gr4j_stats", gr4j_sweep_call(members), 5,
+              f"sweep N={members} T={t_len}")
     for members in SWEEP_MEMBERS:
         for name, fn in sweep_calls(forcing, qsim_matlab, members).items():
             turns(name, fn, 3, f"sweep N={members} T={t_len}")
     turns("snow_sca_stats", sca, 3, f"N={n} T={t_len}")
+    for name, fn in gr4j_equality_calls().items():
+        for label, lib in others:
+            diff, same = output_difference(outputs(fn, this),
+                                           outputs(fn, lib))
+            print(f"[compare] K1/K2 {name}: this against {label}, largest "
+                  f"difference {diff:.3e}, bit-equal {same}")
 
 
-def times_k8_k12(measure, card, forcing, qsim_matlab):
-    """K8 and K12 beyond the bench shape: at the shapes of a ``fit``
+def times_objectives(measure, card, forcing, qsim_matlab):
+    """K8, K12 and K1/K2 beyond the bench shape: at the shapes of a ``fit``
     generation (against plain version and bound), over SWEEP_MEMBERS at
     T = 3651 (kernel only: time against N says whether the SMs' issue or
     one thread's latency binds), and the SASS of their time loops."""
@@ -2763,13 +3110,16 @@ def times_k8_k12(measure, card, forcing, qsim_matlab):
     for name, (fn, plain, ops, n_bytes, what) in fit_shape_calls(
             forcing, qsim_matlab).items():
         measure(name, fn, plain, ops, n_bytes, 20, what)
+    sweep = [(m, "gr4j_stats", gr4j_sweep_call(m)) for m in GR4J_SWEEP_SMALL]
     for members in SWEEP_MEMBERS:
-        for name, fn in sweep_calls(forcing, qsim_matlab, members).items():
-            ms = device_ms(fn, 3)
-            print(f"[6 times] sweep {name} float32 N={members} "
-                  f"T={TIME_STEPS}: kernel {ms:.4f} ms, "
-                  f"{members * TIME_STEPS / (ms * 1e-3):.4e} member-steps/s; "
-                  f"{card}")
+        sweep += [(members, name, fn) for name, fn in sweep_calls(
+            forcing, qsim_matlab, members).items()]
+    for members, name, fn in sweep:
+        ms = device_ms(fn, 3)
+        print(f"[6 times] sweep {name} float32 N={members} T={TIME_STEPS}: "
+              f"kernel {ms:.4f} ms, "
+              f"{members * TIME_STEPS / (ms * 1e-3):.4e} member-steps/s; "
+              f"{card}")
     print_sass(card, "", load_library())
 
 
@@ -2932,7 +3282,7 @@ def phase_times(card, prec_np, etp_np, qobs_np, forcing, qsim_matlab):
             4 * (series + t_len + 11 * n + 4 * n + warm_read), 3,
             shape + " stats")
     del snow_state, d, snow_params
-    times_k8_k12(measure, card, forcing, qsim_matlab)
+    times_objectives(measure, card, forcing, qsim_matlab)
     times_regional(measure, prec_np, etp_np, qobs_np)
 
     # ABC, one member over 10M steps.  Three copies of the series take
@@ -3007,9 +3357,9 @@ def main():
                         help="development: the phases to run after the "
                         "build, of " + ", ".join(PHASES))
     parser.add_argument("--compare", metavar="DIR[,DIR...]",
-                        help="development: time K8 and K12 built from the "
-                        "kernel sources in each DIR against this "
-                        "checkout's, in turns, then stop")
+                        help="development: time K1, K2, K8, K11 and K12 "
+                        "built from the kernel sources in each DIR against "
+                        "this checkout's, in turns, then stop")
     args = parser.parse_args()
     phases = set(args.phases.split(","))
     check(phases <= set(PHASES), f"unknown phase in {sorted(phases)}")

@@ -3,6 +3,7 @@
 // Replaces the Pallas kernels of rrmpg_tpu/ops/pallas_gr4j.py:
 //   K1  _mse_kernel    (gr4j_ensemble_mse_pallas)             -> gr4j_objective_kernel<..., STATS=false>
 //   K2  _stats_kernel  (gr4j_ensemble_mse_pallas, stats=True) -> gr4j_objective_kernel<..., STATS=true>
+//       (both as gr4j_objective_split_kernel for small ensembles)
 //   K3  _traj_kernel   (gr4j_simulate_pallas)                 -> gr4j_traj_kernel
 //   K4  _traj_final_kernel (gr4j_simulate_pallas_state)       -> gr4j_traj_state_kernel
 //   K5  gr4j_regional_mse_pallas (the K1/K2 body over a third,
@@ -27,9 +28,19 @@
 // for the whole time loop (the UH lengths are template constants, so every
 // register index is a compile-time constant after unrolling and nothing
 // spills to local memory).  Latency is hidden by running many members per
-// SM; the forcing reads go through __ldg, which the warp serves as one
-// broadcast.  The objective accumulates in registers.  K3's per-step stores
-// stride across members (row-major (N, T)); that is left as it is for now.
+// SM; the forcing reads of K3-K5 go through __ldg, which the warp serves as
+// one broadcast.  The objective accumulates in registers.  K3's per-step
+// stores stride across members (row-major (N, T)); that is left as it is
+// for now.
+//
+// K1/K2 were redesigned for this card (PERF.md section 6).  At 131072
+// members they are bound by the SMs' issue rate, at a calibration's 60 by
+// one warp's dependent chain.  Against both: the forcing is staged in
+// shared memory with cp.async (no device read on the recurrence), and a
+// step computes one production arm, one tanh and one IEEE division instead
+// of two (gr4j_production, the same values as the two-arm step); against
+// the chain, small ensembles run the production and the routing halves of
+// the step in different warps (gr4j_objective_split_kernel).
 //
 // Regional mode (K5).  One launch sweeps C catchments x N members that share
 // one parameter set per member: block row c = blockIdx.y is catchment c,
@@ -57,9 +68,19 @@
 
 #include <cstddef>
 
+#include "async_copy.cuh"
 #include "gr4j_step.cuh"
 
 namespace {
+
+// K1/K2: steps of forcing staged per buffer (two buffers).
+constexpr int kTile = 64;
+// K1/K2 with production and routing split between warps: ensembles of at
+// most kSplitMembers members (measured on the H100: faster up to 33792
+// members at T = 3651, 27 % slower at 67584, where the SMs' issue binds;
+// PERF.md section 6), and the steps handed over per tile.
+constexpr int kSplitMembers = 33792;
+constexpr int kSplitTile = 32;
 
 // K3: (N, T) discharge trajectories, row-major.
 template <typename Real, int NUH1, int NUH2>
@@ -110,11 +131,48 @@ gr4j_traj_state_kernel(const Real* __restrict__ prec,
   state[n] = m.r;
 }
 
+// The sums of the objective kernels for one step: squared error and, with
+// STATS, q, q^2 and q * qobs; MASKED leaves out a NaN observation.
+template <typename Real, bool STATS, bool MASKED>
+__device__ __forceinline__ void accumulate(Real q, Real qo, Real& sse,
+                                           Real& sum_q, Real& sum_q2,
+                                           Real& sum_qo) {
+  if (MASKED && qo != qo) return;
+  const Real diff = q - qo;
+  sse += diff * diff;
+  if (STATS) {
+    sum_q += q;
+    sum_q2 += q * q;
+    sum_qo += q * qo;
+  }
+}
+
+// Copy steps [t0, t0 + steps) of prec, etp and qobs into the records of
+// `buf`, one [p, e, qobs, unused] record per step.
+template <typename Real>
+__device__ __forceinline__ void stage_forcing(Real (*buf)[4],
+                                              const Real* prec,
+                                              const Real* etp,
+                                              const Real* qobs, int t0,
+                                              int steps) {
+  for (int s = threadIdx.x; s < steps; s += blockDim.x) {
+    copy_async(&buf[s][0], prec + t0 + s);
+    copy_async(&buf[s][1], etp + t0 + s);
+    copy_async(&buf[s][2], qobs + t0 + s);
+  }
+}
+
 // K1 (STATS=false): out[i] = mean squared error.
 // K2 (STATS=true): out[k*N + i] = time means of [err^2, q, q^2, q*qobs].
 // MASKED skips steps whose observation is NaN (the step itself still runs);
 // `count` is the number of steps averaged over (T, or the valid count).
 // With `hist` the objective is that of a warm continuation.
+//
+// The forcing arrives 64 steps at a time: the block copies a tile of
+// records into shared memory with cp.async, double-buffered, so no read of
+// device memory sits on the recurrence.  A step computes one production
+// arm (gr4j_production).  Every thread of a block takes part in the copies
+// and barriers; threads past N run the last member and write nothing.
 template <typename Real, int NUH1, int NUH2, bool STATS, bool MASKED>
 __global__ void __launch_bounds__(kBlock)
 gr4j_objective_kernel(const Real* __restrict__ prec,
@@ -123,23 +181,115 @@ gr4j_objective_kernel(const Real* __restrict__ prec,
                       const Real* __restrict__ params,
                       const Real* __restrict__ hist, int n, int t_len,
                       Real count, Real* __restrict__ out) {
+  __shared__ __align__(16) Real stage[2][kTile][4];
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
   Member<Real, NUH1, NUH2> m;
-  gr4j_init(m, params, n, i, hist);
+  gr4j_init(m, params, n, min(i, n - 1), hist);
   Real sse = Real(0), sum_q = Real(0), sum_q2 = Real(0), sum_qo = Real(0);
-  for (int t = 0; t < t_len; ++t) {
-    const Real q = gr4j_step(m, __ldg(prec + t), __ldg(etp + t));
-    const Real qo = __ldg(qobs + t);
-    if (MASKED && qo != qo) continue;
-    const Real diff = q - qo;
-    sse += diff * diff;
-    if (STATS) {
-      sum_q += q;
-      sum_q2 += q * q;
-      sum_qo += q * qo;
+  const int tiles = (t_len + kTile - 1) / kTile;
+  stage_forcing(stage[0], prec, etp, qobs, 0, min(kTile, t_len));
+  copy_commit();
+#pragma unroll 1
+  for (int k = 0; k < tiles; ++k) {
+    const int t0 = k * kTile;
+    if (k + 1 < tiles) {
+      stage_forcing(stage[(k + 1) & 1], prec, etp, qobs, t0 + kTile,
+                    min(kTile, t_len - t0 - kTile));
     }
+    copy_commit();  // possibly empty: the group count stays one per tile
+    copy_wait_older();
+    __syncthreads();
+    const Real(*buf)[4] = stage[k & 1];
+    const int steps = min(kTile, t_len - t0);
+#pragma unroll 1
+    for (int s = 0; s < steps; ++s) {
+      const Real p_r =
+          gr4j_production(m, step_forcing(m, buf[s][0], buf[s][1]));
+      accumulate<Real, STATS, MASKED>(gr4j_routing(m, p_r), buf[s][2], sse,
+                                      sum_q, sum_q2, sum_qo);
+    }
+    __syncthreads();  // the buffer is refilled two tiles on
   }
+  if (i >= n) return;
+  out[i] = sse / count;
+  if (STATS) {
+    out[(size_t)n + i] = sum_q / count;
+    out[2 * (size_t)n + i] = sum_q2 / count;
+    out[3 * (size_t)n + i] = sum_qo / count;
+  }
+}
+
+// K1/K2 for small ensembles (n <= kSplitMembers, a calibration's
+// population), where each warp's dependent chain, not the SMs' issue,
+// decides the time.  The step's two halves share only the routing input
+// p_r, so a block splits them between its warps: threads 0..63 run the
+// production store of members 0..63 of the block (the forcing terms a step
+// ahead of the chain) and hand each p_r through shared memory to threads
+// 64..127, which run the UH registers, the routing store and the sums of
+// the same members one tile behind.  Each warp issues one chain, on a
+// scheduler of its own, so a step costs about the longer chain instead of
+// both.  The forcing is staged kSplitTile steps at a time in a ring of
+// three buffers (production reads tile k while routing reads tile k - 1
+// and tile k + 1 lands); two barriers a tile order the hand-over.  Each
+// member runs the same operations on the same values as in
+// gr4j_objective_kernel.
+template <typename Real, int NUH1, int NUH2, bool STATS, bool MASKED>
+__global__ void __launch_bounds__(kBlock)
+gr4j_objective_split_kernel(const Real* __restrict__ prec,
+                            const Real* __restrict__ etp,
+                            const Real* __restrict__ qobs,
+                            const Real* __restrict__ params,
+                            const Real* __restrict__ hist, int n, int t_len,
+                            Real count, Real* __restrict__ out) {
+  constexpr int kMembers = kBlock / 2;
+  __shared__ __align__(16) Real stage[3][kSplitTile][4];
+  __shared__ Real routed[2][kSplitTile][kMembers];
+  const bool routing = threadIdx.x >= kMembers;
+  const int lane = threadIdx.x - (routing ? kMembers : 0);
+  const int i = blockIdx.x * kMembers + lane;
+  Member<Real, NUH1, NUH2> m;
+  gr4j_init(m, params, n, min(i, n - 1), routing ? hist : nullptr);
+  Real sse = Real(0), sum_q = Real(0), sum_q2 = Real(0), sum_qo = Real(0);
+  const int tiles = (t_len + kSplitTile - 1) / kSplitTile;
+  stage_forcing(stage[0], prec, etp, qobs, 0, min(kSplitTile, t_len));
+  copy_commit();
+#pragma unroll 1
+  for (int k = 0; k <= tiles; ++k) {
+    if (k + 1 < tiles) {
+      const int t1 = (k + 1) * kSplitTile;
+      stage_forcing(stage[(k + 1) % 3], prec, etp, qobs, t1,
+                    min(kSplitTile, t_len - t1));
+    }
+    copy_commit();  // possibly empty: the group count stays one per tile
+    copy_wait_older();
+    __syncthreads();  // tile k has landed; routed[(k - 1) & 1] is complete
+    if (!routing && k < tiles) {
+      const Real(*buf)[4] = stage[k % 3];
+      Real(*pr)[kMembers] = routed[k & 1];
+      const int last = min(kSplitTile, t_len - k * kSplitTile) - 1;
+      StepForcing<Real> f = step_forcing(m, buf[0][0], buf[0][1]);
+#pragma unroll 1
+      for (int s = 0; s <= last; ++s) {
+        const int ahead = min(s + 1, last);  // past the tile: unused
+        const StepForcing<Real> f_ahead =
+            step_forcing(m, buf[ahead][0], buf[ahead][1]);
+        pr[s][lane] = gr4j_production(m, f);
+        f = f_ahead;
+      }
+    } else if (routing && k > 0) {
+      const Real(*buf)[4] = stage[(k - 1) % 3];
+      const Real(*pr)[kMembers] = routed[(k - 1) & 1];
+      const int steps = min(kSplitTile, t_len - (k - 1) * kSplitTile);
+#pragma unroll 1
+      for (int s = 0; s < steps; ++s) {
+        accumulate<Real, STATS, MASKED>(gr4j_routing(m, pr[s][lane]),
+                                        buf[s][2], sse, sum_q, sum_q2,
+                                        sum_qo);
+      }
+    }
+    __syncthreads();  // a buffer is refilled, a hand-over rewritten, after
+  }
+  if (!routing || i >= n) return;
   out[i] = sse / count;
   if (STATS) {
     out[(size_t)n + i] = sum_q / count;
@@ -210,29 +360,41 @@ void launch_traj_state(const Real* prec, const Real* etp, const Real* params,
                                            out, fstate);
 }
 
+// K1/K2 in one mode: the split kernel (64 members a block) for at most
+// kSplitMembers members, else one member a thread.
+template <typename Real, int NUH1, int NUH2, bool STATS, bool MASKED>
+void launch_objective_mode(const Real* prec, const Real* etp,
+                           const Real* qobs, const Real* params,
+                           const Real* hist, int n, int t_len, Real count,
+                           Real* out, cudaStream_t stream) {
+  if (n <= kSplitMembers) {
+    gr4j_objective_split_kernel<Real, NUH1, NUH2, STATS, MASKED>
+        <<<(n + kBlock / 2 - 1) / (kBlock / 2), kBlock, 0, stream>>>(
+            prec, etp, qobs, params, hist, n, t_len, count, out);
+  } else {
+    gr4j_objective_kernel<Real, NUH1, NUH2, STATS, MASKED>
+        <<<grid_for(n), kBlock, 0, stream>>>(prec, etp, qobs, params, hist,
+                                             n, t_len, count, out);
+  }
+}
+
 template <typename Real, int NUH1, int NUH2>
 void launch_objective(const Real* prec, const Real* etp, const Real* qobs,
                       const Real* params, const Real* hist, int n, int t_len,
-                      bool stats,
-                      bool masked, Real count, Real* out,
+                      bool stats, bool masked, Real count, Real* out,
                       cudaStream_t stream) {
-  const dim3 grid = grid_for(n);
   if (stats && masked) {
-    gr4j_objective_kernel<Real, NUH1, NUH2, true, true>
-        <<<grid, kBlock, 0, stream>>>(prec, etp, qobs, params, hist, n,
-                                      t_len, count, out);
+    launch_objective_mode<Real, NUH1, NUH2, true, true>(
+        prec, etp, qobs, params, hist, n, t_len, count, out, stream);
   } else if (stats) {
-    gr4j_objective_kernel<Real, NUH1, NUH2, true, false>
-        <<<grid, kBlock, 0, stream>>>(prec, etp, qobs, params, hist, n,
-                                      t_len, count, out);
+    launch_objective_mode<Real, NUH1, NUH2, true, false>(
+        prec, etp, qobs, params, hist, n, t_len, count, out, stream);
   } else if (masked) {
-    gr4j_objective_kernel<Real, NUH1, NUH2, false, true>
-        <<<grid, kBlock, 0, stream>>>(prec, etp, qobs, params, hist, n,
-                                      t_len, count, out);
+    launch_objective_mode<Real, NUH1, NUH2, false, true>(
+        prec, etp, qobs, params, hist, n, t_len, count, out, stream);
   } else {
-    gr4j_objective_kernel<Real, NUH1, NUH2, false, false>
-        <<<grid, kBlock, 0, stream>>>(prec, etp, qobs, params, hist, n,
-                                      t_len, count, out);
+    launch_objective_mode<Real, NUH1, NUH2, false, false>(
+        prec, etp, qobs, params, hist, n, t_len, count, out, stream);
   }
 }
 
@@ -351,6 +513,10 @@ int regional(const Real* prec, const Real* etp, const Real* qobs,
 }  // namespace
 
 extern "C" {
+
+// The largest ensemble K1/K2 run with production and routing in separate
+// warps (gr4j_objective_split_kernel).
+int rrmpg_gr4j_split_members() { return kSplitMembers; }
 
 int rrmpg_gr4j_simulate_f32(const float* prec, const float* etp,
                             const float* params, int n, int t_len, int nuh1,

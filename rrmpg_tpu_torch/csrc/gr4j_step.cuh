@@ -4,8 +4,12 @@
 // _init_block): one member's parameters and state (Member), the init
 // (gr4j_init: cold, or warm from a carried routing-input history) and one
 // time step (gr4j_step; gr4j_step_pr also gives the routing input), written
-// once as device functions.  gr4j_fused.cu (K1-K5) and snow_fused.cu (K8-K11)
-// include this header.
+// once as device functions.  gr4j_fused.cu (K1-K5) and, through
+// snow_step.cuh, snow_fused.cu and snow_objective.cu (K8-K11) include this
+// header.  The step is also split in its two halves, production
+// (gr4j_production, one arm a step, from the terms step_forcing computes)
+// and routing (gr4j_routing), for the objective kernels K1/K2, which for
+// small ensembles run the two halves in different warps.
 //
 // One thread owns one member.  The UH register lengths are template
 // constants, so after unrolling every index into the ordinate and shift
@@ -134,6 +138,41 @@ __device__ __forceinline__ void gr4j_init(Member<Real, NUH1, NUH2>& m,
   }
 }
 
+// The routing half of a GR4J step: push the routing input p_r through the
+// UH registers, then the routing store (eq. 18 + non-linear outflow) and
+// the direct flow; returns the discharge.  No production state enters it.
+template <typename Real, int NUH1, int NUH2>
+__device__ __forceinline__ Real gr4j_routing(Member<Real, NUH1, NUH2>& m,
+                                             Real p_r) {
+  const Real one = Real(1);
+  // unit hydrograph shift registers
+  uh_push(m, p_r);
+
+  // routing store (eq. 18 + non-linear outflow)
+  const Real rx = m.r * m.ix3;
+  const Real rx2 = rx * rx;
+  const Real gw_exchange = m.x2 * (rx2 * rx * dev_sqrt(rx));  // (r/x3)^3.5
+  const Real r_interim = relu_nan(m.r + m.uh1[0] + gw_exchange);
+  const Real zr = pow4(r_interim * m.ix3);
+  const Real q_r = r_interim * (one - dev_rsqrt(dev_sqrt(one + zr)));
+  m.r = r_interim - q_r;
+  const Real q_d = relu_nan(m.uh2[0] + gw_exchange);
+  return q_r + q_d;
+}
+
+// The end of a production step from the interim store: percolation;
+// returns the routing input p_r.
+template <typename Real, int NUH1, int NUH2>
+__device__ __forceinline__ Real gr4j_percolate(Member<Real, NUH1, NUH2>& m,
+                                               Real s_interim, Real p_n,
+                                               Real p_s) {
+  const Real one = Real(1);
+  const Real zs = pow4(s_interim * m.ix1 * Real(4.0 / 9.0));
+  const Real perc = s_interim * (one - dev_rsqrt(dev_sqrt(one + zs)));
+  m.s = s_interim - perc;
+  return perc + (p_n - p_s);
+}
+
 // One GR4J time step (_gr4j_step, pallas_gr4j.py:56-117); returns the
 // discharge and gives the routing input p_r (what the UH filters take in,
 // the state kernels' history).  1/x1 and 1/x3 are multiplies; the rain and
@@ -151,26 +190,59 @@ __device__ __forceinline__ Real gr4j_step_pr(Member<Real, NUH1, NUH2>& m,
   const Real p_s = (m.x1 * (one - sr * sr) * tanh_pn) / (one + sr * tanh_pn);
   const Real e_s =
       (m.s * (Real(2) - sr) * tanh_pen) / (one + (one - sr) * tanh_pen);
-  const Real s_interim = m.s - e_s + p_s;
-  const Real zs = pow4(s_interim * m.ix1 * Real(4.0 / 9.0));
-  const Real perc = s_interim * (one - dev_rsqrt(dev_sqrt(one + zs)));
-  m.s = s_interim - perc;
-  const Real p_r = perc + (p_n - p_s);
+  const Real p_r = gr4j_percolate(m, m.s - e_s + p_s, p_n, p_s);
   p_r_out = p_r;
+  return gr4j_routing(m, p_r);
+}
 
-  // unit hydrograph shift registers
-  uh_push(m, p_r);
+// The terms of a production step that no state enters (the split K1/K2
+// kernel computes them a step ahead of the recurrence): the net rain,
+// which arm is active (rain where p > e, else evaporation) and the tanh of
+// that arm, tanh(|p - e| / x1).  For p > e, |p - e| is the rain arm's
+// argument; otherwise e - p == -(p - e) exactly, so it is the evaporation
+// arm's (0 for p == e, NaN for NaN forcing, as relu_nan gives there).
+template <typename Real>
+struct StepForcing {
+  Real p_n, t;
+  bool rain;
+};
 
-  // routing store (eq. 18 + non-linear outflow)
-  const Real rx = m.r * m.ix3;
-  const Real rx2 = rx * rx;
-  const Real gw_exchange = m.x2 * (rx2 * rx * dev_sqrt(rx));  // (r/x3)^3.5
-  const Real r_interim = relu_nan(m.r + m.uh1[0] + gw_exchange);
-  const Real zr = pow4(r_interim * m.ix3);
-  const Real q_r = r_interim * (one - dev_rsqrt(dev_sqrt(one + zr)));
-  m.r = r_interim - q_r;
-  const Real q_d = relu_nan(m.uh2[0] + gw_exchange);
-  return q_r + q_d;
+template <typename Real, int NUH1, int NUH2>
+__device__ __forceinline__ StepForcing<Real> step_forcing(
+    const Member<Real, NUH1, NUH2>& m, Real p, Real e) {
+  const Real d = p - e;
+  StepForcing<Real> f;
+  f.p_n = relu_nan(d);
+  f.rain = d > Real(0);
+  f.t = dev_tanh(fabs(d) * m.ix1);
+  return f;
+}
+
+// The production half of gr4j_step_pr with one arm a step: one tanh (the
+// caller's, in f) and one division instead of two.  The arm's factors are
+// those of gr4j_step_pr, A t / (1 + B t) with (A, B) = (x1 (1 - sr^2), sr)
+// for rain and (s (2 - sr), 1 - sr) for evaporation, so the active arm is
+// the same operations on the same values.  The inactive arm of the
+// two-arm step is A' 0 / (1 + B' 0): +-0, or NaN where A' or B' is not
+// finite (an inf or NaN store); `idle` is +-0 or NaN in exactly those
+// cases, so the interim store s - e_s + p_s and the routing input are the
+// two-arm step's values.  Returns p_r.
+template <typename Real, int NUH1, int NUH2>
+__device__ __forceinline__ Real gr4j_production(Member<Real, NUH1, NUH2>& m,
+                                                const StepForcing<Real>& f) {
+  const Real one = Real(1), zero = Real(0);
+  const Real sr = m.s * m.ix1;
+  const Real a_rain = m.x1 * (one - sr * sr);
+  const Real a_evap = m.s * (Real(2) - sr);
+  const Real b_evap = one - sr;
+  const Real a = f.rain ? a_rain : a_evap;
+  const Real b = f.rain ? sr : b_evap;
+  const Real arm = (a * f.t) / (one + b * f.t);
+  const Real idle =
+      (f.rain ? a_evap : a_rain) * zero + (f.rain ? b_evap : sr) * zero;
+  const Real p_s = f.rain ? arm : idle;
+  const Real e_s = f.rain ? idle : arm;
+  return gr4j_percolate(m, m.s - e_s + p_s, f.p_n, p_s);
 }
 
 // The step for kernels that do not keep the routing input.

@@ -1,5 +1,5 @@
 // Fused Cemaneige snow + GR4J ensemble kernels for NVIDIA Hopper (sm_90a):
-// trajectories, state and the regional objective.
+// trajectories and state.
 //
 // Replace the Pallas kernel template of rrmpg_tpu/ops/pallas_snow.py
 // (_make_kernel(traj=True), with its per-layer step _snow_step_layer):
@@ -9,11 +9,9 @@
 //   K10 snowgr4j_simulate_pallas_state
 //         -> snow_traj_state_kernel  (trajectories plus the end-of-series
 //            state, entering cold or from a carried state)
-// and the regional kernel
-//   K11 snowgr4j_regional_mse_pallas (the K8 body over a third, catchment
-//       grid axis) -> snow_regional_kernel
-// K8, the objective kernel, has a source of its own (snow_objective.cu);
-// the snow step these kernels share with it is in snow_step.cuh.
+// K8 and K11, the objective kernels, have a source of their own
+// (snow_objective.cu); the snow step these kernels share with them is in
+// snow_step.cuh.
 // Per member and step: every elevation layer advances its snow pack
 // (snow_layer_step; HYST adds the SCA / SWE-maximum hysteresis, ICE the
 // degree-day glacier melt under a thin pack), the layer mean of rain + melt
@@ -23,8 +21,8 @@
 // What bounds these kernels on this card: operations, and behind them the
 // serial latency of one thread.  A step is L dependent-free layer updates
 // followed by one GR4J step, T times in sequence; K9 writes the (N, T)
-// trajectory, K10 the trajectory and 2 + H + 4L state rows per member, K11
-// 1 or 4 numbers per member and catchment.  The layer forcing ((T, L) snow,
+// trajectory, K10 the trajectory and 2 + H + 4L state rows per member.  The
+// layer forcing ((T, L) snow,
 // rain and temperature), etp and the observations are the same for every
 // member: one read that the whole warp shares.
 //
@@ -53,17 +51,6 @@
 // one, a run-time value the cold kernels compared t with before.  Nothing is
 // instantiated twice for warm entry.
 //
-// Regional mode (K11).  One launch sweeps C catchments x N members that share
-// one parameter set per member.  Block row c = blockIdx.y is catchment c: the
-// kernel moves its copy of the arguments to the catchment's rows (layer
-// forcing at c * T of the (C * T, L) arrays, etp and qobs at c * T, layer
-// constants and glacier fractions at c * L of (C, L) arrays, since each
-// catchment's constants come from its own forcing), takes its valid count
-// from element c of a (C,) array, and writes its results straight to
-// (C, N) or (4, C, N).  The step functions are the shared ones of
-// snow_step.cuh; K11 is a kernel of its own because run-time catchment
-// offsets inside K8 moved its register counts by up to 12.
-//
 // Unlike the TPU kernel there is no (8, 128) member tile, no time-tile grid,
 // no lane-replicated forcing, no padding of N or T and no 8-step chunking;
 // K10 reads the final state from the thread's registers and shared-memory
@@ -77,11 +64,10 @@
 // [x1, x2, x3, x4, s0, r0, CTG, Kf, 1/Thacc, Rsp, DDF] (s0/r0 absolute store
 // levels; rows a variant does not use are read and ignored); snow, rain and
 // temp are (T, L) row-major; frac_ice is (L,); layer_consts is (L,), or
-// (L, N) with `consts_per_member`.  K11: snow, rain and temp are (C, T, L),
-// etp and qobs (C, T), layer_consts and frac_ice (C, L), counts (C,).  Warm
-// entry: state_in is (4L, N) [G | eTG | sca | swe_max] (the last 2L rows are
-// not read without HYST), hist the (H, N) routing-input history, oldest
-// first, and first_step is -1; a cold start passes null, null and 0.  K10's
+// (L, N) with `consts_per_member`.  Warm entry: state_in is (4L, N)
+// [G | eTG | sca | swe_max] (the last 2L rows are not read without HYST),
+// hist the (H, N) routing-input history, oldest first, and first_step is
+// -1; a cold start passes null, null and 0.  K10's
 // fstate is (2 + H + 4L, N): [s, r, hist(H), G(L), eTG(L), sca(L),
 // swe_max(L)], the last 2L rows zero without HYST.
 
@@ -161,56 +147,6 @@ snow_traj_state_kernel(SnowArgs<Real> a) {
   }
 }
 
-// K11: K8 (cold, never SCA or SNOW_ONLY) over gridDim.y = C catchments that
-// share the (11, N) parameters.  `a` holds catchment 0's pointers; the
-// kernel advances its copy to catchment c = blockIdx.y, and row k of
-// catchment c goes to out[(k * C + c) * N + i], divided by counts[c].
-template <typename Real, int NUH1, int NUH2, bool HYST, bool ICE>
-__global__ void __launch_bounds__(kBlock)
-snow_regional_kernel(SnowArgs<Real> a, const Real* __restrict__ counts) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= a.n) return;
-  const int L = a.num_layers;
-  const size_t first = (size_t)blockIdx.y * a.t_len;  // catchment's step 0
-  a.snow += first * L;
-  a.rain += first * L;
-  a.temp += first * L;
-  a.etp += first;
-  a.qobs += first;
-  a.layer_consts += (size_t)blockIdx.y * L;
-  a.frac_ice += (size_t)blockIdx.y * L;
-  extern __shared__ __align__(16) unsigned char snow_shared[];
-  const int stride = blockDim.x;
-  Real* state = reinterpret_cast<Real*>(snow_shared) + threadIdx.x;
-  snow_state_init<Real, HYST, false>(a, i, state, stride);
-  SnowMember<Real> c;
-  snow_init(c, a.params, a.n, i, a.snow0, a.th0);
-  Member<Real, NUH1, NUH2> m;
-  gr4j_init(m, a.params, a.n, i);
-  Real sse = Real(0), sum_q = Real(0), sum_q2 = Real(0), sum_qo = Real(0);
-  for (int t = 0; t < a.t_len; ++t) {
-    Real q =
-        snow_catchment_step<Real, HYST, ICE, false>(c, a, t, state, stride);
-    q = gr4j_step(m, q, __ldg(a.etp + t));
-    const Real qo = __ldg(a.qobs + t);
-    if (a.masked && qo != qo) continue;
-    const Real diff = q - qo;
-    sse += diff * diff;
-    sum_q += q;
-    sum_q2 += q * q;
-    sum_qo += q * qo;
-  }
-  const Real count = counts[blockIdx.y];
-  const size_t row = (size_t)gridDim.y * a.n;  // distance between out rows
-  Real* o = a.out + (size_t)blockIdx.y * a.n + i;
-  o[0] = sse / count;
-  if (a.stats) {
-    o[row] = sum_q / count;
-    o[2 * row] = sum_q2 / count;
-    o[3 * row] = sum_qo / count;
-  }
-}
-
 template <typename Real, int NUH1, int NUH2, bool HYST, bool ICE,
           bool SNOW_ONLY>
 int launch_traj(const SnowArgs<Real>& a, cudaStream_t stream) {
@@ -234,19 +170,6 @@ int launch_traj_state(const SnowArgs<Real>& a, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-template <typename Real, int NUH1, int NUH2, bool HYST, bool ICE>
-int launch_regional(const SnowArgs<Real>& a, const Real* counts,
-                    int catchments, cudaStream_t stream) {
-  const int rows = state_rows<HYST, false>();
-  const int block = block_for(rows, a.num_layers, sizeof(Real));
-  if (block == 0) return (int)cudaErrorInvalidValue;
-  const size_t shared = (size_t)rows * a.num_layers * sizeof(Real) * block;
-  const dim3 grid((a.n + block - 1) / block, catchments);
-  snow_regional_kernel<Real, NUH1, NUH2, HYST, ICE>
-      <<<grid, block, shared, stream>>>(a, counts);
-  return (int)cudaGetLastError();
-}
-
 // The instantiations: every snow variant (plain, HYST, ICE, HYST + ICE) at
 // both UH register pairs of gr4j_fused.cu, and K9's snow-only routine, which
 // has no GR4J at all.
@@ -266,25 +189,6 @@ int traj_state_variant(const SnowArgs<Real>& a, bool hyst, bool ice,
   if (hyst) return launch_traj_state<Real, NUH1, NUH2, true, false>(a, s);
   if (ice) return launch_traj_state<Real, NUH1, NUH2, false, true>(a, s);
   return launch_traj_state<Real, NUH1, NUH2, false, false>(a, s);
-}
-
-template <typename Real, int NUH1, int NUH2>
-int regional_variant(const SnowArgs<Real>& a, const Real* counts,
-                     int catchments, bool hyst, bool ice, cudaStream_t s) {
-  if (hyst && ice) {
-    return launch_regional<Real, NUH1, NUH2, true, true>(a, counts,
-                                                         catchments, s);
-  }
-  if (hyst) {
-    return launch_regional<Real, NUH1, NUH2, true, false>(a, counts,
-                                                          catchments, s);
-  }
-  if (ice) {
-    return launch_regional<Real, NUH1, NUH2, false, true>(a, counts,
-                                                          catchments, s);
-  }
-  return launch_regional<Real, NUH1, NUH2, false, false>(a, counts,
-                                                         catchments, s);
 }
 
 template <typename Real>
@@ -325,28 +229,6 @@ int simulate_state(const SnowArgs<Real>& a, int nuh1, int nuh2, int hyst,
   }
   if (nuh1 == 10 && nuh2 == 21) {
     return traj_state_variant<Real, 10, 21>(a, hyst != 0, ice != 0, s);
-  }
-  return (int)cudaErrorInvalidValue;
-}
-
-template <typename Real>
-int regional(const SnowArgs<Real>& a, const Real* counts, int catchments,
-             int nuh1, int nuh2, int hyst, int ice, int device,
-             void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  if (a.n <= 0 || a.t_len <= 0 || catchments <= 0) return (int)cudaSuccess;
-  if (a.num_layers <= 0 || catchments > 65535) {  // gridDim.y
-    return (int)cudaErrorInvalidValue;
-  }
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (nuh1 == 3 && nuh2 == 7) {
-    return regional_variant<Real, 3, 7>(a, counts, catchments, hyst != 0,
-                                        ice != 0, s);
-  }
-  if (nuh1 == 10 && nuh2 == 21) {
-    return regional_variant<Real, 10, 21>(a, counts, catchments, hyst != 0,
-                                          ice != 0, s);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -421,39 +303,6 @@ int rrmpg_snow_simulate_state_f64(
                        t_len, num_layers, 0, 0, consts_per_member, snow0, th0,
                        1.0, out, fstate),
       nuh1, nuh2, hyst, ice, device, stream);
-}
-
-// K11: snow, rain, temp (C, T, L); etp, qobs (C, T); params (11, N) shared
-// by every catchment; layer_consts and frac_ice (C, L); counts (C,) the
-// steps each catchment averages over; out (C, N), or (4, C, N) with `stats`.
-int rrmpg_snow_regional_objective_f32(
-    const float* snow, const float* rain, const float* temp, const float* etp,
-    const float* qobs, const float* params, const float* layer_consts,
-    const float* frac_ice, const float* counts, int n, int t_len,
-    int num_layers, int catchments, int nuh1, int nuh2, int hyst, int ice,
-    int stats, int masked, double snow0, double th0, float* out, int device,
-    void* stream) {
-  return regional<float>(
-      make_args<float>(snow, rain, temp, etp, qobs, nullptr, params,
-                       layer_consts, frac_ice, nullptr, nullptr, nullptr, n,
-                       t_len, num_layers, stats, masked, 0, snow0, th0, 1.0,
-                       out, nullptr),
-      counts, catchments, nuh1, nuh2, hyst, ice, device, stream);
-}
-
-int rrmpg_snow_regional_objective_f64(
-    const double* snow, const double* rain, const double* temp,
-    const double* etp, const double* qobs, const double* params,
-    const double* layer_consts, const double* frac_ice, const double* counts,
-    int n, int t_len, int num_layers, int catchments, int nuh1, int nuh2,
-    int hyst, int ice, int stats, int masked, double snow0, double th0,
-    double* out, int device, void* stream) {
-  return regional<double>(
-      make_args<double>(snow, rain, temp, etp, qobs, nullptr, params,
-                        layer_consts, frac_ice, nullptr, nullptr, nullptr, n,
-                        t_len, num_layers, stats, masked, 0, snow0, th0, 1.0,
-                        out, nullptr),
-      counts, catchments, nuh1, nuh2, hyst, ice, device, stream);
 }
 
 }  // extern "C"

@@ -1,4 +1,5 @@
-// K8: the fused Cemaneige snow + GR4J objective for NVIDIA Hopper (sm_90a).
+// K8 and K11: the fused Cemaneige snow + GR4J objectives for NVIDIA Hopper
+// (sm_90a).
 //
 // Replaces the Pallas kernel template of rrmpg_tpu/ops/pallas_snow.py
 // (_make_kernel, objective modes, with its per-layer step
@@ -9,7 +10,16 @@
 //         -> snow_objective_kernel<..., SCA=true>   (discharge statistics
 //            plus four statistics of 100*SCA against NDSI per band)
 // and its `warm` mode (state=): the kernel enters from a carried state when
-// it is given its rows (first_step = -1, as in snow_fused.cu).
+// it is given its rows (first_step = -1, as in snow_fused.cu); and the
+// regional objective
+//   K11 snowgr4j_regional_mse_pallas (the K8 body over a third, catchment
+//       grid axis) -> snow_regional_objective_kernel
+// which runs K8's body (objective_body, REGIONAL) cold on the catchment
+// blockIdx.y: its own (T, L) layer forcing, etp and qobs staged by the
+// block, its own layer constants and glacier fractions, its own valid
+// count, its results at their place in (C, N) or (4, C, N).  The regional
+// flag is a compile-time one, so no K8 instantiation carries catchment
+// offsets (run-time offsets inside K8 moved its registers by up to 12).
 //
 // What bounds it on this card: operations.  A step is L independent layer
 // updates (each with an IEEE division) followed by one GR4J step, T times
@@ -53,13 +63,15 @@
 // runs), discharge and each band by their own gaps; the discharge sums are
 // divided by `count`, band l's by band_counts[l].
 //
-// C interface (bound with ctypes), as snow_fused.cu's: the entry returns a
-// cudaError_t as int (0 on success) and launches on the stream it is given
+// C interface (bound with ctypes), as snow_fused.cu's: every entry returns
+// a cudaError_t as int (0 on success) and launches on the stream it is given
 // without synchronising.  params is an (11, N) row-major array
 // [x1, x2, x3, x4, s0, r0, CTG, Kf, 1/Thacc, Rsp, DDF]; snow, rain, temp and
 // ndsi are (T, L) row-major; frac_ice and band_counts are (L,);
 // layer_consts is (L,), or (L, N) with `consts_per_member`; warm entry:
 // state_in (4L, N) [G | eTG | sca | swe_max] and hist (H, N), else null.
+// K11: snow, rain and temp are (C, T, L), etp and qobs (C, T),
+// layer_consts and frac_ice (C, L), counts (C,).
 
 #include <cuda_runtime.h>
 
@@ -230,10 +242,15 @@ __device__ __forceinline__ Real column_step(const SnowMember<Real>& c,
 // read through two pointers, one of them offset, was miscompiled by the
 // CUDA 12.9 ptxas at NL = 5 with SCA and UH (3, 7) (the etp address lost
 // the offset; the read left the block's shared memory).
+//
+// The body is shared with K11 (REGIONAL), which runs it on one catchment's
+// series, advanced to by the regional kernel, and writes to that
+// catchment's place in (C, N) or (4, C, N), divided by its own count.
 template <typename Real, int NUH1, int NUH2, bool HYST, bool ICE,
-          bool SNOW_ONLY, bool SCA, int NL>
-__global__ void __launch_bounds__(kBlock)
-snow_objective_kernel(SnowArgs<Real> a, int tile_arg) {
+          bool SNOW_ONLY, bool SCA, int NL, bool REGIONAL>
+__device__ __forceinline__ void objective_body(const SnowArgs<Real>& a,
+                                               int tile_arg,
+                                               const Real* counts) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   const bool active = i < a.n;
   const int im = active ? i : a.n - 1;  // past N: the last member, unwritten
@@ -306,6 +323,19 @@ snow_objective_kernel(SnowArgs<Real> a, int tile_arg) {
   }
   if (!active) return;
   const size_t n = a.n;
+  if constexpr (REGIONAL) {
+    // Row k of catchment c = blockIdx.y at out[(k * C + c) * N + i].
+    const size_t row = (size_t)gridDim.y * n;
+    Real* o = a.out + (size_t)blockIdx.y * n + i;
+    const Real count = __ldg(counts + blockIdx.y);
+    o[0] = sse / count;
+    if (a.stats) {
+      o[row] = sum_q / count;
+      o[2 * row] = sum_q2 / count;
+      o[3 * row] = sum_qo / count;
+    }
+    return;
+  }
   a.out[i] = sse / a.count;
   if (a.stats || SCA) {
     a.out[n + i] = sum_q / a.count;
@@ -334,12 +364,61 @@ snow_objective_kernel(SnowArgs<Real> a, int tile_arg) {
   }
 }
 
-// One launch: 128 threads and two staging buffers for NL > 0; for NL = 0
-// the block of snow_fused.cu (layer columns within 48 KB) and the widest
-// tile whose buffers fit beside them in what a block may opt in to.
+// K8.
 template <typename Real, int NUH1, int NUH2, bool HYST, bool ICE,
           bool SNOW_ONLY, bool SCA, int NL>
-int launch_layers(const SnowArgs<Real>& a, cudaStream_t stream) {
+__global__ void __launch_bounds__(kBlock)
+snow_objective_kernel(SnowArgs<Real> a, int tile_arg) {
+  objective_body<Real, NUH1, NUH2, HYST, ICE, SNOW_ONLY, SCA, NL, false>(
+      a, tile_arg, nullptr);
+}
+
+// K11: K8 (cold, never SCA or SNOW_ONLY) over gridDim.y = C catchments that
+// share the (11, N) parameters.  `a` holds catchment 0's pointers; the
+// kernel advances its copy to catchment c = blockIdx.y (layer forcing at
+// c * T of the (C * T, L) arrays, etp and qobs at c * T, layer constants
+// and glacier fractions at c * L of (C, L) arrays), so the block stages
+// its own catchment's forcing; counts[c] is the catchment's valid count.
+template <typename Real, int NUH1, int NUH2, bool HYST, bool ICE, int NL>
+__global__ void __launch_bounds__(kBlock)
+snow_regional_objective_kernel(SnowArgs<Real> a,
+                               const Real* __restrict__ counts,
+                               int tile_arg) {
+  const int L = NL > 0 ? NL : a.num_layers;
+  const size_t first = (size_t)blockIdx.y * a.t_len;  // catchment's step 0
+  a.snow += first * L;
+  a.rain += first * L;
+  a.temp += first * L;
+  a.etp += first;
+  a.qobs += first;
+  a.layer_consts += (size_t)blockIdx.y * L;
+  a.frac_ice += (size_t)blockIdx.y * L;
+  objective_body<Real, NUH1, NUH2, HYST, ICE, false, false, NL, true>(
+      a, tile_arg, counts);
+}
+
+// Launch a staged kernel, opting in to more than 48 KB of shared memory
+// where it needs that.
+template <typename Kernel, typename... Args>
+int launch_staged(Kernel kernel, dim3 grid, int block, size_t shared,
+                  cudaStream_t stream, Args... args) {
+  if (shared > (size_t)kSharedLimit) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shared);
+    if (err != cudaSuccess) return (int)err;
+  }
+  kernel<<<grid, block, shared, stream>>>(args...);
+  return (int)cudaGetLastError();
+}
+
+// One launch: 128 threads and two staging buffers for NL > 0; for NL = 0
+// the block of snow_fused.cu (layer columns within 48 KB) and the widest
+// tile whose buffers fit beside them in what a block may opt in to.  K11
+// (REGIONAL) adds the catchments as the grid's second dimension.
+template <typename Real, int NUH1, int NUH2, bool HYST, bool ICE,
+          bool SNOW_ONLY, bool SCA, int NL, bool REGIONAL>
+int launch_layers(const SnowArgs<Real>& a, const Real* counts,
+                  int catchments, cudaStream_t stream) {
   const int L = a.num_layers;
   const int rows = state_rows<HYST, SCA>();
   const int block = NL > 0 ? kBlock : block_for(rows, L, sizeof(Real));
@@ -353,31 +432,35 @@ int launch_layers(const SnowArgs<Real>& a, cudaStream_t stream) {
   }
   const size_t shared = columns + 2 * (size_t)tile * per_step;
   if (shared > kSharedOptIn) return (int)cudaErrorInvalidValue;
-  auto kernel =
-      snow_objective_kernel<Real, NUH1, NUH2, HYST, ICE, SNOW_ONLY, SCA, NL>;
-  if (shared > (size_t)kSharedLimit) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shared);
-    if (err != cudaSuccess) return (int)err;
+  const dim3 grid((a.n + block - 1) / block, catchments);
+  if constexpr (REGIONAL) {
+    return launch_staged(
+        snow_regional_objective_kernel<Real, NUH1, NUH2, HYST, ICE, NL>, grid,
+        block, shared, stream, a, counts, tile);
+  } else {
+    return launch_staged(
+        snow_objective_kernel<Real, NUH1, NUH2, HYST, ICE, SNOW_ONLY, SCA,
+                              NL>,
+        grid, block, shared, stream, a, tile);
   }
-  kernel<<<(a.n + block - 1) / block, block, shared, stream>>>(a, tile);
-  return (int)cudaGetLastError();
 }
 
 // NL from the call's layer count: 5 and 1 in registers, any other count
 // in shared-memory columns.
 template <typename Real, int NUH1, int NUH2, bool HYST, bool ICE,
-          bool SNOW_ONLY, bool SCA>
-int launch_objective(const SnowArgs<Real>& a, cudaStream_t s) {
+          bool SNOW_ONLY, bool SCA, bool REGIONAL = false>
+int launch_objective(const SnowArgs<Real>& a, cudaStream_t s,
+                     const Real* counts = nullptr, int catchments = 1) {
   if (a.num_layers == 5) {
-    return launch_layers<Real, NUH1, NUH2, HYST, ICE, SNOW_ONLY, SCA, 5>(a,
-                                                                         s);
+    return launch_layers<Real, NUH1, NUH2, HYST, ICE, SNOW_ONLY, SCA, 5,
+                         REGIONAL>(a, counts, catchments, s);
   }
   if (a.num_layers == 1) {
-    return launch_layers<Real, NUH1, NUH2, HYST, ICE, SNOW_ONLY, SCA, 1>(a,
-                                                                         s);
+    return launch_layers<Real, NUH1, NUH2, HYST, ICE, SNOW_ONLY, SCA, 1,
+                         REGIONAL>(a, counts, catchments, s);
   }
-  return launch_layers<Real, NUH1, NUH2, HYST, ICE, SNOW_ONLY, SCA, 0>(a, s);
+  return launch_layers<Real, NUH1, NUH2, HYST, ICE, SNOW_ONLY, SCA, 0,
+                       REGIONAL>(a, counts, catchments, s);
 }
 
 // The instantiations: every snow variant (plain, HYST, ICE, HYST + ICE) at
@@ -433,6 +516,49 @@ int objective(const SnowArgs<Real>& a, int nuh1, int nuh2, int hyst, int ice,
   return (int)cudaErrorInvalidValue;
 }
 
+// K11's instantiations: every snow variant at both UH register pairs, each
+// at NL = 5, 1 and 0.
+template <typename Real, int NUH1, int NUH2>
+int regional_variant(const SnowArgs<Real>& a, const Real* counts,
+                     int catchments, bool hyst, bool ice, cudaStream_t s) {
+  if (hyst && ice) {
+    return launch_objective<Real, NUH1, NUH2, true, true, false, false, true>(
+        a, s, counts, catchments);
+  }
+  if (hyst) {
+    return launch_objective<Real, NUH1, NUH2, true, false, false, false,
+                            true>(a, s, counts, catchments);
+  }
+  if (ice) {
+    return launch_objective<Real, NUH1, NUH2, false, true, false, false,
+                            true>(a, s, counts, catchments);
+  }
+  return launch_objective<Real, NUH1, NUH2, false, false, false, false, true>(
+      a, s, counts, catchments);
+}
+
+template <typename Real>
+int regional(const SnowArgs<Real>& a, const Real* counts, int catchments,
+             int nuh1, int nuh2, int hyst, int ice, int device,
+             void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (a.n <= 0 || a.t_len <= 0 || catchments <= 0) return (int)cudaSuccess;
+  if (a.num_layers <= 0 || catchments > 65535) {  // gridDim.y
+    return (int)cudaErrorInvalidValue;
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (nuh1 == 3 && nuh2 == 7) {
+    return regional_variant<Real, 3, 7>(a, counts, catchments, hyst != 0,
+                                        ice != 0, s);
+  }
+  if (nuh1 == 10 && nuh2 == 21) {
+    return regional_variant<Real, 10, 21>(a, counts, catchments, hyst != 0,
+                                          ice != 0, s);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 extern "C" {
@@ -469,6 +595,39 @@ int rrmpg_snow_objective_f64(
                         n, t_len, num_layers, stats, masked,
                         consts_per_member, snow0, th0, count, out, nullptr),
       nuh1, nuh2, hyst, ice, snow_only, sca, device, stream);
+}
+
+// K11: snow, rain, temp (C, T, L); etp, qobs (C, T); params (11, N) shared
+// by every catchment; layer_consts and frac_ice (C, L); counts (C,) the
+// steps each catchment averages over; out (C, N), or (4, C, N) with `stats`.
+int rrmpg_snow_regional_objective_f32(
+    const float* snow, const float* rain, const float* temp, const float* etp,
+    const float* qobs, const float* params, const float* layer_consts,
+    const float* frac_ice, const float* counts, int n, int t_len,
+    int num_layers, int catchments, int nuh1, int nuh2, int hyst, int ice,
+    int stats, int masked, double snow0, double th0, float* out, int device,
+    void* stream) {
+  return regional<float>(
+      make_args<float>(snow, rain, temp, etp, qobs, nullptr, params,
+                       layer_consts, frac_ice, nullptr, nullptr, nullptr, n,
+                       t_len, num_layers, stats, masked, 0, snow0, th0, 1.0,
+                       out, nullptr),
+      counts, catchments, nuh1, nuh2, hyst, ice, device, stream);
+}
+
+int rrmpg_snow_regional_objective_f64(
+    const double* snow, const double* rain, const double* temp,
+    const double* etp, const double* qobs, const double* params,
+    const double* layer_consts, const double* frac_ice, const double* counts,
+    int n, int t_len, int num_layers, int catchments, int nuh1, int nuh2,
+    int hyst, int ice, int stats, int masked, double snow0, double th0,
+    double* out, int device, void* stream) {
+  return regional<double>(
+      make_args<double>(snow, rain, temp, etp, qobs, nullptr, params,
+                        layer_consts, frac_ice, nullptr, nullptr, nullptr, n,
+                        t_len, num_layers, stats, masked, 0, snow0, th0, 1.0,
+                        out, nullptr),
+      counts, catchments, nuh1, nuh2, hyst, ice, device, stream);
 }
 
 }  // extern "C"

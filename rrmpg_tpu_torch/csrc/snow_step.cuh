@@ -8,8 +8,8 @@
 // (snow_layer_step), the arguments every snow kernel is given (SnowArgs),
 // and the all-layers step with run-time layer count whose layer states live
 // in the thread's shared-memory column (snow_state_init,
-// snow_catchment_step).  snow_fused.cu (K9-K11) and snow_objective.cu (K8)
-// include this header, beside gr4j_step.cuh.
+// snow_catchment_step).  snow_fused.cu (K9, K10) and snow_objective.cu
+// (K8, K11) include this header, beside gr4j_step.cuh.
 //
 // Exact comparisons decide the snow step's branches (th == 0, g == 0,
 // balance >= 0, g > 1, th_max > 0), and one ulp in (0.9*sca + 0.1)*pot_melt

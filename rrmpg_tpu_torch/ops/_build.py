@@ -80,6 +80,7 @@ _SNOW_OBJECTIVE = (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
 _SNOW_REGIONAL = (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                   _I, _I, _I, _I, _D, _D, _P, _I, _P)
 _SIGNATURES = {
+    "rrmpg_gr4j_split_members": (),
     # prec, etp, params, n, t, nuh1, nuh2, out, device, stream
     "rrmpg_gr4j_simulate_f32": (_P, _P, _P, _I, _I, _I, _I, _P, _I, _P),
     "rrmpg_gr4j_simulate_f64": (_P, _P, _P, _I, _I, _I, _I, _P, _I, _P),
@@ -115,9 +116,10 @@ _SIGNATURES = {
 # The sources with dozens of kernel instantiations are optimised on several
 # threads where nvcc can (``-split-compile``): the snow source, 60
 # instantiations then, decided the build time, 37 s so instead of 68 s (NVIDIA
-# H100 machine, 8 cores, CUDA 12.9); with K11's 16 more the whole build takes
-# 46 s.  The option moves a few register counts by
-# one or two; the small sources build in 4 s and stay as they were.
+# H100 machine, 8 cores, CUDA 12.9).  The objective source (K8, and K11's 48
+# instantiations since they moved there) now decides it.  The option moves a
+# few register counts by one or two; the small sources build in 4 s and stay
+# as they were.
 SPLIT_COMPILE_SOURCES = ("gr4j_fused.cu", "snow_fused.cu", "snow_objective.cu")
 SPLIT_COMPILE_THREADS = 4
 
@@ -146,14 +148,18 @@ def _find_nvcc():
 
 
 class KernelLibrary:
-    """The loaded shared library plus how it was obtained."""
+    """The loaded shared library plus how it was obtained.  ``strict``
+    requires every entry point of ``_SIGNATURES``; another version of the
+    sources, built to be compared with this one, may lack newer ones."""
 
-    def __init__(self, path, build_seconds, log):
+    def __init__(self, path, build_seconds, log, strict=True):
         self.path = path
         self.build_seconds = build_seconds   # 0.0 when already built
         self.log = log                       # nvcc's stderr (ptxas -v)
         self.lib = ctypes.CDLL(str(path))
         for name, argtypes in _SIGNATURES.items():
+            if not strict and not hasattr(self.lib, name):
+                continue
             fn = getattr(self.lib, name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
@@ -168,11 +174,12 @@ def load_library():
     return build_library(SRC_DIR, BUILD_DIR)
 
 
-def build_library(src_dir, build_dir):
+def build_library(src_dir, build_dir, strict=True):
     """Build (if needed) and load the library of the sources in
     ``src_dir`` (``*.cu``, sharing ``*.cuh``) under ``build_dir``.  The
     port uses :func:`load_library`; another directory serves to compare
-    two versions of the sources in one process."""
+    two versions of the sources in one process (``strict=False``: an
+    older version may lack newer entry points)."""
     src_dir, build_dir = Path(src_dir), Path(build_dir)
     sources = sorted(src_dir.glob("*.cu"))
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
@@ -184,7 +191,7 @@ def build_library(src_dir, build_dir):
     log_path = build_dir / f"librrmpg_kernels_{tag}.log"
     if lib_path.is_file():
         log = log_path.read_text() if log_path.is_file() else ""
-        return KernelLibrary(lib_path, 0.0, log)
+        return KernelLibrary(lib_path, 0.0, log, strict)
 
     nvcc = _find_nvcc()
     build_dir.mkdir(parents=True, exist_ok=True)
@@ -225,4 +232,4 @@ def build_library(src_dir, build_dir):
                 f"{link.stderr}")
         log_path.write_text(log)
         os.replace(tmp / lib_path.name, lib_path)
-    return KernelLibrary(lib_path, time.perf_counter() - t0, log)
+    return KernelLibrary(lib_path, time.perf_counter() - t0, log, strict)

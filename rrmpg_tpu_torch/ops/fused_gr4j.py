@@ -2,7 +2,11 @@
 
 Counterpart of ``rrmpg_tpu/ops/pallas_gr4j.py``.  The kernels are CUDA C++
 in ``rrmpg_tpu_torch/csrc/gr4j_fused.cu``: one thread per member, stores
-and UH shift registers in registers for the whole time loop.
+and UH shift registers in registers for the whole time loop.  The
+objectives K1/K2 stage their forcing in shared memory and compute one
+production arm a step; for ensembles of at most :func:`split_members`
+members they run the production and the routing halves of each member's
+step in separate warps (a calibration's population is latency-bound).
 
 * K3 :func:`gr4j_simulate_fused` -- (N, T) discharge trajectories;
 * K1 :func:`gr4j_ensemble_mse_fused` -- fused simulate + MSE, one
@@ -45,6 +49,15 @@ register_kernels("gr4j_mse", "gr4j_stats", "gr4j_traj", "gr4j_traj_state",
 
 # UH register lengths the CUDA library is instantiated for.
 SUPPORTED_UH = ((3, 7), (NUM_UH1, NUM_UH2))
+
+
+def split_members():
+    """The largest ensemble for which K1/K2 run the production and the
+    routing halves of the step in separate warps (a constant of the CUDA
+    library); larger ones run one member a thread."""
+    from ._build import load_library
+
+    return load_library().rrmpg_gr4j_split_members()
 
 
 def _check_uh(num_uh1, num_uh2):

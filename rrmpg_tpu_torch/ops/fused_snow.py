@@ -4,13 +4,13 @@ versions.
 Counterpart of ``rrmpg_tpu/ops/pallas_snow.py``.  One kernel family covers
 the standalone snow routine and its four GR4J compositions (plain /
 hysteresis x with / without glacier ice melt).  The kernels are CUDA C++,
-K8 in ``rrmpg_tpu_torch/csrc/snow_objective.cu`` and K9-K11 in
-``snow_fused.cu``, sharing the snow step of ``snow_step.cuh``: one thread
-per member, the GR4J stores and UH registers in registers for the whole
-time loop.  The per-layer snow states live in shared memory, except in K8
-at 1 and 5 layers, whose layer count is a compile-time constant and whose
-layer states are registers; K8 also stages the forcing of 64 steps at a
-time in shared memory.  Any layer count runs.
+the objectives K8 and K11 in ``rrmpg_tpu_torch/csrc/snow_objective.cu`` and
+K9, K10 in ``snow_fused.cu``, sharing the snow step of ``snow_step.cuh``:
+one thread per member, the GR4J stores and UH registers in registers for
+the whole time loop.  The per-layer snow states live in shared memory,
+except in K8 and K11 at 1 and 5 layers, whose layer count is a compile-time
+constant and whose layer states are registers; K8 and K11 also stage the
+forcing of 64 steps at a time in shared memory.  Any layer count runs.
 
 * K8 :func:`snowgr4j_ensemble_mse_fused` -- fused simulate + objective:
   (N,) mean squared errors, with ``stats=True`` the (4, N) time means
@@ -26,10 +26,11 @@ time in shared memory.  Any layer count runs.
   cold or from a carried state; K8 enters from a carried state too
   (``state=``, the ``mse`` and ``stats`` objectives);
 * K11 :func:`snowgr4j_regional_mse_fused` -- K8's objective over C
-  catchments in one launch: (C, T, L) layer forcing, (N,) members shared by
-  every catchment, each catchment's layer constants from its own forcing and
-  its own glacier fractions, (C, N) losses or (4, C, N) statistics
-  (:mod:`~..parallel.regional`).
+  catchments in one launch (a regional variant of K8's kernel, each block
+  staging its own catchment's forcing): (C, T, L) layer forcing, (N,)
+  members shared by every catchment, each catchment's layer constants from
+  its own forcing and its own glacier fractions, (C, N) losses or (4, C, N)
+  statistics (:mod:`~..parallel.regional`).
 
 A warm entry takes its layer constants from the state: the snow-cover
 threshold (or, with hysteresis, the mean annual solid precipitation) is a
@@ -435,7 +436,8 @@ def _prepare(prec, mean_temp, etp, frac_solid_prec, params, s_init, r_init,
 
 def _check_layer_count(lib, num_layers, rows_per_layer, dtype):
     """Raise if the layer states of one block do not fit its shared
-    memory."""
+    memory (the kernels keep them there at any count but 1 and 5 in the
+    objectives, K8 and K11)."""
     itemsize = torch.empty((), dtype=dtype).element_size()
     most = lib.rrmpg_snow_max_layers(rows_per_layer, itemsize)
     if num_layers > most:

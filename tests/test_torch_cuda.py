@@ -10,7 +10,8 @@ state; ABC K6 single launch, K7 three launches; the snow family's K8
 objective, K9 trajectories and K10 trajectories + state; HBV-Edu K12
 objective, K13 trajectories, K14 trajectories + state; the warm entry of
 the objectives; the regional K5 and K11, one and three catchments in a
-launch) is held against its plain PyTorch version on the same CUDA tensors,
+launch; the staged K1/K2, K8, K11 and K12 at the edges of their 64-step
+tiles) is held against its plain PyTorch version on the same CUDA tensors,
 and the regional objectives on the card against the same calls on CPU
 tensors.  Tolerances:
 float64 ``rtol=1e-9, atol=1e-12`` (the same operations in another order);
@@ -810,8 +811,10 @@ def test_regional_gr4j_kernel_matches_plain(cuda, dtype, C, n1, n2, x4_max,
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 def test_regional_one_catchment_is_k1(cuda, dtype):
-    """K5 with C = 1 runs the step and sums of K1/K2 (its own kernel, the
-    same device functions) over the same series: the same numbers as the
+    """K5 with C = 1 runs the two-arm step and the sums of K1/K2 over the
+    same series; K1/K2 run one arm a step, staged (and for small ensembles
+    with production and routing in separate warps), which is the same
+    operations on the same values: the same numbers as the
     single-catchment launch, bit for bit."""
     prec, etp, qobs, params = _inputs(cuda, dtype, gaps=True)
     for stats in (False, True):
@@ -1128,3 +1131,163 @@ def test_hbv_warm_objective_across_a_tile_edge(cuda, dtype, mode):
     torch.cuda.synchronize()
     assert fg.LAUNCHES["hbv_stats" if stats else "hbv_mse"] == 1
     _assert_close_nan_aware(got, want, *TOL[dtype]["obj"])
+
+
+# ---------------------------------------------------------------------------
+# K1/K2 and K11 redesigned: forcing staged in tiles; K1/K2 with one
+# production arm a step, and for small ensembles production and routing in
+# separate warps; K11 as the regional variant of K8's kernel.
+# ---------------------------------------------------------------------------
+
+EDGE_GR4J_STEPS = [1, 37, 65, 128]   # one step, < a tile, a 1-step tile, two
+# K1/K2's two kernels: production and routing in separate warps (200
+# members), and one member a thread (one member more than the split kernel
+# takes, fg.split_members() + 1, resolved on the card).  NaN forcing or an
+# inf or NaN store makes every member NaN; p == e leaves every one finite.
+GR4J_KERNEL_SIZES = ["split", "one a thread"]
+
+
+def _gr4j_members(kernel):
+    return EDGE_MEMBERS if kernel == "split" else fg.split_members() + 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("n1,n2,x4_max", [(3, 7, 2.9), (10, 21, 9.9)])
+@pytest.mark.parametrize("T", EDGE_GR4J_STEPS)
+@pytest.mark.parametrize("stats", [False, True])
+@pytest.mark.parametrize("kernel", GR4J_KERNEL_SIZES)
+def test_gr4j_objective_tile_and_block_edges(cuda, dtype, n1, n2, x4_max, T,
+                                             stats, kernel):
+    """K1/K2 (both kernels) at T of one step, shorter than a tile, with a
+    last tile of one step and whole tiles, N not a multiple of the block,
+    gaps at the tile edges; against the plain version."""
+    prec, etp, qobs, params = _inputs(cuda, dtype, T=T,
+                                      N=_gr4j_members(kernel),
+                                      x4_max=x4_max, seed=T)
+    qobs, _ = _tile_edge_gaps(qobs, qobs[None])
+    fg.reset_launches()
+    got = fg.gr4j_ensemble_mse_fused(prec, etp, qobs, 0.4, 0.3, params, n1,
+                                     n2, stats=stats, masked=True)
+    want = fg.gr4j_objective_reference(
+        prec, etp, qobs, fg.pack_params(params, 0.4, 0.3), n1, n2, stats,
+        True, int(torch.isfinite(qobs).sum()))
+    torch.cuda.synchronize()
+    assert fg.LAUNCHES["gr4j_stats" if stats else "gr4j_mse"] == 1
+    assert got.shape == want.shape and bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got, want, rtol=TOL[dtype]["obj"][0],
+                               atol=TOL[dtype]["obj"][1])
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("n1,n2,x4_max", [(3, 7, 2.9), (10, 21, 9.9)])
+@pytest.mark.parametrize("stats", [False, True])
+@pytest.mark.parametrize("kernel", GR4J_KERNEL_SIZES)
+def test_gr4j_warm_objective_across_a_tile_edge(cuda, dtype, n1, n2, x4_max,
+                                                stats, kernel):
+    """K1/K2's warm entry (both kernels) over a 100-step continuation that
+    crosses tile edges, from the state K4 ends a 30-step cold run in; gaps
+    at the edges."""
+    prec, etp, qobs, params = _inputs(cuda, dtype, T=130,
+                                      N=_gr4j_members(kernel), x4_max=x4_max)
+    cut = 30
+    _, state = fg.gr4j_simulate_state_fused(
+        prec[:cut].contiguous(), etp[:cut].contiguous(), params, None, 0.4,
+        0.3, n1, n2)
+    tail = [x[cut:].contiguous() for x in (prec, etp)]
+    qobs_b, _ = _tile_edge_gaps(qobs[cut:].contiguous(), qobs[None, cut:])
+    fg.reset_launches()
+    got = fg.gr4j_ensemble_mse_fused(*tail, qobs_b, 0.0, 0.0, params, n1, n2,
+                                     stats=stats, masked=True, state=state)
+    want = fg.gr4j_objective_reference(
+        *tail, qobs_b, fg.pack_params(params, 0.0, 0.0, state), n1, n2,
+        stats, True, int(torch.isfinite(qobs_b).sum()),
+        fg.history_rows(state, n2, prec))
+    torch.cuda.synchronize()
+    assert fg.LAUNCHES["gr4j_stats" if stats else "gr4j_mse"] == 1
+    assert bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got, want, rtol=TOL[dtype]["obj"][0],
+                               atol=TOL[dtype]["obj"][1])
+
+
+# (label, s_init, steps with NaN prec, steps with NaN etp); every seventh
+# step has p == e.
+GR4J_EDGE_INPUTS = [("p == e", 0.4, [], []),
+                    ("NaN forcing", 0.4, [100], [200]),
+                    ("inf store", float("inf"), [], []),
+                    ("NaN store", float("nan"), [], [])]
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("case", GR4J_EDGE_INPUTS, ids=lambda c: c[0])
+@pytest.mark.parametrize("kernel", GR4J_KERNEL_SIZES)
+def test_gr4j_objective_one_arm_edges_match_two_arm_plain(cuda, dtype, case,
+                                                          kernel):
+    """Where the two-arm step's inactive arm is not a plain zero (p == e,
+    NaN forcing, an inf or NaN store), K1/K2's one-arm step gives the same
+    numbers as the plain version, which computes both arms: NaN exactly
+    where it has NaN, and close elsewhere."""
+    _, s_init, nan_p, nan_e = case
+    prec, etp, qobs, params = _inputs(cuda, dtype, T=300,
+                                      N=_gr4j_members(kernel), x4_max=2.9,
+                                      seed=7)
+    etp[::7] = prec[::7]
+    prec[nan_p] = torch.nan
+    etp[nan_e] = torch.nan
+    got = fg.gr4j_ensemble_mse_fused(prec, etp, qobs, s_init, 0.3, params,
+                                     3, 7, stats=True)
+    want = fg.gr4j_objective_reference(
+        prec, etp, qobs, fg.pack_params(params, s_init, 0.3), 3, 7, True)
+    torch.cuda.synchronize()
+    nan = torch.isnan(want)
+    assert torch.equal(torch.isnan(got), nan)
+    assert bool(nan.all()) == (case[0] != "p == e")
+    torch.testing.assert_close(got[~nan], want[~nan],
+                               rtol=TOL[dtype]["obj"][0],
+                               atol=TOL[dtype]["obj"][1])
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("L", [1, 2, 5, 7])
+@pytest.mark.parametrize("T", [37, 128])
+@pytest.mark.parametrize("C", [1, 3])
+@pytest.mark.parametrize("variant", ["plain", "hyst", "ice", "hyst+ice"])
+def test_regional_snow_objective_tile_and_block_edges(cuda, dtype, L, T, C,
+                                                      variant):
+    """K11 at 1 and 5 layers (registers) and 2 and 7 (shared-memory
+    columns), T shorter than a tile and two whole tiles, N not a multiple
+    of the block, catchment 0's record cut short and gaps at the tile edges
+    in every catchment; MSE and statistics against the plain version."""
+    hyst, ice = {"plain": (False, False), "hyst": (True, False),
+                 "ice": (False, True), "hyst+ice": (True, True)}[variant]
+    rng = np.random.default_rng(T + L)
+    as_t = lambda a: torch.tensor(a, dtype=dtype, device=cuda)
+    prec = as_t(rng.uniform(0, 15, (C, T, L)))
+    temp = as_t(rng.uniform(-12, 18, (C, T, L)))
+    frac = as_t(np.clip(rng.uniform(-0.3, 1.2, (C, T, L)), 0, 1))
+    etp = as_t(rng.uniform(0, 4, (C, T)))
+    qobs = _regional_qobs(rng, C, T, True)
+    qobs[:, [t for t in (TILE - 1, TILE, 2 * TILE - 1) if t < T]] = np.nan
+    qobs = as_t(qobs)
+    frac_ice = as_t(rng.uniform(0, 0.7, (C, L)))
+    *_, params = _snow_inputs(cuda, dtype, L, 2.9, N=EDGE_MEMBERS)
+    snow0, th0, s_init, r_init = SNOW_INITS
+    snow, rain, consts = fs.layer_inputs(prec, frac, hyst)
+    want = fs.snowgr4j_regional_objective_reference(
+        snow, rain, temp, etp, qobs, fs.pack_params(params, s_init, r_init),
+        consts, frac_ice if ice else torch.zeros_like(frac_ice), snow0, th0,
+        hyst, ice, 3, 7, stats=True, masked=True,
+        counts=_regional_counts(qobs, True))
+    for stats in (False, True):
+        fg.reset_launches()
+        got = fs.snowgr4j_regional_mse_fused(
+            prec, temp, etp, frac, qobs, snow0, th0, s_init, r_init, params,
+            frac_ice=frac_ice if ice else None, hyst=hyst, ice=ice,
+            stats=stats, num_uh1=3, num_uh2=7, masked=True)
+        torch.cuda.synchronize()
+        assert fg.LAUNCHES["snow_regional"] == 1
+        assert got.shape == ((4, C, EDGE_MEMBERS) if stats
+                             else (C, EDGE_MEMBERS))
+        assert bool(torch.isfinite(got).all())
+        torch.testing.assert_close(got, want if stats else want[0],
+                                   rtol=TOL[dtype]["obj"][0],
+                                   atol=TOL[dtype]["obj"][1])
