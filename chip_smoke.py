@@ -22,10 +22,13 @@ Phases, in order (each prints its lines; any failure exits non-zero):
                   snow family (K8 MSE, stats and SCA statistics with and
                   without gaps, K9 trajectories; plain, hysteresis, ice and
                   hysteresis + ice variants and the snow-only routine; 1, 2,
-                  5 and 7 layers (K8 keeps 1 and 5 in registers, any other
-                  count in shared memory; K9 at 1 and 5); both UH register
-                  pairs; K8 and K12 also at T = 37 and 128 around their
-                  64-step staging tiles, N = 200, gaps at tile edges); then
+                  5 and 7 layers (K8 and K9 keep 1 and 5 in registers, any
+                  other count in shared memory); both UH register pairs; K8
+                  and K12 also at T = 37 and 128 around their 64-step
+                  staging tiles, N = 200, gaps at tile edges; K9 at T = 1,
+                  37, 64, 65 and 128 around its 32-step staging and store
+                  tiles, N = 200 and 129, every variant, the snow-only
+                  outflow bit for bit); then
                   the state kernels
                   (K4, K14, K10: trajectories and every state row, cold and
                   warm; K10's snow rows bit for bit) and the warm entry of the
@@ -34,8 +37,10 @@ Phases, in order (each prints its lines; any failure exits non-zero):
                   regional kernels (K5, K11: one and three catchments, the
                   three with a short record and gaps, MSE and statistics,
                   both UH register pairs, every snow variant at 1 and 5
-                  layers; K11 also at 1, 2, 5 and 7 layers, T = 37 and 128,
-                  N = 200, gaps at tile edges and a record cut short);
+                  layers; K5 also at T = 1, 37, 65 and 128, N = 200, gaps
+                  at tile edges and a record cut short; K11 also at 1, 2, 5
+                  and 7 layers, T = 37 and 128, N = 200, gaps at tile edges
+                  and a record cut short);
 4. golden      -- the fused engines in float64 against the authors' Excel
                   GR4J trajectory, MATLAB HBV-Edu trajectory and the four
                   Excel snow trajectories (tests/data/);
@@ -78,17 +83,20 @@ Phases, in order (each prints its lines; any failure exits non-zero):
                   K1/K2 also at the shapes of a fit generation (135 x 1827
                   x 5 layers, 165 x 3652, 60 x 12418), K8, K12 and K2 over
                   N = 16896 .. 262144 at T = 3651, and the SASS
-                  instructions of the objectives' time loops by class;
+                  instructions of the time loops of the objectives, K5 and
+                  K9 by class; K9 also at GLUE's 20000 x 3652 (one layer);
                   K5 at 8 catchments x 131072 x 3651 (UH (3, 7) and (10,
-                  21)) and K11 at 8 x 131072 x 3651 x 5 layers.
+                  21)) and over the regional path's 12418 days, and K11 at
+                  8 x 131072 x 3651 x 5 layers.
 
 ``--phases a,b`` (development) runs only the named phases after the build:
 kernels, golden, main, forecast, regional, times; the result lines need them
 all.  ``--compare DIR[,DIR...]`` (development) builds the kernel sources in
 each DIR (another version's ``rrmpg_tpu_torch/csrc``) beside this
-checkout's, times K1, K2, K8, K11 and K12 of both in turns with the largest
-output difference between the builds, and holds K1/K2 of both to each
-other bit for bit on the goldens and edge inputs; it exits 3.
+checkout's, times K1, K2, K5, K8, K9, K11 and K12 (and K3, K4, K10, which
+share their sources) of both in turns with the largest output difference
+between the builds, and holds K1/K2 and K5/K9 of both to each other bit for
+bit on the goldens and edge inputs; it exits 3.
 
 The last two lines are a JSON object describing the kernels and the
 result line ``{"ok": true, "device": {...}}``.
@@ -130,7 +138,7 @@ KERNELS = {
     "hbv_traj": (HBV_SRC, "rrmpg_tpu/ops/pallas_hbv.py:203"),
     "snow_objective": (SNOW_OBJECTIVE_SRC,
                        "rrmpg_tpu/ops/pallas_snow.py:115"),
-    "snow_traj": (SNOW_SRC, "rrmpg_tpu/ops/pallas_snow.py:213"),
+    "snow_traj": (SNOW_OBJECTIVE_SRC, "rrmpg_tpu/ops/pallas_snow.py:213"),
     "gr4j_traj_state": (GR4J_SRC, "rrmpg_tpu/ops/pallas_gr4j.py:179"),
     "hbv_traj_state": (HBV_SRC, "rrmpg_tpu/ops/pallas_hbv.py:223"),
     "snow_traj_state": (SNOW_SRC, "rrmpg_tpu/ops/pallas_snow.py:336"),
@@ -219,6 +227,13 @@ SNOW_FIT_MAXITER = 20
 # in a ragged block of 128: the edges the kernels phase checks.
 STAGE_TILE = 64
 EDGE_MEMBERS = 200
+# K1/K2's and K5's edges: one step, less than a tile, a last tile of one
+# step, two whole tiles.
+GR4J_EDGE_STEPS = (1, 37, 65, 128)
+# K9's edges: one step, around and at its 32-step staging and store tiles,
+# and last blocks of 72 and of 1 member.
+TRAJ_EDGE_STEPS = (1, 37, 64, 65, 128)
+TRAJ_EDGE_MEMBERS = (200, 129)
 # Tolerances of the kernel-vs-plain checks, (rtol, atol).  float64: the same
 # operations in another order (FMA contraction) and libdevice vs ATen
 # tanh/pow.  float32: rounding compounds over thousands of steps of the
@@ -246,7 +261,7 @@ GR4J_STEP_OPS = {(3, 7): 28 + 2 + 5 + 13 + 21, (10, 21): 28 + 2 + 19 + 41 + 21}
 HBV_STEP_OPS = 10 + 14 + 17
 ABC_STEP_OPS = 6
 OBJECTIVE_OPS = {"mse": 3, "stats": 8}
-# snow_fused.cu, per layer and step: snow_layer_step 20 (plain) or 32
+# snow_step.cuh, per layer and step: snow_layer_step 20 (plain) or 32
 # (hysteresis), the ice melt 5, the layer sum 1; per step 2 for the mean and
 # the ice term; the objective always forms its four sums (8); the SCA
 # statistics add 10 per band.
@@ -830,7 +845,7 @@ def gr4j_edge_checks(prec_np, etp_np, qobs_np):
             np.random.default_rng(uh[1]), n,
             2.9 if uh[0] == 3 else BOUNDS_X4_WIDE, dtype)
         packed = fg.pack_params(params, 0.4, 0.3)
-        for t_len in (1, 37, 65, 128):
+        for t_len in GR4J_EDGE_STEPS:
             prec, etp = (as_tensor(a[:t_len], dtype)
                          for a in (prec_np, etp_np))
             qobs = as_tensor(tile_edge_gaps(qobs_np[:t_len]), dtype)
@@ -949,11 +964,12 @@ def phase_kernels_snow(n=256, t_len=300):
     products are written without fused multiply-adds, so both sides take
     the same branches and no member has to be set aside; the snow-only
     outflow, which is the snow state alone, is also counted for bit
-    equality.  K8 runs its layers in registers at 1 and 5 layers and in
-    shared-memory columns at any other count (2 and 7 here); T = 300 ends
-    in a ragged 64-step tile, and a second pass at T = 37 (shorter than a
+    equality.  K8 and K9 run their layers in registers at 1 and 5 layers
+    and in shared-memory columns at any other count (2 and 7 here); T = 300
+    ends in a ragged tile, and a second pass at T = 37 (shorter than a
     tile) and T = 128 (two whole tiles) with N = 200 (a ragged last block)
-    and gaps at the tile edges covers the edges of the staging."""
+    and gaps at the tile edges covers the edges of K8's staging
+    (snow_traj_edge_checks those of K9)."""
     from rrmpg_tpu_torch.ops import fused_gr4j as fg
     from rrmpg_tpu_torch.ops import fused_snow as fs
 
@@ -964,12 +980,10 @@ def phase_kernels_snow(n=256, t_len=300):
         for num_layers in (1, 2, 5, 7):
             d = SnowData.random(np.random.default_rng(num_layers), t_len,
                                 num_layers, dtype)
-            # K9 (trajectories) keeps its run-time layer loop: 1 and 5.
-            traj = num_layers in (1, 5)
             # The snow-only routine (no GR4J, no UH registers).
             params = snow_random_params(np.random.default_rng(3), n, dtype,
                                         2.9)
-            cases = [("traj", False)] * traj + [
+            cases = [("traj", False)] + [
                 (mode, masked) for masked in (False, True)
                 for mode in ("mse", "stats")]
             for mode, masked in cases:
@@ -990,12 +1004,11 @@ def phase_kernels_snow(n=256, t_len=300):
                     kw = dict(hyst=hyst, ice=ice, uh=uh)
                     label = (f"snow {name} L={num_layers} uh={uh} "
                              f"{variant:8s}")
-                    if traj:
-                        report(f"{label} traj",
-                               snow_call(fs, d, params, "traj", **kw),
-                               snow_call(fs, d, params, "traj", plain=True,
-                                         **kw), *tol["traj"])
-                        n_checks += 1
+                    report(f"{label} traj",
+                           snow_call(fs, d, params, "traj", **kw),
+                           snow_call(fs, d, params, "traj", plain=True,
+                                     **kw), *tol["traj"])
+                    n_checks += 1
                     for masked in (False, True):
                         n_checks += snow_objective_checks(
                             fs, d, params, label, masked, kw, tol["obj"])
@@ -1019,9 +1032,58 @@ def phase_kernels_snow(n=256, t_len=300):
                     fs, d, params, f"{label} hyst+ice", True,
                     dict(hyst=True, ice=True, uh=(3, 7)), tol["obj"])
     print(f"[3 kernels] snow: {n_checks} kernel-vs-plain checks passed at "
-          f"N={n}, T={t_len}, L in (1, 2, 5, 7) (K9 at 1 and 5), and at "
-          f"T in (37, 128), N={EDGE_MEMBERS}; snow-only outflow elements "
-          f"that differ from the plain version in any bit: {unequal}")
+          f"N={n}, T={t_len}, L in (1, 2, 5, 7), and at T in (37, 128), "
+          f"N={EDGE_MEMBERS}; snow-only outflow elements that differ from "
+          f"the plain version in any bit: {unequal}")
+    check(unequal == 0, "the snow-only outflow of K9 is not the plain "
+          "version's bit for bit")
+    snow_traj_edge_checks()
+
+
+def snow_traj_edge_checks():
+    """K9 around its staging and store tiles (32 steps) and its blocks:
+    T = 1, 37, 64, 65 and 128, N = 200 and 129 (ragged last blocks of 72
+    and 1 members), 1, 2, 5 and 7 layers (registers at 1 and 5, shared
+    columns otherwise), every variant at both UH register pairs and the
+    snow-only routine (its outflow bit for bit), float64 and float32."""
+    from rrmpg_tpu_torch.ops import fused_gr4j as fg
+    from rrmpg_tpu_torch.ops import fused_snow as fs
+
+    n_checks, unequal = 0, 0
+    for dtype in (F64, F32):
+        tol, name = TOL[dtype]["traj"], str(dtype)[6:]
+        for t_len in TRAJ_EDGE_STEPS:
+            for num_layers in (1, 2, 5, 7):
+                d = SnowData.random(np.random.default_rng(t_len + num_layers),
+                                    t_len, num_layers, dtype)
+                for n in TRAJ_EDGE_MEMBERS:
+                    label = f"snow {name} traj T={t_len} N={n} L={num_layers}"
+                    params = snow_random_params(np.random.default_rng(n), n,
+                                                dtype, 2.9)
+                    got = snow_call(fs, d, params, "traj", snow_only=True)
+                    want = snow_call(fs, d, params, "traj", snow_only=True,
+                                     plain=True)
+                    report(f"{label} snow-only", got, want, *tol)
+                    unequal += int((got != want).sum())
+                    n_checks += 1
+                    for uh in fg.SUPPORTED_UH:
+                        params = snow_random_params(
+                            np.random.default_rng(n + uh[0]), n, dtype,
+                            2.9 if uh[0] == 3 else BOUNDS_X4_WIDE)
+                        for variant, hyst, ice in SNOW_VARIANTS:
+                            kw = dict(hyst=hyst, ice=ice, uh=uh)
+                            report(f"{label} uh={uh} {variant}",
+                                   snow_call(fs, d, params, "traj", **kw),
+                                   snow_call(fs, d, params, "traj",
+                                             plain=True, **kw), *tol)
+                            n_checks += 1
+    print(f"[3 kernels] K9 tile and block edges: {n_checks} kernel-vs-plain "
+          f"checks passed at T in {TRAJ_EDGE_STEPS}, N in "
+          f"{TRAJ_EDGE_MEMBERS}, L in (1, 2, 5, 7); snow-only outflow "
+          f"elements that differ from the plain version in any bit: "
+          f"{unequal}")
+    check(unequal == 0, "the snow-only outflow of K9 is not the plain "
+          "version's bit for bit")
 
 
 def snow_objective_checks(fs, d, params, label, masked, kw, tol):
@@ -1259,6 +1321,20 @@ def phase_golden(forcing, qsim_matlab):
     check(ok, "fused HBV-Edu does not reproduce the MATLAB trajectory")
 
     # The four Excel snow trajectories through K9.
+    for name, (want, call) in snow_golden_calls(F64).items():
+        q, want = call().cpu().numpy().ravel(), want.to_numpy()
+        ok = np.allclose(q, want)
+        print(f"[4 golden] {name} fused float64 vs Excel: T={len(q)} "
+              f"max_abs={float(np.max(np.abs(q - want))):.3e} "
+              f"np.allclose={ok}")
+        check(ok, f"fused {name} does not reproduce the Excel trajectory")
+
+
+def snow_golden_calls(dtype):
+    """The four Excel snow sheets through K9 (each class's fused simulate
+    with the goldens' settings): {name: (Excel column, zero-argument
+    call)}."""
+    import pandas as pd
     from rrmpg_tpu_torch.models import (Cemaneige, CemaneigeGR4J,
                                         CemaneigeHystGR4J,
                                         CemaneigeHystGR4JIce)
@@ -1269,34 +1345,29 @@ def phase_golden(forcing, qsim_matlab):
     def met(df):
         return (df.precipitation, df.mean_temp, df.min_temp, df.max_temp)
 
+    calls = {}
     df = read('cemaneige_validation_data.csv', sep=';')
-    runs = [("Cemaneige", df.liquid_outflow, Cemaneige(
-        params=CEMANEIGE_GOLDEN, dtype=F64).simulate(
-            *met(df), met_station_height=495, altitudes=ALTITUDES,
-            engine='fused'))]
+    calls["Cemaneige"] = (df.liquid_outflow, functools.partial(
+        Cemaneige(params=CEMANEIGE_GOLDEN, dtype=dtype).simulate, *met(df),
+        met_station_height=495, altitudes=ALTITUDES, engine='fused'))
     df = read('cemaneigegr4j_validation_data.csv', sep=';', index_col=0)
-    runs.append(("CemaneigeGR4J", df.qsim, CemaneigeGR4J(
-        params=CEMANEIGEGR4J_GOLDEN, dtype=F64).simulate(
-            *met(df), df.pe, met_station_height=495, altitudes=ALTITUDES,
-            s_init=0.6, r_init=0.7, engine='fused')))
+    calls["CemaneigeGR4J"] = (df.qsim, functools.partial(
+        CemaneigeGR4J(params=CEMANEIGEGR4J_GOLDEN, dtype=dtype).simulate,
+        *met(df), df.pe, met_station_height=495, altitudes=ALTITUDES,
+        s_init=0.6, r_init=0.7, engine='fused'))
     df = read('cemaneigehystgr4j_validation_data.csv', index_col=0)
-    runs.append(("CemaneigeHystGR4J", df.qsim, CemaneigeHystGR4J(
-        params=HYST_GOLDEN, dtype=F64).simulate(
-            *met(df), df.pe, met_station_height=700, altitudes=ALTITUDES,
-            s_init=0.5, r_init=0.4, engine='fused')))
+    calls["CemaneigeHystGR4J"] = (df.qsim, functools.partial(
+        CemaneigeHystGR4J(params=HYST_GOLDEN, dtype=dtype).simulate,
+        *met(df), df.pe, met_station_height=700, altitudes=ALTITUDES,
+        s_init=0.5, r_init=0.4, engine='fused'))
     df = read('cemaneigehystgr4jice_validation_data.csv', index_col=0)
-    runs.append(("CemaneigeHystGR4JIce", df.qsim, CemaneigeHystGR4JIce(
-        params=dict(HYST_GOLDEN, DDF=5), dtype=F64).simulate(
-            *met(df), df.pe, FRAC_ICE_GOLDEN, met_station_height=700,
-            altitudes=ALTITUDES, s_init=0.5, r_init=0.4, sca_init=0.2,
-            engine='fused')))
-    for name, want, q in runs:
-        q, want = q.cpu().numpy().ravel(), want.to_numpy()
-        ok = np.allclose(q, want)
-        print(f"[4 golden] {name} fused float64 vs Excel: T={len(q)} "
-              f"max_abs={float(np.max(np.abs(q - want))):.3e} "
-              f"np.allclose={ok}")
-        check(ok, f"fused {name} does not reproduce the Excel trajectory")
+    calls["CemaneigeHystGR4JIce"] = (df.qsim, functools.partial(
+        CemaneigeHystGR4JIce(params=dict(HYST_GOLDEN, DDF=5),
+                             dtype=dtype).simulate,
+        *met(df), df.pe, FRAC_ICE_GOLDEN, met_station_height=700,
+        altitudes=ALTITUDES, s_init=0.5, r_init=0.4, sca_init=0.2,
+        engine='fused'))
+    return calls
 
 
 def run_counted(fn):
@@ -2152,6 +2223,8 @@ def phase_kernels_regional(prec_np, etp_np, qobs_np, n=256, t_len=1000,
                                    f"{'+masked' if masked else ''}", got,
                                    want if stats else want[0], *tol)
                             n_checks += 1
+        n_checks += gr4j_regional_edge_checks(prec_np, etp_np, qobs_np,
+                                              dtype)
         # K11 around its 64-step staging tiles: layers in registers (1, 5)
         # and in shared-memory columns (2, 7), T shorter than a tile and two
         # whole tiles, N = 200 (a ragged last block), gaps at the tile edges
@@ -2178,8 +2251,47 @@ def phase_kernels_regional(prec_np, etp_np, qobs_np, n=256, t_len=1000,
                                    got, want if stats else want[0], *tol)
                             n_checks += 1
     print(f"[3 kernels] regional: {n_checks} kernel-vs-plain checks passed "
-          f"(K5 N={n} T={t_len}; K11 N={n} T={snow_t_len}, and at T in (37, "
+          f"(K5 N={n} T={t_len}, and at T in {GR4J_EDGE_STEPS}, "
+          f"N={EDGE_MEMBERS}; K11 N={n} T={snow_t_len}, and at T in (37, "
           f"128), N={EDGE_MEMBERS}, L in (1, 2, 5, 7); C in (1, 3))")
+
+
+def gr4j_regional_edge_checks(prec_np, etp_np, qobs_np, dtype):
+    """K5 around K1/K2's 64-step staging tiles, which it shares: T = 1, 37,
+    65 and 128, N = 200 (a ragged last block), one catchment and three (the
+    first record cut short at two thirds), gaps on both sides of the tile
+    edges, both UH register pairs, MSE and statistics.  Returns the count
+    of checks."""
+    from rrmpg_tpu_torch.ops import fused_gr4j as fg
+
+    tol, name = TOL[dtype]["obj"], str(dtype)[6:]
+    scale = np.random.default_rng(12).uniform(0.8, 1.2, (3, 1))
+    n_checks = 0
+    for uh in fg.SUPPORTED_UH:
+        params = gr4j_random_params(np.random.default_rng(uh[1]),
+                                    EDGE_MEMBERS,
+                                    2.9 if uh[0] == 3 else BOUNDS_X4_WIDE,
+                                    dtype)
+        for t_len in GR4J_EDGE_STEPS:
+            for c in (1, 3):
+                prec, etp = (as_tensor(a[:t_len] * scale[:c], dtype)
+                             for a in (prec_np, etp_np))
+                qobs = tile_edge_gaps(np.tile(qobs_np[:t_len], (c, 1)))
+                if c > 1:
+                    qobs[0, max(1, 2 * t_len // 3):] = np.nan
+                qobs = as_tensor(qobs, dtype)
+                want = regional_gr4j_plain(fg, prec, etp, qobs, params, uh,
+                                           True)
+                for stats in (False, True):
+                    got = fg.gr4j_regional_objective_fused(
+                        prec, etp, qobs, 0.4, 0.3, params, *uh, stats=stats,
+                        masked=True)
+                    report(f"gr4j_regional {name} T={t_len} N={EDGE_MEMBERS} "
+                           f"C={c} uh={uh} "
+                           f"{'stats' if stats else 'mse'}+masked", got,
+                           want if stats else want[0], *tol)
+                    n_checks += 1
+    return n_checks
 
 
 REGION_BASINS = 8
@@ -2471,37 +2583,70 @@ def snow_time_inputs(n, t_len, num_layers):
     return d, params
 
 
-def times_regional(measure, prec_np, etp_np, qobs_np):
-    """K5 and K11 against their plain versions and bounds (``measure`` is
-    :func:`measure_row` with its rows and card bound)."""
-    # K5 at C = 8 catchments x 131072 members x 3651 days, UH (3, 7) (the
-    # regional shape of bench.py:258-276) and (10, 21), and K11 at 8 x
-    # 131072 x 3651 x 5 layers, hysteresis + ice, UH (3, 7): each
-    # catchment's forcing a scaled copy, one parameter set per member shared
-    # by all.  The plain versions advance all catchments in one time loop
-    # and are timed once.
+def gr4j_regional_bench_call(uh, t_len=TIME_STEPS):
+    """K5 at C = 8 catchments x 131072 members x ``t_len`` CAMELS 01031500
+    days (3651: the regional shape of bench.py:258-276; None: the whole
+    record, 12418 days, as the regional main path sweeps it), MSE (masked
+    where the record has gaps): each catchment's forcing a scaled copy, one
+    parameter set per member shared by all.  Returns (call, plain call,
+    operations, bytes, description)."""
     from rrmpg_tpu_torch.ops import fused_gr4j as fg
 
-    n, t_len, c = TIME_MEMBERS, TIME_STEPS, REGION_BASINS
+    n, c = TIME_MEMBERS, REGION_BASINS
+    qobs_np, prec_np, etp_np = basin()
+    t_len = len(qobs_np) if t_len is None else t_len
     rng = np.random.default_rng(8)
     scale = rng.uniform(0.8, 1.2, (c, 1))
-    prec_ct, etp_ct = (as_tensor(a[:t_len] * scale, F32)
-                       for a in (prec_np, etp_np))
-    qobs_ct = as_tensor(np.tile(qobs_np[:t_len], (c, 1)), F32)
-    counts = regional_counts(qobs_ct, False)
-    for uh_r, key in (((3, 7), "gr4j_regional_uh37"),
-                      ((10, 21), "gr4j_regional")):
-        members = gr4j_random_params(rng, n, 2.9, F32)
-        packed = fg.pack_params(members, 0.0, 0.0)
-        measure(key,
-                lambda: fg.gr4j_regional_objective_fused(
-                    prec_ct, etp_ct, qobs_ct, 0.0, 0.0, members, *uh_r),
-                lambda: fg.gr4j_regional_objective_reference(
-                    prec_ct, etp_ct, qobs_ct, packed, *uh_r, counts=counts),
-                (GR4J_STEP_OPS[uh_r] + OBJECTIVE_OPS["mse"]) * c * n * t_len,
-                4 * (3 * c * t_len + 6 * n + c + c * n), 3,
-                f"C={c} uh={uh_r} N={n} T={t_len} mse")
-    del prec_ct, etp_ct, qobs_ct
+    prec, etp = (as_tensor(a[:t_len] * scale, F32) for a in (prec_np, etp_np))
+    qobs = as_tensor(np.tile(qobs_np[:t_len], (c, 1)), F32)
+    masked = bool(torch.isnan(qobs).any())
+    members = gr4j_random_params(np.random.default_rng(uh[0]), n, 2.9, F32)
+    packed = fg.pack_params(members, 0.0, 0.0)
+    return (lambda: fg.gr4j_regional_objective_fused(
+                prec, etp, qobs, 0.0, 0.0, members, *uh, masked=masked),
+            lambda: fg.gr4j_regional_objective_reference(
+                prec, etp, qobs, packed, *uh, masked=masked,
+                counts=regional_counts(qobs, masked)),
+            (GR4J_STEP_OPS[uh] + OBJECTIVE_OPS["mse"]) * c * n * t_len,
+            4 * (3 * c * t_len + 6 * n + c + c * n),
+            f"C={c} uh={uh} N={n} T={t_len} mse{'+masked' * masked}")
+
+
+def glue_traj_call():
+    """K9 at the shape of GLUE's Monte-Carlo: CemaneigeGR4J (one layer, no
+    hysteresis, no ice), 20000 members x 3652 days, UH (10, 21) (the
+    class's simulate never takes shorter registers); forcing and members
+    from the recipe of the snow timing inputs.
+    Returns (call, plain call, operations, bytes, description)."""
+    from rrmpg_tpu_torch.ops import fused_snow as fs
+
+    n, t_len, num_layers = GLUE_MEMBERS, GLUE_DAYS, 1
+    d, params = snow_time_inputs(n, t_len, num_layers)
+    kw = dict(uh=(10, 21), inits=(0.0, 0.0, 0.3, 0.3))
+    ops = (num_layers * (SNOW_LAYER_OPS[False] + 1) + 1
+           + GR4J_STEP_OPS[(10, 21)]) * n * t_len
+    n_bytes = 4 * (3 * t_len * num_layers + t_len + num_layers + 11 * n
+                   + n * t_len)
+    return (lambda: snow_call(fs, d, params, "traj", **kw),
+            lambda: snow_call(fs, d, params, "traj", plain=True, **kw),
+            ops, n_bytes,
+            f"GLUE shape plain uh=(10, 21) N={n} T={t_len} L={num_layers}")
+
+
+def times_regional(measure):
+    """K5 and K11 against their plain versions and bounds (``measure`` is
+    :func:`measure_row` with its rows and card bound): K5 at 8 x 131072 x
+    3651 at both UH register pairs and over the main path's whole record
+    (T = 12418), K11 at 8 x 131072 x 3651 x 5 layers, hysteresis + ice, UH
+    (3, 7).  The plain versions advance all catchments in one time loop and
+    are timed once."""
+    for uh, key in (((3, 7), "gr4j_regional_uh37"),
+                    ((10, 21), "gr4j_regional")):
+        fn, plain, ops, n_bytes, what = gr4j_regional_bench_call(uh)
+        measure(key, fn, plain, ops, n_bytes, 3, what)
+    fn, plain, ops, n_bytes, what = gr4j_regional_bench_call((10, 21), None)
+    measure("gr4j_regional_record", fn, plain, ops, n_bytes, 2, what)
+    del fn, plain
     fn, plain, ops, n_bytes, what = regional_snow_bench_call()
     measure("snow_regional", fn, plain, ops, n_bytes, 3, what)
 
@@ -2535,7 +2680,12 @@ SASS_CLASSES = (
 # inner loops of its tile loop, each run by its own warps), and
 # K11 at the regional bench shape (hysteresis + ice, UH (3, 7); 5 layers
 # in registers and the run-time count; snow_regional_kernel is the name of
-# its earlier design, which --compare may build).
+# its earlier design, which --compare may build); K5 at both UH register
+# pairs (MSE; the main path's masked at (10, 21)); K9 at the bench shape
+# (hysteresis + ice, UH (3, 7), 5 layers in registers and the run-time
+# count), GLUE's (plain, UH (10, 21), one layer) and the snow-only routine
+# (5 layers), with the template arguments of its earlier design (no layer
+# count), which --compare may build.
 SASS_TARGETS = (
     ("snow_objective_kernel", "float, 3, 7, true, true, false, false, 5"),
     ("snow_objective_kernel", "float, 3, 7, true, true, false, true, 5"),
@@ -2552,6 +2702,16 @@ SASS_TARGETS = (
     ("snow_regional_objective_kernel", "float, 3, 7, true, true, 5"),
     ("snow_regional_objective_kernel", "float, 3, 7, true, true, 0"),
     ("snow_regional_kernel", "float, 3, 7, true, true"),
+    ("gr4j_regional_kernel", "float, 3, 7, false, false"),
+    ("gr4j_regional_kernel", "float, 10, 21, false, false"),
+    ("gr4j_regional_kernel", "float, 10, 21, false, true"),
+    ("snow_traj_kernel", "float, 3, 7, true, true, false, 5"),
+    ("snow_traj_kernel", "float, 3, 7, true, true, false, 0"),
+    ("snow_traj_kernel", "float, 10, 21, false, false, false, 1"),
+    ("snow_traj_kernel", "float, 1, 1, false, false, true, 5"),
+    ("snow_traj_kernel", "float, 3, 7, true, true, false"),
+    ("snow_traj_kernel", "float, 10, 21, false, false, false"),
+    ("snow_traj_kernel", "float, 1, 1, false, false, true"),
 )
 # Probes of what one operation costs in SASS (each minus probe_add).
 PROBE_SRC = r"""
@@ -2923,43 +3083,125 @@ def gr4j_equality_calls():
 
 
 def shared_source_calls():
-    """The kernels that share a changed source with K1/K2 or K11 (K3, K4
-    and K5 with K1/K2's `gr4j_step.cuh`, K9 and K10 its two-arm step through
-    `snow_step.cuh`; K8 is timed with K12) at their bench shapes, as
-    zero-argument calls that return one tensor: {name: call}."""
+    """K5 and K9 at their bench shapes (K5 at both UH register pairs and
+    over the main path's whole record; K9 at 131072 x 3651 x 5 layers and
+    at GLUE's shape), and the kernels that share a source with K1/K2, K5,
+    K8, K9 or K11 (K3 and K4 with `gr4j_step.cuh`, K10 the snow step of
+    `snow_step.cuh`; K8 is timed with K12), as zero-argument calls that
+    return one tensor: {name: (call, description)}."""
     from rrmpg_tpu_torch.ops import fused_gr4j as fg
     from rrmpg_tpu_torch.ops import fused_snow as fs
 
-    n, t_len, c = TIME_MEMBERS, TIME_STEPS, REGION_BASINS
+    n, t_len = TIME_MEMBERS, TIME_STEPS
     qobs_np, prec_np, etp_np = basin()
     prec, etp = (as_tensor(a[:t_len], F32) for a in (prec_np, etp_np))
     params = gr4j_random_params(np.random.default_rng(1), n, 2.9, F32)
     _, state = fg.gr4j_simulate_state_fused(prec, etp, params, None, 0.0, 0.0,
                                             10, 21)
-    scale = np.random.default_rng(8).uniform(0.8, 1.2, (c, 1))
-    prec_ct, etp_ct = (as_tensor(a[:t_len] * scale, F32)
-                       for a in (prec_np, etp_np))
-    qobs_ct = as_tensor(np.tile(qobs_np[:t_len], (c, 1)), F32)
     d, snow_params = snow_time_inputs(n, t_len, 5)
     kw = dict(hyst=True, ice=True, uh=(3, 7), inits=(0.0, 0.0, 0.3, 0.3))
     _, snow_state = snow_state_kernel(fs, d, snow_params, None, **kw)
-    return {
-        "gr4j_traj": lambda: fg.gr4j_simulate_fused(prec, etp, 0.0, 0.0,
-                                                    params, 10, 21),
-        "gr4j_traj_state_cold": lambda: fg.gr4j_simulate_state_fused(
-            prec, etp, params, None, 0.0, 0.0, 10, 21)[0],
-        "gr4j_traj_state_warm": lambda: fg.gr4j_simulate_state_fused(
-            prec, etp, params, state, num_uh1=10, num_uh2=21)[0],
-        "gr4j_regional_uh37": lambda: fg.gr4j_regional_objective_fused(
-            prec_ct, etp_ct, qobs_ct, 0.0, 0.0, params, 3, 7),
-        "gr4j_regional": lambda: fg.gr4j_regional_objective_fused(
-            prec_ct, etp_ct, qobs_ct, 0.0, 0.0, params, 10, 21),
-        "snow_traj": lambda: snow_call(fs, d, snow_params, "traj", **kw),
-        "snow_traj_state_cold": lambda: snow_state_kernel(
-            fs, d, snow_params, None, **kw)[0],
-        "snow_traj_state_warm": lambda: snow_state_kernel(
-            fs, d, snow_params, snow_state, **kw)[0],
-    }
+    shape = f"N={n} T={t_len}"
+    calls = {name: (fn, what) for name, (fn, _, _, _, what) in (
+        ("gr4j_regional_uh37", gr4j_regional_bench_call((3, 7))),
+        ("gr4j_regional", gr4j_regional_bench_call((10, 21))),
+        ("gr4j_regional_record", gr4j_regional_bench_call((10, 21), None)),
+        ("snow_traj_glue", glue_traj_call()))}
+    calls.update({name: (fn, shape) for name, fn in (
+        ("snow_traj", lambda: snow_call(fs, d, snow_params, "traj", **kw)),
+        ("gr4j_traj", lambda: fg.gr4j_simulate_fused(prec, etp, 0.0, 0.0,
+                                                     params, 10, 21)),
+        ("gr4j_traj_state_cold", lambda: fg.gr4j_simulate_state_fused(
+            prec, etp, params, None, 0.0, 0.0, 10, 21)[0]),
+        ("gr4j_traj_state_warm", lambda: fg.gr4j_simulate_state_fused(
+            prec, etp, params, state, num_uh1=10, num_uh2=21)[0]),
+        ("snow_traj_state_cold", lambda: snow_state_kernel(
+            fs, d, snow_params, None, **kw)[0]),
+        ("snow_traj_state_warm", lambda: snow_state_kernel(
+            fs, d, snow_params, snow_state, **kw)[0]))})
+    return calls
+
+
+def k5_k9_equality_calls():
+    """K5 and K9 calls on which two builds of the same arithmetic must agree
+    bit for bit, float64 and float32: K9 on the four Excel snow sheets
+    (each class's fused simulate) and on random forcing at T = 65 and 300,
+    N = 129, 1, 2, 5 and 7 layers, every variant at both UH register pairs
+    and the snow-only routine; K5 on three scaled copies of CAMELS
+    01031500 (one record cut at half, one with 10 % gaps) and on the Excel
+    GR4J sheet as one catchment (its golden parameters among 255 random
+    members), both UH register pairs, MSE and statistics, and on edge
+    inputs (300 steps, every seventh with p == e): NaN forcing at two
+    steps, an inf and a NaN initial store.  Returns {name: call}."""
+    import pandas as pd
+    from rrmpg_tpu_torch.ops import fused_gr4j as fg
+    from rrmpg_tpu_torch.ops import fused_snow as fs
+
+    calls = {}
+    qobs_np, prec_np, etp_np = basin()
+    sheet = pd.read_csv(REPO / "tests" / "data" / "gr4j_example_data.csv")
+    rng = np.random.default_rng(9)
+    scale = rng.uniform(0.8, 1.2, (3, 1))
+    region_q = np.tile(qobs_np, (3, 1))
+    region_q[0, len(qobs_np) // 2:] = np.nan
+    region_q[1, rng.random(len(qobs_np)) < 0.1] = np.nan
+    edge_p = rng.uniform(0, 15, (1, 300))
+    edge_e = rng.uniform(0, 4, (1, 300))
+    edge_e[:, ::7] = edge_p[:, ::7]
+    edge_q = rng.uniform(0, 5, (1, 300))
+    for dtype in (F64, F32):
+        name = str(dtype)[6:]
+        for sheet_name, (_, call) in snow_golden_calls(dtype).items():
+            calls[f"K9 {sheet_name} {name}"] = call
+        for t_len in (65, 300):
+            for num_layers in (1, 2, 5, 7):
+                d = SnowData.random(np.random.default_rng(num_layers), t_len,
+                                    num_layers, dtype)
+                label = f"K9 {name} T={t_len} L={num_layers}"
+                params = snow_random_params(np.random.default_rng(3), 129,
+                                            dtype, 2.9)
+                calls[f"{label} snow-only"] = functools.partial(
+                    snow_call, fs, d, params, "traj", snow_only=True)
+                for uh in fg.SUPPORTED_UH:
+                    params = snow_random_params(
+                        np.random.default_rng(uh[0]), 129, dtype,
+                        2.9 if uh[0] == 3 else BOUNDS_X4_WIDE)
+                    for variant, hyst, ice in SNOW_VARIANTS:
+                        calls[f"{label} uh={uh} {variant}"] = (
+                            functools.partial(snow_call, fs, d, params,
+                                              "traj", hyst=hyst, ice=ice,
+                                              uh=uh))
+        region = (as_tensor(prec_np * scale, dtype),
+                  as_tensor(etp_np * scale, dtype),
+                  as_tensor(region_q, dtype))
+        excel = tuple(as_tensor(a[None], dtype) for a in (
+            sheet.prec.to_numpy(), sheet.etp.to_numpy(),
+            sheet.qobs.to_numpy()))
+        edge = tuple(as_tensor(a, dtype) for a in (edge_p, edge_e, edge_q))
+        nan_forcing = tuple(x.clone() for x in edge)
+        nan_forcing[0][0, 100] = torch.nan
+        nan_forcing[1][0, 200] = torch.nan
+        for uh in fg.SUPPORTED_UH:
+            params = gr4j_random_params(np.random.default_rng(uh[0]), 256,
+                                        2.9 if uh[0] == 3 else
+                                        BOUNDS_X4_WIDE, dtype)
+            for k, v in GR4J_GOLDEN.items():
+                params[k][0] = v
+            cases = (("CAMELS x3", region, 0.6, True),
+                     ("Excel", excel, 0.6, False),
+                     ("edge p == e", edge, 0.4, False),
+                     ("edge NaN forcing", nan_forcing, 0.4, False),
+                     ("edge inf store", edge, float("inf"), False),
+                     ("edge NaN store", edge, float("nan"), False))
+            for label, series, s_init, masked in cases:
+                for stats in (False, True):
+                    calls[f"K5 {label} {name} uh={uh} "
+                          f"{'stats' if stats else 'mse'}"] = (
+                        functools.partial(
+                            fg.gr4j_regional_objective_fused, *series,
+                            s_init, 0.7, params, *uh, stats=stats,
+                            masked=masked))
+    return calls
 
 
 def sass_by_kernel(path):
@@ -3008,14 +3250,16 @@ def regional_snow_bench_call():
 def phase_compare(card, other_dirs, forcing, qsim_matlab):
     """Development: build the kernel sources in each of ``other_dirs``
     (another version's ``rrmpg_tpu_torch/csrc``) beside this checkout's,
-    and time K1, K2, K8, K11 and K12 of each against this one's in turns
-    (other, this, this, other) at the bench shapes, the fit shapes and over
-    SWEEP_MEMBERS, and K3, K4, K5, K9, K10 (which share their sources) at
-    their bench shapes, with the largest output difference between the two
-    builds for each timed call, the SASS of the time loops, the
-    instantiations whose SASS differs and the registers that differ; then
-    K1/K2 of both builds on the goldens and edge inputs, bit for bit.
-    Times only: the kernels phase checks this checkout's kernels."""
+    and time K1, K2, K5, K8, K9, K11 and K12 of each against this one's in
+    turns (other, this, this, other) at the bench shapes (K5 also over the
+    main path's record, K9 also at GLUE's shape), K1, K2, K8 and K12 at the
+    fit shapes and over SWEEP_MEMBERS, and K3, K4, K10 (which share their
+    sources) at their bench shapes, with the largest output difference
+    between the two builds for each timed call, the SASS of the time loops,
+    the instantiations whose SASS differs and the registers that differ;
+    then K1/K2 and K5/K9 of both builds on the goldens and edge inputs, bit
+    for bit.  Times only: the kernels phase checks this checkout's
+    kernels."""
     from rrmpg_tpu_torch.ops._build import BUILD_DIR, build_library, \
         load_library
 
@@ -3071,8 +3315,8 @@ def phase_compare(card, other_dirs, forcing, qsim_matlab):
         turns(name, fn, 5, f"uh=(10, 21) N={n} T={t_len}")
     fn, _, _, _, what = regional_snow_bench_call()
     turns("snow_regional", fn, 3, what)
-    for name, fn in shared_source_calls().items():
-        turns(name, fn, 3, f"N={n} T={t_len}")
+    for name, (fn, what) in shared_source_calls().items():
+        turns(name, fn, 3, what)
     d, snow_params = snow_time_inputs(n, t_len, 5)
     tensors = hbv_tensors(forcing, F32, t_len)
     hbv_qobs = as_tensor(qsim_matlab[:t_len], F32)
@@ -3092,12 +3336,20 @@ def phase_compare(card, other_dirs, forcing, qsim_matlab):
         for name, fn in sweep_calls(forcing, qsim_matlab, members).items():
             turns(name, fn, 3, f"sweep N={members} T={t_len}")
     turns("snow_sca_stats", sca, 3, f"N={n} T={t_len}")
-    for name, fn in gr4j_equality_calls().items():
+    for family, calls in (("K1/K2", gr4j_equality_calls()),
+                          ("K5/K9", k5_k9_equality_calls())):
         for label, lib in others:
-            diff, same = output_difference(outputs(fn, this),
-                                           outputs(fn, lib))
-            print(f"[compare] K1/K2 {name}: this against {label}, largest "
-                  f"difference {diff:.3e}, bit-equal {same}")
+            unequal = []
+            for name, fn in calls.items():
+                diff, same = output_difference(outputs(fn, this),
+                                               outputs(fn, lib))
+                print(f"[compare] {family} {name}: this against {label}, "
+                      f"largest difference {diff:.3e}, bit-equal {same}")
+                if not same:
+                    unequal.append(name)
+            print(f"[compare] {family} against {label}: "
+                  f"{len(calls) - len(unequal)} of {len(calls)} calls "
+                  f"bit-equal; differing: {unequal}")
 
 
 def times_objectives(measure, card, forcing, qsim_matlab):
@@ -3282,8 +3534,12 @@ def phase_times(card, prec_np, etp_np, qobs_np, forcing, qsim_matlab):
             4 * (series + t_len + 11 * n + 4 * n + warm_read), 3,
             shape + " stats")
     del snow_state, d, snow_params
+    fn, plain, ops, n_bytes, what = glue_traj_call()
+    ms = measure("snow_traj_glue", fn, plain, ops, n_bytes, 5, what)
+    print(f"    {GLUE_MEMBERS * GLUE_DAYS / (ms * 1e-3):.4e} member-steps/s")
+    del fn, plain
     times_objectives(measure, card, forcing, qsim_matlab)
-    times_regional(measure, prec_np, etp_np, qobs_np)
+    times_regional(measure)
 
     # ABC, one member over 10M steps.  Three copies of the series take
     # turns, so that no launch finds its input in the 50 MB L2 cache.
@@ -3357,9 +3613,9 @@ def main():
                         help="development: the phases to run after the "
                         "build, of " + ", ".join(PHASES))
     parser.add_argument("--compare", metavar="DIR[,DIR...]",
-                        help="development: time K1, K2, K8, K11 and K12 "
-                        "built from the kernel sources in each DIR against "
-                        "this checkout's, in turns, then stop")
+                        help="development: time K1, K2, K5, K8, K9, K11 "
+                        "and K12 built from the kernel sources in each DIR "
+                        "against this checkout's, in turns, then stop")
     args = parser.parse_args()
     phases = set(args.phases.split(","))
     check(phases <= set(PHASES), f"unknown phase in {sorted(phases)}")

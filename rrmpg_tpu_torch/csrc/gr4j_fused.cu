@@ -28,7 +28,7 @@
 // for the whole time loop (the UH lengths are template constants, so every
 // register index is a compile-time constant after unrolling and nothing
 // spills to local memory).  Latency is hidden by running many members per
-// SM; the forcing reads of K3-K5 go through __ldg, which the warp serves as
+// SM; the forcing reads of K3/K4 go through __ldg, which the warp serves as
 // one broadcast.  The objective accumulates in registers.  K3's per-step
 // stores stride across members (row-major (N, T)); that is left as it is
 // for now.
@@ -46,11 +46,13 @@
 // one parameter set per member: block row c = blockIdx.y is catchment c,
 // whose series start at c * T of the (C, T) arrays, whose valid count is
 // element c of a (C,) device array, and whose results go straight to their
-// place in (C, N) or (4, C, N).  Every member of a catchment reads the same
-// forcing, so the warp still shares each read.  K5 is a kernel of its own
-// rather than K1/K2 with run-time catchment offsets: those offsets moved the
-// single-catchment kernels' register counts (float32 (10, 21) MSE: 80 -> 86)
-// and their time.
+// place in (C, N) or (4, C, N).  K5 runs K1/K2's staged one-arm body
+// (objective_body) under a compile-time REGIONAL flag, with the catchment
+// offsets applied by its own kernel outside that body: run-time offsets
+// inside K1/K2 moved the single-catchment kernels' register counts (float32
+// (10, 21) MSE: 80 -> 86) and their time.  Its launches hold C x N threads
+// (8 x 131072 on every path), where the SMs' issue binds, so the split
+// kernel of small ensembles is not carried over.
 //
 // Unlike the TPU kernels there is no (8, 128) member tiling, no padding of
 // N or T and no time-tile grid: the kernel masks i < N itself and loops to
@@ -173,14 +175,19 @@ __device__ __forceinline__ void stage_forcing(Real (*buf)[4],
 // device memory sits on the recurrence.  A step computes one production
 // arm (gr4j_production).  Every thread of a block takes part in the copies
 // and barriers; threads past N run the last member and write nothing.
-template <typename Real, int NUH1, int NUH2, bool STATS, bool MASKED>
-__global__ void __launch_bounds__(kBlock)
-gr4j_objective_kernel(const Real* __restrict__ prec,
-                      const Real* __restrict__ etp,
-                      const Real* __restrict__ qobs,
-                      const Real* __restrict__ params,
-                      const Real* __restrict__ hist, int n, int t_len,
-                      Real count, Real* __restrict__ out) {
+//
+// The body is shared with K5 (REGIONAL), which runs it cold on one
+// catchment's series, advanced to by the regional kernel, and writes to
+// that catchment's place in (C, N) or (4, C, N), divided by its own count.
+// The flag is a compile-time one, so no K1/K2 instantiation carries the
+// catchment offsets.
+template <typename Real, int NUH1, int NUH2, bool STATS, bool MASKED,
+          bool REGIONAL>
+__device__ __forceinline__ void objective_body(
+    const Real* __restrict__ prec, const Real* __restrict__ etp,
+    const Real* __restrict__ qobs, const Real* __restrict__ params,
+    const Real* __restrict__ hist, int n, int t_len, Real count,
+    const Real* __restrict__ counts, Real* __restrict__ out) {
   __shared__ __align__(16) Real stage[2][kTile][4];
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   Member<Real, NUH1, NUH2> m;
@@ -211,12 +218,37 @@ gr4j_objective_kernel(const Real* __restrict__ prec,
     __syncthreads();  // the buffer is refilled two tiles on
   }
   if (i >= n) return;
+  if constexpr (REGIONAL) {
+    // Row k of catchment c = blockIdx.y at out[(k * C + c) * N + i].
+    const Real c_count = counts[blockIdx.y];
+    const size_t row = (size_t)gridDim.y * n;
+    Real* o = out + (size_t)blockIdx.y * n + i;
+    o[0] = sse / c_count;
+    if (STATS) {
+      o[row] = sum_q / c_count;
+      o[2 * row] = sum_q2 / c_count;
+      o[3 * row] = sum_qo / c_count;
+    }
+    return;
+  }
   out[i] = sse / count;
   if (STATS) {
     out[(size_t)n + i] = sum_q / count;
     out[2 * (size_t)n + i] = sum_q2 / count;
     out[3 * (size_t)n + i] = sum_qo / count;
   }
+}
+
+template <typename Real, int NUH1, int NUH2, bool STATS, bool MASKED>
+__global__ void __launch_bounds__(kBlock)
+gr4j_objective_kernel(const Real* __restrict__ prec,
+                      const Real* __restrict__ etp,
+                      const Real* __restrict__ qobs,
+                      const Real* __restrict__ params,
+                      const Real* __restrict__ hist, int n, int t_len,
+                      Real count, Real* __restrict__ out) {
+  objective_body<Real, NUH1, NUH2, STATS, MASKED, false>(
+      prec, etp, qobs, params, hist, n, t_len, count, nullptr, out);
 }
 
 // K1/K2 for small ensembles (n <= kSplitMembers, a calibration's
@@ -301,7 +333,9 @@ gr4j_objective_split_kernel(const Real* __restrict__ prec,
 // K5: K1/K2 over gridDim.y = C catchments.  prec, etp and qobs are (C, T),
 // the (6, N) parameters are shared by every catchment, counts[c] is the
 // number of steps catchment c averages over, and row k of catchment c goes
-// to out[(k * C + c) * N + i]: (C, N), or (4, C, N) with STATS.
+// to out[(k * C + c) * N + i]: (C, N), or (4, C, N) with STATS.  The kernel
+// advances the series to catchment c = blockIdx.y, whose block stages them
+// as K1/K2's does, and runs their body cold (objective_body, REGIONAL).
 template <typename Real, int NUH1, int NUH2, bool STATS, bool MASKED>
 __global__ void __launch_bounds__(kBlock)
 gr4j_regional_kernel(const Real* __restrict__ prec,
@@ -310,36 +344,10 @@ gr4j_regional_kernel(const Real* __restrict__ prec,
                      const Real* __restrict__ params,
                      const Real* __restrict__ counts, int n, int t_len,
                      Real* __restrict__ out) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
   const size_t first = (size_t)blockIdx.y * t_len;  // catchment's step 0
-  prec += first;
-  etp += first;
-  qobs += first;
-  Member<Real, NUH1, NUH2> m;
-  gr4j_init(m, params, n, i);
-  Real sse = Real(0), sum_q = Real(0), sum_q2 = Real(0), sum_qo = Real(0);
-  for (int t = 0; t < t_len; ++t) {
-    const Real q = gr4j_step(m, __ldg(prec + t), __ldg(etp + t));
-    const Real qo = __ldg(qobs + t);
-    if (MASKED && qo != qo) continue;
-    const Real diff = q - qo;
-    sse += diff * diff;
-    if (STATS) {
-      sum_q += q;
-      sum_q2 += q * q;
-      sum_qo += q * qo;
-    }
-  }
-  const Real count = counts[blockIdx.y];
-  const size_t row = (size_t)gridDim.y * n;  // distance between out rows
-  Real* o = out + (size_t)blockIdx.y * n + i;
-  o[0] = sse / count;
-  if (STATS) {
-    o[row] = sum_q / count;
-    o[2 * row] = sum_q2 / count;
-    o[3 * row] = sum_qo / count;
-  }
+  objective_body<Real, NUH1, NUH2, STATS, MASKED, true>(
+      prec + first, etp + first, qobs + first, params, nullptr, n, t_len,
+      Real(1), counts, out);
 }
 
 inline dim3 grid_for(int n) { return dim3((n + kBlock - 1) / kBlock); }

@@ -8,8 +8,9 @@
 // snow_step.cuh, snow_fused.cu and snow_objective.cu (K8-K11) include this
 // header.  The step is also split in its two halves, production
 // (gr4j_production, one arm a step, from the terms step_forcing computes)
-// and routing (gr4j_routing), for the objective kernels K1/K2, which for
-// small ensembles run the two halves in different warps.
+// and routing (gr4j_routing), for the objective kernels K1/K2 (which for
+// small ensembles run the two halves in different warps) and K5, and the
+// snow trajectories K9.
 //
 // One thread owns one member.  The UH register lengths are template
 // constants, so after unrolling every index into the ordinate and shift

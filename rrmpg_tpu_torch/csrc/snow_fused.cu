@@ -1,29 +1,25 @@
-// Fused Cemaneige snow + GR4J ensemble kernels for NVIDIA Hopper (sm_90a):
+// Fused Cemaneige snow + GR4J ensemble kernel for NVIDIA Hopper (sm_90a):
 // trajectories and state.
 //
-// Replace the Pallas kernel template of rrmpg_tpu/ops/pallas_snow.py
-// (_make_kernel(traj=True), with its per-layer step _snow_step_layer):
-//   K9  snowgr4j_simulate_pallas / cemaneige_simulate_pallas
-//         -> snow_traj_kernel
-// its state kernel (_make_state_kernel):
+// Replaces the state kernel of rrmpg_tpu/ops/pallas_snow.py
+// (_make_state_kernel, with its per-layer step _snow_step_layer):
 //   K10 snowgr4j_simulate_pallas_state
 //         -> snow_traj_state_kernel  (trajectories plus the end-of-series
 //            state, entering cold or from a carried state)
-// K8 and K11, the objective kernels, have a source of their own
-// (snow_objective.cu); the snow step these kernels share with them is in
+// K8, K9 and K11 (the objectives and the trajectories without state) live
+// in snow_objective.cu; the snow step these kernels share is in
 // snow_step.cuh.
 // Per member and step: every elevation layer advances its snow pack
 // (snow_layer_step; HYST adds the SCA / SWE-maximum hysteresis, ICE the
-// degree-day glacier melt under a thin pack), the layer mean of rain + melt
-// (plus the ice melt) becomes the precipitation of one gr4j_step
-// (gr4j_step.cuh), or is itself the outflow (SNOW_ONLY).
+// degree-day glacier melt under a thin pack), and the layer mean of rain +
+// melt (plus the ice melt) becomes the precipitation of one gr4j_step_pr
+// (gr4j_step.cuh).
 //
-// What bounds these kernels on this card: operations, and behind them the
+// What bounds this kernel on this card: operations, and behind them the
 // serial latency of one thread.  A step is L dependent-free layer updates
-// followed by one GR4J step, T times in sequence; K9 writes the (N, T)
-// trajectory, K10 the trajectory and 2 + H + 4L state rows per member.  The
-// layer forcing ((T, L) snow,
-// rain and temperature), etp and the observations are the same for every
+// followed by one GR4J step, T times in sequence; K10 writes the (N, T)
+// trajectory and 2 + H + 4L state rows per member.  The layer forcing
+// ((T, L) snow, rain and temperature) and etp are the same for every
 // member: one read that the whole warp shares.
 //
 // What the design does about it: one thread owns one member.  The GR4J
@@ -33,11 +29,12 @@
 // run-time layer index into a thread-local array would go to local memory,
 // while consecutive threads read consecutive shared-memory words.  Any L
 // works that fits a block's 48 KB (the block shrinks from 128 to 64 or 32
-// threads for many layers).  The shared reads go through __ldg.  K9's
-// per-step stores stride across members (row-major (N, T)); that is left as
-// it is for now.  The snow step's products are written without fused
-// multiply-adds (snow_step.cuh); the GR4J step keeps the contraction it has
-// in K1-K3, and the compiler flags are those of the other sources.
+// threads for many layers).  The forcing reads go through __ldg.  The
+// per-step stores stride across members (row-major (N, T)); K9's staged
+// stores (snow_objective.cu) are the design this kernel is to take next.
+// The snow step's products are written without fused multiply-adds
+// (snow_step.cuh); the GR4J step keeps the contraction it has in K1-K4, and
+// the compiler flags are those of the other sources.
 //
 // Warm entry (K10).  A cold start computes each layer's series constant (the
 // snow-cover threshold, or with HYST the mean annual solid precipitation)
@@ -60,7 +57,8 @@
 //
 // C interface (bound with ctypes): every entry returns a cudaError_t as int
 // (0 on success) and launches on the stream it is given without
-// synchronising.  params is an (11, N) row-major array
+// synchronising (K9's entries, rrmpg_snow_simulate_f32/f64, are in
+// snow_objective.cu).  params is an (11, N) row-major array
 // [x1, x2, x3, x4, s0, r0, CTG, Kf, 1/Thacc, Rsp, DDF] (s0/r0 absolute store
 // levels; rows a variant does not use are read and ignored); snow, rain and
 // temp are (T, L) row-major; frac_ice is (L,); layer_consts is (L,), or
@@ -78,29 +76,6 @@
 #include "snow_step.cuh"
 
 namespace {
-
-// K9: (N, T) discharge (SNOW_ONLY: outflow) trajectories, row-major.
-template <typename Real, int NUH1, int NUH2, bool HYST, bool ICE,
-          bool SNOW_ONLY>
-__global__ void __launch_bounds__(kBlock) snow_traj_kernel(SnowArgs<Real> a) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= a.n) return;
-  extern __shared__ __align__(16) unsigned char snow_shared[];
-  const int stride = blockDim.x;
-  Real* state = reinterpret_cast<Real*>(snow_shared) + threadIdx.x;
-  snow_state_init<Real, HYST, false>(a, i, state, stride);
-  SnowMember<Real> c;
-  snow_init(c, a.params, a.n, i, a.snow0, a.th0);
-  Member<Real, NUH1, NUH2> m;
-  if constexpr (!SNOW_ONLY) gr4j_init(m, a.params, a.n, i);
-  Real* row = a.out + (size_t)i * a.t_len;
-  for (int t = 0; t < a.t_len; ++t) {
-    Real q =
-        snow_catchment_step<Real, HYST, ICE, false>(c, a, t, state, stride);
-    if constexpr (!SNOW_ONLY) q = gr4j_step(m, q, __ldg(a.etp + t));
-    row[t] = q;
-  }
-}
 
 // K10: trajectories as K9 (never SNOW_ONLY), entering cold or from a carried
 // state, plus the end-of-series state rows.  The GR4J part is K4's: s and r
@@ -147,18 +122,6 @@ snow_traj_state_kernel(SnowArgs<Real> a) {
   }
 }
 
-template <typename Real, int NUH1, int NUH2, bool HYST, bool ICE,
-          bool SNOW_ONLY>
-int launch_traj(const SnowArgs<Real>& a, cudaStream_t stream) {
-  const int rows = state_rows<HYST, false>();
-  const int block = block_for(rows, a.num_layers, sizeof(Real));
-  if (block == 0) return (int)cudaErrorInvalidValue;
-  const size_t shared = (size_t)rows * a.num_layers * sizeof(Real) * block;
-  snow_traj_kernel<Real, NUH1, NUH2, HYST, ICE, SNOW_ONLY>
-      <<<(a.n + block - 1) / block, block, shared, stream>>>(a);
-  return (int)cudaGetLastError();
-}
-
 template <typename Real, int NUH1, int NUH2, bool HYST, bool ICE>
 int launch_traj_state(const SnowArgs<Real>& a, cudaStream_t stream) {
   const int rows = state_rows<HYST, false>();
@@ -171,17 +134,7 @@ int launch_traj_state(const SnowArgs<Real>& a, cudaStream_t stream) {
 }
 
 // The instantiations: every snow variant (plain, HYST, ICE, HYST + ICE) at
-// both UH register pairs of gr4j_fused.cu, and K9's snow-only routine, which
-// has no GR4J at all.
-template <typename Real, int NUH1, int NUH2>
-int traj_variant(const SnowArgs<Real>& a, bool hyst, bool ice,
-                 cudaStream_t s) {
-  if (hyst && ice) return launch_traj<Real, NUH1, NUH2, true, true, false>(a, s);
-  if (hyst) return launch_traj<Real, NUH1, NUH2, true, false, false>(a, s);
-  if (ice) return launch_traj<Real, NUH1, NUH2, false, true, false>(a, s);
-  return launch_traj<Real, NUH1, NUH2, false, false, false>(a, s);
-}
-
+// both UH register pairs of gr4j_fused.cu.
 template <typename Real, int NUH1, int NUH2>
 int traj_state_variant(const SnowArgs<Real>& a, bool hyst, bool ice,
                        cudaStream_t s) {
@@ -189,27 +142,6 @@ int traj_state_variant(const SnowArgs<Real>& a, bool hyst, bool ice,
   if (hyst) return launch_traj_state<Real, NUH1, NUH2, true, false>(a, s);
   if (ice) return launch_traj_state<Real, NUH1, NUH2, false, true>(a, s);
   return launch_traj_state<Real, NUH1, NUH2, false, false>(a, s);
-}
-
-template <typename Real>
-int simulate(const SnowArgs<Real>& a, int nuh1, int nuh2, int hyst, int ice,
-             int snow_only, int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  if (a.n <= 0 || a.t_len <= 0) return (int)cudaSuccess;
-  if (a.num_layers <= 0) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (snow_only) {
-    if (hyst || ice) return (int)cudaErrorInvalidValue;
-    return launch_traj<Real, 1, 1, false, false, true>(a, s);
-  }
-  if (nuh1 == 3 && nuh2 == 7) {
-    return traj_variant<Real, 3, 7>(a, hyst != 0, ice != 0, s);
-  }
-  if (nuh1 == 10 && nuh2 == 21) {
-    return traj_variant<Real, 10, 21>(a, hyst != 0, ice != 0, s);
-  }
-  return (int)cudaErrorInvalidValue;
 }
 
 template <typename Real>
@@ -245,21 +177,6 @@ int rrmpg_snow_max_layers(int rows_per_layer, int real_bytes) {
   return kSharedLimit / (32 * rows_per_layer * real_bytes);
 }
 
-int rrmpg_snow_simulate_f32(const float* snow, const float* rain,
-                            const float* temp, const float* etp,
-                            const float* params, const float* layer_consts,
-                            const float* frac_ice, int n, int t_len,
-                            int num_layers, int nuh1, int nuh2, int hyst,
-                            int ice, int snow_only, double snow0, double th0,
-                            float* out, int device, void* stream) {
-  return simulate<float>(
-      make_args<float>(snow, rain, temp, etp, nullptr, nullptr, params,
-                       layer_consts, frac_ice, nullptr, nullptr, nullptr, n,
-                       t_len, num_layers, 0, 0, 0, snow0, th0, 1.0, out,
-                       nullptr),
-      nuh1, nuh2, hyst, ice, snow_only, device, stream);
-}
-
 int rrmpg_snow_simulate_state_f32(
     const float* snow, const float* rain, const float* temp, const float* etp,
     const float* params, const float* layer_consts, const float* frac_ice,
@@ -273,21 +190,6 @@ int rrmpg_snow_simulate_state_f32(
                        t_len, num_layers, 0, 0, consts_per_member, snow0, th0,
                        1.0, out, fstate),
       nuh1, nuh2, hyst, ice, device, stream);
-}
-
-int rrmpg_snow_simulate_f64(const double* snow, const double* rain,
-                            const double* temp, const double* etp,
-                            const double* params, const double* layer_consts,
-                            const double* frac_ice, int n, int t_len,
-                            int num_layers, int nuh1, int nuh2, int hyst,
-                            int ice, int snow_only, double snow0, double th0,
-                            double* out, int device, void* stream) {
-  return simulate<double>(
-      make_args<double>(snow, rain, temp, etp, nullptr, nullptr, params,
-                       layer_consts, frac_ice, nullptr, nullptr, nullptr, n,
-                       t_len, num_layers, 0, 0, 0, snow0, th0, 1.0, out,
-                       nullptr),
-      nuh1, nuh2, hyst, ice, snow_only, device, stream);
 }
 
 int rrmpg_snow_simulate_state_f64(

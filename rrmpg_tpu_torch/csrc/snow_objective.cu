@@ -1,17 +1,20 @@
-// K8 and K11: the fused Cemaneige snow + GR4J objectives for NVIDIA Hopper
-// (sm_90a).
+// K8, K9 and K11: the fused Cemaneige snow + GR4J objectives and
+// trajectories for NVIDIA Hopper (sm_90a).
 //
 // Replaces the Pallas kernel template of rrmpg_tpu/ops/pallas_snow.py
-// (_make_kernel, objective modes, with its per-layer step
-// _snow_step_layer):
+// (_make_kernel, with its per-layer step _snow_step_layer):
 //   K8  snowgr4j_ensemble_mse_pallas / cemaneige_ensemble_mse_pallas
 //         -> snow_objective_kernel<..., SCA=false>  (MSE, or the four
 //            discharge statistics)
 //         -> snow_objective_kernel<..., SCA=true>   (discharge statistics
 //            plus four statistics of 100*SCA against NDSI per band)
 // and its `warm` mode (state=): the kernel enters from a carried state when
-// it is given its rows (first_step = -1, as in snow_fused.cu); and the
-// regional objective
+// it is given its rows (first_step = -1, as in snow_fused.cu); the
+// trajectories (_make_kernel(traj=True))
+//   K9  snowgr4j_simulate_pallas / cemaneige_simulate_pallas
+//         -> snow_traj_kernel  ((N, T) discharge, or the snow-only outflow)
+// which runs K8's step and staging and writes its trajectory through a
+// tile in shared memory (below); and the regional objective
 //   K11 snowgr4j_regional_mse_pallas (the K8 body over a third, catchment
 //       grid axis) -> snow_regional_objective_kernel
 // which runs K8's body (objective_body, REGIONAL) cold on the catchment
@@ -20,11 +23,13 @@
 // count, its results at their place in (C, N) or (4, C, N).  The regional
 // flag is a compile-time one, so no K8 instantiation carries catchment
 // offsets (run-time offsets inside K8 moved its registers by up to 12).
+// K10, the trajectories with the end-of-series state, is in snow_fused.cu.
 //
 // What bounds it on this card: operations.  A step is L independent layer
 // updates (each with an IEEE division) followed by one GR4J step, T times
 // in sequence; K8 moves 11 parameters in and 1, 4 or 4 + 4L numbers out per
-// member, and the forcing is the same for every member.  With the layer
+// member, K9 writes the (N, T) trajectory, and the forcing is the same for
+// every member.  With the layer
 // states in shared-memory columns (the run-time-L kernel) a 5-layer step
 // issues ~830 SASS instructions and the kernel is bound by the SMs' issue
 // rate from ~67584 members on, by one thread's latency below (PERF.md
@@ -55,6 +60,14 @@
 //   the layer sum in layer order; only where the state lives, how the
 //   layers are scheduled and how the forcing arrives differ from the
 //   run-time-L kernels.
+// * K9's GR4J step takes one production arm (gr4j_production, the values
+//   of the two-arm gr4j_step that K8 and K11 keep).
+// * K9's stores: a warp's 32 members store one step each at T values
+//   apart, 32 sectors for 128 useful bytes, which left K3 (the same store
+//   stream beside less arithmetic) bound by its stores.  K9 gathers a
+//   tile's discharge in shared memory and writes each member's run of
+//   steps as one contiguous segment (snow_traj_kernel); the output stays
+//   the row-major (N, T) array every consumer reads.
 //
 // out[i] = mean squared error; with `stats` (always with SCA) rows 1..3 hold
 // the time means of [q, q^2, q*qobs]; with SCA rows 4 + 4l + j hold, for
@@ -62,6 +75,9 @@
 // 100 sca * ndsi].  `masked` skips a NaN observation (the step itself still
 // runs), discharge and each band by their own gaps; the discharge sums are
 // divided by `count`, band l's by band_counts[l].
+//
+// K9 writes out (N, T) (SNOW_ONLY: the outflow); it reads no qobs, ndsi,
+// state or history.
 //
 // C interface (bound with ctypes), as snow_fused.cu's: every entry returns
 // a cudaError_t as int (0 on success) and launches on the stream it is given
@@ -87,6 +103,8 @@ namespace {
 constexpr int kTile = 64;
 // Shared memory a block may use after opting in (H100: 227 KB).
 constexpr size_t kSharedOptIn = 232448;
+// K9: steps per staged tile and per tile of discharge stores.
+constexpr int kTrajTile = 32;
 
 // The layer series of one step of forcing (snow, rain, temperature and
 // with SCA the NDSI).  A staging buffer holds one record per step,
@@ -99,7 +117,8 @@ __host__ __device__ constexpr int layer_series() {
 
 // Copy steps [t0, t0 + steps) of the forcing into the records of `buf`
 // (`record` values each); consecutive threads read consecutive elements.
-template <typename Real, bool SNOW_ONLY, bool SCA>
+// The trajectory kernel (K9) has no observations (QOBS = false).
+template <typename Real, bool SNOW_ONLY, bool SCA, bool QOBS = true>
 __device__ __forceinline__ void stage_tile(const SnowArgs<Real>& a, Real* buf,
                                            int t0, int steps, int L,
                                            int record) {
@@ -114,7 +133,7 @@ __device__ __forceinline__ void stage_tile(const SnowArgs<Real>& a, Real* buf,
   Real* series = buf + layer_series<SCA>() * L;
   for (int j = threadIdx.x; j < steps; j += blockDim.x) {
     if (!SNOW_ONLY) copy_async(series + j * record, a.etp + t0 + j);
-    copy_async(series + j * record + 1, a.qobs + t0 + j);
+    if (QOBS) copy_async(series + j * record + 1, a.qobs + t0 + j);
   }
 }
 
@@ -397,6 +416,102 @@ snow_regional_objective_kernel(SnowArgs<Real> a,
       a, tile_arg, counts);
 }
 
+// K9: (N, T) discharge (SNOW_ONLY: outflow) trajectories, row-major.  The
+// snow step is K8's: layers in registers at NL = 5 and 1, in shared-memory
+// columns at any other count (NL = 0), forcing staged `tile` steps at a
+// time (kTrajTile for NL > 0; `tile_arg` for NL = 0) without
+// observations.  The GR4J step takes one production arm, as K1/K2's
+// (gr4j_production: one tanh and one IEEE division fewer, the two-arm
+// step's values).  Each thread writes its member's discharge of the tile into
+// its row of a block tile in shared memory, [member][step] with rows
+// tile + 1 values apart (consecutive members' writes of one step land in
+// different banks); after the tile's barrier, each warp copies whole
+// member rows of it to device memory, its lanes on consecutive steps, so a
+// member's steps of the tile leave as one contiguous run (128 B in float32,
+// 256 B in float64) instead of 32 stores T values apart.
+template <typename Real, int NUH1, int NUH2, bool HYST, bool ICE,
+          bool SNOW_ONLY, int NL>
+__global__ void __launch_bounds__(kBlock)
+snow_traj_kernel(SnowArgs<Real> a, int tile_arg) {
+  const int first_member = blockIdx.x * blockDim.x;
+  const int i = first_member + threadIdx.x;
+  const int im = min(i, a.n - 1);  // past N: the last member, unwritten
+  const int L = NL > 0 ? NL : a.num_layers;
+  const int tile = NL > 0 ? kTrajTile : tile_arg;
+  // Values per staged step, as K8's (the observation's slot unused).
+  const int record = layer_series<false>() * L + 2;
+  const int buffer = tile * record;
+  const int pitch = tile + 1;  // values between two members' rows of `out`
+  extern __shared__ __align__(16) unsigned char snow_shared[];
+  Real* shared = reinterpret_cast<Real*>(snow_shared);
+  // [ layer columns (NL = 0) | staging 0 | staging 1 | discharge tile ]
+  const int stride = blockDim.x;
+  const size_t columns =
+      NL > 0 ? 0 : (size_t)state_rows<HYST, false>() * L * stride;
+  Real* state = shared + threadIdx.x;
+  Real* stage = shared + columns;
+  Real* q_tile = stage + 2 * buffer;
+  Real* q_row = q_tile + threadIdx.x * pitch;
+
+  SnowMember<Real> c;
+  snow_init(c, a.params, a.n, im, a.snow0, a.th0);
+  Member<Real, NUH1, NUH2> m;
+  if constexpr (!SNOW_ONLY) gr4j_init(m, a.params, a.n, im);
+  LayerRegs<Real, (NL > 0 ? NL : 1), false> ly;
+  if constexpr (NL > 0) {
+    layer_regs_init<Real, NL, HYST, ICE, false>(ly, a, im);
+  } else {
+    snow_state_init<Real, HYST, false>(a, im, state, stride);
+  }
+
+  const int members = min((int)blockDim.x, a.n - first_member);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int warps = blockDim.x / 32;
+  const int tiles = (a.t_len + tile - 1) / tile;
+  stage_tile<Real, SNOW_ONLY, false, false>(a, stage, 0, min(tile, a.t_len),
+                                            L, record);
+  copy_commit();
+#pragma unroll 1
+  for (int k = 0; k < tiles; ++k) {
+    const int t0 = k * tile;
+    if (k + 1 < tiles) {
+      stage_tile<Real, SNOW_ONLY, false, false>(
+          a, stage + ((k + 1) & 1) * buffer, t0 + tile,
+          min(tile, a.t_len - t0 - tile), L, record);
+    }
+    copy_commit();  // possibly empty: the group count stays one per tile
+    copy_wait_older();
+    __syncthreads();  // tile k has landed; the last tile's rows have left
+    const Real* buf = stage + (k & 1) * buffer;
+    const int steps = min(tile, a.t_len - t0);
+#pragma unroll 1
+    for (int s = 0; s < steps; ++s) {
+      const bool first = t0 + s == a.first_step;
+      const Real* row = buf + s * record;
+      Real q;
+      if constexpr (NL > 0) {
+        q = layer_regs_step<Real, NL, HYST, ICE, false>(c, ly, first, row, 0);
+      } else {
+        q = column_step<Real, HYST, ICE, false>(c, a, first, row, state,
+                                                stride);
+      }
+      if constexpr (!SNOW_ONLY) {
+        const Real p_r = gr4j_production(
+            m, step_forcing(m, q, row[layer_series<false>() * L]));
+        q = gr4j_routing(m, p_r);
+      }
+      q_row[s] = q;
+    }
+    __syncthreads();  // the tile's rows are complete; the buffer is free
+#pragma unroll 1
+    for (int r = warp; r < members; r += warps) {
+      Real* dst = a.out + (size_t)(first_member + r) * a.t_len + t0;
+      const Real* src = q_tile + r * pitch;
+      for (int s = lane; s < steps; s += 32) dst[s] = src[s];
+    }
+  }
+}
+
 // Launch a staged kernel, opting in to more than 48 KB of shared memory
 // where it needs that.
 template <typename Kernel, typename... Args>
@@ -559,6 +674,77 @@ int regional(const SnowArgs<Real>& a, const Real* counts, int catchments,
   return (int)cudaErrorInvalidValue;
 }
 
+// K9's launch: as launch_layers, with the block's discharge tile beside
+// the staging buffers.
+template <typename Real, int NUH1, int NUH2, bool HYST, bool ICE,
+          bool SNOW_ONLY, int NL>
+int launch_traj_layers(const SnowArgs<Real>& a, cudaStream_t stream) {
+  const int L = a.num_layers;
+  const int rows = state_rows<HYST, false>();
+  const int block = NL > 0 ? kBlock : block_for(rows, L, sizeof(Real));
+  if (block == 0) return (int)cudaErrorInvalidValue;
+  const size_t columns =
+      NL > 0 ? 0 : (size_t)rows * L * sizeof(Real) * block;
+  const size_t per_step =
+      (size_t)(layer_series<false>() * L + 2) * sizeof(Real);
+  const auto shared_for = [&](int tile) {
+    return columns + 2 * (size_t)tile * per_step +
+           (size_t)block * (tile + 1) * sizeof(Real);
+  };
+  int tile = kTrajTile;
+  while (NL == 0 && tile > 1 && shared_for(tile) > kSharedOptIn) tile /= 2;
+  const size_t shared = shared_for(tile);
+  if (shared > kSharedOptIn) return (int)cudaErrorInvalidValue;
+  return launch_staged(
+      snow_traj_kernel<Real, NUH1, NUH2, HYST, ICE, SNOW_ONLY, NL>,
+      dim3((a.n + block - 1) / block), block, shared, stream, a, tile);
+}
+
+// NL from the call's layer count, as launch_objective.
+template <typename Real, int NUH1, int NUH2, bool HYST, bool ICE,
+          bool SNOW_ONLY>
+int launch_traj(const SnowArgs<Real>& a, cudaStream_t s) {
+  if (a.num_layers == 5) {
+    return launch_traj_layers<Real, NUH1, NUH2, HYST, ICE, SNOW_ONLY, 5>(a, s);
+  }
+  if (a.num_layers == 1) {
+    return launch_traj_layers<Real, NUH1, NUH2, HYST, ICE, SNOW_ONLY, 1>(a, s);
+  }
+  return launch_traj_layers<Real, NUH1, NUH2, HYST, ICE, SNOW_ONLY, 0>(a, s);
+}
+
+// K9's instantiations: every snow variant at both UH register pairs, and
+// the snow-only routine, which has no GR4J at all; each at NL = 5, 1 and 0.
+template <typename Real, int NUH1, int NUH2>
+int traj_variant(const SnowArgs<Real>& a, bool hyst, bool ice,
+                 cudaStream_t s) {
+  if (hyst && ice) return launch_traj<Real, NUH1, NUH2, true, true, false>(a, s);
+  if (hyst) return launch_traj<Real, NUH1, NUH2, true, false, false>(a, s);
+  if (ice) return launch_traj<Real, NUH1, NUH2, false, true, false>(a, s);
+  return launch_traj<Real, NUH1, NUH2, false, false, false>(a, s);
+}
+
+template <typename Real>
+int simulate(const SnowArgs<Real>& a, int nuh1, int nuh2, int hyst, int ice,
+             int snow_only, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (a.n <= 0 || a.t_len <= 0) return (int)cudaSuccess;
+  if (a.num_layers <= 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (snow_only) {
+    if (hyst || ice) return (int)cudaErrorInvalidValue;
+    return launch_traj<Real, 1, 1, false, false, true>(a, s);
+  }
+  if (nuh1 == 3 && nuh2 == 7) {
+    return traj_variant<Real, 3, 7>(a, hyst != 0, ice != 0, s);
+  }
+  if (nuh1 == 10 && nuh2 == 21) {
+    return traj_variant<Real, 10, 21>(a, hyst != 0, ice != 0, s);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 extern "C" {
@@ -628,6 +814,36 @@ int rrmpg_snow_regional_objective_f64(
                         t_len, num_layers, stats, masked, 0, snow0, th0, 1.0,
                         out, nullptr),
       counts, catchments, nuh1, nuh2, hyst, ice, device, stream);
+}
+
+int rrmpg_snow_simulate_f32(const float* snow, const float* rain,
+                            const float* temp, const float* etp,
+                            const float* params, const float* layer_consts,
+                            const float* frac_ice, int n, int t_len,
+                            int num_layers, int nuh1, int nuh2, int hyst,
+                            int ice, int snow_only, double snow0, double th0,
+                            float* out, int device, void* stream) {
+  return simulate<float>(
+      make_args<float>(snow, rain, temp, etp, nullptr, nullptr, params,
+                       layer_consts, frac_ice, nullptr, nullptr, nullptr, n,
+                       t_len, num_layers, 0, 0, 0, snow0, th0, 1.0, out,
+                       nullptr),
+      nuh1, nuh2, hyst, ice, snow_only, device, stream);
+}
+
+int rrmpg_snow_simulate_f64(const double* snow, const double* rain,
+                            const double* temp, const double* etp,
+                            const double* params, const double* layer_consts,
+                            const double* frac_ice, int n, int t_len,
+                            int num_layers, int nuh1, int nuh2, int hyst,
+                            int ice, int snow_only, double snow0, double th0,
+                            double* out, int device, void* stream) {
+  return simulate<double>(
+      make_args<double>(snow, rain, temp, etp, nullptr, nullptr, params,
+                        layer_consts, frac_ice, nullptr, nullptr, nullptr, n,
+                        t_len, num_layers, 0, 0, 0, snow0, th0, 1.0, out,
+                        nullptr),
+      nuh1, nuh2, hyst, ice, snow_only, device, stream);
 }
 
 }  // extern "C"

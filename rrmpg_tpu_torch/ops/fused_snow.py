@@ -4,13 +4,16 @@ versions.
 Counterpart of ``rrmpg_tpu/ops/pallas_snow.py``.  One kernel family covers
 the standalone snow routine and its four GR4J compositions (plain /
 hysteresis x with / without glacier ice melt).  The kernels are CUDA C++,
-the objectives K8 and K11 in ``rrmpg_tpu_torch/csrc/snow_objective.cu`` and
-K9, K10 in ``snow_fused.cu``, sharing the snow step of ``snow_step.cuh``:
-one thread per member, the GR4J stores and UH registers in registers for
-the whole time loop.  The per-layer snow states live in shared memory,
-except in K8 and K11 at 1 and 5 layers, whose layer count is a compile-time
-constant and whose layer states are registers; K8 and K11 also stage the
-forcing of 64 steps at a time in shared memory.  Any layer count runs.
+the objectives K8 and K11 and the trajectories K9 in
+``rrmpg_tpu_torch/csrc/snow_objective.cu`` and K10 in ``snow_fused.cu``,
+sharing the snow step of ``snow_step.cuh``: one thread per member, the
+GR4J stores and UH registers in registers for the whole time loop.  The
+per-layer snow states live in shared memory, except in K8, K9 and K11 at 1
+and 5 layers, whose layer count is a compile-time constant and whose layer
+states are registers; K8, K9 and K11 also stage the forcing (64 steps at a
+time, K9 32) in shared memory, and K9 gathers each tile of its trajectory
+there so that every member's steps leave as one contiguous run.  Any layer
+count runs.
 
 * K8 :func:`snowgr4j_ensemble_mse_fused` -- fused simulate + objective:
   (N,) mean squared errors, with ``stats=True`` the (4, N) time means

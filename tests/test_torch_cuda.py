@@ -10,8 +10,9 @@ state; ABC K6 single launch, K7 three launches; the snow family's K8
 objective, K9 trajectories and K10 trajectories + state; HBV-Edu K12
 objective, K13 trajectories, K14 trajectories + state; the warm entry of
 the objectives; the regional K5 and K11, one and three catchments in a
-launch; the staged K1/K2, K8, K11 and K12 at the edges of their 64-step
-tiles) is held against its plain PyTorch version on the same CUDA tensors,
+launch; the staged K1/K2, K5, K8, K11 and K12 at the edges of their 64-step
+tiles, K9 at the edges of its 32-step staging and store tiles) is held
+against its plain PyTorch version on the same CUDA tensors,
 and the regional objectives on the card against the same calls on CPU
 tensors.  Tolerances:
 float64 ``rtol=1e-9, atol=1e-12`` (the same operations in another order);
@@ -811,11 +812,11 @@ def test_regional_gr4j_kernel_matches_plain(cuda, dtype, C, n1, n2, x4_max,
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 def test_regional_one_catchment_is_k1(cuda, dtype):
-    """K5 with C = 1 runs the two-arm step and the sums of K1/K2 over the
-    same series; K1/K2 run one arm a step, staged (and for small ensembles
-    with production and routing in separate warps), which is the same
-    operations on the same values: the same numbers as the
-    single-catchment launch, bit for bit."""
+    """K5 with C = 1 runs K1/K2's staged one-arm body over the same series
+    (K1/K2 take it one member a thread, or for small ensembles with
+    production and routing in separate warps, which is the same operations
+    on the same values): the same numbers as the single-catchment launch,
+    bit for bit."""
     prec, etp, qobs, params = _inputs(cuda, dtype, gaps=True)
     for stats in (False, True):
         single = fg.gr4j_ensemble_mse_fused(prec, etp, qobs, 0.4, 0.3,
@@ -1291,3 +1292,86 @@ def test_regional_snow_objective_tile_and_block_edges(cuda, dtype, L, T, C,
         torch.testing.assert_close(got, want if stats else want[0],
                                    rtol=TOL[dtype]["obj"][0],
                                    atol=TOL[dtype]["obj"][1])
+
+
+# ---------------------------------------------------------------------------
+# K9 and K5 redesigned: K9 stages its forcing and its stores in 32-step
+# tiles, its layers in registers for 1 and 5 layers; K5 runs K1/K2's staged
+# body.  The edges of a tile, of a block and of the layer count.
+# ---------------------------------------------------------------------------
+
+# One step, around and at K9's 32-step tiles (snow_objective.cu).
+EDGE_TRAJ_STEPS = [1, 37, 64, 65, 128]
+EDGE_TRAJ_MEMBERS = [200, 129]           # last blocks of 72 and of 1 member
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("L", [1, 2, 5, 7])
+@pytest.mark.parametrize("T", EDGE_TRAJ_STEPS)
+@pytest.mark.parametrize("N", EDGE_TRAJ_MEMBERS)
+@pytest.mark.parametrize("variant", list(SNOW_VARIANTS))
+def test_snow_traj_tile_and_block_edges(cuda, dtype, L, T, N, variant):
+    """K9 at 1 and 5 layers (registers) and 2 and 7 (shared-memory
+    columns), T of one step, around and at the 32-step tiles, N with a
+    ragged last block, every variant (both UH register pairs) and the
+    snow-only routine, whose outflow is the plain version's bit for bit."""
+    hyst, ice, snow_only, uh = SNOW_VARIANTS[variant]
+    (prec, temp, frac), etp, _, _, frac_ice, params = _snow_inputs(
+        cuda, dtype, L, 2.9 if uh == (3, 7) else 9.9, T=T, N=N, seed=T + L)
+    snow0, th0, s_init, r_init = SNOW_INITS
+    snow, rain, consts = fs.layer_inputs(prec, frac, hyst)
+    fg.reset_launches()
+    got = fs.snowgr4j_simulate_fused(
+        prec, temp, etp, frac, *SNOW_INITS, params,
+        frac_ice=frac_ice if ice else None, hyst=hyst, ice=ice,
+        snow_only=snow_only, num_uh1=uh[0], num_uh2=uh[1])
+    want = fs.snowgr4j_simulate_reference(
+        snow, rain, temp, etp, fs.pack_params(params, s_init, r_init,
+                                              snow_only), consts,
+        frac_ice if ice else torch.zeros_like(frac_ice), snow0, th0, hyst,
+        ice, snow_only, *uh)
+    torch.cuda.synchronize()
+    assert fg.LAUNCHES["snow_traj"] == 1
+    assert got.shape == (N, T) and got.is_contiguous()
+    assert bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got, want, rtol=TOL[dtype]["traj"][0],
+                               atol=TOL[dtype]["traj"][1])
+    if snow_only:
+        assert torch.equal(got, want)     # the snow state, bit for bit
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("n1,n2,x4_max", [(3, 7, 2.9), (10, 21, 9.9)])
+@pytest.mark.parametrize("T", EDGE_GR4J_STEPS)
+@pytest.mark.parametrize("C", [1, 3])
+@pytest.mark.parametrize("stats", [False, True])
+def test_regional_gr4j_tile_and_block_edges(cuda, dtype, n1, n2, x4_max, T,
+                                            C, stats):
+    """K5 at T of one step, shorter than a 64-step tile, with a last tile
+    of one step and whole tiles, N not a multiple of the block, catchment
+    0's record cut short (C = 3) and gaps at the tile edges in every
+    catchment; against the plain version."""
+    rng = np.random.default_rng(T + C)
+    as_t = lambda a: torch.tensor(a, dtype=dtype, device=cuda)
+    prec, etp = as_t(rng.uniform(0, 15, (C, T))), as_t(
+        rng.uniform(0, 4, (C, T)))
+    qobs = rng.uniform(0, 5, (C, T))
+    qobs[:, [t for t in (TILE - 1, TILE, 2 * TILE - 1) if t < T]] = np.nan
+    if C > 1:
+        qobs[0, max(1, 2 * T // 3):] = np.nan
+    qobs = as_t(qobs)
+    _, _, _, params = _inputs(cuda, dtype, N=EDGE_MEMBERS, x4_max=x4_max,
+                              seed=T)
+    fg.reset_launches()
+    got = fg.gr4j_regional_objective_fused(prec, etp, qobs, 0.4, 0.3, params,
+                                           n1, n2, stats=stats, masked=True)
+    want = fg.gr4j_regional_objective_reference(
+        prec, etp, qobs, fg.pack_params(params, 0.4, 0.3), n1, n2, stats,
+        True, _regional_counts(qobs, True))
+    torch.cuda.synchronize()
+    assert fg.LAUNCHES["gr4j_regional"] == 1
+    assert got.shape == ((4, C, EDGE_MEMBERS) if stats
+                         else (C, EDGE_MEMBERS))
+    assert bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got, want, rtol=TOL[dtype]["obj"][0],
+                               atol=TOL[dtype]["obj"][1])

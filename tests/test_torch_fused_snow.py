@@ -140,8 +140,14 @@ def test_objective_plain_matches_pallas_interpret(variant, mode, gaps, L):
 
 
 @pytest.mark.parametrize("variant,L,x4_hi", [("hyst+ice", 5, 9.9),
-                                             ("plain", 1, 2.9)])
+                                             ("plain", 1, 2.9),
+                                             ("hyst", 1, 9.9),
+                                             ("ice", 5, 2.9),
+                                             ("hyst+ice", 2, 2.9)])
 def test_traj_plain_matches_pallas_interpret(variant, L, x4_hi):
+    """K9's plain version against the Pallas trajectory kernel: the layer
+    counts K9 keeps in registers (1, 5) and one it keeps in shared-memory
+    columns (2), each snow variant, both UH register pairs."""
     hyst, ice = VARIANTS[variant]
     case = _Case(L=L, seed=2, x4_hi=x4_hi)
     uh = dict(num_uh1=3, num_uh2=7) if x4_hi < 3 else {}

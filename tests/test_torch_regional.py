@@ -37,7 +37,7 @@ RTOL = 1e-10
 METRICS = ("mse", "rmse", "nse", "kge")
 
 
-def _inputs(C=3, T=200, N=6, seed=13, ragged=False):
+def _inputs(C=3, T=200, N=6, seed=13, ragged=False, x4_hi=2.9):
     rng = np.random.default_rng(seed)
     prec = rng.uniform(0, 15, (C, T))
     etp = rng.uniform(0, 4, (C, T))
@@ -46,7 +46,8 @@ def _inputs(C=3, T=200, N=6, seed=13, ragged=False):
         qobs[0, T * 4 // 5:] = np.nan                       # shorter record
         qobs[1, rng.choice(T, 25, replace=False)] = np.nan  # gaps
     params = {'x1': rng.uniform(100, 1200, N), 'x2': rng.uniform(-5, 3, N),
-              'x3': rng.uniform(20, 300, N), 'x4': rng.uniform(1.1, 2.9, N)}
+              'x3': rng.uniform(20, 300, N),
+              'x4': rng.uniform(1.1, x4_hi, N)}
     return prec, etp, qobs, params
 
 
@@ -103,19 +104,25 @@ def test_masked_ragged_records_by_hand(engine):
         np.testing.assert_allclose(losses[c, 2], want, rtol=1e-9)
 
 
-def test_matches_pallas_interpret():
+@pytest.mark.parametrize("uh,stats,masked", [((3, 7), True, True),
+                                             ((10, 21), False, False)],
+                         ids=["uh37-stats-masked", "uh1021-mse"])
+def test_matches_pallas_interpret(uh, stats, masked):
     """K5's plain version against the Pallas kernel itself (interpret
-    mode), ragged and masked, MSE and the statistics behind 'kge'."""
+    mode): ragged and masked with the statistics behind 'kge' at UH (3,
+    7), and the unmasked MSE at UH (10, 21)."""
     from rrmpg_tpu.ops.pallas_gr4j import gr4j_regional_mse_pallas
 
-    prec, etp, qobs, params = _inputs(C=2, T=220, N=5, seed=6, ragged=True)
+    prec, etp, qobs, params = _inputs(C=2, T=220, N=5, seed=6,
+                                      ragged=masked, x4_hi=uh[0] - 0.1)
     want = np.asarray(gr4j_regional_mse_pallas(
         prec, etp, qobs, 0.3, 0.3, _jax_params(params), t_tile=128,
-        num_uh1=3, num_uh2=7, interpret=True, masked=True, stats=True))
+        num_uh1=uh[0], num_uh2=uh[1], interpret=True, masked=masked,
+        stats=stats))
     got = fg.gr4j_regional_objective_fused(
-        *_series(prec, etp, qobs), 0.3, 0.3, _p64(params), 3, 7,
-        stats=True, masked=True)
-    assert got.shape == (4, 2, 5)
+        *_series(prec, etp, qobs), 0.3, 0.3, _p64(params), *uh,
+        stats=stats, masked=masked)
+    assert got.shape == ((4, 2, 5) if stats else (2, 5))
     np.testing.assert_allclose(got.numpy(), want, rtol=RTOL)
 
 
