@@ -31,7 +31,14 @@ Phases, in order (each prints its lines; any failure exits non-zero):
                   outflow bit for bit); then
                   the state kernels
                   (K4, K14, K10: trajectories and every state row, cold and
-                  warm; K10's snow rows bit for bit) and the warm entry of the
+                  warm; K10 at 1, 2, 5 and 7 layers, its snow rows bit for
+                  bit; K10 and K14 also at T = 1, 31, 32, 33, 65 and 128
+                  around their 32-step staging and store tiles, cold and
+                  then warm from their own state (at T = 1 a warm segment
+                  shorter than the history), N = 1, 129 and 200, K10 at 2
+                  and 5 layers, plain and hysteresis + ice, K14 with NaN
+                  members) and
+                  the warm entry of the
                   objectives (K1/K2, K12, K8, with and without gaps), and in
                   float64 a split run against the unbroken one; then the
                   regional kernels (K5, K11: one and three catchments, the
@@ -87,16 +94,22 @@ Phases, in order (each prints its lines; any failure exits non-zero):
                   K9 by class; K9 also at GLUE's 20000 x 3652 (one layer);
                   K5 at 8 catchments x 131072 x 3651 (UH (3, 7) and (10,
                   21)) and over the regional path's 12418 days, and K11 at
-                  8 x 131072 x 3651 x 5 layers.
+                  8 x 131072 x 3651 x 5 layers; K10 and K14 also at the
+                  forecast path's shapes (the one-member spin-up over 1462
+                  days x 5 layers and 3287 days, the 131072-member
+                  continuation of 365 days), and the SASS of their time
+                  loops.
 
 ``--phases a,b`` (development) runs only the named phases after the build:
 kernels, golden, main, forecast, regional, times; the result lines need them
 all.  ``--compare DIR[,DIR...]`` (development) builds the kernel sources in
 each DIR (another version's ``rrmpg_tpu_torch/csrc``) beside this
-checkout's, times K1, K2, K5, K8, K9, K11 and K12 (and K3, K4, K10, which
-share their sources) of both in turns with the largest output difference
-between the builds, and holds K1/K2 and K5/K9 of both to each other bit for
-bit on the goldens and edge inputs; it exits 3.
+checkout's, times K1, K2, K5, K8, K9, K10, K11, K12, K13 and K14 (and K3,
+K4, which share a source with them; K10 and K14 also at the forecast path's
+shapes) of both in turns with the largest output difference between the
+builds, and holds K1/K2, K5/K9 and K10/K14 (trajectories and every state
+row) of both to each other bit for bit on the goldens and edge inputs; it
+exits 3.
 
 The last two lines are a JSON object describing the kernels and the
 result line ``{"ok": true, "device": {...}}``.
@@ -234,6 +247,16 @@ GR4J_EDGE_STEPS = (1, 37, 65, 128)
 # and last blocks of 72 and of 1 member.
 TRAJ_EDGE_STEPS = (1, 37, 64, 65, 128)
 TRAJ_EDGE_MEMBERS = (200, 129)
+# K10's and K14's edges: one step (warm: shorter than the history), around
+# and at their 32-step staging and store tiles, two whole tiles; one member
+# (K10: a block of one warp), and last blocks of 1 and of 72 members.
+STATE_EDGE_STEPS = (1, 31, 32, 33, 65, 128)
+STATE_EDGE_MEMBERS = (1, 129, 200)
+# The forecast path's one-member spin-ups: the hysteresis + ice sheet's 1827
+# days and the MATLAB HBV-Edu record's 3652, each less the last 365.
+SNOW_SPINUP_DAYS = 1827 - FORECAST_DAYS
+HBV_SPINUP_DAYS = 3652 - FORECAST_DAYS
+FORECAST_UH = (10, 21)   # the hysteresis classes' x4 bound, 10
 # Tolerances of the kernel-vs-plain checks, (rtol, atol).  float64: the same
 # operations in another order (FMA contraction) and libdevice vs ATen
 # tanh/pow.  float32: rounding compounds over thousands of steps of the
@@ -1224,10 +1247,12 @@ def phase_kernels_state_hbv(forcing, qobs_np, n=1000, warm_len=1000):
 
 
 def phase_kernels_state_snow(n=256, t_len=300, warm_len=100):
-    """K10 cold and warm and the warm K8, every variant.  The snow rows of
-    the state are counted for bit equality with the plain version.  A cold
-    start computes its layer constants from the series it is given, so the
-    split check in float64 holds one warm hop against two."""
+    """K10 cold and warm at 1, 2, 5 and 7 layers (registers at 1 and 5,
+    shared columns otherwise) and the warm K8 at 1 and 5, every variant.
+    The snow rows of the state are counted for bit equality with the plain
+    version.  A cold start computes its layer constants from the series it
+    is given, so the split check in float64 holds one warm hop against
+    two (the first of 3 steps, shorter than the history)."""
     from rrmpg_tpu_torch.ops import fused_gr4j as fg
     from rrmpg_tpu_torch.ops import fused_snow as fs
 
@@ -1235,7 +1260,7 @@ def phase_kernels_state_snow(n=256, t_len=300, warm_len=100):
     n_checks, unequal = 0, 0
     for dtype in (F64, F32):
         tol, name = TOL[dtype], str(dtype)[6:]
-        for num_layers in (1, 5):
+        for num_layers in (1, 2, 5, 7):
             d = SnowData.random(np.random.default_rng(num_layers), t_len,
                                 num_layers, dtype)
             head, tail = d.cut(0, cut), d.cut(cut, t_len)
@@ -1262,7 +1287,8 @@ def phase_kernels_state_snow(n=256, t_len=300, warm_len=100):
                           f"{label}: the layer constants changed on the way "
                           "through a continuation")
                     n_checks += 4
-                    for masked in (False, True):
+                    for masked in ((False, True) if num_layers in (1, 5)
+                                   else ()):
                         for stats in (False, True):
                             got, want = snow_warm_objective_pair(
                                 fs, tail, params, state, hyst, ice, uh, stats,
@@ -1290,9 +1316,81 @@ def phase_kernels_state_snow(n=256, t_len=300, warm_len=100):
                         n_checks += 2
     print(f"[3 kernels] snow state kernel and warm objectives: {n_checks} "
           f"checks passed at N={n}, T={cut} cold + {warm_len} warm, L in "
-          f"(1, 5); snow state elements that differ from the plain version "
-          f"in any bit: {unequal}")
+          f"(1, 2, 5, 7) (the warm objectives at 1 and 5); snow state "
+          f"elements that differ from the plain version in any bit: "
+          f"{unequal}")
     check(unequal == 0, "K10's snow state differs from the plain version")
+
+
+def state_edge_checks(forcing):
+    """K10 and K14 around their 32-step staging and store tiles and their
+    blocks: cold over T steps, then warm over the next T from the kernel's
+    own state (at T = 1 shorter than the history, H = 6 or 20), T in
+    STATE_EDGE_STEPS, N in STATE_EDGE_MEMBERS (one member runs K10 in a
+    block of one warp); K10 at 2 and 5 layers (shared columns and
+    registers), the plain and the hysteresis + ice variant (phase 3's
+    other checks and the CUDA tests take the other two to these edges) at
+    both UH register pairs, its snow rows bit for bit; K14 on the MATLAB
+    forcing with NaN members (a tenth of them, at least one, dry); float64
+    and float32."""
+    from rrmpg_tpu_torch.ops import fused_gr4j as fg
+    from rrmpg_tpu_torch.ops import fused_hbv as fh
+    from rrmpg_tpu_torch.ops import fused_snow as fs
+
+    n_checks, unequal = 0, 0
+    for dtype in (F64, F32):
+        tol, name = TOL[dtype]["traj"], str(dtype)[6:]
+        tensors = hbv_tensors(forcing, dtype)
+        for t_len in STATE_EDGE_STEPS:
+            head = hbv_cut(tensors, 0, t_len)
+            tail = hbv_cut(tensors, t_len, 2 * t_len)
+            for n in STATE_EDGE_MEMBERS:
+                params = hbv_random_params(np.random.default_rng(n), n, dtype,
+                                           n_dry=max(1, n // 10))
+                state, traj, rows = hbv_state_pair(fh, head, params, None)
+                _, traj_b, rows_b = hbv_state_pair(fh, tail, params, state)
+                for what, pair in (("cold traj", traj),
+                                   ("cold state rows", rows),
+                                   ("warm traj", traj_b),
+                                   ("warm state rows", rows_b)):
+                    report(f"hbv {name} K14 T={t_len} N={n} {what}", *pair,
+                           *tol, nan_ok=True)
+                    n_checks += 1
+            for num_layers in (2, 5):
+                d = SnowData.random(np.random.default_rng(t_len + num_layers),
+                                    2 * t_len, num_layers, dtype)
+                head, tail = d.cut(0, t_len), d.cut(t_len, 2 * t_len)
+                for n in STATE_EDGE_MEMBERS:
+                    for uh in fg.SUPPORTED_UH:
+                        params = snow_random_params(
+                            np.random.default_rng(n + uh[0]), n, dtype,
+                            2.9 if uh[0] == 3 else BOUNDS_X4_WIDE)
+                        for variant, hyst, ice in SNOW_VARIANTS[::3]:
+                            label = (f"snow {name} K10 T={t_len} N={n} "
+                                     f"L={num_layers} uh={uh} {variant}")
+                            state, traj, (got, want) = snow_state_pair(
+                                fs, head, params, None, hyst, ice, uh)
+                            _, traj_b, (got_b, want_b) = snow_state_pair(
+                                fs, tail, params, state, hyst, ice, uh)
+                            for what, pair in (
+                                    ("cold traj", traj),
+                                    ("cold state rows",
+                                     (snow_rows(got), snow_rows(want))),
+                                    ("warm traj", traj_b),
+                                    ("warm state rows",
+                                     (snow_rows(got_b), snow_rows(want_b)))):
+                                report(f"{label} {what}", *pair, *tol)
+                                n_checks += 1
+                            unequal += (snow_bits_unequal(got, want)
+                                        + snow_bits_unequal(got_b, want_b))
+    print(f"[3 kernels] K10 and K14 tile and block edges: {n_checks} "
+          f"kernel-vs-plain checks passed at T in {STATE_EDGE_STEPS} cold "
+          f"+ as many warm, N in {STATE_EDGE_MEMBERS}, K10 at L in (2, 5), "
+          f"plain and hyst+ice; "
+          f"K10 snow state elements that differ from the plain version in "
+          f"any bit: {unequal}")
+    check(unequal == 0, "K10's snow state differs from the plain version at "
+          "a tile or block edge")
 
 
 def phase_golden(forcing, qsim_matlab):
@@ -2583,6 +2681,65 @@ def snow_time_inputs(n, t_len, num_layers):
     return d, params
 
 
+def forecast_shape_calls(forcing):
+    """K10 and K14 at the forecast path's shapes: the one-member cold
+    spin-up with its final state (snow: SNOW_SPINUP_DAYS x 5 layers,
+    hysteresis + ice, UH FORECAST_UH, from the bench recipe; HBV-Edu: the
+    first HBV_SPINUP_DAYS MATLAB days) and the 131072-member warm
+    continuation of FORECAST_DAYS from a carried state (the state a cold run
+    over as many days before ends in).  Returns {name: (call, plain call,
+    operations, bytes, description)}."""
+    from rrmpg_tpu_torch.ops import fused_hbv as fh
+    from rrmpg_tpu_torch.ops import fused_snow as fs
+
+    n, t_warm, num_layers, uh = MC_MEMBERS, FORECAST_DAYS, 5, FORECAST_UH
+    h = uh[1] - 1
+    kw = dict(hyst=True, ice=True, uh=uh, inits=(0.0, 0.0, 0.3, 0.3))
+    snow_step = (num_layers * (SNOW_LAYER_OPS[True] + SNOW_ICE_OPS + 1) + 2
+                 + GR4J_STEP_OPS[uh])
+    rows = 2 + h + 4 * num_layers        # K10's state rows per member
+    calls = {}
+    t_spin = SNOW_SPINUP_DAYS
+    d_spin, p_spin = snow_time_inputs(1, t_spin, num_layers)
+    calls["snow_traj_state_spinup"] = (
+        lambda: snow_state_kernel(fs, d_spin, p_spin, None, **kw)[0],
+        lambda: snow_state_plain(fs, d_spin, p_spin, None, **kw)[0],
+        snow_step * t_spin,
+        4 * (3 * t_spin * num_layers + t_spin + 2 * num_layers + 11
+             + t_spin + rows),
+        f"spin-up hyst+ice uh={uh} N=1 T={t_spin} L={num_layers}")
+    d, params = snow_time_inputs(n, 2 * t_warm, num_layers)
+    tail = d.cut(t_warm, 2 * t_warm)
+    _, state = snow_state_kernel(fs, d.cut(0, t_warm), params, None, **kw)
+    calls["snow_traj_state_continuation"] = (
+        lambda: snow_state_kernel(fs, tail, params, state, **kw)[0],
+        lambda: snow_state_plain(fs, tail, params, state, **kw)[0],
+        snow_step * n * t_warm,
+        4 * (3 * t_warm * num_layers + t_warm + num_layers
+             + (11 + 5 * num_layers + h) * n + n * t_warm + rows * n),
+        f"continuation hyst+ice uh={uh} N={n} T={t_warm} L={num_layers}")
+    tensors = hbv_tensors(forcing, F32)
+    t_spin = HBV_SPINUP_DAYS
+    head = hbv_cut(tensors, 0, t_spin)
+    one = hbv_random_params(np.random.default_rng(6), 1, F32)
+    calls["hbv_traj_state_spinup"] = (
+        lambda: hbv_state_kernel(fh, head, one, None)[0],
+        lambda: hbv_state_plain(fh, head, one, None)[0],
+        HBV_STEP_OPS * t_spin, 4 * (4 * t_spin + 17 + t_spin + 4),
+        f"spin-up N=1 T={t_spin}")
+    hbv_tail = hbv_cut(tensors, t_spin, t_spin + t_warm)
+    members = hbv_random_params(np.random.default_rng(7), n, F32)
+    _, hbv_state = hbv_state_kernel(fh, hbv_cut(tensors, t_spin - t_warm,
+                                                t_spin), members, None)
+    calls["hbv_traj_state_continuation"] = (
+        lambda: hbv_state_kernel(fh, hbv_tail, members, hbv_state)[0],
+        lambda: hbv_state_plain(fh, hbv_tail, members, hbv_state)[0],
+        HBV_STEP_OPS * n * t_warm,
+        4 * (4 * t_warm + 17 * n + n * t_warm + 4 * n),
+        f"continuation N={n} T={t_warm}")
+    return calls
+
+
 def gr4j_regional_bench_call(uh, t_len=TIME_STEPS):
     """K5 at C = 8 catchments x 131072 members x ``t_len`` CAMELS 01031500
     days (3651: the regional shape of bench.py:258-276; None: the whole
@@ -2685,7 +2842,9 @@ SASS_CLASSES = (
 # (hysteresis + ice, UH (3, 7), 5 layers in registers and the run-time
 # count), GLUE's (plain, UH (10, 21), one layer) and the snow-only routine
 # (5 layers), with the template arguments of its earlier design (no layer
-# count), which --compare may build.
+# count), which --compare may build; K10 at the bench shape (5 layers in
+# registers and the run-time count) and the forecast path's (UH (10, 21)),
+# and in its earlier design (no layer count); K13 and K14.
 SASS_TARGETS = (
     ("snow_objective_kernel", "float, 3, 7, true, true, false, false, 5"),
     ("snow_objective_kernel", "float, 3, 7, true, true, false, true, 5"),
@@ -2712,6 +2871,13 @@ SASS_TARGETS = (
     ("snow_traj_kernel", "float, 3, 7, true, true, false"),
     ("snow_traj_kernel", "float, 10, 21, false, false, false"),
     ("snow_traj_kernel", "float, 1, 1, false, false, true"),
+    ("snow_traj_state_kernel", "float, 3, 7, true, true, 5"),
+    ("snow_traj_state_kernel", "float, 3, 7, true, true, 0"),
+    ("snow_traj_state_kernel", "float, 10, 21, true, true, 5"),
+    ("snow_traj_state_kernel", "float, 3, 7, true, true"),
+    ("snow_traj_state_kernel", "float, 10, 21, true, true"),
+    ("hbv_traj_kernel", "float"),
+    ("hbv_traj_state_kernel", "float"),
 )
 # Probes of what one operation costs in SASS (each minus probe_add).
 PROBE_SRC = r"""
@@ -2731,6 +2897,12 @@ SWEEP_MEMBERS = (16896, 33792, 67584, 131072, 262144)
 # K2 also below one block of 128 per SM (its split kernel runs up to 33792).
 GR4J_SWEEP_SMALL = (2112, 4224, 8448)
 # The times of a fit generation's shape, carried in the kernels line.
+# The times of the forecast path's shapes, carried in the kernels line.
+FORECAST_SHAPE_ROWS = {
+    "snow_traj_state": ("snow_traj_state_spinup",
+                        "snow_traj_state_continuation"),
+    "hbv_traj_state": ("hbv_traj_state_spinup",
+                       "hbv_traj_state_continuation")}
 FIT_SHAPE_ROWS = {"snow_objective": "snow_mse_fit",
                   "hbv_objective": "hbv_mse_fit",
                   "gr4j_mse": "gr4j_mse_fit", "gr4j_stats": "gr4j_stats_fit"}
@@ -3083,12 +3255,12 @@ def gr4j_equality_calls():
 
 
 def shared_source_calls():
-    """K5 and K9 at their bench shapes (K5 at both UH register pairs and
-    over the main path's whole record; K9 at 131072 x 3651 x 5 layers and
-    at GLUE's shape), and the kernels that share a source with K1/K2, K5,
-    K8, K9 or K11 (K3 and K4 with `gr4j_step.cuh`, K10 the snow step of
-    `snow_step.cuh`; K8 is timed with K12), as zero-argument calls that
-    return one tensor: {name: (call, description)}."""
+    """K5, K9 and K10 at their bench shapes (K5 at both UH register pairs
+    and over the main path's whole record; K9 at 131072 x 3651 x 5 layers
+    and at GLUE's shape; K10 cold and warm), and K3 and K4, which share
+    `gr4j_step.cuh` with K1/K2 and K5 (K8 is timed with K12), as
+    zero-argument calls that return one tensor: {name: (call,
+    description)}."""
     from rrmpg_tpu_torch.ops import fused_gr4j as fg
     from rrmpg_tpu_torch.ops import fused_snow as fs
 
@@ -3204,6 +3376,124 @@ def k5_k9_equality_calls():
     return calls
 
 
+def hbv_traj_calls(tensors, params):
+    """K13 and K14 (cold, and warm from the state the cold run ends in) at
+    the bench shape, as zero-argument calls that return the trajectory."""
+    from rrmpg_tpu_torch.ops import fused_hbv as fh
+
+    _, state = hbv_state_kernel(fh, tensors, params, None)
+    return {"hbv_traj": functools.partial(hbv_kernel, fh, tensors, None,
+                                          params, "traj"),
+            "hbv_traj_state_cold": lambda: hbv_state_kernel(
+                fh, tensors, params, None)[0],
+            "hbv_traj_state_warm": lambda: hbv_state_kernel(
+                fh, tensors, params, state)[0]}
+
+
+def flat(q, state):
+    """A trajectory and every leaf of a state as one flat tensor."""
+    return torch.cat([q.reshape(-1)] + [leaf.reshape(-1)
+                                        for leaf in state_leaves(state)])
+
+
+def k10_k14_equality_calls(forcing):
+    """K10 and K14 calls on which two builds of the same arithmetic must
+    agree bit for bit, float64 and float32, each a cold run over the first
+    part and a warm run over the rest from its state, returning both
+    trajectories and both states as one tensor: K10 through the three
+    coupled snow classes on their Excel sheets (split at half) and on random
+    forcing at T = 65 and 300 (split at 32 and 200) and at T = 40 split at 37
+    (a warm segment of 3 steps, shorter than the history), N = 129, 1, 2, 5
+    and 7 layers, every variant at both UH register pairs; K14 on the MATLAB
+    record (its golden parameters among 199 random members, a tenth of them
+    dry and NaN; split at half) and at T = 65, N = 1 (split at 33).
+    Returns {name: call}."""
+    import pandas as pd
+    from rrmpg_tpu_torch.models import (CemaneigeGR4J, CemaneigeHystGR4J,
+                                        CemaneigeHystGR4JIce)
+    from rrmpg_tpu_torch.ops import fused_gr4j as fg
+    from rrmpg_tpu_torch.ops import fused_hbv as fh
+    from rrmpg_tpu_torch.ops import fused_snow as fs
+
+    def chained(kernel, head, tail, params, cold_kw):
+        def call():
+            q_a, st = kernel(head, params, None, **cold_kw)
+            q_b, st_b = kernel(tail, params, st, **cold_kw)
+            return torch.cat([flat(q_a, st), flat(q_b, st_b)])
+        return call
+
+    def sheet_call(model, columns, kw, half):
+        def call():
+            cut = lambda lo, hi: [c.iloc[lo:hi] for c in columns]
+            q_a, st = model.simulate(*cut(0, half), **kw,
+                                     return_final_state=True, engine='fused')
+            q_b, st_b = model.simulate(*cut(half, None), **kw,
+                                       initial_state=st,
+                                       return_final_state=True,
+                                       engine='fused')
+            return torch.cat([flat(q_a, st), flat(q_b, st_b)])
+        return call
+
+    def snow_kernel(d, params, state, **kw):
+        return snow_state_kernel(fs, d, params, state, **kw)
+
+    def hbv_kernel_chain(tensors, params, state):
+        return hbv_state_kernel(fh, tensors, params, state)
+
+    calls = {}
+    data = REPO / "tests" / "data"
+    sheets = {
+        "CemaneigeGR4J": (
+            CemaneigeGR4J, CEMANEIGEGR4J_GOLDEN, 495,
+            pd.read_csv(data / 'cemaneigegr4j_validation_data.csv', sep=';',
+                        index_col=0), {}),
+        "CemaneigeHystGR4J": (
+            CemaneigeHystGR4J, HYST_GOLDEN, 700,
+            pd.read_csv(data / 'cemaneigehystgr4j_validation_data.csv',
+                        index_col=0), {}),
+        "CemaneigeHystGR4JIce": (
+            CemaneigeHystGR4JIce, dict(HYST_GOLDEN, DDF=5), 700,
+            pd.read_csv(data / 'cemaneigehystgr4jice_validation_data.csv',
+                        index_col=0), dict(frac_ice=FRAC_ICE_GOLDEN))}
+    for dtype in (F64, F32):
+        name = str(dtype)[6:]
+        for sheet, (cls, golden, height, df, extra) in sheets.items():
+            columns = [df.precipitation, df.mean_temp, df.min_temp,
+                       df.max_temp, df.pe]
+            calls[f"K10 {sheet} {name}"] = sheet_call(
+                cls(params=golden, dtype=dtype), columns,
+                dict(extra, met_station_height=height, altitudes=ALTITUDES),
+                len(df) // 2)
+        for t_len, split in ((65, 32), (300, 200), (40, 37)):
+            for num_layers in (1, 2, 5, 7):
+                d = SnowData.random(np.random.default_rng(num_layers), t_len,
+                                    num_layers, dtype)
+                head, tail = d.cut(0, split), d.cut(split, t_len)
+                for uh in fg.SUPPORTED_UH:
+                    params = snow_random_params(
+                        np.random.default_rng(uh[0]), 129, dtype,
+                        2.9 if uh[0] == 3 else BOUNDS_X4_WIDE)
+                    for variant, hyst, ice in SNOW_VARIANTS:
+                        calls[f"K10 {name} T={split}+{t_len - split} "
+                              f"L={num_layers} uh={uh} {variant}"] = chained(
+                            snow_kernel, head, tail, params,
+                            dict(hyst=hyst, ice=ice, uh=uh))
+        tensors = hbv_tensors(forcing, dtype)
+        half = tensors[0].shape[0] // 2
+        params = hbv_random_params(np.random.default_rng(11), 200, dtype,
+                                   n_dry=20)
+        for k, v in HBV_GOLDEN.items():
+            params[k][-1] = v
+        calls[f"K14 MATLAB {name}"] = chained(
+            hbv_kernel_chain, hbv_cut(tensors, 0, half),
+            hbv_cut(tensors, half, tensors[0].shape[0]), params, {})
+        one = hbv_random_params(np.random.default_rng(12), 1, dtype)
+        calls[f"K14 T=33+32 N=1 {name}"] = chained(
+            hbv_kernel_chain, hbv_cut(tensors, 0, 33),
+            hbv_cut(tensors, 33, 65), one, {})
+    return calls
+
+
 def sass_by_kernel(path):
     """{kernel<template arguments>: [(opcode, operands)]} of a library."""
     out = {}
@@ -3250,15 +3540,16 @@ def regional_snow_bench_call():
 def phase_compare(card, other_dirs, forcing, qsim_matlab):
     """Development: build the kernel sources in each of ``other_dirs``
     (another version's ``rrmpg_tpu_torch/csrc``) beside this checkout's,
-    and time K1, K2, K5, K8, K9, K11 and K12 of each against this one's in
-    turns (other, this, this, other) at the bench shapes (K5 also over the
-    main path's record, K9 also at GLUE's shape), K1, K2, K8 and K12 at the
-    fit shapes and over SWEEP_MEMBERS, and K3, K4, K10 (which share their
-    sources) at their bench shapes, with the largest output difference
-    between the two builds for each timed call, the SASS of the time loops,
-    the instantiations whose SASS differs and the registers that differ;
-    then K1/K2 and K5/K9 of both builds on the goldens and edge inputs, bit
-    for bit.  Times only: the kernels phase checks this checkout's
+    and time K1, K2, K5, K8, K9, K10, K11, K12, K13 and K14 of each against
+    this one's in turns (other, this, this, other) at the bench shapes (K5
+    also over the main path's record, K9 also at GLUE's shape, K10 and K14
+    also at the forecast path's shapes), K1, K2, K8 and K12 at the fit
+    shapes and over SWEEP_MEMBERS, and K3, K4 (which share a source) at
+    their bench shapes, with the largest output difference between the two
+    builds for each timed call, the SASS of the time loops, the
+    instantiations whose SASS differs and the registers that differ; then
+    K1/K2, K5/K9 and K10/K14 of both builds on the goldens and edge inputs,
+    bit for bit.  Times only: the kernels phase checks this checkout's
     kernels."""
     from rrmpg_tpu_torch.ops._build import BUILD_DIR, build_library, \
         load_library
@@ -3317,10 +3608,14 @@ def phase_compare(card, other_dirs, forcing, qsim_matlab):
     turns("snow_regional", fn, 3, what)
     for name, (fn, what) in shared_source_calls().items():
         turns(name, fn, 3, what)
+    for name, (fn, _, _, _, what) in forecast_shape_calls(forcing).items():
+        turns(name, fn, 5, what)
     d, snow_params = snow_time_inputs(n, t_len, 5)
     tensors = hbv_tensors(forcing, F32, t_len)
     hbv_qobs = as_tensor(qsim_matlab[:t_len], F32)
     hbv_params = hbv_random_params(np.random.default_rng(2), n, F32)
+    for name, fn in hbv_traj_calls(tensors, hbv_params).items():
+        turns(name, fn, 3, f"N={n} T={t_len}")
     bench = k8_k12_calls(d, snow_params, tensors, hbv_qobs, hbv_params)
     sca = bench.pop("snow_sca_stats")
     for name, fn in bench.items():
@@ -3337,7 +3632,8 @@ def phase_compare(card, other_dirs, forcing, qsim_matlab):
             turns(name, fn, 3, f"sweep N={members} T={t_len}")
     turns("snow_sca_stats", sca, 3, f"N={n} T={t_len}")
     for family, calls in (("K1/K2", gr4j_equality_calls()),
-                          ("K5/K9", k5_k9_equality_calls())):
+                          ("K5/K9", k5_k9_equality_calls()),
+                          ("K10/K14", k10_k14_equality_calls(forcing))):
         for label, lib in others:
             unequal = []
             for name, fn in calls.items():
@@ -3534,6 +3830,11 @@ def phase_times(card, prec_np, etp_np, qobs_np, forcing, qsim_matlab):
             4 * (series + t_len + 11 * n + 4 * n + warm_read), 3,
             shape + " stats")
     del snow_state, d, snow_params
+    # K10 and K14 at the forecast path's shapes: the one-member spin-up is
+    # one thread's chain, the continuation 131072 x 365.
+    for name, (fn, plain, ops, n_bytes, what) in forecast_shape_calls(
+            forcing).items():
+        measure(name, fn, plain, ops, n_bytes, 5, what)
     fn, plain, ops, n_bytes, what = glue_traj_call()
     ms = measure("snow_traj_glue", fn, plain, ops, n_bytes, 5, what)
     print(f"    {GLUE_MEMBERS * GLUE_DAYS / (ms * 1e-3):.4e} member-steps/s")
@@ -3600,6 +3901,9 @@ def kernel_entries(launches, max_abs, times):
                   "launched no time on the main paths")
         if name in FIT_SHAPE_ROWS:
             combined["fit_shape"] = times[FIT_SHAPE_ROWS[name]]
+        if name in FORECAST_SHAPE_ROWS:
+            combined["forecast_shapes"] = {
+                row: times[row] for row in FORECAST_SHAPE_ROWS[name]}
         out.append(combined)
     return out
 
@@ -3613,9 +3917,9 @@ def main():
                         help="development: the phases to run after the "
                         "build, of " + ", ".join(PHASES))
     parser.add_argument("--compare", metavar="DIR[,DIR...]",
-                        help="development: time K1, K2, K5, K8, K9, K11 "
-                        "and K12 built from the kernel sources in each DIR "
-                        "against this checkout's, in turns, then stop")
+                        help="development: time K1, K2, K5, K8-K14 built "
+                        "from the kernel sources in each DIR against this "
+                        "checkout's, in turns, then stop")
     args = parser.parse_args()
     phases = set(args.phases.split(","))
     check(phases <= set(PHASES), f"unknown phase in {sorted(phases)}")
@@ -3642,6 +3946,7 @@ def main():
         phase_kernels_state_gr4j(prec, etp, qobs)
         phase_kernels_state_hbv(forcing, qsim_matlab)
         phase_kernels_state_snow()
+        state_edge_checks(forcing)
         lap("the state kernels and warm objectives against theirs")
         phase_kernels_regional(prec, etp, qobs)
         lap("the regional kernels against theirs")

@@ -1,6 +1,7 @@
 // Asynchronous copies from device memory to shared memory (cp.async,
 // sm_80 and later), for kernels that stage the forcing every member of a
-// block reads: snow_objective.cu (K8) and hbv_fused.cu (K12).
+// block reads: gr4j_fused.cu (K1/K2, K5), snow_staged.cuh (K8-K11) and
+// hbv_fused.cu (K12, K14).
 //
 // Each copy moves one 4- or 8-byte element, so a series that a slice starts
 // at any element needs no alignment beyond its type's.  A block commits one

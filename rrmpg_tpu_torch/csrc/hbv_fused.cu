@@ -19,15 +19,24 @@
 // What the design does about it: one thread owns one member; the stores and
 // the 13 constants stay in registers for the whole time loop, the objective
 // accumulates in registers, and latency is hidden by running many members
-// per SM.  K13 and K14 read the forcing through __ldg, which the warp serves
-// as one broadcast; their per-step stores stride across members (row-major
-// (N, T)); that is left as it is for now.  K12 at 131072 members is bound by
-// the SMs' issue rate (its time grows with N from ~34k members on, PERF.md
-// section 6), and float32 powf is ~94 SASS instructions of a ~160-instruction
-// step: K12 stages its forcing in shared memory with cp.async (no device
-// read on the recurrence) and takes the soil power in float32 as
-// exp2(Beta * log2(x)) (~34 instructions) where that is pow on the model's
-// domain (soil_pow).
+// per SM.  K12 at 131072 members is bound by the SMs' issue rate (its time
+// grows with N from ~34k members on, PERF.md section 6), and float32 powf is
+// ~94 SASS instructions of a ~160-instruction step: K12 stages its forcing
+// in shared memory with cp.async (no device read on the recurrence) and
+// takes the soil power in float32 as exp2(Beta * log2(x)) (~34
+// instructions) where that is pow on the model's domain (soil_pow).
+// K13 reads the forcing through __ldg, which the warp serves as one
+// broadcast, and its per-step stores stride across members (row-major
+// (N, T)): a warp's 32 stores of one step land T values apart, 32 sectors
+// for 128 useful bytes, and bind the kernel (~13 ms of stores behind ~3 ms
+// of compute at 131072 x 3651).  K14 stages its four series as K12 does
+// (stage_series) and gathers a tile's discharge in shared memory, as the
+// snow trajectories (K9, K10) do: each thread writes its member's steps of
+// the tile into its row of a [member][step] tile (rows kTrajTile + 1
+// values apart, so one step's writes fall in 32 banks), and after the
+// tile's barrier each warp copies whole member rows to device memory, its
+// lanes on consecutive steps: one 256-byte run (float32) per member and
+// 64-step tile.
 //
 // pow() is IEEE pow (no fast-math): a negative soil store gives NaN through
 // (soil/FC)^Beta, as the reference's np.power does, and that NaN reaches the
@@ -45,6 +54,8 @@
 // Unlike the TPU kernels there is no (8, 128) member tiling, no padding of
 // N or T and no time-tile grid; K14 reads the final stores from the thread's
 // registers when its loop ends instead of snapshotting them inside it.
+// Every thread of a staged block takes part in the copies and barriers;
+// threads past N run the last member and write nothing.
 //
 // C interface (bound with ctypes): every entry returns a cudaError_t as int
 // (0 on success) and launches on the stream it is given without
@@ -64,6 +75,12 @@ namespace {
 constexpr int kBlock = 128;
 // K12: steps of forcing staged per buffer (two buffers).
 constexpr int kTile = 64;
+// K14: steps per staged tile and per tile of discharge stores (64 beat 32
+// by 12-15 % and 128 by 6-14 % on the H100, PERF.md section 6).
+constexpr int kTrajTile = 64;
+// Shared memory a block may use without opting in, and after (H100: 227 KB).
+constexpr size_t kSharedLimit = 48 * 1024;
+constexpr size_t kSharedOptIn = 232448;
 
 __device__ __forceinline__ float dev_pow(float x, float y) { return powf(x, y); }
 __device__ __forceinline__ double dev_pow(double x, double y) { return pow(x, y); }
@@ -124,7 +141,7 @@ __device__ __forceinline__ void hbv_init(Member<Real>& m,
 
 // One HBV-Edu time step (_hbv_step, pallas_hbv.py:48-106); returns the
 // discharge.  Division by FC and PWP is a multiply by the packed
-// reciprocals.  SOIL_POW: the soil power through soil_pow (K12).
+// reciprocals.  SOIL_POW: the soil power through soil_pow (K12, K14).
 template <typename Real, bool SOIL_POW = false>
 __device__ __forceinline__ Real hbv_step(Member<Real>& m, Real temp,
                                          Real prec, Real pe_month,
@@ -154,6 +171,24 @@ __device__ __forceinline__ Real hbv_step(Member<Real>& m, Real temp,
   return overflow + s1 * m.K_1 + s2 * m.K_2;
 }
 
+// Copy tile `tile` of S series, which starts at step t0 (at most TILE
+// steps, none past t_len), into its buffer stage[tile & 1][c][0, ...),
+// consecutive threads on consecutive steps (K12: five series, K14: four).
+// The buffer index is formed inside the loop and K12 passes the start step
+// in a variable of its own: in that form K12 compiles to the code of the
+// loop written out in the kernel (two other forms moved an instruction).
+template <int S, int TILE, typename Real>
+__device__ __forceinline__ void stage_series(Real (*stage)[S][TILE], int tile,
+                                             const Real* const* series,
+                                             int t0, int t_len) {
+  for (int s = threadIdx.x; s < min(TILE, t_len - t0); s += blockDim.x) {
+#pragma unroll
+    for (int c = 0; c < S; ++c) {
+      copy_async(&stage[tile & 1][c][s], series[c] + t0 + s);
+    }
+  }
+}
+
 // K13: (N, T) discharge trajectories, row-major (cold start).
 template <typename Real>
 __global__ void __launch_bounds__(kBlock)
@@ -174,9 +209,13 @@ hbv_traj_kernel(const Real* __restrict__ temp, const Real* __restrict__ prec,
 }
 
 // K14: trajectories as K13, cold or from carried stores (`warm`), plus the
-// end-of-series stores as (4, N) rows
-// [snow, soil, s1, s2].  A member whose soil store went negative is NaN from
-// there on, in the trajectory and in its final state.
+// end-of-series stores as (4, N) rows [snow, soil, s1, s2].  A member whose
+// soil store went negative is NaN from there on, in the trajectory and in
+// its final state.  The four series are staged kTrajTile steps a tile
+// (dynamic shared memory: [2][4][kTrajTile] staging, then the
+// [kBlock][kTrajTile + 1] discharge tile); a cold start's q = 0 at t = 0
+// is the first value of tile 0.  The soil power is K12's soil_pow (float32:
+// exp2 / log2: 0.81-0.82 of powf's time here; float64 pow).
 template <typename Real>
 __global__ void __launch_bounds__(kBlock)
 hbv_traj_state_kernel(const Real* __restrict__ temp,
@@ -185,17 +224,50 @@ hbv_traj_state_kernel(const Real* __restrict__ temp,
                       const Real* __restrict__ params, int n, int t_len,
                       bool warm, Real* __restrict__ out,
                       Real* __restrict__ fstate) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
+  constexpr int kSeries = 4;
+  constexpr int kPitch = kTrajTile + 1;  // values between two members' rows
+  extern __shared__ __align__(16) unsigned char hbv_shared[];
+  auto stage = reinterpret_cast<Real(*)[kSeries][kTrajTile]>(hbv_shared);
+  Real* q_tile = &stage[2][0][0];
+  Real* q_row = q_tile + threadIdx.x * kPitch;
+  const Real* series[kSeries] = {temp, prec, pe, tm};
+  const int first_member = blockIdx.x * blockDim.x;
+  const int i = first_member + threadIdx.x;
   Member<Real> m;
-  hbv_init(m, params, n, i);
-  Real* row = out + (size_t)i * t_len;
-  int t = 0;
-  if (!warm) row[t++] = Real(0);  // the initialization step
-  for (; t < t_len; ++t) {
-    row[t] = hbv_step<Real>(m, __ldg(temp + t), __ldg(prec + t),
-                            __ldg(pe + t), __ldg(tm + t));
+  hbv_init(m, params, n, min(i, n - 1));
+  const int members = min((int)blockDim.x, n - first_member);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int warps = blockDim.x / 32;
+  const int tiles = (t_len + kTrajTile - 1) / kTrajTile;
+  stage_series(stage, 0, series, 0, t_len);
+  copy_commit();
+#pragma unroll 1
+  for (int k = 0; k < tiles; ++k) {
+    const int t0 = k * kTrajTile;
+    if (k + 1 < tiles) {
+      stage_series(stage, k + 1, series, t0 + kTrajTile, t_len);
+    }
+    copy_commit();  // possibly empty: the group count stays one per tile
+    copy_wait_older();
+    __syncthreads();  // tile k has landed; the last tile's rows have left
+    const Real(*buf)[kTrajTile] = stage[k & 1];
+    const int steps = min(kTrajTile, t_len - t0);
+    int s = 0;
+    if (k == 0 && !warm) q_row[s++] = Real(0);  // the initialization step
+#pragma unroll 1
+    for (; s < steps; ++s) {
+      q_row[s] = hbv_step<Real, true>(m, buf[0][s], buf[1][s], buf[2][s],
+                                      buf[3][s]);
+    }
+    __syncthreads();  // the tile's rows are complete; the buffer is free
+#pragma unroll 1
+    for (int r = warp; r < members; r += warps) {
+      Real* dst = out + (size_t)(first_member + r) * t_len + t0;
+      const Real* src = q_tile + r * kPitch;
+      for (int j = lane; j < steps; j += 32) dst[j] = src[j];
+    }
   }
+  if (i >= n) return;
   fstate[i] = m.snow;
   fstate[(size_t)n + i] = m.soil;
   fstate[2 * (size_t)n + i] = m.s1;
@@ -238,23 +310,14 @@ hbv_objective_kernel(const Real* __restrict__ temp,
     }
   }
   const int tiles = (t_len + kTile - 1) / kTile;
-  for (int s = threadIdx.x; s < min(kTile, t_len); s += blockDim.x) {
-#pragma unroll
-    for (int c = 0; c < kSeries; ++c) copy_async(&stage[0][c][s], series[c] + s);
-  }
+  stage_series(stage, 0, series, 0, t_len);
   copy_commit();
 #pragma unroll 1
   for (int k = 0; k < tiles; ++k) {
     const int t0 = k * kTile;
     if (k + 1 < tiles) {
       const int next = t0 + kTile;
-      for (int s = threadIdx.x; s < min(kTile, t_len - next);
-           s += blockDim.x) {
-#pragma unroll
-        for (int c = 0; c < kSeries; ++c) {
-          copy_async(&stage[(k + 1) & 1][c][s], series[c] + next + s);
-        }
-      }
+      stage_series(stage, k + 1, series, next, t_len);
     }
     copy_commit();  // possibly empty: the group count stays one per tile
     copy_wait_older();
@@ -311,9 +374,17 @@ int simulate_state(const Real* temp, const Real* prec, const Real* pe,
   if (err != cudaSuccess) return (int)err;
   if (n <= 0 || t_len <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  hbv_traj_state_kernel<Real>
-      <<<grid_for(n), kBlock, 0, s>>>(temp, prec, pe, tm, params, n, t_len,
-                                      warm != 0, out, fstate);
+  const auto kernel = hbv_traj_state_kernel<Real>;
+  const size_t shared =
+      (2 * 4 * kTrajTile + (size_t)kBlock * (kTrajTile + 1)) * sizeof(Real);
+  if (shared > kSharedOptIn) return (int)cudaErrorInvalidValue;
+  if (shared > kSharedLimit) {
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shared);
+    if (err != cudaSuccess) return (int)err;
+  }
+  kernel<<<grid_for(n), kBlock, shared, s>>>(temp, prec, pe, tm, params, n,
+                                             t_len, warm != 0, out, fstate);
   return (int)cudaGetLastError();
 }
 

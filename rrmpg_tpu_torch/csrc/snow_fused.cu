@@ -1,5 +1,5 @@
-// Fused Cemaneige snow + GR4J ensemble kernel for NVIDIA Hopper (sm_90a):
-// trajectories and state.
+// K10: the fused Cemaneige snow + GR4J trajectories with the end-of-series
+// state, for NVIDIA Hopper (sm_90a).
 //
 // Replaces the state kernel of rrmpg_tpu/ops/pallas_snow.py
 // (_make_state_kernel, with its per-layer step _snow_step_layer):
@@ -8,52 +8,56 @@
 //            state, entering cold or from a carried state)
 // K8, K9 and K11 (the objectives and the trajectories without state) live
 // in snow_objective.cu; the snow step these kernels share is in
-// snow_step.cuh.
-// Per member and step: every elevation layer advances its snow pack
-// (snow_layer_step; HYST adds the SCA / SWE-maximum hysteresis, ICE the
-// degree-day glacier melt under a thin pack), and the layer mean of rain +
-// melt (plus the ice melt) becomes the precipitation of one gr4j_step_pr
-// (gr4j_step.cuh).
+// snow_step.cuh, the staged step and the trajectory body in
+// snow_staged.cuh.  The kernel is K9's body under its compile-time STATE
+// flag (traj_body): this source holds K10's 48 instantiations, so that the
+// two snow sources compile in parallel.
 //
-// What bounds this kernel on this card: operations, and behind them the
-// serial latency of one thread.  A step is L dependent-free layer updates
-// followed by one GR4J step, T times in sequence; K10 writes the (N, T)
-// trajectory and 2 + H + 4L state rows per member.  The layer forcing
-// ((T, L) snow, rain and temperature) and etp are the same for every
-// member: one read that the whole warp shares.
+// What bounds this kernel on this card: operations.  A step is L
+// independent layer updates (each with an IEEE division) followed by one
+// GR4J step, T times in sequence; K10 writes the (N, T) trajectory and
+// 2 + H + 4L state rows per member, and the layer forcing ((T, L) snow,
+// rain and temperature) and etp are the same for every member.  Layer
+// states at a run-time count, forcing read on the recurrence and one store
+// a step T values apart per lane would cost ~814 SASS instructions a
+// 5-layer step behind a store stream of 32 sectors per 128 useful bytes.
 //
-// What the design does about it: one thread owns one member.  The GR4J
-// stores and UH registers stay in registers (Member, UH lengths as template
-// constants).  The number of layers is a run-time value, so the 2L (4L with
-// HYST) layer states live in shared memory as [row][thread] columns: a
-// run-time layer index into a thread-local array would go to local memory,
-// while consecutive threads read consecutive shared-memory words.  Any L
-// works that fits a block's 48 KB (the block shrinks from 128 to 64 or 32
-// threads for many layers).  The forcing reads go through __ldg.  The
-// per-step stores stride across members (row-major (N, T)); K9's staged
-// stores (snow_objective.cu) are the design this kernel is to take next.
-// The snow step's products are written without fused multiply-adds
-// (snow_step.cuh); the GR4J step keeps the contraction it has in K1-K4, and
-// the compiler flags are those of the other sources.
+// What the design does about it, all of it K9's (snow_staged.cuh):
+// * The layer count is a template constant where the data has one, NL = 5
+//   and NL = 1, so the layer states, constants and glacier shares live in
+//   registers and the layer chains of a step interleave; any other L runs
+//   the same body as NL = 0 on shared-memory columns.
+// * The forcing is staged 32 steps a tile with cp.async, double-buffered.
+// * The GR4J step takes one production arm (gr4j_production); its routing
+//   input also feeds the history rows.
+// * The discharge of a tile is gathered in a [member][step] shared-memory
+//   tile and leaves as whole member rows after the tile's barrier.
+// * The state: the routing inputs of the last H steps are written to their
+//   rows as they are computed (consecutive members, one coalesced row a
+//   step), the tail of the incoming history where T < H; s, r and the 4L
+//   layer rows after the loop, from the registers or the column.
+// The snow step's arithmetic is snow_step.cuh's (mul_rn products, IEEE
+// divisions, the layer sum in layer order), so the snow rows are the plain
+// version's bit for bit, and one production arm gives the two-arm step's
+// values.
 //
-// Warm entry (K10).  A cold start computes each layer's series constant (the
+// Warm entry.  A cold start computes each layer's series constant (the
 // snow-cover threshold, or with HYST the mean annual solid precipitation)
-// from this call's forcing: one (L,) vector for all members.  A continuation
-// must use the ORIGINAL series' constant, carried in the state: (L, N) rows,
-// one per member.  Each thread copies its constants into its shared-memory
-// column before the loop, from either form, so the time loop is one code for
-// both.  The layer states enter from (4L, N) rows [G | eTG | sca | swe_max],
-// the UH registers from the routing-input history (gr4j_init), and no step
-// is the "first" one: `first_step` is 0 for a cold start and -1 for a warm
-// one, a run-time value the cold kernels compared t with before.  Nothing is
-// instantiated twice for warm entry.
+// from this call's forcing: one (L,) vector for all members.  A
+// continuation must use the ORIGINAL series' constant, carried in the
+// state: (L, N) rows, one per member (consts_per_member), read into the
+// registers or the column before the loop.  The layer states enter from
+// (4L, N) rows [G | eTG | sca | swe_max], the UH registers from the
+// routing-input history (gr4j_init), and no step is the "first" one:
+// `first_step` is 0 for a cold start and -1 for a warm one, a run-time
+// value, so nothing is instantiated twice for warm entry.
 //
 // Unlike the TPU kernel there is no (8, 128) member tile, no time-tile grid,
 // no lane-replicated forcing, no padding of N or T and no 8-step chunking;
-// K10 reads the final state from the thread's registers and shared-memory
-// columns when its loop ends instead of snapshotting it inside the loop, and
-// writes the last H routing inputs to their state rows as they are computed
-// instead of shifting a history scratch at every step.
+// K10 reads the final state from the thread's registers or column when its
+// loop ends instead of snapshotting it inside the loop, and writes the last
+// H routing inputs to their state rows as they are computed instead of
+// shifting a history scratch at every step.
 //
 // C interface (bound with ctypes): every entry returns a cudaError_t as int
 // (0 on success) and launches on the stream it is given without
@@ -65,76 +69,46 @@
 // (L, N) with `consts_per_member`.  Warm entry: state_in is (4L, N)
 // [G | eTG | sca | swe_max] (the last 2L rows are not read without HYST),
 // hist the (H, N) routing-input history, oldest first, and first_step is
-// -1; a cold start passes null, null and 0.  K10's
-// fstate is (2 + H + 4L, N): [s, r, hist(H), G(L), eTG(L), sca(L),
-// swe_max(L)], the last 2L rows zero without HYST.
+// -1; a cold start passes null, null and 0.  fstate is (2 + H + 4L, N):
+// [s, r, hist(H), G(L), eTG(L), sca(L), swe_max(L)], the last 2L rows zero
+// without HYST.
 
 #include <cuda_runtime.h>
 
 #include <cstddef>
 
-#include "snow_step.cuh"
+#include "snow_staged.cuh"
 
 namespace {
 
-// K10: trajectories as K9 (never SNOW_ONLY), entering cold or from a carried
-// state, plus the end-of-series state rows.  The GR4J part is K4's: s and r
-// after the loop, the p_r of the last H steps written to their rows as they
-// are computed, the tail of the incoming history kept when T < H.  The layer
-// rows come from the shared-memory column after the loop.
-template <typename Real, int NUH1, int NUH2, bool HYST, bool ICE>
+// K10.
+template <typename Real, int NUH1, int NUH2, bool HYST, bool ICE, int NL>
 __global__ void __launch_bounds__(kBlock)
-snow_traj_state_kernel(SnowArgs<Real> a) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= a.n) return;
-  extern __shared__ __align__(16) unsigned char snow_shared[];
-  const int stride = blockDim.x;
-  const int L = a.num_layers;
-  const size_t n = a.n;
-  constexpr int H = NUH2 - 1;
-  Real* state = reinterpret_cast<Real*>(snow_shared) + threadIdx.x;
-  snow_state_init<Real, HYST, false>(a, i, state, stride);
-  SnowMember<Real> c;
-  snow_init(c, a.params, a.n, i, a.snow0, a.th0);
-  Member<Real, NUH1, NUH2> m;
-  gr4j_init(m, a.params, a.n, i, a.hist);
-  Real* fstate = a.fstate + i;  // row k of this member: fstate[k * n]
-  for (int j = 0; j < H - a.t_len; ++j) {
-    fstate[(2 + j) * n] =
-        a.hist != nullptr ? a.hist[(size_t)(j + a.t_len) * n + i] : Real(0);
-  }
-  const int first_kept = a.t_len - H;  // the step whose p_r is history row 0
-  Real* row = a.out + (size_t)i * a.t_len;
-  for (int t = 0; t < a.t_len; ++t) {
-    const Real p =
-        snow_catchment_step<Real, HYST, ICE, false>(c, a, t, state, stride);
-    Real p_r;
-    row[t] = gr4j_step_pr(m, p, __ldg(a.etp + t), p_r);
-    if (t >= first_kept) fstate[(size_t)(2 + t - first_kept) * n] = p_r;
-  }
-  fstate[0] = m.s;
-  fstate[n] = m.r;
-  Real* layers = fstate + (size_t)(2 + H) * n;
-  for (int k = 0; k < 4 * L; ++k) {
-    layers[(size_t)k * n] = k < layer_state_rows<HYST>() * L
-                                ? state[(size_t)k * stride]
-                                : Real(0);
-  }
+snow_traj_state_kernel(SnowArgs<Real> a, int tile_arg) {
+  traj_body<Real, NUH1, NUH2, HYST, ICE, false, NL, true>(a, tile_arg);
 }
 
+template <typename Real, int NUH1, int NUH2, bool HYST, bool ICE, int NL>
+int launch_state_layers(const SnowArgs<Real>& a, cudaStream_t stream) {
+  return launch_traj_tiles<Real, HYST, NL>(
+      snow_traj_state_kernel<Real, NUH1, NUH2, HYST, ICE, NL>, a, stream);
+}
+
+// NL from the call's layer count: 5 and 1 in registers, any other count
+// in shared-memory columns.
 template <typename Real, int NUH1, int NUH2, bool HYST, bool ICE>
-int launch_traj_state(const SnowArgs<Real>& a, cudaStream_t stream) {
-  const int rows = state_rows<HYST, false>();
-  const int block = block_for(rows, a.num_layers, sizeof(Real));
-  if (block == 0) return (int)cudaErrorInvalidValue;
-  const size_t shared = (size_t)rows * a.num_layers * sizeof(Real) * block;
-  snow_traj_state_kernel<Real, NUH1, NUH2, HYST, ICE>
-      <<<(a.n + block - 1) / block, block, shared, stream>>>(a);
-  return (int)cudaGetLastError();
+int launch_traj_state(const SnowArgs<Real>& a, cudaStream_t s) {
+  if (a.num_layers == 5) {
+    return launch_state_layers<Real, NUH1, NUH2, HYST, ICE, 5>(a, s);
+  }
+  if (a.num_layers == 1) {
+    return launch_state_layers<Real, NUH1, NUH2, HYST, ICE, 1>(a, s);
+  }
+  return launch_state_layers<Real, NUH1, NUH2, HYST, ICE, 0>(a, s);
 }
 
 // The instantiations: every snow variant (plain, HYST, ICE, HYST + ICE) at
-// both UH register pairs of gr4j_fused.cu.
+// both UH register pairs of gr4j_fused.cu, each at NL = 5, 1 and 0.
 template <typename Real, int NUH1, int NUH2>
 int traj_state_variant(const SnowArgs<Real>& a, bool hyst, bool ice,
                        cudaStream_t s) {

@@ -6,10 +6,10 @@
 // the kernels of _make_kernel / _make_state_kernel share around it: one
 // member's snow parameters (SnowMember, snow_init), one layer's step
 // (snow_layer_step), the arguments every snow kernel is given (SnowArgs),
-// and the all-layers step with run-time layer count whose layer states live
-// in the thread's shared-memory column (snow_state_init,
-// snow_catchment_step).  snow_fused.cu (K9, K10) and snow_objective.cu
-// (K8, K11) include this header, beside gr4j_step.cuh.
+// and the shared-memory column that holds the layer states of a run-time
+// layer count (snow_state_init; its step is column_step of
+// snow_staged.cuh, which snow_objective.cu (K8, K9, K11) and snow_fused.cu
+// (K10) include beside this header and gr4j_step.cuh).
 //
 // Exact comparisons decide the snow step's branches (th == 0, g == 0,
 // balance >= 0, g > 1, th_max > 0), and one ulp in (0.9*sca + 0.1)*pot_melt
@@ -182,64 +182,6 @@ __device__ __forceinline__ void snow_state_init(const SnowArgs<Real>& a,
   }
 }
 
-// All layers of one member, one time step: returns the GR4J precipitation
-// (layer mean of rain + melt, plus the weighted ice melt).  `state` is this
-// thread's column of the block's shared memory (layer_state_rows), rows
-// `stride` apart.
-template <typename Real, bool HYST, bool ICE, bool SCA>
-__device__ __forceinline__ Real snow_catchment_step(
-    const SnowMember<Real>& c, const SnowArgs<Real>& a, int t, Real* state,
-    int stride) {
-  const int L = a.num_layers;
-  const bool first = t == a.first_step;
-  const size_t base = (size_t)t * L;
-  Real liquid_sum = Real(0), ice_sum = Real(0);
-  for (int l = 0; l < L; ++l) {
-    Real* cell = state + (size_t)l * stride;
-    const size_t row = (size_t)L * stride;  // distance between state rows
-    Real G = cell[0], eTG = cell[row];
-    Real sca = Real(0), swe = Real(0);
-    if (HYST) {
-      sca = cell[2 * row];
-      swe = cell[3 * row];
-    }
-    const Real temp_l = __ldg(a.temp + base + l);
-    liquid_sum += snow_layer_step<Real, HYST>(
-        c, first, __ldg(a.snow + base + l), __ldg(a.rain + base + l), temp_l,
-        cell[layer_state_rows<HYST>() * row], G, eTG, sca, swe);
-    cell[0] = G;
-    cell[row] = eTG;
-    if (HYST) {
-      cell[2 * row] = sca;
-      cell[3 * row] = swe;
-    }
-    if (ICE) {
-      // Degree-day melt of the layer's glacier share; a pack above 1 mm
-      // shields the ice.
-      const Real melt = relu_nan(mul_rn(c.ddf, temp_l));
-      ice_sum += mul_rn(G > Real(1) ? Real(0) : melt,
-                        __ldg(a.frac_ice + l));
-    }
-    if (SCA) {
-      // 100 * SCA of this band against its NDSI series; a NaN in the band
-      // is a gap of that band alone.
-      const Real s100 = Real(100) * sca;
-      const Real nd = __ldg(a.ndsi + base + l);
-      if (!(a.masked && nd != nd)) {
-        Real* acc = state + ((size_t)(layer_state_rows<HYST>() + 1) * L + (size_t)4 * l) *
-                            stride;
-        const Real d = s100 - nd;
-        acc[0] += d * d;
-        acc[stride] += s100;
-        acc[2 * stride] += s100 * s100;
-        acc[3 * stride] += s100 * nd;
-      }
-    }
-  }
-  const Real p = liquid_sum / Real(L);
-  return ICE ? p + ice_sum : p;
-}
-
 // The widest block (128, 64 or 32 threads) whose layer state fits the
 // shared memory a block may use without opting in; 0 if none does.
 inline int block_for(int rows_per_layer, int num_layers, size_t real_bytes) {
@@ -249,7 +191,6 @@ inline int block_for(int rows_per_layer, int num_layers, size_t real_bytes) {
   }
   return 0;
 }
-
 
 // The arguments of one call, as the C entry points of both sources build
 // them.

@@ -217,10 +217,13 @@ def _hbv_inputs(device, dtype, T=500, N=300, gaps=False, seed=0):
     return forcings, as_t(qobs), params
 
 
-def _assert_close_nan_aware(got, want, rtol, atol):
+def _assert_close_nan_aware(got, want, rtol, atol, some_nan=True):
+    """NaN at the same places, the rest close; ``some_nan``: some but not
+    all elements are NaN."""
     nan = torch.isnan(want)
     assert torch.equal(torch.isnan(got), nan)
-    assert 0 < int(nan.sum()) < nan.numel()
+    if some_nan:
+        assert 0 < int(nan.sum()) < nan.numel()
     torch.testing.assert_close(got[~nan], want[~nan], rtol=rtol, atol=atol)
 
 
@@ -558,14 +561,22 @@ def _hbv_series(forcings):
     return temp, prec, pe_m[month], t_m[month]
 
 
+# (cold steps, warm steps, members): the long and the one-step warm
+# segment, and the edges of K10's and K14's 32-step staging and store
+# tiles (31, 33, 65 steps) and blocks (one member; a last block of one).
+STATE_SHAPES = [(300, 200, 300), (300, 1, 300), (31, 33, 1), (33, 65, 129),
+                (65, 31, 129)]
+
+
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
-@pytest.mark.parametrize("warm_len", [200, 1])
-def test_hbv_state_kernel_matches_plain(cuda, dtype, warm_len):
+@pytest.mark.parametrize("cut,warm_len,n", STATE_SHAPES)
+def test_hbv_state_kernel_matches_plain(cuda, dtype, cut, warm_len, n):
     """K14 cold, then warm from its own stores; NaN members (negative soil
     under pow) are NaN in trajectory and state, in the same positions."""
-    forcings, _, params = _hbv_inputs(cuda, dtype)
-    inits, cut = (0.0, 100.0, 3.0, 10.0), 300
+    forcings, _, params = _hbv_inputs(cuda, dtype, N=n)
+    inits = (0.0, 100.0, 3.0, 10.0)
     rtol, atol = TOL[dtype]["traj"]
+    some_nan = n >= 10          # a tenth of the members is dry
     head, tail = _hbv_cut(forcings, 0, cut), _hbv_cut(forcings, cut,
                                                       cut + warm_len)
     fg.reset_launches()
@@ -578,14 +589,15 @@ def test_hbv_state_kernel_matches_plain(cuda, dtype, warm_len):
         *_hbv_series(head), fh.pack_params(params, *inits))
     want_b, rows_b = fh.hbv_simulate_state_reference(
         *_hbv_series(tail), fh.pack_params(params, *st), True)
-    _assert_close_nan_aware(q_a, want_a, rtol, atol)
-    _assert_close_nan_aware(torch.stack(st), rows_a, rtol, atol)
-    _assert_close_nan_aware(q_b, want_b, rtol, atol)
-    _assert_close_nan_aware(torch.stack(st_b), rows_b, rtol, atol)
+    _assert_close_nan_aware(q_a, want_a, rtol, atol, some_nan)
+    _assert_close_nan_aware(torch.stack(st), rows_a, rtol, atol, some_nan)
+    _assert_close_nan_aware(q_b, want_b, rtol, atol, some_nan)
+    _assert_close_nan_aware(torch.stack(st_b), rows_b, rtol, atol, some_nan)
     full = fh.hbv_simulate_fused(*_hbv_cut(forcings, 0, cut + warm_len),
                                  *inits, params)
     _assert_close_nan_aware(torch.cat([q_a, q_b], dim=1), full,
-                            1e-9 if dtype == torch.float64 else rtol, atol)
+                            1e-9 if dtype == torch.float64 else rtol, atol,
+                            some_nan)
 
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
@@ -653,18 +665,28 @@ def _assert_snow_states_agree(got, want, rtol, atol):
         assert torch.equal(g, w)          # the snow state, bit for bit
 
 
+# (cold steps, warm steps, members): K10 over 200 steps, warm for 100 or 3
+# (shorter than the history), and the edges of its 32-step staging and
+# store tiles (31, 33, 65 steps) and blocks (one member: one warp; a last
+# block of one).
+SNOW_STATE_SHAPES = [(200, 100, 200), (200, 3, 200), (31, 33, 1),
+                     (33, 65, 129), (65, 31, 129)]
+
+
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
-@pytest.mark.parametrize("L", [1, 5])
+@pytest.mark.parametrize("L", [1, 2, 5])
 @pytest.mark.parametrize("variant", list(STATE_VARIANTS))
-@pytest.mark.parametrize("warm_len", [100, 3])
-def test_snow_state_kernel_matches_plain(cuda, dtype, L, variant, warm_len):
-    """K10 cold over 200 steps, then warm from its own bundle (per-member
-    layer constants of the first segment, passed through unchanged)."""
+@pytest.mark.parametrize("cut,warm_len,n", SNOW_STATE_SHAPES)
+def test_snow_state_kernel_matches_plain(cuda, dtype, L, variant, cut,
+                                         warm_len, n):
+    """K10 cold over ``cut`` steps, then warm from its own bundle (per-member
+    layer constants of the first segment, passed through unchanged); L = 1
+    and 5 keep the layer states in registers, L = 2 in shared memory."""
     hyst, ice, _, uh = STATE_VARIANTS[variant]
     layers, etp, _, _, frac_ice, params = _snow_inputs(
-        cuda, dtype, L, 2.9 if uh == (3, 7) else 9.9)
+        cuda, dtype, L, 2.9 if uh == (3, 7) else 9.9,
+        T=max(300, cut + warm_len), N=n)
     rtol, atol = TOL[dtype]["traj"]
-    cut = 200
     head = [x[:cut].contiguous() for x in layers]
     tail = [x[cut:cut + warm_len].contiguous() for x in layers]
     fg.reset_launches()

@@ -5,7 +5,7 @@ As ``tests/test_torch_warm_kernels.py``: inputs from a numpy seed, the Pallas
 kernel in interpret mode, the port's wrapper on CPU tensors (its kernel's
 plain PyTorch version), one state -- produced by the JAX kernel -- handed to
 both.  All four variants (plain, hysteresis, ice, hysteresis + ice) at one
-and three elevation layers.  float64; trajectories, every state row and the
+and three elevation layers, and hysteresis + ice at five.  float64; trajectories, every state row and the
 objectives agree to ``rtol=1e-9, atol=1e-11``, the plain version agrees with
 the port's sequential warm compositions to ``1e-10``, and the layer
 constants of the original series pass through a continuation unchanged.
@@ -99,8 +99,13 @@ def _pallas_state(args, params, state=None, **kw):
         *args, params, state=state, t_tile=8, interpret=True, **inits, **kw)
 
 
-@pytest.mark.parametrize("L", [1, 3])
-@pytest.mark.parametrize("variant", sorted(VARIANTS))
+# Every variant at one and three layers, and hysteresis + ice at five, the
+# layer count whose states the CUDA kernel keeps in registers.
+STATE_CASES = [(variant, L) for L in (1, 3) for variant in sorted(VARIANTS)]
+STATE_CASES.append(("hyst+ice", 5))
+
+
+@pytest.mark.parametrize("variant,L", STATE_CASES)
 def test_snow_state_plain_matches_pallas_cold_and_warm(variant, L):
     case = _Case(L, seed=L)
     jax_kw, torch_kw = case.kw(variant)
