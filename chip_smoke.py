@@ -33,11 +33,15 @@ Phases, in order (each prints its lines; any failure exits non-zero):
                   (K4, K14, K10: trajectories and every state row, cold and
                   warm; K10 at 1, 2, 5 and 7 layers, its snow rows bit for
                   bit; K10 and K14 also at T = 1, 31, 32, 33, 65 and 128
-                  around their 32-step staging and store tiles, cold and
-                  then warm from their own state (at T = 1 a warm segment
-                  shorter than the history), N = 1, 129 and 200, K10 at 2
-                  and 5 layers, plain and hysteresis + ice, K14 with NaN
-                  members) and
+                  around K10's 32-step staging and store tiles, K4 also at
+                  T = 1, 63, 64, 65 and 128 around its 64-step ones, cold
+                  and then warm from their own state (at T = 1 a warm
+                  segment shorter than the history), N = 1, 129 and 200
+                  (K4's split kernel; its tile kernel at 8449 and 8520),
+                  K4 at both UH register pairs, K10 at 2 and 5 layers,
+                  plain and hysteresis + ice, K14 with NaN members; K13 at
+                  K4's edges on the MATLAB forcing with NaN members, and
+                  K13 against K14's cold entry bit for bit) and
                   the warm entry of the
                   objectives (K1/K2, K12, K8, with and without gaps), and in
                   float64 a split run against the unbroken one; then the
@@ -98,18 +102,20 @@ Phases, in order (each prints its lines; any failure exits non-zero):
                   forecast path's shapes (the one-member spin-up over 1462
                   days x 5 layers and 3287 days, the 131072-member
                   continuation of 365 days), and the SASS of their time
-                  loops.
+                  loops; K4 also at its forecast shapes (the one-member
+                  spin-up over 12053 CAMELS days and the 131072-member
+                  continuation of 365 days, UH (10, 21)).
 
 ``--phases a,b`` (development) runs only the named phases after the build:
 kernels, golden, main, forecast, regional, times; the result lines need them
 all.  ``--compare DIR[,DIR...]`` (development) builds the kernel sources in
 each DIR (another version's ``rrmpg_tpu_torch/csrc``) beside this
-checkout's, times K1, K2, K5, K8, K9, K10, K11, K12, K13 and K14 (and K3,
-K4, which share a source with them; K10 and K14 also at the forecast path's
-shapes) of both in turns with the largest output difference between the
-builds, and holds K1/K2, K5/K9 and K10/K14 (trajectories and every state
-row) of both to each other bit for bit on the goldens and edge inputs; it
-exits 3.
+checkout's, times K1, K2, K4, K5, K8, K9, K10, K11, K12, K13 and K14 (and
+K3, which shares a source with them; K4, K10 and K14 also at the forecast
+path's shapes) of both in turns with the largest output difference between
+the builds, and holds K1/K2, K5/K9, K10/K14 and K4/K13 (trajectories and
+every state row) of both to each other bit for bit on the goldens and edge
+inputs; it exits 3.
 
 The last two lines are a JSON object describing the kernels and the
 result line ``{"ok": true, "device": {...}}``.
@@ -252,6 +258,9 @@ TRAJ_EDGE_MEMBERS = (200, 129)
 # (K10: a block of one warp), and last blocks of 1 and of 72 members.
 STATE_EDGE_STEPS = (1, 31, 32, 33, 65, 128)
 STATE_EDGE_MEMBERS = (1, 129, 200)
+# K4's and K13's edges: one step (K4 warm: shorter than the history), around
+# and at their 64-step staging and store tiles, two whole tiles.
+TILE64_EDGE_STEPS = (1, 63, 64, 65, 128)
 # The forecast path's one-member spin-ups: the hysteresis + ice sheet's 1827
 # days and the MATLAB HBV-Edu record's 3652, each less the last 365.
 SNOW_SPINUP_DAYS = 1827 - FORECAST_DAYS
@@ -572,15 +581,20 @@ def snow_rows(state):
     return torch.cat([gr4j_rows(state.gr4j)] + [leaf.T for leaf in state.snow])
 
 
-def gr4j_state_pair(fg, prec, etp, params, state, uh, inits=(0.0, 0.0)):
-    """K4 and its plain version: ((q, q_plain), (rows, rows_plain))."""
-    n1, n2 = uh
-    got_q, got_st = fg.gr4j_simulate_state_fused(prec, etp, params, state,
-                                                 *inits, n1, n2)
+def gr4j_state_plain(fg, prec, etp, params, state, uh, inits=(0.0, 0.0)):
+    """The plain version of K4 on the same inputs: (q, (2 + H, N) rows)."""
     packed = fg.pack_params(params, *inits, state)
-    hist = None if state is None else fg.history_rows(state, n2, prec)
-    want_q, want_rows = fg.gr4j_simulate_state_reference(prec, etp, packed,
-                                                         hist, n1, n2)
+    hist = None if state is None else fg.history_rows(state, uh[1], prec)
+    return fg.gr4j_simulate_state_reference(prec, etp, packed, hist, *uh)
+
+
+def gr4j_state_pair(fg, prec, etp, params, state, uh, inits=(0.0, 0.0)):
+    """K4 and its plain version: the kernel's final state, then
+    ((q, q_plain), (rows, rows_plain))."""
+    got_q, got_st = fg.gr4j_simulate_state_fused(prec, etp, params, state,
+                                                 *inits, *uh)
+    want_q, want_rows = gr4j_state_plain(fg, prec, etp, params, state, uh,
+                                         inits)
     return got_st, (got_q, want_q), (gr4j_rows(got_st), want_rows)
 
 
@@ -1236,8 +1250,11 @@ def phase_kernels_state_hbv(forcing, qobs_np, n=1000, warm_len=1000):
                        f"{'+masked' if masked else ''}", got, want,
                        *tol["obj"], nan_ok=True)
                 n_checks += 1
+        full = fh.hbv_simulate_fused(*tensors, *HBV_INITS, params)
+        check(bits_equal(full[:, :cut], traj[0]),
+              f"hbv {name}: K13 and K14's cold entry differ in a bit")
+        n_checks += 1
         if dtype == F64:
-            full = fh.hbv_simulate_fused(*tensors, *HBV_INITS, params)
             report(f"hbv {name} split K14 + K14 vs unbroken K13",
                    torch.cat([traj[0], traj_b[0]], dim=1), full, 1e-9, 1e-12,
                    nan_ok=True)
@@ -1322,25 +1339,94 @@ def phase_kernels_state_snow(n=256, t_len=300, warm_len=100):
     check(unequal == 0, "K10's snow state differs from the plain version")
 
 
-def state_edge_checks(forcing):
-    """K10 and K14 around their 32-step staging and store tiles and their
-    blocks: cold over T steps, then warm over the next T from the kernel's
-    own state (at T = 1 shorter than the history, H = 6 or 20), T in
-    STATE_EDGE_STEPS, N in STATE_EDGE_MEMBERS (one member runs K10 in a
-    block of one warp); K10 at 2 and 5 layers (shared columns and
-    registers), the plain and the hysteresis + ice variant (phase 3's
-    other checks and the CUDA tests take the other two to these edges) at
-    both UH register pairs, its snow rows bit for bit; K14 on the MATLAB
-    forcing with NaN members (a tenth of them, at least one, dry); float64
-    and float32."""
+def k4_kernels_agree(fg, head, tail, params, state, uh, q, rows, q_b,
+                     rows_b):
+    """K4's split kernel on all but the last of ``params``' members
+    (fg.traj_split_members() of them), cold over ``head`` and warm over
+    ``tail`` from ``state``, against the tile kernel's outputs for all of
+    them (``q``, ``rows``, ``q_b``, ``rows_b``): equal bit for bit.
+    Returns the number of checks."""
+    n = fg.traj_split_members()
+    some = {k: v[:n] for k, v in params.items()}
+    q_s, st_s = fg.gr4j_simulate_state_fused(*head, some, None, 0.4, 0.3,
+                                             *uh)
+    q_sb, st_sb = fg.gr4j_simulate_state_fused(
+        *tail, some, type(state)(*(leaf[:n] for leaf in state)), 0.0, 0.0,
+        *uh)
+    same = all(bits_equal(a, b) for a, b in (
+        (q_s, q[:n]), (gr4j_rows(st_s), rows[:, :n]), (q_sb, q_b[:n]),
+        (gr4j_rows(st_sb), rows_b[:, :n])))
+    check(same, f"K4's split and tile kernels differ in a bit (uh={uh}, "
+          f"T={head[0].shape[0]})")
+    return 1
+
+
+def state_edge_checks(forcing, prec_np, etp_np):
+    """The trajectory kernels around their staging and store tiles and
+    their blocks, N in STATE_EDGE_MEMBERS (one member runs K10 in a block of
+    one warp), float64 and float32.  K10 and K14: cold over T steps, then
+    warm over the next T from the kernel's own state (at T = 1 shorter than
+    the history, H = 6 or 20), T in STATE_EDGE_STEPS; K10 at 2 and 5 layers
+    (shared columns and registers), the plain and the hysteresis + ice
+    variant (phase 3's other checks and the CUDA tests take the other two to
+    these edges) at both UH register pairs, its snow rows bit for bit; K14
+    on the MATLAB forcing with NaN members (a tenth of them, at least one,
+    dry).  K4 in the same way on CAMELS 01031500 (days with p == e among
+    them) at both UH register pairs, its split kernel at N in
+    STATE_EDGE_MEMBERS (blocks of 64 members: last blocks of 1 and 8) and
+    its tile kernel one and 72 members past fg.traj_split_members() (last
+    blocks of 1 and 72), and K13 cold on the MATLAB forcing with NaN
+    members, bit for bit K14's cold entry, T in TILE64_EDGE_STEPS."""
     from rrmpg_tpu_torch.ops import fused_gr4j as fg
     from rrmpg_tpu_torch.ops import fused_hbv as fh
     from rrmpg_tpu_torch.ops import fused_snow as fs
 
     n_checks, unequal = 0, 0
+    k4_sizes = STATE_EDGE_MEMBERS + (fg.traj_split_members() + 1,
+                                     fg.traj_split_members() + 72)
     for dtype in (F64, F32):
         tol, name = TOL[dtype]["traj"], str(dtype)[6:]
         tensors = hbv_tensors(forcing, dtype)
+        for t_len in TILE64_EDGE_STEPS:
+            prec, etp = (as_tensor(a[:2 * t_len], dtype)
+                         for a in (prec_np, etp_np))
+            head = (prec[:t_len].contiguous(), etp[:t_len].contiguous())
+            tail = (prec[t_len:].contiguous(), etp[t_len:].contiguous())
+            hbv_head = hbv_cut(tensors, 0, t_len)
+            for n in k4_sizes:
+                for uh in fg.SUPPORTED_UH:
+                    params = gr4j_random_params(
+                        np.random.default_rng(n + uh[0]), n,
+                        2.9 if uh[0] == 3 else BOUNDS_X4_WIDE, dtype)
+                    state, traj, rows = gr4j_state_pair(
+                        fg, *head, params, None, uh, (0.4, 0.3))
+                    _, traj_b, rows_b = gr4j_state_pair(fg, *tail, params,
+                                                        state, uh)
+                    for what, pair in (("cold traj", traj),
+                                       ("cold state rows", rows),
+                                       ("warm traj", traj_b),
+                                       ("warm state rows", rows_b)):
+                        report(f"gr4j {name} K4 T={t_len} N={n} uh={uh} "
+                               f"{what}", *pair, *tol)
+                        n_checks += 1
+                    if n == k4_sizes[-2]:
+                        # The split kernel's members are the tile kernel's
+                        # bit for bit.
+                        n_checks += k4_kernels_agree(
+                            fg, head, tail, params, state, uh, traj[0],
+                            rows[0], traj_b[0], rows_b[0])
+            for n in STATE_EDGE_MEMBERS:
+                params = hbv_random_params(np.random.default_rng(n), n, dtype,
+                                           n_dry=max(1, n // 10))
+                args = (fh, hbv_head, None, params, "traj")
+                got = hbv_kernel(*args)
+                report(f"hbv {name} K13 T={t_len} N={n} traj", got,
+                       hbv_plain(*args), *tol, nan_ok=True)
+                check(bits_equal(got, hbv_state_kernel(fh, hbv_head, params,
+                                                       None)[0]),
+                      f"hbv {name} T={t_len} N={n}: K13 and K14's cold "
+                      "entry differ in a bit")
+                n_checks += 2
         for t_len in STATE_EDGE_STEPS:
             head = hbv_cut(tensors, 0, t_len)
             tail = hbv_cut(tensors, t_len, 2 * t_len)
@@ -1383,10 +1469,13 @@ def state_edge_checks(forcing):
                                 n_checks += 1
                             unequal += (snow_bits_unequal(got, want)
                                         + snow_bits_unequal(got_b, want_b))
-    print(f"[3 kernels] K10 and K14 tile and block edges: {n_checks} "
-          f"kernel-vs-plain checks passed at T in {STATE_EDGE_STEPS} cold "
-          f"+ as many warm, N in {STATE_EDGE_MEMBERS}, K10 at L in (2, 5), "
-          f"plain and hyst+ice; "
+    print(f"[3 kernels] K4, K10, K13 and K14 tile and block edges: "
+          f"{n_checks} checks passed at T in {STATE_EDGE_STEPS} (K10, K14) "
+          f"and {TILE64_EDGE_STEPS} (K4, K13) cold + as many warm, N in "
+          f"{STATE_EDGE_MEMBERS} (K4 also {k4_sizes[-2:]}: its split "
+          f"kernel bit for bit its tile kernel), K10 at L in "
+          f"(2, 5), plain and hyst+ice, "
+          f"K13 bit for bit K14 cold; "
           f"K10 snow state elements that differ from the plain version in "
           f"any bit: {unequal}")
     check(unequal == 0, "K10's snow state differs from the plain version at "
@@ -2682,23 +2771,52 @@ def snow_time_inputs(n, t_len, num_layers):
 
 
 def forecast_shape_calls(forcing):
-    """K10 and K14 at the forecast path's shapes: the one-member cold
-    spin-up with its final state (snow: SNOW_SPINUP_DAYS x 5 layers,
-    hysteresis + ice, UH FORECAST_UH, from the bench recipe; HBV-Edu: the
-    first HBV_SPINUP_DAYS MATLAB days) and the 131072-member warm
-    continuation of FORECAST_DAYS from a carried state (the state a cold run
-    over as many days before ends in).  Returns {name: (call, plain call,
-    operations, bytes, description)}."""
+    """K4, K10 and K14 at the forecast path's shapes: the one-member cold
+    spin-up with its final state (GR4J: all but the last FORECAST_DAYS of
+    CAMELS 01031500, UH (10, 21), as the class simulates; snow:
+    SNOW_SPINUP_DAYS x 5 layers, hysteresis + ice, UH FORECAST_UH, from the
+    bench recipe; HBV-Edu: the first HBV_SPINUP_DAYS MATLAB days) and the
+    131072-member warm continuation of FORECAST_DAYS from a carried state
+    (the state a cold run over as many days before ends in).  Returns
+    {name: (call, plain call, operations, bytes, description)}."""
+    from rrmpg_tpu_torch.ops import fused_gr4j as fg
     from rrmpg_tpu_torch.ops import fused_hbv as fh
     from rrmpg_tpu_torch.ops import fused_snow as fs
 
     n, t_warm, num_layers, uh = MC_MEMBERS, FORECAST_DAYS, 5, FORECAST_UH
     h = uh[1] - 1
+    calls = {}
+    _, prec_np, etp_np = basin()
+    prec, etp = (as_tensor(a, F32) for a in (prec_np, etp_np))
+    t_spin = prec.shape[0] - t_warm
+    spin = (prec[:t_spin].contiguous(), etp[:t_spin].contiguous())
+    gr4j_one = gr4j_random_params(np.random.default_rng(5), 1, 2.9, F32)
+    calls["gr4j_traj_state_spinup"] = (
+        lambda: fg.gr4j_simulate_state_fused(*spin, gr4j_one, None, 0.3, 0.3,
+                                             *uh)[0],
+        lambda: gr4j_state_plain(fg, *spin, gr4j_one, None, uh,
+                                 (0.3, 0.3))[0],
+        GR4J_STEP_OPS[uh] * t_spin,
+        4 * (2 * t_spin + 6 + t_spin + 2 + h), f"spin-up uh={uh} N=1 "
+        f"T={t_spin}")
+    before = (prec[t_spin - t_warm:t_spin].contiguous(),
+              etp[t_spin - t_warm:t_spin].contiguous())
+    last = (prec[t_spin:].contiguous(), etp[t_spin:].contiguous())
+    gr4j_members = gr4j_random_params(np.random.default_rng(6), n, 2.9, F32)
+    _, gr4j_state = fg.gr4j_simulate_state_fused(*before, gr4j_members, None,
+                                                 0.3, 0.3, *uh)
+    calls["gr4j_traj_state_continuation"] = (
+        lambda: fg.gr4j_simulate_state_fused(*last, gr4j_members, gr4j_state,
+                                             num_uh1=uh[0],
+                                             num_uh2=uh[1])[0],
+        lambda: gr4j_state_plain(fg, *last, gr4j_members, gr4j_state, uh)[0],
+        GR4J_STEP_OPS[uh] * n * t_warm,
+        4 * (2 * t_warm + (6 + h) * n + n * t_warm + (2 + h) * n),
+        f"continuation uh={uh} N={n} T={t_warm}")
     kw = dict(hyst=True, ice=True, uh=uh, inits=(0.0, 0.0, 0.3, 0.3))
     snow_step = (num_layers * (SNOW_LAYER_OPS[True] + SNOW_ICE_OPS + 1) + 2
                  + GR4J_STEP_OPS[uh])
     rows = 2 + h + 4 * num_layers        # K10's state rows per member
-    calls = {}
     t_spin = SNOW_SPINUP_DAYS
     d_spin, p_spin = snow_time_inputs(1, t_spin, num_layers)
     calls["snow_traj_state_spinup"] = (
@@ -2844,7 +2962,9 @@ SASS_CLASSES = (
 # (5 layers), with the template arguments of its earlier design (no layer
 # count), which --compare may build; K10 at the bench shape (5 layers in
 # registers and the run-time count) and the forecast path's (UH (10, 21)),
-# and in its earlier design (no layer count); K13 and K14.
+# and in its earlier design (no layer count); K13 and K14 (one body, the
+# template arguments of their earlier design); K4 at both UH register pairs
+# and its split kernel at the forecast spin-up's (10, 21).
 SASS_TARGETS = (
     ("snow_objective_kernel", "float, 3, 7, true, true, false, false, 5"),
     ("snow_objective_kernel", "float, 3, 7, true, true, false, true, 5"),
@@ -2878,6 +2998,9 @@ SASS_TARGETS = (
     ("snow_traj_state_kernel", "float, 10, 21, true, true"),
     ("hbv_traj_kernel", "float"),
     ("hbv_traj_state_kernel", "float"),
+    ("gr4j_traj_state_kernel", "float, 10, 21"),
+    ("gr4j_traj_state_kernel", "float, 3, 7"),
+    ("gr4j_traj_state_split_kernel", "float, 10, 21"),
 )
 # Probes of what one operation costs in SASS (each minus probe_add).
 PROBE_SRC = r"""
@@ -2899,6 +3022,8 @@ GR4J_SWEEP_SMALL = (2112, 4224, 8448)
 # The times of a fit generation's shape, carried in the kernels line.
 # The times of the forecast path's shapes, carried in the kernels line.
 FORECAST_SHAPE_ROWS = {
+    "gr4j_traj_state": ("gr4j_traj_state_spinup",
+                        "gr4j_traj_state_continuation"),
     "snow_traj_state": ("snow_traj_state_spinup",
                         "snow_traj_state_continuation"),
     "hbv_traj_state": ("hbv_traj_state_spinup",
@@ -3178,6 +3303,12 @@ def output_difference(got, want):
     same = bool(torch.equal(nan_got, nan_want)) and bool(
         torch.equal(got[both], want[both]))
     return diff, same
+
+
+def bits_equal(got, want):
+    """Whether two tensors are equal element for element, NaN where the
+    other has NaN."""
+    return output_difference(got, want)[1]
 
 
 def gr4j_bench_calls():
@@ -3494,6 +3625,96 @@ def k10_k14_equality_calls(forcing):
     return calls
 
 
+def k4_k13_equality_calls(forcing):
+    """K4 and K13 calls on which two builds must agree bit for bit, float64
+    and float32, each returning its trajectories and state rows as one
+    tensor.  K4 (the same arithmetic in both builds): a cold run over the
+    first part and a warm run over the rest from its state, on the Excel
+    GR4J sheet (its golden parameters among 255 random members: the split
+    kernel) and the whole CAMELS 01031500 record (37 days with p == e; also
+    with one member more than the split kernel takes), split at half, and
+    at T = 40 split at 37 (a warm segment shorter than the history), both
+    UH register pairs; cold on edge inputs (300 steps, every seventh with
+    p == e): NaN forcing at two steps, an inf and a NaN initial store.  K13
+    on the MATLAB record (its golden parameters among 199 random members, a
+    tenth of them dry and NaN) and at T = 65, N = 1: bit-equal in float64;
+    in float32 a build before K13 took the float32 soil power differs.
+    Returns {name: call}."""
+    import pandas as pd
+    from rrmpg_tpu_torch.ops import fused_gr4j as fg
+    from rrmpg_tpu_torch.ops import fused_hbv as fh
+
+    def k4(prec, etp, params, uh, inits):
+        q, st = fg.gr4j_simulate_state_fused(prec, etp, params, None, *inits,
+                                             *uh)
+        return flat(q, st)
+
+    def chained(prec, etp, params, uh, split):
+        head = (prec[:split].contiguous(), etp[:split].contiguous())
+        tail = (prec[split:].contiguous(), etp[split:].contiguous())
+
+        def call():
+            q_a, st = fg.gr4j_simulate_state_fused(*head, params, None, 0.6,
+                                                   0.7, *uh)
+            q_b, st_b = fg.gr4j_simulate_state_fused(*tail, params, st, 0.0,
+                                                     0.0, *uh)
+            return torch.cat([flat(q_a, st), flat(q_b, st_b)])
+        return call
+
+    sheet = pd.read_csv(REPO / "tests" / "data" / "gr4j_example_data.csv")
+    records = {"excel": (sheet.prec.to_numpy(), sheet.etp.to_numpy()),
+               "camels": tuple(basin()[k] for k in (1, 2))}
+    rng = np.random.default_rng(7)
+    edge_p = rng.uniform(0, 15, 300)
+    edge_e = rng.uniform(0, 4, 300)
+    edge_e[::7] = edge_p[::7]
+    calls = {}
+    for dtype in (F64, F32):
+        name = str(dtype)[6:]
+        for uh in fg.SUPPORTED_UH:
+            params = gr4j_random_params(np.random.default_rng(uh[0]), 256,
+                                        2.9 if uh[0] == 3 else
+                                        BOUNDS_X4_WIDE, dtype)
+            for k, v in GR4J_GOLDEN.items():
+                params[k][0] = v
+            many = gr4j_random_params(np.random.default_rng(uh[1]),
+                                      fg.traj_split_members() + 1,
+                                      2.9 if uh[0] == 3 else BOUNDS_X4_WIDE,
+                                      dtype)
+            for record, (p, e) in records.items():
+                p, e = as_tensor(p, dtype), as_tensor(e, dtype)
+                calls[f"K4 {record} {name} uh={uh}"] = chained(
+                    p, e, params, uh, p.shape[0] // 2)
+                if record == "camels":
+                    calls[f"K4 T=37+3 {name} uh={uh}"] = chained(
+                        p[:40], e[:40], params, uh, 37)
+                    calls[f"K4 {record} N={many['x1'].shape[0]} {name} "
+                          f"uh={uh}"] = chained(p, e, many, uh,
+                                                p.shape[0] // 2)
+            p, e = as_tensor(edge_p, dtype), as_tensor(edge_e, dtype)
+            nan_p, nan_e = p.clone(), e.clone()
+            nan_p[100] = torch.nan
+            nan_e[200] = torch.nan
+            for label, forcing_pe, s_init in (
+                    ("p == e", (p, e), 0.4),
+                    ("NaN forcing", (nan_p, nan_e), 0.4),
+                    ("inf store", (p, e), float("inf")),
+                    ("NaN store", (p, e), float("nan"))):
+                calls[f"K4 edge {label} {name} uh={uh}"] = functools.partial(
+                    k4, *forcing_pe, params, uh, (s_init, 0.3))
+        tensors = hbv_tensors(forcing, dtype)
+        params = hbv_random_params(np.random.default_rng(11), 200, dtype,
+                                   n_dry=20)
+        for k, v in HBV_GOLDEN.items():
+            params[k][-1] = v
+        calls[f"K13 MATLAB {name}"] = functools.partial(
+            hbv_kernel, fh, tensors, None, params, "traj")
+        one = hbv_random_params(np.random.default_rng(12), 1, dtype)
+        calls[f"K13 T=65 N=1 {name}"] = functools.partial(
+            hbv_kernel, fh, hbv_cut(tensors, 0, 65), None, one, "traj")
+    return calls
+
+
 def sass_by_kernel(path):
     """{kernel<template arguments>: [(opcode, operands)]} of a library."""
     out = {}
@@ -3540,16 +3761,16 @@ def regional_snow_bench_call():
 def phase_compare(card, other_dirs, forcing, qsim_matlab):
     """Development: build the kernel sources in each of ``other_dirs``
     (another version's ``rrmpg_tpu_torch/csrc``) beside this checkout's,
-    and time K1, K2, K5, K8, K9, K10, K11, K12, K13 and K14 of each against
-    this one's in turns (other, this, this, other) at the bench shapes (K5
-    also over the main path's record, K9 also at GLUE's shape, K10 and K14
-    also at the forecast path's shapes), K1, K2, K8 and K12 at the fit
-    shapes and over SWEEP_MEMBERS, and K3, K4 (which share a source) at
-    their bench shapes, with the largest output difference between the two
+    and time K1, K2, K4, K5, K8, K9, K10, K11, K12, K13 and K14 of each
+    against this one's in turns (other, this, this, other) at the bench
+    shapes (K5 also over the main path's record, K9 also at GLUE's shape,
+    K4, K10 and K14 also at the forecast path's shapes), K1, K2, K8 and K12
+    at the fit shapes and over SWEEP_MEMBERS, and K3 (which shares a source)
+    at its bench shape, with the largest output difference between the two
     builds for each timed call, the SASS of the time loops, the
     instantiations whose SASS differs and the registers that differ; then
-    K1/K2, K5/K9 and K10/K14 of both builds on the goldens and edge inputs,
-    bit for bit.  Times only: the kernels phase checks this checkout's
+    K1/K2, K5/K9, K10/K14 and K4/K13 of both builds on the goldens and edge
+    inputs, bit for bit.  Times only: the kernels phase checks this checkout's
     kernels."""
     from rrmpg_tpu_torch.ops._build import BUILD_DIR, build_library, \
         load_library
@@ -3633,7 +3854,8 @@ def phase_compare(card, other_dirs, forcing, qsim_matlab):
     turns("snow_sca_stats", sca, 3, f"N={n} T={t_len}")
     for family, calls in (("K1/K2", gr4j_equality_calls()),
                           ("K5/K9", k5_k9_equality_calls()),
-                          ("K10/K14", k10_k14_equality_calls(forcing))):
+                          ("K10/K14", k10_k14_equality_calls(forcing)),
+                          ("K4/K13", k4_k13_equality_calls(forcing))):
         for label, lib in others:
             unequal = []
             for name, fn in calls.items():
@@ -3917,9 +4139,9 @@ def main():
                         help="development: the phases to run after the "
                         "build, of " + ", ".join(PHASES))
     parser.add_argument("--compare", metavar="DIR[,DIR...]",
-                        help="development: time K1, K2, K5, K8-K14 built "
-                        "from the kernel sources in each DIR against this "
-                        "checkout's, in turns, then stop")
+                        help="development: time K1, K2, K4, K5, K8-K14 "
+                        "built from the kernel sources in each DIR against "
+                        "this checkout's, in turns, then stop")
     args = parser.parse_args()
     phases = set(args.phases.split(","))
     check(phases <= set(PHASES), f"unknown phase in {sorted(phases)}")
@@ -3946,7 +4168,7 @@ def main():
         phase_kernels_state_gr4j(prec, etp, qobs)
         phase_kernels_state_hbv(forcing, qsim_matlab)
         phase_kernels_state_snow()
-        state_edge_checks(forcing)
+        state_edge_checks(forcing, prec, etp)
         lap("the state kernels and warm objectives against theirs")
         phase_kernels_regional(prec, etp, qobs)
         lap("the regional kernels against theirs")

@@ -6,6 +6,7 @@
 //       (both as gr4j_objective_split_kernel for small ensembles)
 //   K3  _traj_kernel   (gr4j_simulate_pallas)                 -> gr4j_traj_kernel
 //   K4  _traj_final_kernel (gr4j_simulate_pallas_state)       -> gr4j_traj_state_kernel
+//       (as gr4j_traj_state_split_kernel for small ensembles)
 //   K5  gr4j_regional_mse_pallas (the K1/K2 body over a third,
 //       catchment grid axis)                                  -> gr4j_regional_kernel
 // and the `warm` mode of K1/K2 (state=): the objective kernels enter from a
@@ -28,10 +29,11 @@
 // for the whole time loop (the UH lengths are template constants, so every
 // register index is a compile-time constant after unrolling and nothing
 // spills to local memory).  Latency is hidden by running many members per
-// SM; the forcing reads of K3/K4 go through __ldg, which the warp serves as
-// one broadcast.  The objective accumulates in registers.  K3's per-step
-// stores stride across members (row-major (N, T)); that is left as it is
-// for now.
+// SM.  The objective accumulates in registers.  K3 still reads its forcing
+// through __ldg (one broadcast a warp) and stores one step at a time across
+// members (row-major (N, T)): a warp's 32 stores of one step land T values
+// apart, 32 sectors for 128 useful bytes, and bind it (~12.6 ms of stores
+// behind ~3 ms of compute at 131072 x 3651).
 //
 // K1/K2 were redesigned for this card (PERF.md section 6).  At 131072
 // members they are bound by the SMs' issue rate, at a calibration's 60 by
@@ -53,6 +55,19 @@
 // (10, 21) MSE: 80 -> 86) and their time.  Its launches hold C x N threads
 // (8 x 131072 on every path), where the SMs' issue binds, so the split
 // kernel of small ensembles is not carried over.
+//
+// K4 was redesigned for this card too (PERF.md section 6).  It stages its
+// forcing as K1/K2 do, takes one production arm a step, and gathers each
+// 64-step tile of its (N, T) trajectory in shared memory, as K14 does: each
+// thread writes its member's discharge of the tile into its row of a
+// [member][step] tile (rows kTrajTile + 1 values apart, so one step's writes
+// fall in 32 banks), and after the tile's barrier each warp copies whole
+// member rows to device memory, its lanes on consecutive steps (one 256-byte
+// run a member and tile in float32).  Its time loop, traj_body, takes a
+// compile-time STATE flag, so that K3 can run it without the state rows.
+// Small ensembles (a forecast's one-member spin-up) run the production and
+// the routing halves in different warps, as K1/K2's do
+// (gr4j_traj_state_split_kernel).
 //
 // Unlike the TPU kernels there is no (8, 128) member tiling, no padding of
 // N or T and no time-tile grid: the kernel masks i < N itself and loops to
@@ -84,6 +99,19 @@ constexpr int kTile = 64;
 constexpr int kSplitMembers = 33792;
 constexpr int kSplitTile = 32;
 
+// K4: steps per staged tile of forcing and per tile of discharge stores
+// (64 beat 32 by 4 % on the H100, PERF.md section 6).
+constexpr int kTrajTile = 64;
+// K4 with production and routing split between warps: ensembles of at most
+// kTrajSplitMembers members, one block of 64 a SM (measured on the H100:
+// 0.54-0.63 of the tile kernel's time up to 8448 members at T = 3651 and
+// at the one-member spin-up, 1.74 times it at 33792, where the split
+// kernel's per-step stores across members bind; PERF.md section 6).
+constexpr int kTrajSplitMembers = 8448;
+// Shared memory a block may use without opting in, and after (H100: 227 KB).
+constexpr size_t kSharedLimit = 48 * 1024;
+constexpr size_t kSharedOptIn = 232448;
+
 // K3: (N, T) discharge trajectories, row-major.
 template <typename Real, int NUH1, int NUH2>
 __global__ void __launch_bounds__(kBlock)
@@ -100,11 +128,121 @@ gr4j_traj_kernel(const Real* __restrict__ prec, const Real* __restrict__ etp,
   }
 }
 
+// Copy steps [t0, t0 + steps) of prec and etp into the [p, e] records of
+// `buf`, consecutive threads on consecutive steps.
+template <typename Real>
+__device__ __forceinline__ void stage_records(Real (*buf)[2],
+                                              const Real* prec,
+                                              const Real* etp, int t0,
+                                              int steps) {
+  for (int s = threadIdx.x; s < steps; s += blockDim.x) {
+    copy_async(&buf[s][0], prec + t0 + s);
+    copy_async(&buf[s][1], etp + t0 + s);
+  }
+}
+
+// The trajectory time loop: (N, T) discharge, row-major.  The forcing
+// arrives kTrajTile steps at a time, copied by the whole block into shared
+// memory with cp.async, double-buffered, so no device read sits on the
+// recurrence; a step takes one production arm (gr4j_production, the two-arm
+// step's values).  Each thread writes its member's discharge of the tile
+// into its row of the [member][step] tile; after the tile's barrier each
+// warp copies whole member rows of it to device memory, its lanes on
+// consecutive steps.  Dynamic shared memory: [2][kTrajTile][2] staging,
+// then the [kBlock][kTrajTile + 1] discharge tile.  Every thread takes part
+// in the copies and barriers; threads past N run the last member and write
+// nothing.
+//
+// STATE (K4): the registers enter cold (hist == nullptr) or from a carried
+// routing-input history, and fstate receives the (2 + H, N) state rows
+// [s, r, hist(H)].  The final history is the last H values of [incoming
+// history or zeros | p_r[0..T)]: the p_r of the last H steps, each written
+// to its row as it is computed (one coalesced row a step across the block's
+// members); a segment shorter than H keeps the tail of the incoming rows.
+// GR4J has no initialization step, so a cold start's first step is an
+// ordinary one and the loop carries no first-step test.  Without STATE
+// nothing reads hist or writes fstate.
+template <typename Real, int NUH1, int NUH2, bool STATE>
+__device__ __forceinline__ void traj_body(const Real* __restrict__ prec,
+                                          const Real* __restrict__ etp,
+                                          const Real* __restrict__ params,
+                                          const Real* __restrict__ hist,
+                                          int n, int t_len,
+                                          Real* __restrict__ out,
+                                          Real* __restrict__ fstate) {
+  constexpr int kPitch = kTrajTile + 1;  // values between two members' rows
+  extern __shared__ __align__(16) unsigned char gr4j_shared[];
+  auto stage = reinterpret_cast<Real(*)[kTrajTile][2]>(gr4j_shared);
+  Real* q_tile = &stage[2][0][0];
+  Real* q_row = q_tile + threadIdx.x * kPitch;
+  const int first_member = blockIdx.x * blockDim.x;
+  const int i = first_member + threadIdx.x;
+  const int im = min(i, n - 1);  // past N: the last member, unwritten
+  Member<Real, NUH1, NUH2> m;
+  gr4j_init(m, params, n, im, STATE ? hist : nullptr);
+
+  // K4: row k of this member's state at state[k * n]; the step whose
+  // routing input is history row 0 (t_len, never reached, past N).
+  constexpr int H = NUH2 - 1;
+  Real* state = nullptr;
+  int first_kept = t_len;
+  if constexpr (STATE) {
+    state = fstate + im;
+    if (i < n) {
+      first_kept = t_len - H;
+      for (int j = 0; j < H - t_len; ++j) {
+        state[(size_t)(2 + j) * n] =
+            hist != nullptr ? hist[(size_t)(j + t_len) * n + i] : Real(0);
+      }
+    }
+  }
+
+  const int members = min((int)blockDim.x, n - first_member);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int warps = blockDim.x / 32;
+  const int tiles = (t_len + kTrajTile - 1) / kTrajTile;
+  stage_records(stage[0], prec, etp, 0, min(kTrajTile, t_len));
+  copy_commit();
+#pragma unroll 1
+  for (int k = 0; k < tiles; ++k) {
+    const int t0 = k * kTrajTile;
+    if (k + 1 < tiles) {
+      stage_records(stage[(k + 1) & 1], prec, etp, t0 + kTrajTile,
+                    min(kTrajTile, t_len - t0 - kTrajTile));
+    }
+    copy_commit();  // possibly empty: the group count stays one per tile
+    copy_wait_older();
+    __syncthreads();  // tile k has landed; the last tile's rows have left
+    const Real(*buf)[2] = stage[k & 1];
+    const int steps = min(kTrajTile, t_len - t0);
+#pragma unroll 1
+    for (int s = 0; s < steps; ++s) {
+      const Real p_r =
+          gr4j_production(m, step_forcing(m, buf[s][0], buf[s][1]));
+      q_row[s] = gr4j_routing(m, p_r);
+      if constexpr (STATE) {
+        const int t = t0 + s;
+        if (t >= first_kept) state[(size_t)(2 + t - first_kept) * n] = p_r;
+      }
+    }
+    __syncthreads();  // the tile's rows are complete; the buffer is free
+#pragma unroll 1
+    for (int r = warp; r < members; r += warps) {
+      Real* dst = out + (size_t)(first_member + r) * t_len + t0;
+      const Real* src = q_tile + r * kPitch;
+      for (int j = lane; j < steps; j += 32) dst[j] = src[j];
+    }
+  }
+  if constexpr (STATE) {
+    if (i >= n) return;
+    state[0] = m.s;
+    state[n] = m.r;
+  }
+}
+
 // K4: trajectories as K3, entering cold (hist == nullptr) or from a carried
-// state, plus the end-of-series state as (2 + H, N) rows [s, r, hist(H)].
-// The final history is the last H values of [incoming history or zeros |
-// p_r[0..T)]: the p_r of the last H steps, each written to its row as it is
-// computed; a segment shorter than H keeps the tail of the incoming rows.
+// state, plus the end-of-series state as (2 + H, N) rows [s, r, hist(H)]
+// (traj_body, STATE).
 template <typename Real, int NUH1, int NUH2>
 __global__ void __launch_bounds__(kBlock)
 gr4j_traj_state_kernel(const Real* __restrict__ prec,
@@ -112,25 +250,97 @@ gr4j_traj_state_kernel(const Real* __restrict__ prec,
                        const Real* __restrict__ params,
                        const Real* __restrict__ hist, int n, int t_len,
                        Real* __restrict__ out, Real* __restrict__ fstate) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
+  traj_body<Real, NUH1, NUH2, true>(prec, etp, params, hist, n, t_len, out,
+                                    fstate);
+}
+
+// K4 for small ensembles (n <= kTrajSplitMembers: a forecast's one-member
+// spin-up), where one warp's dependent chain decides the time.  As in
+// gr4j_objective_split_kernel, threads 0..63 run the production store of
+// members 0..63 of the block (the forcing terms a step ahead of the chain)
+// and hand each p_r through shared memory to threads 64..127, which run the
+// UH registers and the routing store one tile behind, store q straight to
+// the member's row (few members: the strided stores do not bind) and write
+// the history rows as the p_r arrive; the production thread writes s, the
+// routing thread r.  The forcing is staged kSplitTile steps at a time in
+// two buffers (only production reads it).  Each member runs the same
+// operations on the same values as in gr4j_traj_state_kernel.
+template <typename Real, int NUH1, int NUH2>
+__global__ void __launch_bounds__(kBlock)
+gr4j_traj_state_split_kernel(const Real* __restrict__ prec,
+                             const Real* __restrict__ etp,
+                             const Real* __restrict__ params,
+                             const Real* __restrict__ hist, int n, int t_len,
+                             Real* __restrict__ out,
+                             Real* __restrict__ fstate) {
+  constexpr int kMembers = kBlock / 2;
   constexpr int H = NUH2 - 1;
+  __shared__ __align__(16) Real stage[2][kSplitTile][2];
+  __shared__ Real routed[2][kSplitTile][kMembers];
+  const bool routing = threadIdx.x >= kMembers;
+  const int lane = threadIdx.x - (routing ? kMembers : 0);
+  const int i = blockIdx.x * kMembers + lane;
+  const int im = min(i, n - 1);  // past N: the last member, unwritten
   Member<Real, NUH1, NUH2> m;
-  gr4j_init(m, params, n, i, hist);
-  Real* state = fstate + i;  // row k of this member: state[k * n]
-  for (int j = 0; j < H - t_len; ++j) {
-    state[(size_t)(2 + j) * n] =
-        hist != nullptr ? hist[(size_t)(j + t_len) * n + i] : Real(0);
+  gr4j_init(m, params, n, im, routing ? hist : nullptr);
+  Real* state = fstate + im;  // row k of this member: state[k * n]
+  Real* row = out + (size_t)im * t_len;
+  const bool writes = routing && i < n;
+  int first_kept = t_len;  // the step whose p_r is history row 0
+  if (writes) {
+    first_kept = t_len - H;
+    for (int j = 0; j < H - t_len; ++j) {
+      state[(size_t)(2 + j) * n] =
+          hist != nullptr ? hist[(size_t)(j + t_len) * n + i] : Real(0);
+    }
   }
-  const int first_kept = t_len - H;  // the step whose p_r is history row 0
-  Real* row = out + (size_t)i * t_len;
-  for (int t = 0; t < t_len; ++t) {
-    Real p_r;
-    row[t] = gr4j_step_pr(m, __ldg(prec + t), __ldg(etp + t), p_r);
-    if (t >= first_kept) state[(size_t)(2 + t - first_kept) * n] = p_r;
+  const int tiles = (t_len + kSplitTile - 1) / kSplitTile;
+  stage_records(stage[0], prec, etp, 0, min(kSplitTile, t_len));
+  copy_commit();
+#pragma unroll 1
+  for (int k = 0; k <= tiles; ++k) {
+    if (k + 1 < tiles) {
+      const int t1 = (k + 1) * kSplitTile;
+      stage_records(stage[(k + 1) & 1], prec, etp, t1,
+                    min(kSplitTile, t_len - t1));
+    }
+    copy_commit();  // possibly empty: the group count stays one per tile
+    copy_wait_older();
+    __syncthreads();  // tile k has landed; routed[(k - 1) & 1] is complete
+    if (!routing && k < tiles) {
+      const Real(*buf)[2] = stage[k & 1];
+      Real(*pr)[kMembers] = routed[k & 1];
+      const int last = min(kSplitTile, t_len - k * kSplitTile) - 1;
+      StepForcing<Real> f = step_forcing(m, buf[0][0], buf[0][1]);
+#pragma unroll 1
+      for (int s = 0; s <= last; ++s) {
+        const int ahead = min(s + 1, last);  // past the tile: unused
+        const StepForcing<Real> f_ahead =
+            step_forcing(m, buf[ahead][0], buf[ahead][1]);
+        pr[s][lane] = gr4j_production(m, f);
+        f = f_ahead;
+      }
+    } else if (routing && k > 0) {
+      const Real(*pr)[kMembers] = routed[(k - 1) & 1];
+      const int t0 = (k - 1) * kSplitTile;
+      const int steps = min(kSplitTile, t_len - t0);
+#pragma unroll 1
+      for (int s = 0; s < steps; ++s) {
+        const Real p_r = pr[s][lane];
+        const Real q = gr4j_routing(m, p_r);
+        const int t = t0 + s;
+        if (writes) row[t] = q;
+        if (t >= first_kept) state[(size_t)(2 + t - first_kept) * n] = p_r;
+      }
+    }
+    __syncthreads();  // a buffer is refilled, a hand-over rewritten, after
   }
-  state[0] = m.s;
-  state[n] = m.r;
+  if (i >= n) return;
+  if (routing) {
+    state[n] = m.r;
+  } else {
+    state[0] = m.s;
+  }
 }
 
 // The sums of the objective kernels for one step: squared error and, with
@@ -359,13 +569,32 @@ void launch_traj(const Real* prec, const Real* etp, const Real* params, int n,
       <<<grid_for(n), kBlock, 0, stream>>>(prec, etp, params, n, t_len, out);
 }
 
+// K4: the split kernel (64 members a block) for at most kTrajSplitMembers
+// members, else traj_body's kernel with its dynamic shared memory, opting
+// in above 48 KB (float64: 68 KB a block).
 template <typename Real, int NUH1, int NUH2>
-void launch_traj_state(const Real* prec, const Real* etp, const Real* params,
-                       const Real* hist, int n, int t_len, Real* out,
-                       Real* fstate, cudaStream_t stream) {
-  gr4j_traj_state_kernel<Real, NUH1, NUH2>
-      <<<grid_for(n), kBlock, 0, stream>>>(prec, etp, params, hist, n, t_len,
-                                           out, fstate);
+cudaError_t launch_traj_state(const Real* prec, const Real* etp,
+                              const Real* params, const Real* hist, int n,
+                              int t_len, Real* out, Real* fstate,
+                              cudaStream_t stream) {
+  if (n <= kTrajSplitMembers) {
+    gr4j_traj_state_split_kernel<Real, NUH1, NUH2>
+        <<<(n + kBlock / 2 - 1) / (kBlock / 2), kBlock, 0, stream>>>(
+            prec, etp, params, hist, n, t_len, out, fstate);
+    return cudaGetLastError();
+  }
+  const auto kernel = gr4j_traj_state_kernel<Real, NUH1, NUH2>;
+  const size_t shared =
+      (2 * 2 * kTrajTile + (size_t)kBlock * (kTrajTile + 1)) * sizeof(Real);
+  if (shared > kSharedOptIn) return cudaErrorInvalidValue;
+  if (shared > kSharedLimit) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shared);
+    if (err != cudaSuccess) return err;
+  }
+  kernel<<<grid_for(n), kBlock, shared, stream>>>(prec, etp, params, hist, n,
+                                                  t_len, out, fstate);
+  return cudaGetLastError();
 }
 
 // K1/K2 in one mode: the split kernel (64 members a block) for at most
@@ -461,15 +690,14 @@ int simulate_state(const Real* prec, const Real* etp, const Real* params,
   if (n <= 0 || t_len <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (nuh1 == 3 && nuh2 == 7) {
-    launch_traj_state<Real, 3, 7>(prec, etp, params, hist, n, t_len, out,
-                                  fstate, s);
-  } else if (nuh1 == 10 && nuh2 == 21) {
-    launch_traj_state<Real, 10, 21>(prec, etp, params, hist, n, t_len, out,
-                                    fstate, s);
-  } else {
-    return (int)cudaErrorInvalidValue;
+    return (int)launch_traj_state<Real, 3, 7>(prec, etp, params, hist, n,
+                                              t_len, out, fstate, s);
   }
-  return (int)cudaGetLastError();
+  if (nuh1 == 10 && nuh2 == 21) {
+    return (int)launch_traj_state<Real, 10, 21>(prec, etp, params, hist, n,
+                                                t_len, out, fstate, s);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 template <typename Real>
@@ -525,6 +753,10 @@ extern "C" {
 // The largest ensemble K1/K2 run with production and routing in separate
 // warps (gr4j_objective_split_kernel).
 int rrmpg_gr4j_split_members() { return kSplitMembers; }
+
+// The largest ensemble K4 runs with production and routing in separate
+// warps (gr4j_traj_state_split_kernel).
+int rrmpg_gr4j_traj_split_members() { return kTrajSplitMembers; }
 
 int rrmpg_gr4j_simulate_f32(const float* prec, const float* etp,
                             const float* params, int n, int t_len, int nuh1,

@@ -25,23 +25,21 @@
 // in shared memory with cp.async (no device read on the recurrence) and
 // takes the soil power in float32 as exp2(Beta * log2(x)) (~34
 // instructions) where that is pow on the model's domain (soil_pow).
-// K13 reads the forcing through __ldg, which the warp serves as one
-// broadcast, and its per-step stores stride across members (row-major
-// (N, T)): a warp's 32 stores of one step land T values apart, 32 sectors
-// for 128 useful bytes, and bind the kernel (~13 ms of stores behind ~3 ms
-// of compute at 131072 x 3651).  K14 stages its four series as K12 does
-// (stage_series) and gathers a tile's discharge in shared memory, as the
-// snow trajectories (K9, K10) do: each thread writes its member's steps of
-// the tile into its row of a [member][step] tile (rows kTrajTile + 1
-// values apart, so one step's writes fall in 32 banks), and after the
-// tile's barrier each warp copies whole member rows to device memory, its
-// lanes on consecutive steps: one 256-byte run (float32) per member and
-// 64-step tile.
+// K13 and K14 run one time loop (traj_body; K14 is its STATE=true, which
+// enters warm and writes the final stores).  It stages the four series as
+// K12 does (stage_series) and gathers a tile's discharge in shared memory,
+// as the snow trajectories (K9, K10) do: each thread writes its member's
+// steps of the tile into its row of a [member][step] tile (rows
+// kTrajTile + 1 values apart, so one step's writes fall in 32 banks), and
+// after the tile's barrier each warp copies whole member rows to device
+// memory, its lanes on consecutive steps: one 256-byte run (float32) per
+// member and 64-step tile, where one store a step across members would
+// land T values apart (32 sectors for 128 useful bytes).
 //
 // pow() is IEEE pow (no fast-math): a negative soil store gives NaN through
 // (soil/FC)^Beta, as the reference's np.power does, and that NaN reaches the
-// member's loss; K12's soil_pow keeps powf for it.  The soil store is not
-// clamped.
+// member's loss and trajectory; soil_pow keeps powf for it.  The soil store
+// is not clamped.
 //
 // A cold start freezes the stores at t = 0 and gives q = 0 there (the
 // reference's initialization step); a warm continuation advances the carried
@@ -75,20 +73,17 @@ namespace {
 constexpr int kBlock = 128;
 // K12: steps of forcing staged per buffer (two buffers).
 constexpr int kTile = 64;
-// K14: steps per staged tile and per tile of discharge stores (64 beat 32
-// by 12-15 % and 128 by 6-14 % on the H100, PERF.md section 6).
+// K13 and K14: steps per staged tile and per tile of discharge stores (64
+// beat 32 by 12-15 % and 128 by 6-14 % on the H100, PERF.md section 6).
 constexpr int kTrajTile = 64;
 // Shared memory a block may use without opting in, and after (H100: 227 KB).
 constexpr size_t kSharedLimit = 48 * 1024;
 constexpr size_t kSharedOptIn = 232448;
 
-__device__ __forceinline__ float dev_pow(float x, float y) { return powf(x, y); }
-__device__ __forceinline__ double dev_pow(double x, double y) { return pow(x, y); }
-
-// K12's (soil / FC)^Beta.  float32: exp2(Beta * log2(x)) where x >= 0 and
-// Beta != 0 (0 for x = 0 and Beta > 0), IEEE powf elsewhere, so a negative
-// soil store gives powf's NaN and Beta = 0 gives 1: the NaN members are
-// powf's.  float64 keeps pow.
+// The soil power (soil / FC)^Beta of every kernel here.  float32:
+// exp2(Beta * log2(x)) where x >= 0 and Beta != 0 (0 for x = 0 and
+// Beta > 0), IEEE powf elsewhere, so a negative soil store gives powf's NaN
+// and Beta = 0 gives 1: the NaN members are powf's.  float64 keeps pow.
 __device__ __forceinline__ float soil_pow(float x, float beta) {
   return (x >= 0.0f && beta != 0.0f) ? exp2f(beta * log2f(x))
                                      : powf(x, beta);
@@ -141,8 +136,8 @@ __device__ __forceinline__ void hbv_init(Member<Real>& m,
 
 // One HBV-Edu time step (_hbv_step, pallas_hbv.py:48-106); returns the
 // discharge.  Division by FC and PWP is a multiply by the packed
-// reciprocals.  SOIL_POW: the soil power through soil_pow (K12, K14).
-template <typename Real, bool SOIL_POW = false>
+// reciprocals; the soil power is soil_pow.
+template <typename Real>
 __device__ __forceinline__ Real hbv_step(Member<Real>& m, Real temp,
                                          Real prec, Real pe_month,
                                          Real t_month) {
@@ -153,9 +148,7 @@ __device__ __forceinline__ Real hbv_step(Member<Real>& m, Real temp,
   const Real liquid =
       freezing ? Real(0) : prec + min_nan(m.snow, melt_pot);
 
-  const Real prec_eff =
-      liquid * (SOIL_POW ? soil_pow(m.soil * m.iFC, m.Beta)
-                         : dev_pow(m.soil * m.iFC, m.Beta));
+  const Real prec_eff = liquid * soil_pow(m.soil * m.iFC, m.Beta);
   const Real pe = (Real(1) + m.C * (temp - t_month)) * pe_month;
   const Real ea = m.soil > m.PWP ? pe : pe * (m.soil * m.iPWP);
   const Real soil = m.soil + liquid - prec_eff - ea;
@@ -189,41 +182,25 @@ __device__ __forceinline__ void stage_series(Real (*stage)[S][TILE], int tile,
   }
 }
 
-// K13: (N, T) discharge trajectories, row-major (cold start).
-template <typename Real>
-__global__ void __launch_bounds__(kBlock)
-hbv_traj_kernel(const Real* __restrict__ temp, const Real* __restrict__ prec,
-                const Real* __restrict__ pe, const Real* __restrict__ tm,
-                const Real* __restrict__ params, int n, int t_len,
-                Real* __restrict__ out) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  Member<Real> m;
-  hbv_init(m, params, n, i);
-  Real* row = out + (size_t)i * t_len;
-  row[0] = Real(0);  // the initialization step
-  for (int t = 1; t < t_len; ++t) {
-    row[t] = hbv_step<Real>(m, __ldg(temp + t), __ldg(prec + t),
-                            __ldg(pe + t), __ldg(tm + t));
-  }
-}
-
-// K14: trajectories as K13, cold or from carried stores (`warm`), plus the
-// end-of-series stores as (4, N) rows [snow, soil, s1, s2].  A member whose
-// soil store went negative is NaN from there on, in the trajectory and in
-// its final state.  The four series are staged kTrajTile steps a tile
-// (dynamic shared memory: [2][4][kTrajTile] staging, then the
-// [kBlock][kTrajTile + 1] discharge tile); a cold start's q = 0 at t = 0
-// is the first value of tile 0.  The soil power is K12's soil_pow (float32:
-// exp2 / log2: 0.81-0.82 of powf's time here; float64 pow).
-template <typename Real>
-__global__ void __launch_bounds__(kBlock)
-hbv_traj_state_kernel(const Real* __restrict__ temp,
-                      const Real* __restrict__ prec,
-                      const Real* __restrict__ pe, const Real* __restrict__ tm,
-                      const Real* __restrict__ params, int n, int t_len,
-                      bool warm, Real* __restrict__ out,
-                      Real* __restrict__ fstate) {
+// K13 and K14: (N, T) discharge trajectories, row-major.  A member whose
+// soil store went negative is NaN from there on.  The four series are
+// staged kTrajTile steps a tile (dynamic shared memory: [2][4][kTrajTile]
+// staging, then the [kBlock][kTrajTile + 1] discharge tile); a cold start's
+// q = 0 at t = 0 is the first value of tile 0.  The soil power is K12's
+// soil_pow (float32: exp2 / log2: 0.81-0.82 of powf's time here; float64
+// pow).  STATE (K14): cold or from carried stores (`warm`), and fstate
+// receives the end-of-series stores as (4, N) rows [snow, soil, s1, s2]
+// (NaN for a NaN member); without STATE nothing reads `warm` or writes
+// fstate.
+template <typename Real, bool STATE>
+__device__ __forceinline__ void traj_body(const Real* __restrict__ temp,
+                                          const Real* __restrict__ prec,
+                                          const Real* __restrict__ pe,
+                                          const Real* __restrict__ tm,
+                                          const Real* __restrict__ params,
+                                          int n, int t_len, bool warm,
+                                          Real* __restrict__ out,
+                                          Real* __restrict__ fstate) {
   constexpr int kSeries = 4;
   constexpr int kPitch = kTrajTile + 1;  // values between two members' rows
   extern __shared__ __align__(16) unsigned char hbv_shared[];
@@ -235,6 +212,7 @@ hbv_traj_state_kernel(const Real* __restrict__ temp,
   const int i = first_member + threadIdx.x;
   Member<Real> m;
   hbv_init(m, params, n, min(i, n - 1));
+  const bool cold = !(STATE && warm);
   const int members = min((int)blockDim.x, n - first_member);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int warps = blockDim.x / 32;
@@ -253,11 +231,10 @@ hbv_traj_state_kernel(const Real* __restrict__ temp,
     const Real(*buf)[kTrajTile] = stage[k & 1];
     const int steps = min(kTrajTile, t_len - t0);
     int s = 0;
-    if (k == 0 && !warm) q_row[s++] = Real(0);  // the initialization step
+    if (k == 0 && cold) q_row[s++] = Real(0);  // the initialization step
 #pragma unroll 1
     for (; s < steps; ++s) {
-      q_row[s] = hbv_step<Real, true>(m, buf[0][s], buf[1][s], buf[2][s],
-                                      buf[3][s]);
+      q_row[s] = hbv_step<Real>(m, buf[0][s], buf[1][s], buf[2][s], buf[3][s]);
     }
     __syncthreads();  // the tile's rows are complete; the buffer is free
 #pragma unroll 1
@@ -267,11 +244,38 @@ hbv_traj_state_kernel(const Real* __restrict__ temp,
       for (int j = lane; j < steps; j += 32) dst[j] = src[j];
     }
   }
-  if (i >= n) return;
-  fstate[i] = m.snow;
-  fstate[(size_t)n + i] = m.soil;
-  fstate[2 * (size_t)n + i] = m.s1;
-  fstate[3 * (size_t)n + i] = m.s2;
+  if constexpr (STATE) {
+    if (i >= n) return;
+    fstate[i] = m.snow;
+    fstate[(size_t)n + i] = m.soil;
+    fstate[2 * (size_t)n + i] = m.s1;
+    fstate[3 * (size_t)n + i] = m.s2;
+  }
+}
+
+// K13: trajectories from a cold start (traj_body without state).
+template <typename Real>
+__global__ void __launch_bounds__(kBlock)
+hbv_traj_kernel(const Real* __restrict__ temp, const Real* __restrict__ prec,
+                const Real* __restrict__ pe, const Real* __restrict__ tm,
+                const Real* __restrict__ params, int n, int t_len,
+                Real* __restrict__ out) {
+  traj_body<Real, false>(temp, prec, pe, tm, params, n, t_len, false, out,
+                         nullptr);
+}
+
+// K14: trajectories as K13, cold or from carried stores (`warm`), plus the
+// end-of-series stores (traj_body, STATE).
+template <typename Real>
+__global__ void __launch_bounds__(kBlock)
+hbv_traj_state_kernel(const Real* __restrict__ temp,
+                      const Real* __restrict__ prec,
+                      const Real* __restrict__ pe, const Real* __restrict__ tm,
+                      const Real* __restrict__ params, int n, int t_len,
+                      bool warm, Real* __restrict__ out,
+                      Real* __restrict__ fstate) {
+  traj_body<Real, true>(temp, prec, pe, tm, params, n, t_len, warm, out,
+                        fstate);
 }
 
 // K12.  STATS=false: out[i] = mean squared error.  STATS=true:
@@ -326,8 +330,8 @@ hbv_objective_kernel(const Real* __restrict__ temp,
     const int steps = min(kTile, t_len - t0);
 #pragma unroll 1
     for (int s = (k == 0 && !warm) ? 1 : 0; s < steps; ++s) {
-      const Real q = hbv_step<Real, true>(m, buf[0][s], buf[1][s], buf[2][s],
-                                          buf[3][s]);
+      const Real q = hbv_step<Real>(m, buf[0][s], buf[1][s], buf[2][s],
+                                    buf[3][s]);
       const Real qo = buf[4][s];
       if (MASKED && qo != qo) continue;
       const Real diff = q - qo;
@@ -351,6 +355,18 @@ hbv_objective_kernel(const Real* __restrict__ temp,
 
 inline dim3 grid_for(int n) { return dim3((n + kBlock - 1) / kBlock); }
 
+// The dynamic shared memory of K13 and K14 (traj_body), opting the kernel
+// in above 48 KB (float64: 70 KB a block).
+template <typename Real, typename Kernel>
+cudaError_t traj_shared(Kernel kernel, size_t& shared) {
+  shared =
+      (2 * 4 * kTrajTile + (size_t)kBlock * (kTrajTile + 1)) * sizeof(Real);
+  if (shared > kSharedOptIn) return cudaErrorInvalidValue;
+  if (shared <= kSharedLimit) return cudaSuccess;
+  return cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shared);
+}
+
 template <typename Real>
 int simulate(const Real* temp, const Real* prec, const Real* pe,
              const Real* tm, const Real* params, int n, int t_len, Real* out,
@@ -359,9 +375,12 @@ int simulate(const Real* temp, const Real* prec, const Real* pe,
   if (err != cudaSuccess) return (int)err;
   if (n <= 0 || t_len <= 0) return (int)cudaSuccess;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  hbv_traj_kernel<Real>
-      <<<grid_for(n), kBlock, 0, s>>>(temp, prec, pe, tm, params, n, t_len,
-                                      out);
+  const auto kernel = hbv_traj_kernel<Real>;
+  size_t shared;
+  err = traj_shared<Real>(kernel, shared);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<grid_for(n), kBlock, shared, s>>>(temp, prec, pe, tm, params, n,
+                                             t_len, out);
   return (int)cudaGetLastError();
 }
 
@@ -375,14 +394,9 @@ int simulate_state(const Real* temp, const Real* prec, const Real* pe,
   if (n <= 0 || t_len <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const auto kernel = hbv_traj_state_kernel<Real>;
-  const size_t shared =
-      (2 * 4 * kTrajTile + (size_t)kBlock * (kTrajTile + 1)) * sizeof(Real);
-  if (shared > kSharedOptIn) return (int)cudaErrorInvalidValue;
-  if (shared > kSharedLimit) {
-    err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shared);
-    if (err != cudaSuccess) return (int)err;
-  }
+  size_t shared;
+  err = traj_shared<Real>(kernel, shared);
+  if (err != cudaSuccess) return (int)err;
   kernel<<<grid_for(n), kBlock, shared, s>>>(temp, prec, pe, tm, params, n,
                                              t_len, warm != 0, out, fstate);
   return (int)cudaGetLastError();

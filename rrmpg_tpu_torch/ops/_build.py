@@ -81,6 +81,7 @@ _SNOW_REGIONAL = (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                   _I, _I, _I, _I, _D, _D, _P, _I, _P)
 _SIGNATURES = {
     "rrmpg_gr4j_split_members": (),
+    "rrmpg_gr4j_traj_split_members": (),
     # prec, etp, params, n, t, nuh1, nuh2, out, device, stream
     "rrmpg_gr4j_simulate_f32": (_P, _P, _P, _I, _I, _I, _I, _P, _I, _P),
     "rrmpg_gr4j_simulate_f64": (_P, _P, _P, _I, _I, _I, _I, _P, _I, _P),

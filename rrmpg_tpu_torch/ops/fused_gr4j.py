@@ -7,6 +7,10 @@ objectives K1/K2 stage their forcing in shared memory and compute one
 production arm a step; for ensembles of at most :func:`split_members`
 members they run the production and the routing halves of each member's
 step in separate warps (a calibration's population is latency-bound).
+K4 stages its forcing the same way, computes one production arm a step and
+gathers its trajectories in shared-memory tiles that leave as whole member
+rows; for ensembles of at most :func:`traj_split_members` members (a
+forecast's one-member spin-up) it splits the step between warps too.
 
 * K3 :func:`gr4j_simulate_fused` -- (N, T) discharge trajectories;
 * K1 :func:`gr4j_ensemble_mse_fused` -- fused simulate + MSE, one
@@ -58,6 +62,16 @@ def split_members():
     from ._build import load_library
 
     return load_library().rrmpg_gr4j_split_members()
+
+
+def traj_split_members():
+    """The largest ensemble for which K4 runs the production and the
+    routing halves of the step in separate warps (a constant of the CUDA
+    library); larger ones gather their trajectories in shared-memory
+    tiles, one member a thread."""
+    from ._build import load_library
+
+    return load_library().rrmpg_gr4j_traj_split_members()
 
 
 def _check_uh(num_uh1, num_uh2):

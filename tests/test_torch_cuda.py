@@ -258,12 +258,52 @@ def test_hbv_kernel_matches_plain(cuda, dtype, mode):
     _assert_close_nan_aware(got, want, rtol, atol)
 
 
-def test_golden_matlab_trajectory_fused_float64(cuda):
+def _matlab_forcing():
     read = lambda name, **kw: pd.read_csv(os.path.join(DATA_DIR, name), **kw)
     daily = read('hbv_daily_inputs.txt', sep='\t',
                  names=['date', 'month', 'temp', 'prec'])
     monthly = read('hbv_monthly_inputs.txt', sep=' ',
                    names=['temp', 'not_needed', 'evap'])
+    return daily, monthly
+
+
+# K13's edges: one step (the initialization step alone), around and at its
+# 64-step staging and store tiles, two whole tiles; one member, last blocks
+# of 1 and of 72 members.
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("T", [1, 63, 64, 65, 128])
+@pytest.mark.parametrize("N", [1, 129, 200])
+def test_hbv_traj_tile_and_block_edges(cuda, dtype, T, N):
+    """K13 on the MATLAB forcing, a tenth of the members (at least one)
+    dry: the plain version's values with the same NaN members, and K14's
+    cold entry bit for bit (one time loop serves both)."""
+    daily, monthly = _matlab_forcing()
+    as_t = lambda a: torch.tensor(np.asarray(a, np.float64), dtype=dtype,
+                                  device=cuda)
+    forcings = (as_t(daily.temp[:T]), as_t(daily.prec[:T]),
+                torch.tensor(daily.month.to_numpy()[:T] - 1, device=cuda),
+                as_t(monthly.evap), as_t(monthly.temp))
+    rng = np.random.default_rng(N)
+    bounds = HBVEdu._default_bounds
+    params = {k: as_t(rng.uniform(*bounds[k], N)) for k in bounds}
+    params['FC'][:max(1, N // 10)] = 2.0
+    inits = (0.0, 100.0, 3.0, 10.0)
+    fg.reset_launches()
+    got = fh.hbv_simulate_fused(*forcings, *inits, params)
+    q_state, _ = fh.hbv_simulate_state_fused(*forcings, *inits, params)
+    torch.cuda.synchronize()
+    assert fg.LAUNCHES["hbv_traj"] == fg.LAUNCHES["hbv_traj_state"] == 1
+    want = fh.hbv_simulate_reference(
+        *_hbv_series(forcings), fh.pack_params(params, *inits))
+    _assert_close_nan_aware(got, want, *TOL[dtype]["traj"], some_nan=False)
+    nan = torch.isnan(got)
+    assert torch.equal(nan, torch.isnan(q_state))
+    assert torch.equal(got[~nan], q_state[~nan])
+
+
+def test_golden_matlab_trajectory_fused_float64(cuda):
+    read = lambda name, **kw: pd.read_csv(os.path.join(DATA_DIR, name), **kw)
+    daily, monthly = _matlab_forcing()
     qsim_matlab = read('hbv_qsim.csv', header=None, names=['qsim'])
     params = {'T_t': 0, 'DD': 4.25, 'FC': 177.1, 'Beta': 2.35, 'C': 0.02,
               'PWP': 105.89, 'K_0': 0.05, 'K_1': 0.03, 'K_2': 0.02,
@@ -472,15 +512,34 @@ def _gr4j_state_plain(prec, etp, params, state, uh, inits):
     return fg.gr4j_simulate_state_reference(prec, etp, packed, hist, *uh)
 
 
+# (cold steps, warm steps, members): 300 cold steps, then 200, 4 or 1 warm
+# (below H = n2 - 1 the tail of the incoming history is kept); and the
+# edges of K4's staging and store tiles (64 steps; 32 in the split kernel:
+# one step, 63, 64, 65, two whole tiles; warm as many again) and its
+# blocks: the split kernel's of 64 members (one member, last blocks of 1
+# and 8) and the tile kernel's of 128 ("split+1", "split+72": that many
+# past fg.traj_split_members(), last blocks of 1 and 72, resolved on the
+# card).
+GR4J_STATE_SHAPES = [(300, 200, 300), (300, 4, 300), (300, 1, 300)] + [
+    (t, t, n) for t in (1, 63, 64, 65, 128)
+    for n in (1, 129, 200, "split+1", "split+72")]
+
+
+def _k4_members(n):
+    return n if isinstance(n, int) else (
+        fg.traj_split_members() + int(n.split("+")[1]))
+
+
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 @pytest.mark.parametrize("n1,n2,x4_max", [(3, 7, 2.9), (10, 21, 9.9)])
-@pytest.mark.parametrize("warm_len", [200, 4, 1])
-def test_gr4j_state_kernel_matches_plain(cuda, dtype, n1, n2, x4_max,
-                                         warm_len):
-    """K4 cold over 300 steps, then warm from its own state; ``warm_len``
-    below H = n2 - 1 keeps the tail of the incoming history."""
-    prec, etp, _, params = _inputs(cuda, dtype, x4_max=x4_max)
-    uh, inits, cut = (n1, n2), (0.4, 0.3), 300
+@pytest.mark.parametrize("cut,warm_len,n", GR4J_STATE_SHAPES)
+def test_gr4j_state_kernel_matches_plain(cuda, dtype, n1, n2, x4_max, cut,
+                                         warm_len, n):
+    """K4 cold over ``cut`` steps, then warm from its own state; a
+    ``warm_len`` below H = n2 - 1 keeps the tail of the incoming history."""
+    prec, etp, _, params = _inputs(cuda, dtype, N=_k4_members(n),
+                                   x4_max=x4_max)
+    uh, inits = (n1, n2), (0.4, 0.3)
     rtol, atol = TOL[dtype]["traj"]
     fg.reset_launches()
     q_a, st = fg.gr4j_simulate_state_fused(prec[:cut], etp[:cut], params,
@@ -505,6 +564,31 @@ def test_gr4j_state_kernel_matches_plain(cuda, dtype, n1, n2, x4_max,
     torch.testing.assert_close(torch.cat([q_a, q_b], dim=1), full,
                                rtol=1e-9 if dtype == torch.float64 else rtol,
                                atol=atol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("n1,n2,x4_max", [(3, 7, 2.9), (10, 21, 9.9)])
+def test_gr4j_state_split_kernel_is_the_tile_kernel(cuda, dtype, n1, n2,
+                                                    x4_max):
+    """K4's split kernel (at most fg.traj_split_members() members) and its
+    tile kernel (one member more) give the same members the same bits,
+    cold over 130 steps and warm over 70 (a ragged last tile in both)."""
+    n = fg.traj_split_members()
+    prec, etp, _, params = _inputs(cuda, dtype, T=200, N=n + 1,
+                                   x4_max=x4_max)
+    some = {k: v[:n] for k, v in params.items()}
+    runs = []
+    for members in (params, some):
+        q_a, st = fg.gr4j_simulate_state_fused(prec[:130], etp[:130],
+                                               members, None, 0.4, 0.3, n1,
+                                               n2)
+        q_b, st_b = fg.gr4j_simulate_state_fused(prec[130:], etp[130:],
+                                                 members, st, num_uh1=n1,
+                                                 num_uh2=n2)
+        runs.append([q_a, _gr4j_rows(st).T, q_b, _gr4j_rows(st_b).T])
+    torch.cuda.synchronize()
+    for tile, split in zip(*runs):
+        assert torch.equal(tile[:n], split)
 
 
 def test_gr4j_long_history_enters_short_registers(cuda):
