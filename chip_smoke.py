@@ -17,7 +17,11 @@ Phases, in order (each prints its lines; any failure exits non-zero):
                   launch, K7
                   three launches; T in {1, 1000, 70000, 1000003}, c in
                   {0, 0.12, 1}; against the doubling scan, the sequential
-                  loop and each other), HBV-Edu (K12 MSE and stats with
+                  loop and each other; also one step short of, at and past
+                  K6's chunk, at 33 and 2442 chunks in both types and at
+                  the Monte-Carlo's 4096 x 12418, and K6 five times on the
+                  same inputs at 10M steps and at 4096 x 12418, the same
+                  bits every time), HBV-Edu (K12 MSE and stats with
                   and without gaps, K13 trajectories; NaN-aware) and the
                   snow family (K8 MSE, stats and SCA statistics with and
                   without gaps, K9 trajectories; plain, hysteresis, ice and
@@ -41,7 +45,9 @@ Phases, in order (each prints its lines; any failure exits non-zero):
                   K4 at both UH register pairs, K10 at 2 and 5 layers,
                   plain and hysteresis + ice, K14 with NaN members; K13 at
                   K4's edges on the MATLAB forcing with NaN members, and
-                  K13 against K14's cold entry bit for bit) and
+                  K13 against K14's cold entry bit for bit; K3 at K4's
+                  edges, both UH register pairs, against the plain version
+                  and K4's cold entry bit for bit) and
                   the warm entry of the
                   objectives (K1/K2, K12, K8, with and without gaps), and in
                   float64 a split run against the unbroken one; then the
@@ -104,18 +110,21 @@ Phases, in order (each prints its lines; any failure exits non-zero):
                   continuation of 365 days), and the SASS of their time
                   loops; K4 also at its forecast shapes (the one-member
                   spin-up over 12053 CAMELS days and the 131072-member
-                  continuation of 365 days, UH (10, 21)).
+                  continuation of 365 days, UH (10, 21)); K3 also at the
+                  main path's one-member simulate over 12418 days; K6 and
+                  K7 also at the Monte-Carlo's 4096 x 12418 and in float64
+                  at 10M steps.
 
 ``--phases a,b`` (development) runs only the named phases after the build:
 kernels, golden, main, forecast, regional, times; the result lines need them
 all.  ``--compare DIR[,DIR...]`` (development) builds the kernel sources in
 each DIR (another version's ``rrmpg_tpu_torch/csrc``) beside this
-checkout's, times K1, K2, K4, K5, K8, K9, K10, K11, K12, K13 and K14 (and
-K3, which shares a source with them; K4, K10 and K14 also at the forecast
-path's shapes) of both in turns with the largest output difference between
-the builds, and holds K1/K2, K5/K9, K10/K14 and K4/K13 (trajectories and
-every state row) of both to each other bit for bit on the goldens and edge
-inputs; it exits 3.
+checkout's, times K1-K14 of both in turns with the largest output
+difference between the builds (K4, K10 and K14 also at the forecast path's
+shapes, K3 at the main path's simulate, K6 and K7 at their phase-6
+shapes), and holds K1/K2, K5/K9, K10/K14, K4/K13 (trajectories and every
+state row) and K3/K7 of both to each other bit for bit on the goldens and
+edge inputs; it exits 3.
 
 The last two lines are a JSON object describing the kernels and the
 result line ``{"ok": true, "device": {...}}``.
@@ -124,6 +133,7 @@ result line ``{"ok": true, "device": {...}}``.
 import argparse
 import contextlib
 import functools
+import itertools
 import json
 import os
 import re
@@ -948,6 +958,119 @@ def phase_kernels_abc():
                                f"{what} {series}", g, w, *abc_tol(w))
                         n_checks += 1
     print(f"[3 kernels] ABC: {n_checks} checks passed")
+
+
+def abc_members(rng, n, dtype):
+    """ABC parameters over the class's bounds (b <= 1 - a, as
+    ``get_random_params`` draws them), the first three members at c = 0,
+    0.12 and 1, and initial storages: (params, s0) on the card."""
+    a = rng.uniform(0, 1, n)
+    params = {'a': a, 'b': rng.uniform(0, 1 - a), 'c': rng.uniform(0, 1, n)}
+    params['c'][:3] = (0.0, 0.12, 1.0)
+    return ({k: as_tensor(v, dtype) for k, v in params.items()},
+            as_tensor(rng.uniform(0, 9, n), dtype))
+
+
+def abc_edge_checks(prec_basin):
+    """K6 and K7 around K6's chunks (4096 steps a block in float32, 2048 in
+    float64): T one step short of, at and one past one chunk, 33 chunks
+    (the last one step long) and 2442 chunks (float32: the bench's 10M
+    steps; float64: 2441 chunks and 7 steps), c in (0, 0.12, 1), against
+    the doubling scan and each other; at the Monte-Carlo's shape, 4096
+    members x 12418 CAMELS days (four chunks a member in float32), both
+    types.  Then K6 five times on the same inputs at T = 10M and at the
+    Monte-Carlo shape (float32): the same bits every time."""
+    from rrmpg_tpu_torch.ops import abc, fused_abc as fa
+    from rrmpg_tpu_torch.ops._build import load_library
+
+    n_checks = 0
+    for dtype in (F32, F64):
+        chunk = load_library().rrmpg_abc_chunk_size(int(dtype == F64))
+        last = ABC_STEPS if dtype == F32 else 2441 * chunk + 7
+        for t_len in (chunk - 1, chunk, chunk + 1, 32 * chunk + 1, last):
+            prec = as_tensor(
+                np.random.default_rng(t_len).uniform(0, 20, t_len), dtype)
+            for c in (0.0, 0.12, 1.0):
+                params = {'a': 0.3, 'b': 0.4, 'c': c}
+                want = abc.run_abcmodel_pscan(prec, 5.0, params)
+                single = fa.abc_fused_single(prec, 5.0, params)
+                chunked = fa.abc_fused(prec, 5.0, params)
+                check(single[1][0].item() == 5.0 and single[0][0].item() == 0,
+                      "K6: S[0] != s0 or q[0] != 0")
+                for what, got, ref in (("K6 vs pscan", single, want),
+                                       ("K7 vs pscan", chunked, want),
+                                       ("K6 vs K7", single, chunked)):
+                    for series, g, w in zip(("q", "S"), got, ref):
+                        report(f"abc {str(dtype)[6:]} T={t_len} "
+                               f"({-(-t_len // chunk)} chunks) c={c:g} "
+                               f"{what} {series}", g, w, *abc_tol(w))
+                        n_checks += 1
+        basin = as_tensor(prec_basin, dtype)
+        params, s0 = abc_members(np.random.default_rng(3), ABC_MC_MEMBERS,
+                                 dtype)
+        want = abc.run_abcmodel_pscan(basin, s0, params)
+        single = fa.abc_fused_single(basin, s0, params)
+        for what, got, ref in (("K6 vs pscan", single, want),
+                               ("K7 vs pscan", fa.abc_fused(basin, s0,
+                                                            params), want)):
+            for series, g, w in zip(("q", "S"), got, ref):
+                report(f"abc {str(dtype)[6:]} N={ABC_MC_MEMBERS} "
+                       f"T={len(prec_basin)} {what} {series}", g, w,
+                       *abc_tol(w))
+                n_checks += 1
+        check(torch.equal(single[1][:, 0], s0), "K6: S[:, 0] != s0")
+    prec = as_tensor(np.random.default_rng(0).uniform(0, 20, ABC_STEPS), F32)
+    basin = as_tensor(prec_basin, F32)
+    params, s0 = abc_members(np.random.default_rng(3), ABC_MC_MEMBERS, F32)
+    for what, args in ((f"T={ABC_STEPS}", (prec, 0.0, ABC_PARAMS)),
+                       (f"N={ABC_MC_MEMBERS} T={len(prec_basin)}",
+                        (basin, s0, params))):
+        first = fa.abc_fused_single(*args)
+        same = all(all(torch.equal(a, b) for a, b in zip(
+            first, fa.abc_fused_single(*args))) for _ in range(4))
+        print(f"    abc float32 {what} K6 five runs on the same inputs: "
+              f"{'the same bits' if same else 'DIFFERENT BITS'}")
+        check(same, f"K6 gave other bits on the same inputs ({what})")
+        n_checks += 1
+    print(f"[3 kernels] ABC K6/K7 chunk edges: {n_checks} checks passed")
+
+
+def gr4j_traj_edge_checks(prec_np, etp_np):
+    """K3 at K4's edges on CAMELS 01031500: T in TILE64_EDGE_STEPS, N in
+    STATE_EDGE_MEMBERS (the split kernel: last blocks of 1 and 8 members)
+    and one and 72 members past fg.traj_split_members() (the tile kernel:
+    last blocks of 1 and 72), both UH register pairs, float64 and float32;
+    against the plain version, and bit for bit K4's cold entry."""
+    from rrmpg_tpu_torch.ops import fused_gr4j as fg
+
+    n_checks = 0
+    sizes = STATE_EDGE_MEMBERS + (fg.traj_split_members() + 1,
+                                  fg.traj_split_members() + 72)
+    for dtype in (F64, F32):
+        tol, name = TOL[dtype]["traj"], str(dtype)[6:]
+        for t_len in TILE64_EDGE_STEPS:
+            prec, etp = (as_tensor(a[:t_len], dtype)
+                         for a in (prec_np, etp_np))
+            for n in sizes:
+                for uh in fg.SUPPORTED_UH:
+                    params = gr4j_random_params(
+                        np.random.default_rng(n + uh[0]), n,
+                        2.9 if uh[0] == 3 else BOUNDS_X4_WIDE, dtype)
+                    got = fg.gr4j_simulate_fused(prec, etp, 0.4, 0.3, params,
+                                                 *uh)
+                    report(f"gr4j {name} K3 T={t_len} N={n} uh={uh} traj",
+                           got, fg.gr4j_simulate_reference(
+                               prec, etp, fg.pack_params(params, 0.4, 0.3),
+                               *uh), *tol)
+                    k4, _ = fg.gr4j_simulate_state_fused(prec, etp, params,
+                                                         None, 0.4, 0.3, *uh)
+                    check(bits_equal(got, k4), f"gr4j {name} T={t_len} "
+                          f"N={n} uh={uh}: K3 and K4's cold entry differ "
+                          "in a bit")
+                    n_checks += 2
+    print(f"[3 kernels] K3 tile and block edges: {n_checks} checks passed at "
+          f"T in {TILE64_EDGE_STEPS}, N in {sizes}, both UH, against the "
+          f"plain version and bit for bit K4 cold")
 
 
 def phase_kernels_hbv(forcing, qobs_np, n=1000):
@@ -2731,12 +2854,15 @@ def phase_regional(card):
     return launches, max_abs, walls
 
 
-def measure_row(rows, card, name, kernel, plain, ops, n_bytes, reps, what):
+def measure_row(rows, card, name, kernel, plain, ops, n_bytes, reps, what,
+                dtype=F32):
     """Time ``kernel`` and its ``plain`` version, print one ``[6 times]``
     line and keep ``rows[name] = dict(ms, plain_ms, bound_ms, bound_by)``;
     returns the kernel's ms.  The kernel is timed in two rounds (a gap
     between them is drift); the plain version, seconds long, in one cold
-    call on the host clock."""
+    call on the host clock.  ``ops`` are counted against the float32 peak
+    in either type (the card's float64 rate outside the tensor cores is
+    half of it, so a float64 bound by operations is low by up to 2x)."""
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     plain()
@@ -2747,7 +2873,7 @@ def measure_row(rows, card, name, kernel, plain, ops, n_bytes, reps, what):
     ms = min(kernel_a, kernel_b)
     bound, by = bound_ms(ops, n_bytes)
     rows[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by)
-    print(f"[6 times] {name} float32 {what}: kernel {kernel_a:.4f}/"
+    print(f"[6 times] {name} {str(dtype)[6:]} {what}: kernel {kernel_a:.4f}/"
           f"{kernel_b:.4f} ms, plain {plain_ms:.2f} ms, "
           f"bound {bound:.4f} ms by {by} (operations "
           f"{ops / PEAK_F32_FLOPS * 1e3:.4f} ms, bytes "
@@ -2858,6 +2984,76 @@ def forecast_shape_calls(forcing):
     return calls
 
 
+def cat_outputs(fn, *args):
+    """``fn(*args)``'s outputs as one tensor."""
+    return torch.cat(fn(*args))
+
+
+def rotating(fn, series, *args):
+    """A zero-argument call of ``fn(x, *args)`` whose ``x`` takes turns
+    through ``series``, so that no launch finds its input in the 50 MB L2
+    cache."""
+    turn = itertools.count()
+    return lambda: fn(series[next(turn) % len(series)], *args)
+
+
+def abc_time_calls(prec_basin):
+    """K6 and K7 at the bench's 10M steps (float32 and, as ``*_f64``,
+    float64; three copies of the series take turns) and at the
+    Monte-Carlo's 4096 members x 12418 CAMELS days (``*_mc``, float32).
+    Parameters are device tensors, as the class passes them: a Python float
+    would cost a host-to-device copy that waits for the stream.  Returns
+    {name: (call, plain call, check call, operations, bytes, description,
+    dtype)}; the check call runs the kernel on one fixed input and returns
+    q and S as one tensor."""
+    from rrmpg_tpu_torch.ops import abc, fused_abc as fa
+
+    calls = {}
+    kernels = (("abc_fused_single", fa.abc_fused_single),
+               ("abc_fused", fa.abc_fused))
+    for dtype, suffix in ((F32, ""), (F64, "_f64")):
+        rng = np.random.default_rng(0)
+        series = [as_tensor(rng.uniform(0, 20, ABC_STEPS), dtype)
+                  for _ in range(3)]
+        member = {k: as_tensor(v, dtype) for k, v in ABC_PARAMS.items()}
+        s0 = as_tensor(0.0, dtype)
+        size = 4 if dtype == F32 else 8
+        for name, fn in kernels:
+            calls[name + suffix] = (
+                rotating(fn, series, s0, member),
+                rotating(abc.run_abcmodel_pscan, series, s0, member),
+                functools.partial(cat_outputs, fn, series[0], s0, member),
+                ABC_STEP_OPS * ABC_STEPS, 3 * size * ABC_STEPS,
+                f"N=1 T={ABC_STEPS}", dtype)
+    basin = as_tensor(prec_basin, F32)
+    params, s0 = abc_members(np.random.default_rng(3), ABC_MC_MEMBERS, F32)
+    n, t_len = ABC_MC_MEMBERS, basin.shape[0]
+    for name, fn in kernels:
+        calls[name + "_mc"] = (
+            functools.partial(fn, basin, s0, params),
+            functools.partial(abc.run_abcmodel_pscan, basin, s0, params),
+            functools.partial(cat_outputs, fn, basin, s0, params),
+            ABC_STEP_OPS * n * t_len, 4 * (t_len + 4 * n + 2 * n * t_len),
+            f"Monte-Carlo N={n} T={t_len}", F32)
+    return calls
+
+
+def gr4j_simulate_call(prec_np, etp_np):
+    """K3 at the main path's ``simulate``: one member over the whole CAMELS
+    01031500 record, UH (10, 21).  Returns (call, plain call, operations,
+    bytes, description)."""
+    from rrmpg_tpu_torch.ops import fused_gr4j as fg
+
+    prec, etp = as_tensor(prec_np, F32), as_tensor(etp_np, F32)
+    t_len, uh = prec.shape[0], (10, 21)
+    one = gr4j_random_params(np.random.default_rng(5), 1, 2.9, F32)
+    return (lambda: fg.gr4j_simulate_fused(prec, etp, 0.0, 0.0, one, *uh),
+            lambda: fg.gr4j_simulate_reference(
+                prec, etp, fg.pack_params(one, 0.0, 0.0), *uh),
+            GR4J_STEP_OPS[uh] * t_len, 4 * (3 * t_len + 6),
+            f"simulate uh={uh} N=1 T={t_len}")
+
+
 def gr4j_regional_bench_call(uh, t_len=TIME_STEPS):
     """K5 at C = 8 catchments x 131072 members x ``t_len`` CAMELS 01031500
     days (3651: the regional shape of bench.py:258-276; None: the whole
@@ -2964,7 +3160,8 @@ SASS_CLASSES = (
 # registers and the run-time count) and the forecast path's (UH (10, 21)),
 # and in its earlier design (no layer count); K13 and K14 (one body, the
 # template arguments of their earlier design); K4 at both UH register pairs
-# and its split kernel at the forecast spin-up's (10, 21).
+# and its split kernel at the forecast spin-up's (10, 21); K3 likewise (its
+# split kernel at the main path's simulate).
 SASS_TARGETS = (
     ("snow_objective_kernel", "float, 3, 7, true, true, false, false, 5"),
     ("snow_objective_kernel", "float, 3, 7, true, true, false, true, 5"),
@@ -3001,6 +3198,9 @@ SASS_TARGETS = (
     ("gr4j_traj_state_kernel", "float, 10, 21"),
     ("gr4j_traj_state_kernel", "float, 3, 7"),
     ("gr4j_traj_state_split_kernel", "float, 10, 21"),
+    ("gr4j_traj_kernel", "float, 10, 21"),
+    ("gr4j_traj_kernel", "float, 3, 7"),
+    ("gr4j_traj_split_kernel", "float, 10, 21"),
 )
 # Probes of what one operation costs in SASS (each minus probe_add).
 PROBE_SRC = r"""
@@ -3028,6 +3228,12 @@ FORECAST_SHAPE_ROWS = {
                         "snow_traj_state_continuation"),
     "hbv_traj_state": ("hbv_traj_state_spinup",
                        "hbv_traj_state_continuation")}
+# The times of K3 and K6 / K7 at their other shapes (the main paths'
+# simulate and Monte-Carlo, float64), carried in the kernels line.
+SHAPE_ROWS = {"gr4j_traj": ("gr4j_traj_simulate",),
+              "abc_fused_single": ("abc_fused_single_mc",
+                                   "abc_fused_single_f64"),
+              "abc_fused": ("abc_fused_mc", "abc_fused_f64")}
 FIT_SHAPE_ROWS = {"snow_objective": "snow_mse_fit",
                   "hbv_objective": "hbv_mse_fit",
                   "gr4j_mse": "gr4j_mse_fit", "gr4j_stats": "gr4j_stats_fit"}
@@ -3715,6 +3921,80 @@ def k4_k13_equality_calls(forcing):
     return calls
 
 
+def k3_k7_equality_calls():
+    """K3 and K7 calls on which two builds must agree bit for bit, float64
+    and float32.  K3 (one production arm a step gives the two-arm step's
+    values): the Excel GR4J sheet (its golden parameters among 255 random
+    members: the split kernel), the whole CAMELS 01031500 record (the same
+    members, and one more than the split kernel takes: the tile kernel),
+    both UH register pairs; cold on edge inputs (300 steps, every seventh
+    with p == e): NaN forcing at two steps, an inf and a NaN initial store.
+    K7 (unchanged): T = 10M (float32), one step past a chunk, and the
+    Monte-Carlo's 4096 x 12418, q and S as one tensor.  Returns {name:
+    call}."""
+    import pandas as pd
+    from rrmpg_tpu_torch.ops import fused_abc as fa
+    from rrmpg_tpu_torch.ops import fused_gr4j as fg
+    from rrmpg_tpu_torch.ops._build import load_library
+
+    sheet = pd.read_csv(REPO / "tests" / "data" / "gr4j_example_data.csv")
+    _, prec_basin, etp_basin = basin()
+    records = {"excel": (sheet.prec.to_numpy(), sheet.etp.to_numpy()),
+               "camels": (prec_basin, etp_basin)}
+    rng = np.random.default_rng(7)
+    edge_p = rng.uniform(0, 15, 300)
+    edge_e = rng.uniform(0, 4, 300)
+    edge_e[::7] = edge_p[::7]
+    calls = {}
+    for dtype in (F64, F32):
+        name = str(dtype)[6:]
+        for uh in fg.SUPPORTED_UH:
+            x4_hi = 2.9 if uh[0] == 3 else BOUNDS_X4_WIDE
+            params = gr4j_random_params(np.random.default_rng(uh[0]), 256,
+                                        x4_hi, dtype)
+            for k, v in GR4J_GOLDEN.items():
+                params[k][0] = v
+            many = gr4j_random_params(np.random.default_rng(uh[1]),
+                                      fg.traj_split_members() + 1, x4_hi,
+                                      dtype)
+            for record, (p, e) in records.items():
+                p, e = as_tensor(p, dtype), as_tensor(e, dtype)
+                calls[f"K3 {record} {name} uh={uh}"] = functools.partial(
+                    fg.gr4j_simulate_fused, p, e, 0.6, 0.7, params, *uh)
+                if record == "camels":
+                    calls[f"K3 {record} N={many['x1'].shape[0]} {name} "
+                          f"uh={uh}"] = functools.partial(
+                              fg.gr4j_simulate_fused, p, e, 0.6, 0.7, many,
+                              *uh)
+            p, e = as_tensor(edge_p, dtype), as_tensor(edge_e, dtype)
+            nan_p, nan_e = p.clone(), e.clone()
+            nan_p[100] = torch.nan
+            nan_e[200] = torch.nan
+            for label, forcing_pe, s_init in (
+                    ("p == e", (p, e), 0.4),
+                    ("NaN forcing", (nan_p, nan_e), 0.4),
+                    ("inf store", (p, e), float("inf")),
+                    ("NaN store", (p, e), float("nan"))):
+                calls[f"K3 edge {label} {name} uh={uh}"] = functools.partial(
+                    fg.gr4j_simulate_fused, *forcing_pe, s_init, 0.3, params,
+                    *uh)
+        chunk = load_library().rrmpg_abc_chunk_size(int(dtype == F64))
+        for t_len in (chunk + 1, ABC_STEPS):
+            if dtype == F64 and t_len == ABC_STEPS:
+                continue
+            prec = as_tensor(
+                np.random.default_rng(t_len).uniform(0, 20, t_len), dtype)
+            calls[f"K7 T={t_len} {name}"] = functools.partial(
+                cat_outputs, fa.abc_fused, prec, 5.0,
+                {'a': 0.3, 'b': 0.4, 'c': 0.12})
+        members, s0 = abc_members(np.random.default_rng(3), ABC_MC_MEMBERS,
+                                  dtype)
+        calls[f"K7 N={ABC_MC_MEMBERS} T={len(prec_basin)} {name}"] = (
+            functools.partial(cat_outputs, fa.abc_fused,
+                              as_tensor(prec_basin, dtype), s0, members))
+    return calls
+
+
 def sass_by_kernel(path):
     """{kernel<template arguments>: [(opcode, operands)]} of a library."""
     out = {}
@@ -3761,17 +4041,17 @@ def regional_snow_bench_call():
 def phase_compare(card, other_dirs, forcing, qsim_matlab):
     """Development: build the kernel sources in each of ``other_dirs``
     (another version's ``rrmpg_tpu_torch/csrc``) beside this checkout's,
-    and time K1, K2, K4, K5, K8, K9, K10, K11, K12, K13 and K14 of each
-    against this one's in turns (other, this, this, other) at the bench
-    shapes (K5 also over the main path's record, K9 also at GLUE's shape,
-    K4, K10 and K14 also at the forecast path's shapes), K1, K2, K8 and K12
-    at the fit shapes and over SWEEP_MEMBERS, and K3 (which shares a source)
-    at its bench shape, with the largest output difference between the two
-    builds for each timed call, the SASS of the time loops, the
-    instantiations whose SASS differs and the registers that differ; then
-    K1/K2, K5/K9, K10/K14 and K4/K13 of both builds on the goldens and edge
-    inputs, bit for bit.  Times only: the kernels phase checks this checkout's
-    kernels."""
+    and time K1-K14 of each against this one's in turns (other, this, this,
+    other) at the bench shapes (K5 also over the main path's record, K9
+    also at GLUE's shape, K4, K10 and K14 also at the forecast path's
+    shapes, K3 also at the main path's simulate, K6 and K7 also at the
+    Monte-Carlo's shape and in float64), K1, K2, K8 and K12 at the fit
+    shapes and over SWEEP_MEMBERS, with the largest output difference
+    between the two builds for each timed call, the SASS of the time loops,
+    the instantiations whose SASS differs and the registers that differ;
+    then K1/K2, K5/K9, K10/K14, K4/K13 and K3/K7 of both builds on the
+    goldens and edge inputs, bit for bit.  Times only: the kernels phase
+    checks this checkout's kernels."""
     from rrmpg_tpu_torch.ops._build import BUILD_DIR, build_library, \
         load_library
 
@@ -3808,10 +4088,10 @@ def phase_compare(card, other_dirs, forcing, qsim_matlab):
         torch.cuda.synchronize()
         return out
 
-    def turns(name, fn, reps, what):
+    def turns(name, fn, reps, what, check_fn=None):
         for label, lib in others:
-            diff, same = output_difference(outputs(fn, this),
-                                           outputs(fn, lib))
+            diff, same = output_difference(outputs(check_fn or fn, this),
+                                           outputs(check_fn or fn, lib))
             ms = []
             for use in (lib, this, this, lib):
                 with using_library(use):
@@ -3825,6 +4105,12 @@ def phase_compare(card, other_dirs, forcing, qsim_matlab):
     n, t_len = TIME_MEMBERS, TIME_STEPS
     for name, fn in gr4j_bench_calls().items():
         turns(name, fn, 5, f"uh=(10, 21) N={n} T={t_len}")
+    _, prec_np, etp_np = basin()
+    fn, _, _, _, what = gr4j_simulate_call(prec_np, etp_np)
+    turns("gr4j_traj_simulate", fn, 20, what)
+    for name, (fn, _, check_fn, _, _, what, dtype) in abc_time_calls(
+            prec_np).items():
+        turns(name, fn, 20, f"{str(dtype)[6:]} {what}", check_fn)
     fn, _, _, _, what = regional_snow_bench_call()
     turns("snow_regional", fn, 3, what)
     for name, (fn, what) in shared_source_calls().items():
@@ -3855,7 +4141,8 @@ def phase_compare(card, other_dirs, forcing, qsim_matlab):
     for family, calls in (("K1/K2", gr4j_equality_calls()),
                           ("K5/K9", k5_k9_equality_calls()),
                           ("K10/K14", k10_k14_equality_calls(forcing)),
-                          ("K4/K13", k4_k13_equality_calls(forcing))):
+                          ("K4/K13", k4_k13_equality_calls(forcing)),
+                          ("K3/K7", k3_k7_equality_calls())):
         for label, lib in others:
             unequal = []
             for name, fn in calls.items():
@@ -3896,7 +4183,6 @@ def times_objectives(measure, card, forcing, qsim_matlab):
 def phase_times(card, prec_np, etp_np, qobs_np, forcing, qsim_matlab):
     """Kernel, plain version and bound of every kernel; returns
     ``{name: dict(ms, plain_ms, bound_ms, bound_by)}``."""
-    from rrmpg_tpu_torch.ops import abc, fused_abc as fa
     from rrmpg_tpu_torch.ops import fused_gr4j as fg
     from rrmpg_tpu_torch.ops import fused_hbv as fh
 
@@ -4064,28 +4350,17 @@ def phase_times(card, prec_np, etp_np, qobs_np, forcing, qsim_matlab):
     times_objectives(measure, card, forcing, qsim_matlab)
     times_regional(measure)
 
-    # ABC, one member over 10M steps.  Three copies of the series take
-    # turns, so that no launch finds its input in the 50 MB L2 cache.
-    rng = np.random.default_rng(0)
-    series = [as_tensor(rng.uniform(0, 20, ABC_STEPS), F32) for _ in range(3)]
-    turn = [0]
+    # K3 at the main path's simulate, one member over 12418 days.
+    fn, plain, ops, n_bytes, what = gr4j_simulate_call(prec_np, etp_np)
+    measure("gr4j_traj_simulate", fn, plain, ops, n_bytes, 20, what)
 
-    def next_prec():
-        turn[0] += 1
-        return series[turn[0] % len(series)]
-
-    # Parameters as device tensors, as the class passes them: a Python
-    # float would cost a host-to-device copy that waits for the stream.
-    member = {k: as_tensor(v, F32) for k, v in ABC_PARAMS.items()}
-    s0 = as_tensor(0.0, F32)
-    n_bytes = 12 * ABC_STEPS
-    for name, fn in (("abc_fused_single", fa.abc_fused_single),
-                     ("abc_fused", fa.abc_fused)):
-        ms = measure(name, lambda: fn(next_prec(), s0, member),
-                     lambda: abc.run_abcmodel_pscan(next_prec(), s0, member),
-                     ABC_STEP_OPS * ABC_STEPS, n_bytes, 20,
-                     f"N=1 T={ABC_STEPS}")
-        print(f"    {ABC_STEPS / (ms * 1e-3):.4e} steps/s, "
+    # ABC: K6 and K7 at 10M steps (float32, float64) and at the
+    # Monte-Carlo's shape.
+    for name, (fn, plain, _, ops, n_bytes, what, dtype) in abc_time_calls(
+            prec_np).items():
+        ms = measure(name, fn, plain, ops, n_bytes, 20, what, dtype)
+        steps = ops / ABC_STEP_OPS
+        print(f"    {steps / (ms * 1e-3):.4e} steps/s, "
               f"{n_bytes / (ms * 1e-3) / 1e9:.1f} GB/s of the "
               f"{n_bytes / 1e6:.0f} MB that must move")
     return rows
@@ -4108,6 +4383,9 @@ def kernel_entries(launches, max_abs, times):
         if name not in KERNEL_MODES:
             out.append(entry(name, launches.get(name, 0), max_abs[name],
                              times[name]))
+            if name in SHAPE_ROWS:
+                out[-1]["shapes"] = {row: times[row]
+                                     for row in SHAPE_ROWS[name]}
             continue
         modes = KERNEL_MODES[name]
         keys = [key for _, key in modes.values()]
@@ -4139,7 +4417,7 @@ def main():
                         help="development: the phases to run after the "
                         "build, of " + ", ".join(PHASES))
     parser.add_argument("--compare", metavar="DIR[,DIR...]",
-                        help="development: time K1, K2, K4, K5, K8-K14 "
+                        help="development: time K1-K14 "
                         "built from the kernel sources in each DIR against "
                         "this checkout's, in turns, then stop")
     args = parser.parse_args()
@@ -4162,6 +4440,7 @@ def main():
     if "kernels" in phases:
         phase_kernels_gr4j(prec, etp, qobs)
         phase_kernels_abc()
+        abc_edge_checks(prec)
         phase_kernels_hbv(forcing, qsim_matlab)
         phase_kernels_snow()
         lap("the cold kernels against their plain versions")
@@ -4169,6 +4448,7 @@ def main():
         phase_kernels_state_hbv(forcing, qsim_matlab)
         phase_kernels_state_snow()
         state_edge_checks(forcing, prec, etp)
+        gr4j_traj_edge_checks(prec, etp)
         lap("the state kernels and warm objectives against theirs")
         phase_kernels_regional(prec, etp, qobs)
         lap("the regional kernels against theirs")

@@ -117,6 +117,9 @@ def main():
               "maxiter 30)", lambda: GR4J().fit(
                   qobs, prec, etp, engine='fused', seed=0, maxiter=30,
                   loss_metric=loss))
+    trace(card, f"GR4J simulate 1 x {len(prec)} (fused)",
+          lambda: GR4J(params=cs.GR4J_GOLDEN).simulate(prec, etp,
+                                                      engine='fused'))
 
     trace(card, f"HBV-Edu MC {n} x {len(hbv_qobs)}",
           seeded(lambda: monte_carlo(HBVEdu(), num=n, qobs=hbv_qobs,

@@ -5,6 +5,7 @@
 //   K2  _stats_kernel  (gr4j_ensemble_mse_pallas, stats=True) -> gr4j_objective_kernel<..., STATS=true>
 //       (both as gr4j_objective_split_kernel for small ensembles)
 //   K3  _traj_kernel   (gr4j_simulate_pallas)                 -> gr4j_traj_kernel
+//       (as gr4j_traj_split_kernel for small ensembles)
 //   K4  _traj_final_kernel (gr4j_simulate_pallas_state)       -> gr4j_traj_state_kernel
 //       (as gr4j_traj_state_split_kernel for small ensembles)
 //   K5  gr4j_regional_mse_pallas (the K1/K2 body over a third,
@@ -29,11 +30,7 @@
 // for the whole time loop (the UH lengths are template constants, so every
 // register index is a compile-time constant after unrolling and nothing
 // spills to local memory).  Latency is hidden by running many members per
-// SM.  The objective accumulates in registers.  K3 still reads its forcing
-// through __ldg (one broadcast a warp) and stores one step at a time across
-// members (row-major (N, T)): a warp's 32 stores of one step land T values
-// apart, 32 sectors for 128 useful bytes, and bind it (~12.6 ms of stores
-// behind ~3 ms of compute at 131072 x 3651).
+// SM.  The objective accumulates in registers.
 //
 // K1/K2 were redesigned for this card (PERF.md section 6).  At 131072
 // members they are bound by the SMs' issue rate, at a calibration's 60 by
@@ -56,18 +53,24 @@
 // (8 x 131072 on every path), where the SMs' issue binds, so the split
 // kernel of small ensembles is not carried over.
 //
-// K4 was redesigned for this card too (PERF.md section 6).  It stages its
-// forcing as K1/K2 do, takes one production arm a step, and gathers each
-// 64-step tile of its (N, T) trajectory in shared memory, as K14 does: each
-// thread writes its member's discharge of the tile into its row of a
-// [member][step] tile (rows kTrajTile + 1 values apart, so one step's writes
-// fall in 32 banks), and after the tile's barrier each warp copies whole
-// member rows to device memory, its lanes on consecutive steps (one 256-byte
-// run a member and tile in float32).  Its time loop, traj_body, takes a
-// compile-time STATE flag, so that K3 can run it without the state rows.
-// Small ensembles (a forecast's one-member spin-up) run the production and
-// the routing halves in different warps, as K1/K2's do
-// (gr4j_traj_state_split_kernel).
+// K4 and K3 were redesigned for this card too (PERF.md section 6).  The
+// first port of both read the forcing through __ldg, took the two-arm step
+// and stored one step at a time across members (row-major (N, T)): a
+// warp's 32 stores of one step landed T values apart, 32 sectors for 128
+// useful bytes, and bound them (~12.6 ms of stores behind ~3 ms of compute
+// at 131072 x 3651).  Now both stage their forcing as K1/K2 do, take one
+// production arm a step, and gather each 64-step tile of the (N, T)
+// trajectory in shared memory, as K14 does: each thread writes its member's
+// discharge of the tile into its row of a [member][step] tile (rows
+// kTrajTile + 1 values apart, so one step's writes fall in 32 banks), and
+// after the tile's barrier each warp copies whole member rows to device
+// memory, its lanes on consecutive steps (one 256-byte run a member and
+// tile in float32).  They share that time loop, traj_body, under a
+// compile-time STATE flag: K4 is STATE=true, K3 STATE=false (no history
+// read, no state rows).  Small ensembles (a forecast's one-member spin-up,
+// a calibrated member's simulation) run the production and the routing
+// halves in different warps, as K1/K2's do (traj_split_body, under the
+// same flag: gr4j_traj_state_split_kernel and gr4j_traj_split_kernel).
 //
 // Unlike the TPU kernels there is no (8, 128) member tiling, no padding of
 // N or T and no time-tile grid: the kernel masks i < N itself and loops to
@@ -102,31 +105,16 @@ constexpr int kSplitTile = 32;
 // K4: steps per staged tile of forcing and per tile of discharge stores
 // (64 beat 32 by 4 % on the H100, PERF.md section 6).
 constexpr int kTrajTile = 64;
-// K4 with production and routing split between warps: ensembles of at most
-// kTrajSplitMembers members, one block of 64 a SM (measured on the H100:
-// 0.54-0.63 of the tile kernel's time up to 8448 members at T = 3651 and
-// at the one-member spin-up, 1.74 times it at 33792, where the split
-// kernel's per-step stores across members bind; PERF.md section 6).
+// K3 and K4 with production and routing split between warps: ensembles of
+// at most kTrajSplitMembers members, one block of 64 a SM (measured on the
+// H100 for K4: 0.54-0.63 of the tile kernel's time up to 8448 members at
+// T = 3651 and at the one-member spin-up, 1.74 times it at 33792, where
+// the split kernel's per-step stores across members bind; PERF.md
+// section 6).
 constexpr int kTrajSplitMembers = 8448;
 // Shared memory a block may use without opting in, and after (H100: 227 KB).
 constexpr size_t kSharedLimit = 48 * 1024;
 constexpr size_t kSharedOptIn = 232448;
-
-// K3: (N, T) discharge trajectories, row-major.
-template <typename Real, int NUH1, int NUH2>
-__global__ void __launch_bounds__(kBlock)
-gr4j_traj_kernel(const Real* __restrict__ prec, const Real* __restrict__ etp,
-                 const Real* __restrict__ params, int n, int t_len,
-                 Real* __restrict__ out) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  Member<Real, NUH1, NUH2> m;
-  gr4j_init(m, params, n, i);
-  Real* row = out + (size_t)i * t_len;
-  for (int t = 0; t < t_len; ++t) {
-    row[t] = gr4j_step(m, __ldg(prec + t), __ldg(etp + t));
-  }
-}
 
 // Copy steps [t0, t0 + steps) of prec and etp into the [p, e] records of
 // `buf`, consecutive threads on consecutive steps.
@@ -254,25 +242,36 @@ gr4j_traj_state_kernel(const Real* __restrict__ prec,
                                     fstate);
 }
 
-// K4 for small ensembles (n <= kTrajSplitMembers: a forecast's one-member
-// spin-up), where one warp's dependent chain decides the time.  As in
+// K3: (N, T) discharge trajectories, row-major, from a cold start: K4's
+// time loop without the state (traj_body, STATE=false).
+template <typename Real, int NUH1, int NUH2>
+__global__ void __launch_bounds__(kBlock)
+gr4j_traj_kernel(const Real* __restrict__ prec, const Real* __restrict__ etp,
+                 const Real* __restrict__ params, int n, int t_len,
+                 Real* __restrict__ out) {
+  traj_body<Real, NUH1, NUH2, false>(prec, etp, params, nullptr, n, t_len,
+                                     out, nullptr);
+}
+
+// The trajectory time loop for small ensembles (n <= kTrajSplitMembers: a
+// forecast's one-member spin-up, a calibrated member's simulation), where
+// one warp's dependent chain decides the time.  As in
 // gr4j_objective_split_kernel, threads 0..63 run the production store of
 // members 0..63 of the block (the forcing terms a step ahead of the chain)
 // and hand each p_r through shared memory to threads 64..127, which run the
-// UH registers and the routing store one tile behind, store q straight to
-// the member's row (few members: the strided stores do not bind) and write
-// the history rows as the p_r arrive; the production thread writes s, the
-// routing thread r.  The forcing is staged kSplitTile steps at a time in
-// two buffers (only production reads it).  Each member runs the same
-// operations on the same values as in gr4j_traj_state_kernel.
-template <typename Real, int NUH1, int NUH2>
-__global__ void __launch_bounds__(kBlock)
-gr4j_traj_state_split_kernel(const Real* __restrict__ prec,
-                             const Real* __restrict__ etp,
-                             const Real* __restrict__ params,
-                             const Real* __restrict__ hist, int n, int t_len,
-                             Real* __restrict__ out,
-                             Real* __restrict__ fstate) {
+// UH registers and the routing store one tile behind and store q straight
+// to the member's row (few members: the strided stores do not bind).  The
+// forcing is staged kSplitTile steps at a time in two buffers (only
+// production reads it).  Each member runs the same operations on the same
+// values as in traj_body.  STATE (K4): the routing thread enters from the
+// carried history and writes the history rows as the p_r arrive; the
+// production thread writes s, the routing thread r.  Without STATE nothing
+// reads hist or writes fstate.
+template <typename Real, int NUH1, int NUH2, bool STATE>
+__device__ __forceinline__ void traj_split_body(
+    const Real* __restrict__ prec, const Real* __restrict__ etp,
+    const Real* __restrict__ params, const Real* __restrict__ hist, int n,
+    int t_len, Real* __restrict__ out, Real* __restrict__ fstate) {
   constexpr int kMembers = kBlock / 2;
   constexpr int H = NUH2 - 1;
   __shared__ __align__(16) Real stage[2][kSplitTile][2];
@@ -282,16 +281,19 @@ gr4j_traj_state_split_kernel(const Real* __restrict__ prec,
   const int i = blockIdx.x * kMembers + lane;
   const int im = min(i, n - 1);  // past N: the last member, unwritten
   Member<Real, NUH1, NUH2> m;
-  gr4j_init(m, params, n, im, routing ? hist : nullptr);
-  Real* state = fstate + im;  // row k of this member: state[k * n]
+  gr4j_init(m, params, n, im, STATE && routing ? hist : nullptr);
+  Real* state = nullptr;  // row k of this member: state[k * n]
+  if constexpr (STATE) state = fstate + im;
   Real* row = out + (size_t)im * t_len;
   const bool writes = routing && i < n;
   int first_kept = t_len;  // the step whose p_r is history row 0
-  if (writes) {
-    first_kept = t_len - H;
-    for (int j = 0; j < H - t_len; ++j) {
-      state[(size_t)(2 + j) * n] =
-          hist != nullptr ? hist[(size_t)(j + t_len) * n + i] : Real(0);
+  if constexpr (STATE) {
+    if (writes) {
+      first_kept = t_len - H;
+      for (int j = 0; j < H - t_len; ++j) {
+        state[(size_t)(2 + j) * n] =
+            hist != nullptr ? hist[(size_t)(j + t_len) * n + i] : Real(0);
+      }
     }
   }
   const int tiles = (t_len + kSplitTile - 1) / kSplitTile;
@@ -330,17 +332,45 @@ gr4j_traj_state_split_kernel(const Real* __restrict__ prec,
         const Real q = gr4j_routing(m, p_r);
         const int t = t0 + s;
         if (writes) row[t] = q;
-        if (t >= first_kept) state[(size_t)(2 + t - first_kept) * n] = p_r;
+        if constexpr (STATE) {
+          if (t >= first_kept) state[(size_t)(2 + t - first_kept) * n] = p_r;
+        }
       }
     }
     __syncthreads();  // a buffer is refilled, a hand-over rewritten, after
   }
-  if (i >= n) return;
-  if (routing) {
-    state[n] = m.r;
-  } else {
-    state[0] = m.s;
+  if constexpr (STATE) {
+    if (i >= n) return;
+    if (routing) {
+      state[n] = m.r;
+    } else {
+      state[0] = m.s;
+    }
   }
+}
+
+// K4 for small ensembles (traj_split_body, STATE).
+template <typename Real, int NUH1, int NUH2>
+__global__ void __launch_bounds__(kBlock)
+gr4j_traj_state_split_kernel(const Real* __restrict__ prec,
+                             const Real* __restrict__ etp,
+                             const Real* __restrict__ params,
+                             const Real* __restrict__ hist, int n, int t_len,
+                             Real* __restrict__ out,
+                             Real* __restrict__ fstate) {
+  traj_split_body<Real, NUH1, NUH2, true>(prec, etp, params, hist, n, t_len,
+                                          out, fstate);
+}
+
+// K3 for small ensembles (traj_split_body without the state).
+template <typename Real, int NUH1, int NUH2>
+__global__ void __launch_bounds__(kBlock)
+gr4j_traj_split_kernel(const Real* __restrict__ prec,
+                       const Real* __restrict__ etp,
+                       const Real* __restrict__ params, int n, int t_len,
+                       Real* __restrict__ out) {
+  traj_split_body<Real, NUH1, NUH2, false>(prec, etp, params, nullptr, n,
+                                           t_len, out, nullptr);
 }
 
 // The sums of the objective kernels for one step: squared error and, with
@@ -562,16 +592,38 @@ gr4j_regional_kernel(const Real* __restrict__ prec,
 
 inline dim3 grid_for(int n) { return dim3((n + kBlock - 1) / kBlock); }
 
-template <typename Real, int NUH1, int NUH2>
-void launch_traj(const Real* prec, const Real* etp, const Real* params, int n,
-                 int t_len, Real* out, cudaStream_t stream) {
-  gr4j_traj_kernel<Real, NUH1, NUH2>
-      <<<grid_for(n), kBlock, 0, stream>>>(prec, etp, params, n, t_len, out);
+// The dynamic shared memory of a traj_body kernel (float64: 68 KB a
+// block), opting the kernel in above 48 KB.
+template <typename Real, typename Kernel>
+cudaError_t traj_shared(Kernel kernel, size_t& shared) {
+  shared =
+      (2 * 2 * kTrajTile + (size_t)kBlock * (kTrajTile + 1)) * sizeof(Real);
+  if (shared > kSharedOptIn) return cudaErrorInvalidValue;
+  if (shared <= kSharedLimit) return cudaSuccess;
+  return cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shared);
 }
 
-// K4: the split kernel (64 members a block) for at most kTrajSplitMembers
-// members, else traj_body's kernel with its dynamic shared memory, opting
-// in above 48 KB (float64: 68 KB a block).
+// K3 and K4: the split kernel (64 members a block) for at most
+// kTrajSplitMembers members, else traj_body's kernel.
+template <typename Real, int NUH1, int NUH2>
+cudaError_t launch_traj(const Real* prec, const Real* etp, const Real* params,
+                        int n, int t_len, Real* out, cudaStream_t stream) {
+  if (n <= kTrajSplitMembers) {
+    gr4j_traj_split_kernel<Real, NUH1, NUH2>
+        <<<(n + kBlock / 2 - 1) / (kBlock / 2), kBlock, 0, stream>>>(
+            prec, etp, params, n, t_len, out);
+    return cudaGetLastError();
+  }
+  const auto kernel = gr4j_traj_kernel<Real, NUH1, NUH2>;
+  size_t shared = 0;
+  const cudaError_t err = traj_shared<Real>(kernel, shared);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid_for(n), kBlock, shared, stream>>>(prec, etp, params, n,
+                                                  t_len, out);
+  return cudaGetLastError();
+}
+
 template <typename Real, int NUH1, int NUH2>
 cudaError_t launch_traj_state(const Real* prec, const Real* etp,
                               const Real* params, const Real* hist, int n,
@@ -584,14 +636,9 @@ cudaError_t launch_traj_state(const Real* prec, const Real* etp,
     return cudaGetLastError();
   }
   const auto kernel = gr4j_traj_state_kernel<Real, NUH1, NUH2>;
-  const size_t shared =
-      (2 * 2 * kTrajTile + (size_t)kBlock * (kTrajTile + 1)) * sizeof(Real);
-  if (shared > kSharedOptIn) return cudaErrorInvalidValue;
-  if (shared > kSharedLimit) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shared);
-    if (err != cudaSuccess) return err;
-  }
+  size_t shared = 0;
+  const cudaError_t err = traj_shared<Real>(kernel, shared);
+  if (err != cudaSuccess) return err;
   kernel<<<grid_for(n), kBlock, shared, stream>>>(prec, etp, params, hist, n,
                                                   t_len, out, fstate);
   return cudaGetLastError();
@@ -672,13 +719,13 @@ int simulate(const Real* prec, const Real* etp, const Real* params, int n,
   if (n <= 0 || t_len <= 0) return (int)cudaSuccess;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (nuh1 == 3 && nuh2 == 7) {
-    launch_traj<Real, 3, 7>(prec, etp, params, n, t_len, out, s);
-  } else if (nuh1 == 10 && nuh2 == 21) {
-    launch_traj<Real, 10, 21>(prec, etp, params, n, t_len, out, s);
-  } else {
-    return (int)cudaErrorInvalidValue;
+    return (int)launch_traj<Real, 3, 7>(prec, etp, params, n, t_len, out, s);
   }
-  return (int)cudaGetLastError();
+  if (nuh1 == 10 && nuh2 == 21) {
+    return (int)launch_traj<Real, 10, 21>(prec, etp, params, n, t_len, out,
+                                          s);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 template <typename Real>
@@ -754,8 +801,8 @@ extern "C" {
 // warps (gr4j_objective_split_kernel).
 int rrmpg_gr4j_split_members() { return kSplitMembers; }
 
-// The largest ensemble K4 runs with production and routing in separate
-// warps (gr4j_traj_state_split_kernel).
+// The largest ensemble K3 and K4 run with production and routing in
+// separate warps (traj_split_body).
 int rrmpg_gr4j_traj_split_members() { return kTrajSplitMembers; }
 
 int rrmpg_gr4j_simulate_f32(const float* prec, const float* etp,

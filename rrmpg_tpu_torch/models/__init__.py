@@ -9,7 +9,7 @@ from .cemaneigehystgr4j import CemaneigeHystGR4J
 from .cemaneigehystgr4jice import CemaneigeHystGR4JIce
 from .gr4j import GR4J
 from .hbvedu import HBVEdu
-from .states import (  # noqa: F401  (the forecast-mode state bundles)
+from .states import (
     ABCState,
     CemaneigeHystState,
     CemaneigeState,
@@ -21,4 +21,6 @@ from .states import (  # noqa: F401  (the forecast-mode state bundles)
 
 __all__ = ['ABCModel', 'BaseModel', 'Cemaneige', 'CemaneigeGR4J',
            'CemaneigeGR4JIce', 'CemaneigeHystGR4J', 'CemaneigeHystGR4JIce',
-           'GR4J', 'HBVEdu']
+           'GR4J', 'HBVEdu', 'ABCState', 'CemaneigeHystState',
+           'CemaneigeState', 'GR4JState', 'HBVEduState', 'SnowGR4JState',
+           'repair_state']

@@ -13,8 +13,10 @@ from .cemaneige import (
 )
 from .compositions import (
     run_cemaneigegr4j,
+    run_cemaneigegr4j_warm,
     run_cemaneigegr4jice,
     run_cemaneigehystgr4j,
+    run_cemaneigehystgr4j_warm,
     run_cemaneigehystgr4jice,
 )
 from .fused_abc import abc_fused, abc_fused_single
@@ -34,7 +36,7 @@ from .fused_snow import (
     snowgr4j_regional_mse_fused,
     snowgr4j_simulate_fused,
 )
-from .gr4j import GR4JState, run_gr4j, run_gr4j_warm
+from .gr4j import GR4JState, gr4j_initial_state, run_gr4j, run_gr4j_warm
 from .hbvedu import run_hbvedu, run_hbvedu_warm
 from .met import (
     calculate_solid_fraction,

@@ -5,8 +5,11 @@ CUDA C++ in ``rrmpg_tpu_torch/csrc/abc_scan.cu``: a chunked parallel scan
 over the affine maps ``S -> (1-c) S + a P[t]``.
 
 * K6 :func:`abc_fused_single` -- one launch; the series is read once and
-  both outputs are written once (chunks pass their state on through
-  global memory, decoupled look-back);
+  both outputs are written once (chunks publish their composed maps in
+  global memory, the last chunk of each group of 32 its group's, and each
+  chunk composes its incoming state from the groups before its own and
+  the chunks before it in its group, in an order its index fixes: the
+  same bits on every run);
 * K7 :func:`abc_fused` -- the same function in three launches (chunk
   totals, carries, outputs), reading the series twice.
 
@@ -43,9 +46,11 @@ def _run(kernel, prec, initial_state, params):
                                device=prec.device)
     args = [prec.data_ptr(), scal.data_ptr(), n, t_len]
     if kernel == "abc_fused_single":
-        # The ticket and one flag per chunk; the entry point zeroes them.
-        scratch_int = torch.empty(1 + blocks, dtype=torch.int32,
-                                  device=prec.device)
+        # The ticket, and the 64-bit words in which each chunk publishes
+        # its pair (two a pair in float32, four in float64); the entry
+        # point zeroes them.
+        scratch_int = torch.empty(1 + blocks * prec.element_size() // 2,
+                                  dtype=torch.int64, device=prec.device)
         args.append(scratch_int.data_ptr())
         fns = (lib.rrmpg_abc_single_f32, lib.rrmpg_abc_single_f64)
     else:

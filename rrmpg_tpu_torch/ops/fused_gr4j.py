@@ -7,10 +7,12 @@ objectives K1/K2 stage their forcing in shared memory and compute one
 production arm a step; for ensembles of at most :func:`split_members`
 members they run the production and the routing halves of each member's
 step in separate warps (a calibration's population is latency-bound).
-K4 stages its forcing the same way, computes one production arm a step and
-gathers its trajectories in shared-memory tiles that leave as whole member
-rows; for ensembles of at most :func:`traj_split_members` members (a
-forecast's one-member spin-up) it splits the step between warps too.
+K3 and K4 stage their forcing the same way, compute one production arm a
+step and gather their trajectories in shared-memory tiles that leave as
+whole member rows (one time loop; K3 is K4 without the state, bit for bit
+its cold entry); for ensembles of at most :func:`traj_split_members`
+members (a calibrated member's simulation, a forecast's one-member
+spin-up) they split the step between warps too.
 
 * K3 :func:`gr4j_simulate_fused` -- (N, T) discharge trajectories;
 * K1 :func:`gr4j_ensemble_mse_fused` -- fused simulate + MSE, one
@@ -65,7 +67,7 @@ def split_members():
 
 
 def traj_split_members():
-    """The largest ensemble for which K4 runs the production and the
+    """The largest ensemble for which K3 and K4 run the production and the
     routing halves of the step in separate warps (a constant of the CUDA
     library); larger ones gather their trajectories in shared-memory
     tiles, one member a thread."""

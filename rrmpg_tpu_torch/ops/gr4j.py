@@ -18,6 +18,8 @@ import typing
 
 import torch
 
+from ..config import (DEFAULT_DEVICE, DEFAULT_DTYPE, resolve_device,
+                      resolve_dtype)
 from .uh import NUM_UH1, NUM_UH2, causal_fir, uh_ordinates
 
 
@@ -31,6 +33,39 @@ class GR4JState(typing.NamedTuple):
     s: torch.Tensor
     r: torch.Tensor
     pr_history: torch.Tensor
+
+
+def gr4j_initial_state(s_init, r_init, params, num_uh2=NUM_UH2, dtype=None,
+                       device=None):
+    """Build a cold-start :class:`GR4JState`: ``s = s_init * x1``,
+    ``r = r_init * x3`` and a zero routing-input history.
+
+    Args:
+        s_init, r_init: initial store levels as fractions of x1 / x3
+            (reference convention), scalars or (N,).
+        params: dict with 'x1' and 'x3', scalars or (N,).
+        num_uh2: UH2 register length; the history holds ``num_uh2 - 1``
+            inputs.
+        dtype: float32 or float64; default the dtype of a floating-point
+            ``x1`` tensor, else ``config.DEFAULT_DTYPE``.
+        device: default ``config.DEFAULT_DEVICE`` (the card).
+
+    Returns:
+        :class:`GR4JState` with (N,) stores and an (N, H) history for (N,)
+        parameters; scalar stores and an (H,) history for scalars.
+    """
+    device = resolve_device(DEFAULT_DEVICE if device is None else device)
+    x1, x3 = (torch.as_tensor(params[k]) for k in ('x1', 'x3'))
+    if dtype is None:
+        dtype = x1.dtype if x1.is_floating_point() else DEFAULT_DTYPE
+    dtype = resolve_dtype(dtype)
+    s, r = torch.broadcast_tensors(
+        *(torch.as_tensor(frac, dtype=dtype, device=device)
+          * x.to(dtype=dtype, device=device)
+          for frac, x in ((s_init, x1), (r_init, x3))))
+    return GR4JState(
+        s=s.contiguous(), r=r.contiguous(),
+        pr_history=s.new_zeros((*s.shape, num_uh2 - 1)))
 
 
 def production_store_scan(prec, etp, s_init_abs, x1):

@@ -5,8 +5,10 @@ JAX, so it runs on a GPU machine without it:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
-Each kernel (GR4J K1 MSE, K2 stats, K3 trajectories, K4 trajectories +
-state; ABC K6 single launch, K7 three launches; the snow family's K8
+Each kernel (GR4J K1 MSE, K2 stats, K3 trajectories (also bit for bit
+K4's cold entry), K4 trajectories + state; ABC K6 single launch (also at
+its chunk edges, and the same bits from run to run), K7 three launches;
+the snow family's K8
 objective, K9 trajectories and K10 trajectories + state; HBV-Edu K12
 objective, K13 trajectories, K14 trajectories + state; the warm entry of
 the objectives; the regional K5 and K11, one and three catchments in a
@@ -186,15 +188,65 @@ def test_abc_kernels_members_in_one_launch(cuda, kernel):
                       device=cuda)
     fg.reset_launches()
     got = kernel(prec, s0, params)
-    # Twice in a row: the second launch must not see the first one's flags.
+    # Twice in a row: the second launch must not see the first one's flags,
+    # and gives the same bits (K6 composes in an order fixed by the chunk).
     again = kernel(prec, s0, params)
     torch.cuda.synchronize()
     assert sum(fg.LAUNCHES.values()) == 2
     for g, g2, w in zip(got, again, abc.run_abcmodel_pscan(prec, s0, params)):
         assert g.shape == (37, 9001)
         torch.testing.assert_close(g, w, rtol=1e-9, atol=1e-12)
-        # Not bit for bit: how far a block looks back depends on timing.
-        torch.testing.assert_close(g2, w, rtol=1e-9, atol=1e-12)
+        assert torch.equal(g2, g)
+
+
+def _abc_chunk(dtype):
+    from rrmpg_tpu_torch.ops._build import load_library
+
+    return load_library().rrmpg_abc_chunk_size(int(dtype == torch.float64))
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("chunks,extra", [(1, -1), (1, 0), (1, 1), (32, 1),
+                                          (300, 17)])
+def test_abc_single_kernel_at_chunk_edges(cuda, dtype, chunks, extra):
+    """K6 one step short of, at and one past a chunk, 33 chunks whose last
+    is one step long, and 301 chunks (Fenwick nodes up to 256 chunks), with
+    members at c = 0, 0.12 and 1, against the doubling scan and K7."""
+    t_len = chunks * _abc_chunk(dtype) + extra
+    rng = np.random.default_rng(t_len)
+    prec = torch.tensor(rng.uniform(0, 20, t_len), dtype=dtype, device=cuda)
+    params = {'a': torch.tensor([0.3, 0.2, 0.5], dtype=dtype, device=cuda),
+              'b': torch.tensor([0.4, 0.1, 0.3], dtype=dtype, device=cuda),
+              'c': torch.tensor([0.0, 0.12, 1.0], dtype=dtype, device=cuda)}
+    s0 = torch.tensor([5.0, 0.0, 2.5], dtype=dtype, device=cuda)
+    got = fa.abc_fused_single(prec, s0, params)
+    for g, w, k7 in zip(got, abc.run_abcmodel_pscan(prec, s0, params),
+                        fa.abc_fused(prec, s0, params)):
+        assert g.shape == (3, t_len)
+        for row in range(3):
+            _abc_close(g[row], w[row])
+            _abc_close(g[row], k7[row])
+    assert torch.equal(got[1][:, 0], s0)
+    assert not bool(got[0][:, 0].any())
+
+
+@pytest.mark.parametrize("shape", [(1, 1_000_003), (512, 12418)])
+def test_abc_single_kernel_is_bit_reproducible(cuda, shape):
+    """K6 five times on the same inputs: the same bits every time (one long
+    series of 245 chunks; many members of four chunks)."""
+    n, t_len = shape
+    rng = np.random.default_rng(4)
+    prec = torch.tensor(rng.uniform(0, 20, t_len), dtype=torch.float32,
+                        device=cuda)
+    a = rng.uniform(0, 1, n)
+    params = {k: torch.tensor(v, dtype=torch.float32, device=cuda)
+              for k, v in (('a', a), ('b', rng.uniform(0, 1 - a)),
+                           ('c', rng.uniform(0, 1, n)))}
+    s0 = torch.tensor(rng.uniform(0, 9, n), dtype=torch.float32, device=cuda)
+    first = fa.abc_fused_single(prec, s0, params)
+    for _ in range(4):
+        for g, f in zip(fa.abc_fused_single(prec, s0, params), first):
+            assert torch.equal(g, f)
 
 
 # ---------------------------------------------------------------------------
@@ -317,9 +369,13 @@ def test_golden_matlab_trajectory_fused_float64(cuda):
 
 
 def test_default_device_is_the_card(cuda):
-    for name in models.__all__:
-        if name != 'BaseModel':
-            assert getattr(models, name)().device.type == "cuda"
+    classes = [getattr(models, name) for name in models.__all__]
+    classes = [c for c in classes if isinstance(c, type)
+               and issubclass(c, models.BaseModel)
+               and c is not models.BaseModel]
+    assert len(classes) == 8
+    for cls in classes:
+        assert cls().device.type == "cuda"
 
 
 # ---------------------------------------------------------------------------
@@ -564,6 +620,31 @@ def test_gr4j_state_kernel_matches_plain(cuda, dtype, n1, n2, x4_max, cut,
     torch.testing.assert_close(torch.cat([q_a, q_b], dim=1), full,
                                rtol=1e-9 if dtype == torch.float64 else rtol,
                                atol=atol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("n1,n2,x4_max", [(3, 7, 2.9), (10, 21, 9.9)])
+@pytest.mark.parametrize("T", [1, 63, 64, 65, 128])
+@pytest.mark.parametrize("n", [1, 129, 200, "split+1", "split+72"])
+def test_gr4j_traj_kernel_is_k4_cold(cuda, dtype, n1, n2, x4_max, T, n):
+    """K3 (its split kernel up to fg.traj_split_members() members, its tile
+    kernel beyond) gives K4's cold trajectories bit for bit, and agrees
+    with its plain version, at the edges of their 64-step tiles and their
+    blocks."""
+    prec, etp, _, params = _inputs(cuda, dtype, T=T, N=_k4_members(n),
+                                   x4_max=x4_max)
+    fg.reset_launches()
+    got = fg.gr4j_simulate_fused(prec, etp, 0.4, 0.3, params, n1, n2)
+    k4, _ = fg.gr4j_simulate_state_fused(prec, etp, params, None, 0.4, 0.3,
+                                         n1, n2)
+    torch.cuda.synchronize()
+    assert fg.LAUNCHES["gr4j_traj"] == 1
+    assert torch.equal(got, k4)
+    want = fg.gr4j_simulate_reference(prec, etp,
+                                      fg.pack_params(params, 0.4, 0.3), n1,
+                                      n2)
+    rtol, atol = TOL[dtype]["traj"]
+    torch.testing.assert_close(got, want, rtol=rtol, atol=atol)
 
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
