@@ -18,8 +18,10 @@ Phases, in order (each prints its lines; any failure exits non-zero):
                   three launches; T in {1, 1000, 70000, 1000003}, c in
                   {0, 0.12, 1}; against the doubling scan, the sequential
                   loop and each other; also one step short of, at and past
-                  K6's chunk, at 33 and 2442 chunks in both types and at
-                  the Monte-Carlo's 4096 x 12418, and K6 five times on the
+                  a chunk, at 33, 257 and 2442 chunks in both types and at
+                  the Monte-Carlo's 4096 x 12418, both in float32
+                  against the float64 doubling scan at 4096 x 32 chunks
+                  with a member at c = 7e-5, and K6 five times on the
                   same inputs at 10M steps and at 4096 x 12418, the same
                   bits every time), HBV-Edu (K12 MSE and stats with
                   and without gaps, K13 trajectories; NaN-aware) and the
@@ -69,7 +71,13 @@ Phases, in order (each prints its lines; any failure exits non-zero):
                   (131072-member Monte-Carlo and two calibrations through
                   K12, a fused simulation through K13); ABC (one member over
                   10 000 000 steps through K6, a 4096-member Monte-Carlo and
-                  a calibration on CAMELS 01031500); the hysteresis + ice
+                  a calibration on CAMELS 01031500); DE's JAX contract
+                  (a fused GR4J fit on CAMELS 01031500 saved every 5
+                  generations, broken off at 10 and resumed to 15, equal to
+                  the unbroken 15 bit for bit; the fused fit with
+                  polish=True, skipped as the kernels have no backward;
+                  gradient_descent through the sequential engine on the
+                  last 365 days, 20 steps); the hysteresis + ice
                   snow model on the 1827 days and 5 elevation layers of its
                   Excel sheet (131072-member Monte-Carlo, two calibrations
                   and a discharge + snow-cover calibration through K8, a
@@ -972,14 +980,17 @@ def abc_members(rng, n, dtype):
 
 
 def abc_edge_checks(prec_basin):
-    """K6 and K7 around K6's chunks (4096 steps a block in float32, 2048 in
+    """K6 and K7 around their chunks (4096 steps a block in float32, 2048 in
     float64): T one step short of, at and one past one chunk, 33 chunks
-    (the last one step long) and 2442 chunks (float32: the bench's 10M
+    (the last one step long), 257 chunks (K7's carry pass: a team of two
+    warps for the member) and 2442 chunks (float32: the bench's 10M
     steps; float64: 2441 chunks and 7 steps), c in (0, 0.12, 1), against
     the doubling scan and each other; at the Monte-Carlo's shape, 4096
     members x 12418 CAMELS days (four chunks a member in float32), both
-    types.  Then K6 five times on the same inputs at T = 10M and at the
-    Monte-Carlo shape (float32): the same bits every time."""
+    types; K6 and K7 in float32 against the doubling scan in float64 on the
+    same inputs at 4096 members x 32 chunks, one member at c = 7e-5.  Then
+    K6 five times on the same inputs at T = 10M and at the Monte-Carlo
+    shape (float32): the same bits every time."""
     from rrmpg_tpu_torch.ops import abc, fused_abc as fa
     from rrmpg_tpu_torch.ops._build import load_library
 
@@ -987,7 +998,8 @@ def abc_edge_checks(prec_basin):
     for dtype in (F32, F64):
         chunk = load_library().rrmpg_abc_chunk_size(int(dtype == F64))
         last = ABC_STEPS if dtype == F32 else 2441 * chunk + 7
-        for t_len in (chunk - 1, chunk, chunk + 1, 32 * chunk + 1, last):
+        for t_len in (chunk - 1, chunk, chunk + 1, 32 * chunk + 1,
+                      256 * chunk + 1, last):
             prec = as_tensor(
                 np.random.default_rng(t_len).uniform(0, 20, t_len), dtype)
             for c in (0.0, 0.12, 1.0):
@@ -1019,6 +1031,30 @@ def abc_edge_checks(prec_basin):
                        *abc_tol(w))
                 n_checks += 1
         check(torch.equal(single[1][:, 0], s0), "K6: S[:, 0] != s0")
+    # float32 against float64 on the same float32 inputs where a small c
+    # remembers thousands of steps (a fourth member at c = 7e-5): 4096
+    # members x 32 chunks.  The doubling scan's error is printed beside.
+    t_len = 32 * load_library().rrmpg_abc_chunk_size(0)
+    prec = as_tensor(np.random.default_rng(5).uniform(0, 20, t_len), F32)
+    params, s0 = abc_members(np.random.default_rng(5), ABC_MC_MEMBERS, F32)
+    params['c'][3] = 7e-5
+    exact = abc.run_abcmodel_pscan(prec.double(), s0.double(),
+                                   {k: v.double() for k, v in params.items()})
+    for what, fn in (("K6", fa.abc_fused_single), ("K7", fa.abc_fused),
+                     ("doubling scan", abc.run_abcmodel_pscan)):
+        for series, g, w in zip(("q", "S"), fn(prec, s0, params), exact):
+            label = (f"abc float32 N={ABC_MC_MEMBERS} T={t_len} {what} vs "
+                     f"float64 {series}")
+            tol = abc_tol(w.float())                  # float32's tolerance
+            if what == "doubling scan":
+                torch.cuda.synchronize()
+                err = errors(g, w, *tol)[0]
+                print(f"    {label} max_abs={err:.3e} (of the largest value "
+                      f"{err / float(w.abs().max()):.3e}; not checked)")
+            else:
+                report(label, g, w, *tol)
+                n_checks += 1
+    del exact
     prec = as_tensor(np.random.default_rng(0).uniform(0, 20, ABC_STEPS), F32)
     basin = as_tensor(prec_basin, F32)
     params, s0 = abc_members(np.random.default_rng(3), ABC_MC_MEMBERS, F32)
@@ -1788,6 +1824,99 @@ def phase_main_path_gr4j(card, qobs, prec, etp):
                      *TOL[F32]["traj" if stats is None else "obj"])
         max_abs[kernel] = max(max_abs.get(kernel, 0.0), err)
     return launches, max_abs, walls
+
+
+DE_RESUME_AT = (10, 15)    # generations before the break, and in all
+DE_CHECKPOINT_EVERY = 5
+GD_DAYS = 365              # gradient_descent's segment, 'scan' engine
+GD_STEPS = 20
+
+
+def phase_main_path_de(card, qobs, prec, etp):
+    """DE's JAX contract on the card: a fused GR4J fit on CAMELS 01031500
+    checkpointed every DE_CHECKPOINT_EVERY generations into a temporary
+    ``.npz``, broken off and resumed, against the unbroken fit bit for bit;
+    ``polish=True`` on the fused engine (no backward: skipped with JAX's
+    message); ``gradient_descent`` through the 'scan' engine's ``run_gr4j``
+    on the last GD_DAYS days (finite, no worse than its start)."""
+    from rrmpg_tpu_torch.models import GR4J
+    from rrmpg_tpu_torch.ops import run_gr4j
+    from rrmpg_tpu_torch.tools import gradient_descent
+
+    broken, total = DE_RESUME_AT
+    bounds = [GR4J._default_bounds[p] for p in GR4J._param_list]
+    q_seg, p_seg, e_seg = (as_tensor(a[-GD_DAYS:], F32)
+                           for a in (qobs, prec, etp))
+    seen = torch.isfinite(q_seg)
+
+    def segment_mse(x):
+        params = {n: x[j:j + 1] for j, n in enumerate(GR4J._param_list)}
+        qsim = run_gr4j(p_seg, e_seg, 0.0, 0.0, params)[0][0]
+        return ((qsim - q_seg)[seen] ** 2).mean()
+
+    walls = {}
+
+    def drive():
+        kw = dict(engine='fused', seed=1, tol=0.0)
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "de.npz")
+            t0 = time.perf_counter()
+            full = GR4J().fit(qobs, prec, etp, maxiter=total, **kw)
+            walls["fit_unbroken"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            part = GR4J().fit(qobs, prec, etp, maxiter=broken,
+                              checkpoint_path=path,
+                              checkpoint_every=DE_CHECKPOINT_EVERY, **kw)
+            walls["fit_checkpointed"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            resumed = GR4J().fit(qobs, prec, etp, maxiter=total,
+                                 resume_from=path, **kw)
+            walls["fit_resumed"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        polished = GR4J().fit(qobs, prec, etp, maxiter=broken, polish=True,
+                              **kw)
+        walls["fit_polish"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        gd = gradient_descent(segment_mse, bounds, x0=full.x,
+                              steps=GD_STEPS, dtype=F32)
+        walls["gradient_descent"] = time.perf_counter() - t0
+        return full, part, resumed, polished, gd
+
+    (full, part, resumed, polished, gd), launches, _ = run_counted(drive)
+    check_fit(GR4J, full, "GR4J unbroken fit")
+    check(part.nit == broken and resumed.nit == full.nit == total,
+          f"DE generations: part {part.nit}, resumed {resumed.nit}, "
+          f"unbroken {full.nit}")
+    same = (resumed.fun == full.fun and resumed.nfev == full.nfev
+            and np.array_equal(resumed.x, full.x)
+            and np.array_equal(resumed.population, full.population)
+            and np.array_equal(resumed.population_energies,
+                               full.population_energies))
+    check(same, "the resumed fit differs from the unbroken one")
+    check(polished.message.endswith(" Polish skipped (RuntimeError).")
+          and np.isfinite(polished.fun),
+          f"fused fit with polish=True: {polished.message!r}")
+    with torch.no_grad():
+        start = float(segment_mse(torch.tensor(full.x, dtype=F32,
+                                               device=DEVICE)))
+    check(gd.success and np.isfinite(gd.fun) and gd.fun <= start
+          and gd.nfev == GD_STEPS + 1,
+          f"gradient_descent: fun {gd.fun} from {start}")
+    check_fit(GR4J, gd, "gradient_descent")
+    # Every fit generation is one K1 launch; the resumed fit evaluates no
+    # initial population; the polish's one forward pass is one more.
+    expect = {"gr4j_mse": (full.nit + 1) + (part.nit + 1)
+              + (resumed.nit - part.nit) + (polished.nit + 1) + 1}
+    check(launches == expect,
+          f"launch counts {launches} differ from the expected {expect}")
+    print(f"[5 main path] DE, GR4J fused fit on CAMELS 01031500 T="
+          f"{len(prec)} float32: {broken} generations saved every "
+          f"{DE_CHECKPOINT_EVERY} and resumed to {total} equal the unbroken "
+          f"{total} bit for bit (fun {full.fun:.6f}); polish=True on the "
+          f"fused engine: {polished.message!r}; gradient_descent 'scan' "
+          f"{GD_DAYS} days x {GD_STEPS} steps: MSE {start:.5f} -> "
+          f"{gd.fun:.5f}; launches {launches} == expected; {card}")
+    return launches, {}, walls
 
 
 def phase_main_path_hbv(card, forcing, qsim_matlab):
@@ -3929,9 +4058,12 @@ def k3_k7_equality_calls():
     members, and one more than the split kernel takes: the tile kernel),
     both UH register pairs; cold on edge inputs (300 steps, every seventh
     with p == e): NaN forcing at two steps, an inf and a NaN initial store.
-    K7 (unchanged): T = 10M (float32), one step past a chunk, and the
-    Monte-Carlo's 4096 x 12418, q and S as one tensor.  Returns {name:
-    call}."""
+    K7: T = 10M (float32), one step past a chunk, and the Monte-Carlo's
+    4096 x 12418, q and S as one tensor; against a build from before K7's
+    redesign (runs out of shared memory composed in another order) these
+    calls differ by rounding in both types, the exception to bit equality
+    that phase 3 covers by holding K7 to the doubling scan and K6 at
+    ``abc_tol``.  Returns {name: call}."""
     import pandas as pd
     from rrmpg_tpu_torch.ops import fused_abc as fa
     from rrmpg_tpu_torch.ops import fused_gr4j as fg
@@ -4467,6 +4599,7 @@ def main():
 
     if "main" in phases:
         gather("GR4J", phase_main_path_gr4j(card, qobs, prec, etp))
+        gather("DE", phase_main_path_de(card, qobs, prec, etp))
         gather("HBV-Edu", phase_main_path_hbv(card, forcing, qsim_matlab))
         gather("ABC", phase_main_path_abc(card, qobs, prec))
         gather("snow", phase_main_path_snow(card))

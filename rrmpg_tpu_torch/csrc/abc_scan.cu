@@ -23,26 +23,44 @@
 // no special case.  Step 0 is the map S -> 0 S + s0, which makes
 // S[0] == s0 exact and cuts off everything before it.
 //
-// K7 scans a chunk in rounds: each warp walks its part of the chunk in
-// rounds of 32 consecutive steps (one coalesced 128-byte load, and later
-// store, per round), scans a round with shuffles and chains the rounds
-// through one running pair; the eight warp totals meet in shared memory.
-// The composed pairs stay in registers (three values a step) until the
-// state at the chunk's start is known, then S and q are computed and
-// written once.
+// A map is kept as (D, B) with D = 1 - A, and a step as (c, a P[t]): no
+// (1 - c) is ever rounded.  In float32, (1 - c) rounded carries up to 4e-4
+// of a small c's value (c = 7e-5), and every full run of a member repeats
+// the same rounded A, so the runs' errors add up over the thousands of
+// steps such a store remembers: with A kept, the float32 S of both kernels
+// strayed from the float64 result by more than 1e-4 of its largest value
+// at 4096 members x 131072 steps, where the doubling scan stays within it.
+// chip_smoke.py (phase 3) holds both kernels to the float64 result there.
 //
-// K6 scans a chunk in runs: the block copies its chunk of the series into
-// shared memory with coalesced loads, each thread's kItems consecutive
-// steps kItems + 1 values apart (so a warp's reads of one step of every
-// run fall in 32 banks); each thread composes its run in order (a multiply
-// and a multiply-add a step) and one warp scan and the eight warp totals
-// give the map before every run.  Once the state at the chunk's start is
-// known, each thread runs its steps from the state before its run, reading
-// P again from shared memory and writing S over it and q beside it, and
-// the block stores both with coalesced writes.  No step's values stay in
-// registers, and a thread shuffles once a run, not once a step: 40
-// registers in float32 (K7: 94), so six blocks stay resident on an SM to
-// cover the wait for a chunk's incoming state (PERF.md section 6).
+// K6 and K7 scan a chunk in runs: the block copies its chunk of the series
+// into shared memory with coalesced loads, each thread's kItems consecutive
+// steps kItems + 1 values apart (so a warp's reads of one step of every run
+// fall in 32 banks); each thread composes its run in order (an add and two
+// multiply-adds a step) and one warp scan and the eight warp totals give
+// the map before every run.  Once the state at the chunk's start is known,
+// each thread runs its steps from the state before its run, reading P
+// again from shared memory and writing S over it and q beside it, and the
+// block stores both with coalesced writes.  No step's values stay in
+// registers, and a thread shuffles once a run, not once a step, so few
+// registers are live and several blocks stay resident on an SM (PERF.md
+// section 6).  K7's kernels are built from these pieces (stage_chunk,
+// compose_run, block_scan, replay_run, store_chunk); K6 keeps its own
+// inline copy of them, since calling them moved its code (40 registers to
+// 46 in float32, and slower).  The two differ in how a chunk learns its
+// incoming state.
+//
+// K7 learns it in three launches.  The first stages and composes every
+// chunk and writes the chunk's pair.  The second scans each member's
+// pairs: a team of threads per member, sized to the member's chunks (one
+// warp up to 256 chunks, up to 256 threads beyond), each thread composing
+// a run of consecutive pairs, then one scan over the team; it writes the
+// state before every chunk.  The third stages the chunk again, composes
+// and scans its runs, and replays them from that state.  The series is read
+// twice (the design's floor is 4 + 4 + 8 bytes a float32 step); the third
+// launch takes the chunks in reverse order, so that at 10M float32 steps
+// (40 MB) its first reads find what the first launch read last in the 50
+// MB L2.  Register caps keep eight blocks of the first launch and six of
+// the third on an SM.
 //
 // K6 gets that state in the same launch, from pairs that earlier chunks
 // publish in global memory, composed in an order that the chunk's index
@@ -95,8 +113,7 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr unsigned kFull = 0xffffffffu;
 
-// Steps per thread (in K7 the composed pairs and the series values of a
-// chunk live in registers, 3 x kItems values a thread).
+// Steps per thread: one run, composed serially.
 template <typename Real> struct Items;
 template <> struct Items<float> { static constexpr int value = 16; };
 template <> struct Items<double> { static constexpr int value = 8; };
@@ -106,21 +123,35 @@ __host__ __device__ constexpr int chunk_size() {
   return kThreads * Items<Real>::value;
 }
 
-// The affine map S -> A S + B.
+// The affine map S -> (1 - D) S + B, kept as D = 1 - A rather than A (see
+// the note at the top): a step is (c, a P[t]).
 template <typename Real>
 struct Affine {
-  Real A, B;
+  Real D, B;
 };
 
 template <typename Real>
 __device__ __forceinline__ Affine<Real> identity() {
-  return {Real(1), Real(0)};
+  return {Real(0), Real(0)};
 }
 
-// The map "f, then g".
+// The map "f, then g": 1 - (1 - f.D)(1 - g.D) and (1 - g.D) f.B + g.B, with
+// no (1 - x) ever rounded.
 template <typename Real>
 __device__ __forceinline__ Affine<Real> then(Affine<Real> f, Affine<Real> g) {
-  return {g.A * f.A, g.A * f.B + g.B};
+  return {fma(-f.D, g.D, f.D + g.D), fma(-g.D, f.B, f.B) + g.B};
+}
+
+// The map f applied to the state s.
+template <typename Real>
+__device__ __forceinline__ Real apply(Affine<Real> f, Real s) {
+  return fma(-f.D, s, s) + f.B;
+}
+
+// One step of the recurrence, S[t] = (1 - c) S[t-1] + a P[t].
+template <typename Real>
+__device__ __forceinline__ Real step(Real c, Real a, Real p, Real s) {
+  return fma(-c, s, s + a * p);
 }
 
 // Inclusive scan of one map per lane across the warp.
@@ -129,7 +160,7 @@ __device__ __forceinline__ Affine<Real> warp_scan(Affine<Real> x, int lane) {
 #pragma unroll
   for (int d = 1; d < 32; d <<= 1) {
     Affine<Real> left;
-    left.A = __shfl_up_sync(kFull, x.A, d);
+    left.D = __shfl_up_sync(kFull, x.D, d);
     left.B = __shfl_up_sync(kFull, x.B, d);
     if (lane >= d) x = then(left, x);
   }
@@ -138,7 +169,7 @@ __device__ __forceinline__ Affine<Real> warp_scan(Affine<Real> x, int lane) {
 
 template <typename Real>
 __device__ __forceinline__ Affine<Real> lane_value(Affine<Real> x, int lane) {
-  return {__shfl_sync(kFull, x.A, lane), __shfl_sync(kFull, x.B, lane)};
+  return {__shfl_sync(kFull, x.D, lane), __shfl_sync(kFull, x.B, lane)};
 }
 
 // One member's constants.
@@ -154,52 +185,61 @@ __device__ __forceinline__ Member<Real> load_member(const Real* scal,
   return {col[0], col[n], col[2 * n], col[3 * n]};
 }
 
-// A thread's share of a chunk in K7: kItems series values and, for each,
-// the map from the state before the warp's first step to the state after
-// this step.
+// Values between two threads' runs in K7's shared copy of a chunk.
 template <typename Real>
-struct Chunk {
-  Real p[Items<Real>::value];
-  Affine<Real> pre[Items<Real>::value];
-};
+constexpr int kRunPitch = Items<Real>::value + 1;
 
-// Index of the step that round r of this thread's warp gives this lane.
+// Copies the chunk whose step 0 is `first` into `series` with coalesced
+// loads: step s of the chunk is step s % kItems of run s / kItems.  Steps
+// at or beyond t_len are not written.
 template <typename Real>
-__device__ __forceinline__ size_t step_index(size_t chunk, int r) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  return chunk * chunk_size<Real>() +
-         (size_t)warp * 32 * Items<Real>::value + (size_t)r * 32 + lane;
+__device__ __forceinline__ void stage_chunk(const Real* prec, size_t t_len,
+                                            size_t first, Real* series) {
+  constexpr int kItems = Items<Real>::value;
+  const int tid = threadIdx.x;
+#pragma unroll
+  for (int r = 0; r < kItems; ++r) {
+    const int s = r * kThreads + tid;
+    if (first + s < t_len) {
+      series[s / kItems * kRunPitch<Real> + s % kItems] =
+          __ldg(prec + first + s);
+    }
+  }
 }
 
-// Loads a chunk and scans it: inside each warp, then across the warps
-// through `warp_total` (kWarps entries of shared memory).  Gives the map
-// over the warps before this thread's (`warp_in`) and over the whole chunk
-// (`total`).  Steps at or beyond t_len are identities.
+// The map over this thread's run `own`, whose step 0 is step `mine` of the
+// series; steps at or beyond t_len are identities.
 template <typename Real>
-__device__ __forceinline__ void scan_chunk(
-    const Real* __restrict__ prec, size_t t_len, size_t chunk,
-    const Member<Real>& m, Chunk<Real>& ch, Affine<Real>* warp_total,
-    Affine<Real>& warp_in, Affine<Real>& total) {
+__device__ __forceinline__ Affine<Real> compose_run(const Real* own,
+                                                    size_t mine, size_t t_len,
+                                                    const Member<Real>& m) {
   constexpr int kItems = Items<Real>::value;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const Real alpha = Real(1) - m.c;
-#pragma unroll
-  for (int r = 0; r < kItems; ++r) {
-    const size_t idx = step_index<Real>(chunk, r);
-    ch.p[r] = idx < t_len ? __ldg(prec + idx) : Real(0);
-  }
   Affine<Real> run = identity<Real>();
 #pragma unroll
-  for (int r = 0; r < kItems; ++r) {
-    const size_t idx = step_index<Real>(chunk, r);
-    Affine<Real> x = {alpha, m.a * ch.p[r]};
-    if (idx >= t_len) x = identity<Real>();
-    if (idx == 0) x = {Real(0), m.s0};
-    x = then(run, warp_scan(x, lane));
-    ch.pre[r] = x;
-    run = lane_value(x, 31);
+  for (int i = 0; i < kItems; ++i) {
+    Affine<Real> x = {m.c, m.a * own[i]};
+    if (mine + i >= t_len) x = identity<Real>();
+    if (mine + i == 0) x = {Real(1), m.s0};
+    run = then(run, x);
   }
-  if (lane == 0) warp_total[warp] = run;
+  return run;
+}
+
+// Scans the runs' maps across the block through `warp_total` (kWarps
+// entries of shared memory): the map over the runs before this thread's in
+// its warp (`excl`), over the warps before its warp (`warp_in`) and over
+// the whole chunk (`total`).
+template <typename Real>
+__device__ __forceinline__ void block_scan(Affine<Real> run,
+                                           Affine<Real>* warp_total,
+                                           Affine<Real>& excl,
+                                           Affine<Real>& warp_in,
+                                           Affine<Real>& total) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const Affine<Real> incl = warp_scan(run, lane);
+  excl = {__shfl_up_sync(kFull, incl.D, 1), __shfl_up_sync(kFull, incl.B, 1)};
+  if (lane == 0) excl = identity<Real>();
+  if (lane == 31) warp_total[warp] = incl;
   __syncthreads();
   warp_in = identity<Real>();
   total = identity<Real>();
@@ -210,27 +250,36 @@ __device__ __forceinline__ void scan_chunk(
   }
 }
 
-// Computes and writes S and q of a scanned chunk, given the state before
-// the chunk's first step.
+// Runs this thread's steps from `s`, the state before its run: S over the
+// run's P in `own`, q in `flow`.
 template <typename Real>
-__device__ __forceinline__ void write_chunk(
-    const Chunk<Real>& ch, size_t t_len, size_t chunk, const Member<Real>& m,
-    Affine<Real> warp_in, Real s_in, Real* __restrict__ qsim,
-    Real* __restrict__ storage) {
+__device__ __forceinline__ void replay_run(Real* own, Real* flow, size_t mine,
+                                           const Member<Real>& m, Real s) {
   constexpr int kItems = Items<Real>::value;
-  const int lane = threadIdx.x & 31;
-  const Real s_warp = warp_in.A * s_in + warp_in.B;
-  Real s_before = s_warp;  // the state before this round's first step
 #pragma unroll
+  for (int i = 0; i < kItems; ++i) {
+    const Real p = own[i], s_prev = s;
+    s = mine + i == 0 ? m.s0 : step(m.c, m.a, p, s);
+    own[i] = s;
+    flow[i] = mine + i == 0 ? Real(0) : m.coeff_q * p + m.c * s_prev;
+  }
+}
+
+// Stores a replayed chunk (S in `series`, q in `flows`) with coalesced
+// writes into a member's rows.
+template <typename Real>
+__device__ __forceinline__ void store_chunk(const Real* series,
+                                            const Real* flows, size_t first,
+                                            size_t t_len, Real* q_row,
+                                            Real* s_row) {
+  constexpr int kItems = Items<Real>::value;
+  const int tid = threadIdx.x;
+#pragma unroll 4
   for (int r = 0; r < kItems; ++r) {
-    const size_t idx = step_index<Real>(chunk, r);
-    const Real s = ch.pre[r].A * s_warp + ch.pre[r].B;
-    Real s_prev = __shfl_up_sync(kFull, s, 1);
-    if (lane == 0) s_prev = s_before;
-    s_before = __shfl_sync(kFull, s, 31);
-    if (idx < t_len) {
-      storage[idx] = s;
-      qsim[idx] = idx == 0 ? Real(0) : m.coeff_q * ch.p[r] + m.c * s_prev;
+    const int k = r * kThreads + tid;
+    if (first + k < t_len) {
+      s_row[first + k] = series[k / kItems * kRunPitch<Real> + k % kItems];
+      q_row[first + k] = flows[k / kItems * kRunPitch<Real> + k % kItems];
     }
   }
 }
@@ -364,18 +413,17 @@ abc_single_kernel(const Real* __restrict__ prec, const Real* __restrict__ scal,
     }
   }
   __syncthreads();
-  const Real alpha = Real(1) - m.c;
   Real* own = series + tid * kPitch;  // this thread's run
   Affine<Real> run = identity<Real>();
 #pragma unroll
   for (int i = 0; i < kItems; ++i) {
-    Affine<Real> x = {alpha, m.a * own[i]};
+    Affine<Real> x = {m.c, m.a * own[i]};
     if (mine + i >= t_len) x = identity<Real>();
-    if (mine + i == 0) x = {Real(0), m.s0};
+    if (mine + i == 0) x = {Real(1), m.s0};
     run = then(run, x);
   }
   const Affine<Real> incl = warp_scan(run, lane);
-  Affine<Real> excl = {__shfl_up_sync(kFull, incl.A, 1),
+  Affine<Real> excl = {__shfl_up_sync(kFull, incl.D, 1),
                        __shfl_up_sync(kFull, incl.B, 1)};
   if (lane == 0) excl = identity<Real>();
   if (lane == 31) warp_total[warp] = incl;
@@ -395,11 +443,11 @@ abc_single_kernel(const Real* __restrict__ prec, const Real* __restrict__ scal,
   // The run's P is read again from shared memory rather than kept in
   // registers through the look-back: fewer registers, more blocks resident.
   const Affine<Real> entry = then(warp_in, excl);
-  Real s = entry.A * block_s_in + entry.B;  // the state before this run
+  Real s = apply(entry, block_s_in);  // the state before this run
 #pragma unroll
   for (int i = 0; i < kItems; ++i) {
     const Real p = own[i], s_prev = s;
-    s = mine + i == 0 ? m.s0 : alpha * s + m.a * p;
+    s = mine + i == 0 ? m.s0 : step(m.c, m.a, p, s);
     own[i] = s;
     flows[tid * kPitch + i] =
         mine + i == 0 ? Real(0) : m.coeff_q * p + m.c * s_prev;
@@ -417,73 +465,116 @@ abc_single_kernel(const Real* __restrict__ prec, const Real* __restrict__ scal,
   }
 }
 
-// K7, first launch: the pair of every chunk.
+// K7, first launch: the pair of every chunk.  At most 32 registers, so
+// that eight blocks fit an SM.
 template <typename Real>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 8)
 abc_reduce_kernel(const Real* __restrict__ prec, const Real* __restrict__ scal,
                   int n, size_t t_len, unsigned num_chunks,
-                  Real* __restrict__ agg_a,
-                  Real* __restrict__ agg_b) {
+                  Real* __restrict__ agg_d, Real* __restrict__ agg_b) {
+  constexpr int kItems = Items<Real>::value;
+  __shared__ Real series[kThreads * kRunPitch<Real>];
   __shared__ Affine<Real> warp_total[kWarps];
+  const int tid = threadIdx.x;
   const unsigned id = blockIdx.x;
+  const size_t chunk = id % num_chunks;
   const Member<Real> m = load_member(scal, n, id / num_chunks);
-  Chunk<Real> ch;
-  Affine<Real> warp_in, total;
-  scan_chunk(prec, t_len, id % num_chunks, m, ch, warp_total, warp_in, total);
-  if (threadIdx.x == 0) {
-    agg_a[id] = total.A;
+  const size_t first = chunk * chunk_size<Real>();
+  stage_chunk(prec, t_len, first, series);
+  __syncthreads();
+  Affine<Real> excl, warp_in, total;
+  block_scan(compose_run(series + tid * kRunPitch<Real>,
+                         first + (size_t)tid * kItems, t_len, m),
+             warp_total, excl, warp_in, total);
+  if (tid == 0) {
+    agg_d[id] = total.D;
     agg_b[id] = total.B;
   }
 }
 
-// K7, second launch: one block per member scans that member's chunk pairs
-// and writes the state before every chunk.  A thread takes a run of
-// consecutive chunks.
+// Threads that scan one member's chunk pairs in K7's second launch: a warp,
+// or more where each would take more than kCarryRun pairs, up to a block.
+constexpr unsigned kCarryRun = 8;
+
+unsigned carry_team(unsigned num_chunks) {
+  unsigned team = 32;
+  while (team < kThreads && team * kCarryRun < num_chunks) team *= 2;
+  return team;
+}
+
+// K7, second launch: each team of `team` threads (a power of two from 32
+// to kThreads) scans one member's chunk pairs and writes the state before
+// every chunk.  A thread takes a run of consecutive chunks.
 template <typename Real>
 __global__ void __launch_bounds__(kThreads)
-abc_carry_kernel(const Real* __restrict__ agg_a, const Real* __restrict__ agg_b,
-                 unsigned num_chunks, Real* __restrict__ carry) {
+abc_carry_kernel(const Real* __restrict__ agg_d, const Real* __restrict__ agg_b,
+                 int n, unsigned num_chunks, unsigned team,
+                 Real* __restrict__ carry) {
   __shared__ Affine<Real> warp_total[kWarps];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const size_t base = (size_t)blockIdx.x * num_chunks;
-  const unsigned per = (num_chunks + kThreads - 1) / kThreads;
-  const unsigned lo = min(threadIdx.x * per, num_chunks);
-  const unsigned hi = min(lo + per, num_chunks);
+  const unsigned rank = threadIdx.x % team;  // place in the member's team
+  const unsigned member = blockIdx.x * (kThreads / team) + threadIdx.x / team;
+  const bool live = member < (unsigned)n;
+  const size_t base = (size_t)member * num_chunks;
+  const unsigned per = (num_chunks + team - 1) / team;
+  const unsigned lo = min(rank * per, num_chunks);
+  const unsigned hi = live ? min(lo + per, num_chunks) : lo;
   Affine<Real> mine = identity<Real>();
   for (unsigned k = lo; k < hi; ++k) {
-    const Affine<Real> pair = {agg_a[base + k], agg_b[base + k]};
+    const Affine<Real> pair = {agg_d[base + k], agg_b[base + k]};
     mine = then(mine, pair);
   }
   const Affine<Real> incl = warp_scan(mine, lane);
   if (lane == 31) warp_total[warp] = incl;
   __syncthreads();
-  Affine<Real> before = identity<Real>();  // over the warps before this one
-  for (int w = 0; w < warp; ++w) before = then(before, warp_total[w]);
-  Affine<Real> left = lane_value(incl, lane > 0 ? lane - 1 : 0);
+  // Over the team's warps before this one, then its lanes before this one.
+  Affine<Real> before = identity<Real>();
+  for (int w = warp - (int)(rank / 32); w < warp; ++w) {
+    before = then(before, warp_total[w]);
+  }
+  const Affine<Real> left = lane_value(incl, lane > 0 ? lane - 1 : 0);
   if (lane > 0) before = then(before, left);
   // The state before step 0 is discarded by step 0's map: start from 0.
   Real s = before.B;
   for (unsigned k = lo; k < hi; ++k) {
     carry[base + k] = s;
-    s = agg_a[base + k] * s + agg_b[base + k];
+    s = apply(Affine<Real>{agg_d[base + k], agg_b[base + k]}, s);
   }
 }
 
-// K7, third launch: scan every chunk again, now from its known state.
+// K7, third launch: stage, compose and scan every chunk again, then replay
+// it from its known incoming state.  At most 40 registers, so that six
+// blocks fit an SM, as K6's do.  Block b takes the chunk the first launch's
+// block (blocks - 1 - b) took: the chunks the first launch read last are
+// read again first, while they are still in L2.
 template <typename Real>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 6)
 abc_apply_kernel(const Real* __restrict__ prec, const Real* __restrict__ scal,
                  int n, size_t t_len, unsigned num_chunks,
                  const Real* __restrict__ carry, Real* __restrict__ qsim,
                  Real* __restrict__ storage) {
+  constexpr int kItems = Items<Real>::value;
+  __shared__ Real series[kThreads * kRunPitch<Real>];
+  __shared__ Real flows[kThreads * kRunPitch<Real>];
   __shared__ Affine<Real> warp_total[kWarps];
-  const unsigned id = blockIdx.x;
+  const int tid = threadIdx.x;
+  const unsigned id = gridDim.x - 1 - blockIdx.x;
   const size_t member = id / num_chunks, chunk = id % num_chunks;
+  const Real s_in = carry[id];
   const Member<Real> m = load_member(scal, n, member);
-  Chunk<Real> ch;
-  Affine<Real> warp_in, total;
-  scan_chunk(prec, t_len, chunk, m, ch, warp_total, warp_in, total);
-  write_chunk(ch, t_len, chunk, m, warp_in, carry[id], qsim + member * t_len,
+  const size_t first = chunk * chunk_size<Real>();
+  const size_t mine = first + (size_t)tid * kItems;
+  stage_chunk(prec, t_len, first, series);
+  __syncthreads();
+  Real* own = series + tid * kRunPitch<Real>;
+  Affine<Real> excl, warp_in, total;
+  block_scan(compose_run(own, mine, t_len, m), warp_total, excl, warp_in,
+             total);
+  const Affine<Real> entry = then(warp_in, excl);
+  replay_run(own, flows + tid * kRunPitch<Real>, mine, m,
+             apply(entry, s_in));
+  __syncthreads();
+  store_chunk(series, flows, first, t_len, qsim + member * t_len,
               storage + member * t_len);
 }
 
@@ -527,13 +618,15 @@ int chunked(const Real* prec, const Real* scal, int n, long long t_len,
   if (num_chunks == 0) return (int)cudaErrorInvalidValue;
   const size_t blocks = (size_t)n * num_chunks;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  Real* agg_a = scratch_real;
+  Real* agg_d = scratch_real;
   Real* agg_b = scratch_real + blocks;
   Real* carry = scratch_real + 2 * blocks;
   abc_reduce_kernel<Real><<<(unsigned)blocks, kThreads, 0, s>>>(
-      prec, scal, n, (size_t)t_len, num_chunks, agg_a, agg_b);
-  abc_carry_kernel<Real><<<(unsigned)n, kThreads, 0, s>>>(agg_a, agg_b,
-                                                         num_chunks, carry);
+      prec, scal, n, (size_t)t_len, num_chunks, agg_d, agg_b);
+  const unsigned team = carry_team(num_chunks);
+  const unsigned per_block = kThreads / team;
+  abc_carry_kernel<Real><<<((unsigned)n + per_block - 1) / per_block, kThreads,
+                           0, s>>>(agg_d, agg_b, n, num_chunks, team, carry);
   abc_apply_kernel<Real><<<(unsigned)blocks, kThreads, 0, s>>>(
       prec, scal, n, (size_t)t_len, num_chunks, carry, qsim, storage);
   return (int)cudaGetLastError();

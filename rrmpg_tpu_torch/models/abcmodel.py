@@ -180,7 +180,13 @@ class ABCModel(BaseModel):
                 minimizing ``1 - score``.
             seed: (optional) seed of the optimizer's ``torch.Generator``.
             **de_kwargs: forwarded to
-                :func:`rrmpg_tpu_torch.tools.calibration.minimize`.
+                :func:`rrmpg_tpu_torch.tools.calibration.minimize` and on
+                to ``differential_evolution``: ``key``, ``popsize``,
+                ``maxiter``, ``tol``, ``checkpoint_path`` /
+                ``checkpoint_every`` / ``resume_from`` (``*.npz``),
+                ``polish`` / ``polish_steps`` (skipped, with a note in
+                the message, on the fused kernels, which have no
+                backward); ``mesh`` raises ``NotImplementedError``.
 
         Returns:
             An :class:`~rrmpg_tpu_torch.tools.calibration.OptimizeResult`.

@@ -89,7 +89,13 @@ class CemaneigeGR4J(SnowGR4JBase):
             engine: 'scan', or 'fused' to evaluate every DE generation with
                 one launch of the fused objective kernel K8.
             **de_kwargs: forwarded to
-                :func:`rrmpg_tpu_torch.tools.calibration.minimize`.
+                :func:`rrmpg_tpu_torch.tools.calibration.minimize` and on
+                to ``differential_evolution``: ``key``, ``popsize``,
+                ``maxiter``, ``tol``, ``checkpoint_path`` /
+                ``checkpoint_every`` / ``resume_from`` (``*.npz``),
+                ``polish`` / ``polish_steps`` (skipped, with a note in
+                the message, on the fused kernels, which have no
+                backward); ``mesh`` raises ``NotImplementedError``.
 
         Returns:
             An :class:`~rrmpg_tpu_torch.tools.calibration.OptimizeResult`.

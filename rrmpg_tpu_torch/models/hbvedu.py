@@ -271,7 +271,13 @@ class HBVEdu(BaseModel):
                 segment from a known initial condition, on either engine.
                 Mutually exclusive with non-zero ``*_init`` scalars.
             **de_kwargs: forwarded to
-                :func:`rrmpg_tpu_torch.tools.calibration.minimize`.
+                :func:`rrmpg_tpu_torch.tools.calibration.minimize` and on
+                to ``differential_evolution``: ``key``, ``popsize``,
+                ``maxiter``, ``tol``, ``checkpoint_path`` /
+                ``checkpoint_every`` / ``resume_from`` (``*.npz``),
+                ``polish`` / ``polish_steps`` (skipped, with a note in
+                the message, on the fused kernels, which have no
+                backward); ``mesh`` raises ``NotImplementedError``.
 
         Returns:
             An :class:`~rrmpg_tpu_torch.tools.calibration.OptimizeResult`.

@@ -11,7 +11,7 @@ with ``storage[0] = initial_state`` and ``qsim[0] = 0``.
 
 Two engines for the cold start: :func:`run_abcmodel` steps through time
 (the ``'scan'`` engine), :func:`run_abcmodel_pscan` composes the affine
-maps ``S -> alpha*S + B[t]`` by recursive doubling in log2(T) passes over
+maps ``S -> (1 - c)*S + B[t]`` by recursive doubling in log2(T) passes over
 whole tensors.  The second is the plain version of the fused CUDA kernels
 (:mod:`.fused_abc`): the only plain form that is usable at ten million
 steps.
@@ -70,22 +70,27 @@ def run_abcmodel(prec, initial_state, params):
     return _finish((qsim, storage), single)
 
 
-def affine_prefix(alpha, B):
-    """Inclusive prefix of the affine maps ``S -> alpha*S + B[..., t]``
+def affine_prefix(decay, B):
+    """Inclusive prefix of the affine maps ``S -> (1 - decay)*S + B[..., t]``
     under composition, by recursive doubling along the last axis.
 
-    Returns (A_cum, B_cum) with ``S[t] = A_cum[t] * S_before + B_cum[t]``.
-    No powers of ``alpha`` are formed other than by these products, so
-    ``alpha = 0`` and ``alpha = 1`` need no special case.
+    Returns (D_cum, B_cum) with ``S[t] = (1 - D_cum[t]) * S_before +
+    B_cum[t]``.  A map is kept as ``D = 1 - A``, never as ``A``: in float32
+    a rounded ``1 - c`` carries up to 4e-4 of a small ``c`` (7e-5), which
+    the doubling then raises to every power, where ``D`` composes as
+    ``D1 + D2 - D1*D2`` with no such rounding (the CUDA kernels keep their
+    maps the same way).  No powers are formed other than by these
+    products, so ``decay = 0`` and ``decay = 1`` need no special case.
     """
-    A = alpha.expand_as(B)
+    D = decay.expand_as(B)
     d = 1
     while d < B.shape[-1]:
-        hi = A[..., d:]
-        B = torch.cat([B[..., :d], hi * B[..., :-d] + B[..., d:]], dim=-1)
-        A = torch.cat([A[..., :d], hi * A[..., :-d]], dim=-1)
+        hi, lo_b = D[..., d:], B[..., :-d]
+        B = torch.cat([B[..., :d], lo_b - hi * lo_b + B[..., d:]], dim=-1)
+        D = torch.cat([D[..., :d], D[..., :-d] + hi - D[..., :-d] * hi],
+                      dim=-1)
         d *= 2
-    return A, B
+    return D, B
 
 
 def _outputs(prec, a, b, c, s_before, storage):
@@ -104,8 +109,9 @@ def run_abcmodel_pscan(prec, initial_state, params):
     """
     (a, b, c, s0), single = _members(prec, initial_state, params)
     # Maps of steps t = 1 .. T-1; step 0 is the initialization.
-    A_cum, B_cum = affine_prefix((1.0 - c)[:, None], a[:, None] * prec[1:])
-    storage = torch.cat([s0[:, None], A_cum * s0[:, None] + B_cum], dim=1)
+    D_cum, B_cum = affine_prefix(c[:, None], a[:, None] * prec[1:])
+    s0_col = s0[:, None]
+    storage = torch.cat([s0_col, s0_col - D_cum * s0_col + B_cum], dim=1)
     qsim = _outputs(prec, a, b, c, s0, storage)
     qsim[:, 0] = 0.0
     return _finish((qsim, storage), single)
@@ -128,7 +134,8 @@ def run_abcmodel_warm(prec, state, params):
         (T,) and a scalar tensor for scalar parameters.
     """
     (a, b, c, s_prev), single = _members(prec, state, params)
-    A_cum, B_cum = affine_prefix((1.0 - c)[:, None], a[:, None] * prec)
-    storage = A_cum * s_prev[:, None] + B_cum
+    D_cum, B_cum = affine_prefix(c[:, None], a[:, None] * prec)
+    s_col = s_prev[:, None]
+    storage = s_col - D_cum * s_col + B_cum
     qsim = _outputs(prec, a, b, c, s_prev, storage)
     return _finish((qsim, storage, storage[:, -1]), single)

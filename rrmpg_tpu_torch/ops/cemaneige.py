@@ -21,6 +21,8 @@ Shapes: layer forcing (T, L), parameters (N,), states (N, L), series
 
 import torch
 
+from ._ties import clamp01, clamp_max0, clamp_min0
+
 MELT_TEMP = 0.0
 MIN_MELT_SHARE = 0.1
 SNOW_SHIELD_THRESHOLD = 1.0  # mm SWE above which snow shields ice from melt
@@ -44,7 +46,7 @@ def _level(value, like):
 
 def _thermal_and_potential_melt(eTG, temp_t, G, CTG, Kf):
     """Snowpack thermal state and potential melt of one step."""
-    eTG = torch.clamp(eTG, max=0.0)
+    eTG = clamp_max0(eTG)
     melting = (eTG == 0.0) & (temp_t > MELT_TEMP)
     pot_melt = torch.where(melting, torch.minimum(Kf * temp_t, G), 0.0)
     return eTG, pot_melt
@@ -104,8 +106,7 @@ def _cemaneigehyst_scan(snow, rain, temp, state, psol_annual, params,
         th_max = torch.minimum(swe_max, th_melt)
         sca_abl = torch.where(
             th_max > 0, G / torch.where(th_max > 0, th_max, 1.0), 0.0)
-        sca = torch.clamp(torch.where(accumulating, sca_acc, sca_abl),
-                          0.0, 1.0)
+        sca = clamp01(torch.where(accumulating, sca_acc, sca_abl))
         swe_max = torch.where(accumulating, torch.maximum(swe_max, G),
                               swe_max)
 
@@ -251,6 +252,5 @@ def run_icemelt(temp, snow, params):
     Returns:
         (N, T, L) ice-melt liquid water.
     """
-    melt = torch.clamp(params['DDF'][:, None, None] * (temp - MELT_TEMP),
-                       min=0.0)
+    melt = clamp_min0(params['DDF'][:, None, None] * (temp - MELT_TEMP))
     return torch.where(snow > SNOW_SHIELD_THRESHOLD, 0.0, melt)

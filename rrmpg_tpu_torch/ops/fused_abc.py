@@ -2,7 +2,9 @@
 
 Counterpart of ``rrmpg_tpu/ops/pallas_linear_scan.py``.  The kernels are
 CUDA C++ in ``rrmpg_tpu_torch/csrc/abc_scan.cu``: a chunked parallel scan
-over the affine maps ``S -> (1-c) S + a P[t]``.
+over the affine maps ``S -> (1-c) S + a P[t]``, each kept as ``(c, a P[t])``
+and composed as ``(1 - A, B)`` so that no ``1 - c`` is rounded (float32
+keeps a small ``c``'s precision), as the plain version does.
 
 * K6 :func:`abc_fused_single` -- one launch; the series is read once and
   both outputs are written once (chunks publish their composed maps in
@@ -11,7 +13,8 @@ over the affine maps ``S -> (1-c) S + a P[t]``.
   the chunks before it in its group, in an order its index fixes: the
   same bits on every run);
 * K7 :func:`abc_fused` -- the same function in three launches (chunk
-  totals, carries, outputs), reading the series twice.
+  totals, carries, outputs), reading the series twice; its first and third
+  launches scan K6's runs out of shared memory.
 
 Both return ``(qsim, storage)``; with scalar parameters each is (T,), with
 per-member (N,) parameters each is (N, T) from one launch.  On a CUDA

@@ -20,6 +20,7 @@ import torch
 
 from ..config import (DEFAULT_DEVICE, DEFAULT_DTYPE, resolve_device,
                       resolve_dtype)
+from ._ties import clamp_min0
 from .uh import NUM_UH1, NUM_UH2, causal_fir, uh_ordinates
 
 
@@ -80,8 +81,8 @@ def production_store_scan(prec, etp, s_init_abs, x1):
     s = s_init_abs.expand(n).to(prec.dtype)
     for t in range(T):
         p, e = prec[t], etp[t]
-        p_n = torch.clamp(p - e, min=0.0)
-        pe_n = torch.clamp(e - p, min=0.0)
+        p_n = clamp_min0(p - e)
+        pe_n = clamp_min0(e - p)
         sr = s / x1
         tanh_pn = torch.tanh(p_n / x1)
         tanh_pen = torch.tanh(pe_n / x1)
@@ -113,10 +114,10 @@ def routing_store_scan(q9, q1, r_init_abs, x2, x3):
     r = r_init_abs.expand(n).to(q9.dtype)
     for t in range(T):
         gw_exchange = x2 * (r / x3) ** 3.5
-        r_interim = torch.clamp(r + q9[:, t] + gw_exchange, min=0.0)
+        r_interim = clamp_min0(r + q9[:, t] + gw_exchange)
         q_r = r_interim * (1.0 - (1.0 + (r_interim / x3) ** 4) ** (-0.25))
         r = r_interim - q_r
-        q_d = torch.clamp(q1[:, t] + gw_exchange, min=0.0)
+        q_d = clamp_min0(q1[:, t] + gw_exchange)
         r_store[:, t] = r
         qsim[:, t] = q_r + q_d
     return r_store, qsim

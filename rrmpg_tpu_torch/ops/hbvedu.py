@@ -17,6 +17,8 @@ Shapes: forcing (T,), ``month`` (T,) 0-based integers, climatologies
 
 import torch
 
+from ._ties import clamp_min0
+
 PARAM_NAMES = ('T_t', 'DD', 'FC', 'Beta', 'C', 'PWP', 'K_0', 'K_1', 'K_2',
                'K_p', 'L')
 
@@ -31,7 +33,7 @@ def hbv_step(state, temp_t, prec_t, pe_month_t, t_month_t, params):
     freezing = temp_t < T_t
     melt_pot = DD * (temp_t - T_t)
     snow = torch.where(freezing, snow_prev + prec_t,
-                       torch.clamp(snow_prev - melt_pot, min=0.0))
+                       clamp_min0(snow_prev - melt_pot))
     liquid_water = torch.where(
         freezing, 0.0, prec_t + torch.minimum(snow_prev, melt_pot))
 
@@ -42,7 +44,7 @@ def hbv_step(state, temp_t, prec_t, pe_month_t, t_month_t, params):
 
     soil = soil_prev + liquid_water - prec_eff - ea
 
-    overflow = torch.clamp(s1_prev - L, min=0.0) * K_0
+    overflow = clamp_min0(s1_prev - L) * K_0
     s1 = s1_prev + prec_eff - overflow - s1_prev * K_1 - s1_prev * K_p
     s2 = s2_prev + s1_prev * K_p - s2_prev * K_2
 

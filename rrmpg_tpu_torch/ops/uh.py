@@ -15,6 +15,8 @@ gives ordinates of shape (N, num_uh).
 import numpy as np
 import torch
 
+from ._ties import clamp01
+
 MAX_X4 = 10.0
 NUM_UH1 = int(MAX_X4)            # ceil(x4)       <= 10
 NUM_UH2 = int(2 * MAX_X4 + 1)    # ceil(2*x4 + 1) <= 21
@@ -34,15 +36,15 @@ def required_uh_lengths(x4_values):
 
 def s_curve1(t, x4):
     """SH1 S-curve (reference ``gr4j_model.py:159-173``), for t >= 0."""
-    frac = torch.clamp(t / x4, 0.0, 1.0)
+    frac = clamp01(t / x4)
     return torch.where(t <= 0, 0.0, frac ** 2.5)
 
 
 def s_curve2(t, x4):
     """SH2 S-curve (reference ``gr4j_model.py:176-192``)."""
     ratio = t / x4
-    rising = 0.5 * torch.clamp(ratio, 0.0, 1.0) ** 2.5
-    falling = 1.0 - 0.5 * torch.clamp(2.0 - ratio, 0.0, 1.0) ** 2.5
+    rising = 0.5 * clamp01(ratio) ** 2.5
+    falling = 1.0 - 0.5 * clamp01(2.0 - ratio) ** 2.5
     out = torch.where(t <= x4, rising, falling)
     return torch.where(t <= 0, 0.0, out)
 

@@ -1,7 +1,8 @@
 """Experiment tools: Monte-Carlo ensembles, global calibration, state
 files and GLUE uncertainty bounds."""
 
-from .calibration import OptimizeResult, differential_evolution, minimize
+from .calibration import (OptimizeResult, differential_evolution,
+                          gradient_descent, minimize, random_search)
 from .checkpoint import (load_checkpoint, load_state, save_checkpoint,
                          save_state)
 from .monte_carlo import monte_carlo

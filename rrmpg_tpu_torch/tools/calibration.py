@@ -15,9 +15,20 @@ calibrate this way).  The generation loop is a Python loop on the device; it wai
 for the device once per generation, for the convergence test.  Random
 numbers come from a ``torch.Generator`` seeded from ``seed``; they differ
 from ``jax.random``'s, so trajectories differ from ``rrmpg_tpu``'s while
-the algorithm is the same.
+the algorithm is the same.  ``key=`` takes a ``torch.Generator`` of the
+caller's in place of JAX's PRNG key.
+
+Long calibrations checkpoint to a ``*.npz`` file (the npz backend of
+:mod:`.checkpoint`) every ``checkpoint_every`` generations: the normalized
+population, its energies, the generation count and, under ``key``, the
+generator's state, so a resumed run draws the numbers the unbroken run
+would have drawn and ends with the same bits.  Orbax directories are
+JAX-only.  :func:`gradient_descent` (Adam in normalized coordinates, by
+autograd) polishes DE's best member with ``polish=True``;
+:func:`random_search` keeps the best of sampled candidates.
 """
 
+import os
 import typing
 
 import numpy as np
@@ -25,6 +36,8 @@ import torch
 
 from ..config import (DEFAULT_DEVICE, DEFAULT_DTYPE, resolve_device,
                       resolve_dtype)
+from ..models.basemodel import _no_mesh
+from .checkpoint import load_checkpoint, save_checkpoint
 
 
 class OptimizeResult(typing.NamedTuple):
@@ -44,6 +57,66 @@ class OptimizeResult(typing.NamedTuple):
         surfaces them for debugging."""
         bad = ~np.isfinite(self.population_energies)
         return self.population[bad], self.population_energies[bad]
+
+
+def _generator(key, seed, device):
+    """The ``torch.Generator`` that draws a run's random numbers: ``key``
+    itself (JAX's PRNG key argument), or a new one on ``device`` seeded from
+    ``seed`` (0 if None)."""
+    if key is None:
+        generator = torch.Generator(device=device)
+        generator.manual_seed(0 if seed is None else int(seed))
+        return generator
+    if not isinstance(key, torch.Generator):
+        raise TypeError(
+            f"key must be None or a torch.Generator on {device}, got "
+            f"{type(key).__name__}: a JAX PRNG key cannot seed torch's "
+            "random stream (pass seed= instead).")
+    where = key.device
+    if where.type != device.type or (device.index is not None
+                                     and where.index != device.index):
+        raise ValueError(
+            f"key is a torch.Generator on {where}; the run draws on "
+            f"{device}.")
+    return key
+
+
+def _check_npz(path):
+    """Raise for a path that ``rrmpg_tpu`` would take as an Orbax
+    checkpoint directory (an existing directory, or a new path without
+    the ``.npz`` suffix)."""
+    if os.path.isdir(path) or (not os.path.isfile(path)
+                               and not str(path).endswith(".npz")):
+        raise NotImplementedError(
+            f"{str(path)!r} names an Orbax checkpoint directory in "
+            "rrmpg_tpu; Orbax is JAX-only and not ported (ROADMAP.md, "
+            "Queue 1, 'Not ported, on purpose'). Use a *.npz path.")
+
+
+def _restore(path, generator, pop_size, dim, dtype, device):
+    """(normalized population, energies, nit) of a DE checkpoint written by
+    this package, with ``generator`` set to the state saved beside them."""
+    _check_npz(path)
+    ckpt = load_checkpoint(path)
+    key = np.asarray(ckpt["key"])
+    if key.dtype != np.uint8:
+        raise ValueError(
+            f"{str(path)!r} holds a JAX PRNG key ({key.shape} {key.dtype}), "
+            "written by rrmpg_tpu: a JAX key cannot seed torch's random "
+            "stream. Resume it with rrmpg_tpu, or start a new run.")
+    try:
+        generator.set_state(torch.from_numpy(key.copy()))
+    except RuntimeError as exc:
+        raise ValueError(
+            f"{str(path)!r} holds the state of a generator on another "
+            f"device type than {device.type}: {exc}") from None
+    pop = torch.as_tensor(ckpt["pop"], dtype=dtype, device=device)
+    if tuple(pop.shape) != (pop_size, dim):
+        raise ValueError(
+            f"{str(path)!r} holds a population of shape "
+            f"{tuple(pop.shape)}; this run has ({pop_size}, {dim}).")
+    energies = torch.as_tensor(ckpt["energies"], dtype=dtype, device=device)
+    return pop, energies, int(ckpt["nit"])
 
 
 def _latin_hypercube(generator, pop_size, dim, dtype, device):
@@ -95,10 +168,14 @@ def _population_objective(objective, batched, pop_size):
     return energies_of
 
 
-def differential_evolution(objective, bounds, popsize=15, maxiter=1000,
-                           tol=0.01, atol=0.0, mutation=(0.5, 1.0),
-                           recombination=0.7, seed=None, batched=False,
-                           device=DEFAULT_DEVICE, dtype=DEFAULT_DTYPE):
+def differential_evolution(objective, bounds, key=None, popsize=15,
+                           maxiter=1000, tol=0.01, atol=0.0,
+                           mutation=(0.5, 1.0), recombination=0.7,
+                           seed=None, batched=False, checkpoint_path=None,
+                           checkpoint_every=None, resume_from=None,
+                           mesh=None, mesh_axis=None, polish=False,
+                           polish_steps=200, device=DEFAULT_DEVICE,
+                           dtype=DEFAULT_DTYPE):
     """Global minimization by differential evolution.
 
     Args:
@@ -106,27 +183,52 @@ def differential_evolution(objective, bounds, popsize=15, maxiter=1000,
             ``batched=True`` it maps the (P, dim) population to (P,)
             losses in one call.
         bounds: sequence of (low, high) pairs, one per dimension.
+        key: (optional) ``torch.Generator`` on ``device`` that draws every
+            random number, JAX's PRNG key argument; else one seeded from
+            ``seed``.  Anything else raises ``TypeError``.
         popsize: population multiplier; population = popsize * dim.
         maxiter: maximum number of generations.
         tol, atol: relative / absolute convergence tolerance on the
             energy spread (scipy semantics).
         mutation: (min, max) dithering range of the mutation factor.
         recombination: crossover probability.
-        seed: int seed of the ``torch.Generator`` on ``device`` that draws
-            every random number (0 if None).
+        seed: int seed of the generator if ``key`` is None (0 if None).
         batched: whether ``objective`` takes the whole population (see
             above); energies of another shape than (P,) raise
             ``ValueError``.
+        checkpoint_path: (optional) ``*.npz`` file that the evolution state
+            is written to every ``checkpoint_every`` generations and at the
+            end (atomic replacement).  A path ``rrmpg_tpu`` would take as
+            an Orbax directory raises ``NotImplementedError``.
+        checkpoint_every: generations between checkpoints (None: only at
+            the end).
+        resume_from: (optional) checkpoint file of this package to go on
+            from: the initial population is skipped and the generator
+            takes the saved state, so the run ends as the unbroken one
+            would.  A file written by ``rrmpg_tpu`` (a JAX key) raises
+            ``ValueError``.
+        mesh, mesh_axis: not ported; any mesh raises
+            ``NotImplementedError`` (ROADMAP.md, Queue 1, item 9).
+        polish: run :func:`gradient_descent` from the best member after
+            evolution, and keep its point only if it improves the
+            objective.  An objective that autograd cannot differentiate
+            (the fused kernels on the card have no backward) leaves the
+            result as it was, with " Polish skipped (<exception>)." in
+            the message.
+        polish_steps: Adam steps of the polish.
         device, dtype: where (the card by default) and in which float type
             the population lives.
 
     Returns:
-        :class:`OptimizeResult`; ``nfev = P * (nit + 1)``.
+        :class:`OptimizeResult`; ``nfev = P * (nit + 1)``, plus the
+        polish's evaluations with ``polish=True``.
     """
+    _no_mesh(mesh)
     device = resolve_device(device)
     dtype = resolve_dtype(dtype)
-    generator = torch.Generator(device=device)
-    generator.manual_seed(0 if seed is None else int(seed))
+    generator = _generator(key, seed, device)
+    if checkpoint_path is not None:
+        _check_npz(checkpoint_path)
     lows = torch.tensor([b[0] for b in bounds], dtype=dtype, device=device)
     highs = torch.tensor([b[1] for b in bounds], dtype=dtype, device=device)
     dim = len(bounds)
@@ -146,11 +248,9 @@ def differential_evolution(objective, bounds, popsize=15, maxiter=1000,
         return torch.randint(0, high, (n,), generator=generator,
                              device=device)
 
-    objective = _population_objective(objective, batched, pop_size)
-    pop = _latin_hypercube(generator, pop_size, dim, dtype, device)
-    energies = objective(scale(pop))
-    nit = 0
-    while nit < maxiter and not _converged(energies, tol, atol):
+    energies_of = _population_objective(objective, batched, pop_size)
+
+    def generation(pop, energies):
         # A non-finite energy is never selected as best and never shields
         # an incumbent from replacement.
         safe = torch.where(torch.isfinite(energies), energies, torch.inf)
@@ -176,29 +276,64 @@ def differential_evolution(objective, bounds, popsize=15, maxiter=1000,
         out_of_bounds = (trials < 0.0) | (trials > 1.0)
         trials = torch.where(out_of_bounds, rand(pop_size, dim), trials)
 
-        trial_energies = objective(scale(trials))
+        trial_energies = energies_of(scale(trials))
         trial_safe = torch.where(torch.isfinite(trial_energies),
                                  trial_energies, torch.inf)
         improved = trial_safe < safe
-        pop = torch.where(improved[:, None], trials, pop)
-        energies = torch.where(improved, trial_energies, energies)
-        nit += 1
+        return (torch.where(improved[:, None], trials, pop),
+                torch.where(improved, trial_energies, energies))
+
+    if resume_from is not None:
+        pop, energies, nit = _restore(resume_from, generator, pop_size, dim,
+                                      dtype, device)
+    else:
+        pop = _latin_hypercube(generator, pop_size, dim, dtype, device)
+        energies = energies_of(scale(pop))
+        nit = 0
+    # Chunks of generations between checkpoints, as rrmpg_tpu's host loop.
+    chunk = checkpoint_every if checkpoint_every else maxiter
+    while nit < maxiter and not _converged(energies, tol, atol):
+        target = min(nit + chunk, maxiter)
+        while nit < target and not _converged(energies, tol, atol):
+            pop, energies = generation(pop, energies)
+            nit += 1
+        if checkpoint_path is not None:
+            save_checkpoint(checkpoint_path, {
+                "key": generator.get_state(), "pop": pop,
+                "energies": energies, "nit": np.asarray(nit)})
 
     success = _converged(energies, tol, atol)
     pop_np = scale(pop).cpu().numpy()
     energies_np = energies.cpu().numpy()
     best_idx = int(np.argmin(np.where(np.isfinite(energies_np), energies_np,
                                       np.inf)))
+    x_best, fun_best = pop_np[best_idx], float(energies_np[best_idx])
+    nfev = pop_size * (nit + 1)
     message = ("Optimization terminated successfully." if success else
                "Maximum number of iterations has been exceeded.")
     n_bad = int(np.sum(~np.isfinite(energies_np)))
     if n_bad:
         message += (f" {n_bad}/{pop_size} final members have non-finite "
                     "objectives (see population_energies).")
+    if polish:
+        if batched:
+            def point_objective(x):
+                return objective(x[None, :])[0]
+        else:
+            point_objective = objective
+        try:
+            gd = gradient_descent(point_objective, bounds, x0=x_best,
+                                  steps=polish_steps, device=device,
+                                  dtype=dtype)
+            nfev += gd.nfev
+            if np.isfinite(gd.fun) and gd.fun < fun_best:
+                x_best, fun_best = gd.x, float(gd.fun)
+                message += " Polished with gradient descent."
+        except Exception as exc:  # an objective autograd cannot follow
+            message += f" Polish skipped ({type(exc).__name__})."
     return OptimizeResult(
-        x=pop_np[best_idx], fun=float(energies_np[best_idx]), nit=nit,
-        nfev=pop_size * (nit + 1), success=success, message=message,
-        population=pop_np, population_energies=energies_np)
+        x=x_best, fun=fun_best, nit=nit, nfev=nfev, success=success,
+        message=message, population=pop_np, population_energies=energies_np)
 
 
 def minimize(objective, bounds, method="de", **kwargs):
@@ -215,3 +350,132 @@ def minimize(objective, bounds, method="de", **kwargs):
         f"Unsupported calibration method {method!r}; the port has 'de' "
         "(differential evolution). SCE-UA waits in ROADMAP.md, Queue 1, "
         "item 8.")
+
+
+def gradient_descent(objective, bounds, x0=None, steps=500,
+                     learning_rate=0.05, key=None, seed=None,
+                     device=DEFAULT_DEVICE, dtype=DEFAULT_DTYPE):
+    """Projected gradient descent (Adam) on an objective autograd can
+    differentiate (the ``'scan'`` engines; the fused kernels on the card
+    have no backward).
+
+    Parameters are optimized in normalized [0, 1] coordinates with
+    ``torch.optim.Adam`` (betas (0.9, 0.999), eps 1e-8: optax's defaults)
+    and clamped to the bounds after every step; non-finite gradients are
+    set to 0, so the iterate stalls instead of breaking.  The best iterate
+    is kept.
+
+    Args:
+        objective: (dim,) -> scalar loss.
+        bounds: sequence of (low, high) pairs.
+        x0: (optional) starting point in real coordinates; uniform within
+            the bounds if omitted.
+        steps: number of Adam steps.
+        learning_rate: Adam learning rate (in normalized coordinates).
+        key / seed: ``torch.Generator`` on ``device`` or int seed for the
+            random start.
+        device, dtype: where (the card by default) and in which float type
+            the iterate lives.
+
+    Returns:
+        :class:`OptimizeResult` (``nit = steps``, ``nfev = steps + 1``;
+        the population fields hold the best point).
+    """
+    device = resolve_device(device)
+    dtype = resolve_dtype(dtype)
+    generator = _generator(key, seed, device)
+    lows = torch.tensor([b[0] for b in bounds], dtype=dtype, device=device)
+    highs = torch.tensor([b[1] for b in bounds], dtype=dtype, device=device)
+    if x0 is None:
+        z0 = torch.rand((len(bounds),), generator=generator, dtype=dtype,
+                        device=device)
+    else:
+        z0 = (torch.as_tensor(x0, dtype=dtype, device=device) - lows) / (
+            highs - lows)
+
+    def norm_objective(z):
+        return objective(lows + z * (highs - lows))
+
+    z = z0.detach().clone().requires_grad_(True)
+    opt = torch.optim.Adam([z], lr=learning_rate)
+    best_z = z0.detach().clone()
+    best_val = torch.tensor(np.inf, dtype=dtype, device=device)
+    for _ in range(steps):
+        val = norm_objective(z)
+        (grad,) = torch.autograd.grad(val, z)
+        with torch.no_grad():
+            better = val < best_val
+            best_z = torch.where(better, z, best_z)
+            best_val = torch.where(better, val, best_val)
+            z.grad = torch.where(torch.isfinite(grad), grad, 0.0)
+        opt.step()
+        with torch.no_grad():
+            z.clamp_(0.0, 1.0)
+    with torch.no_grad():
+        final_val = norm_objective(z)
+        better = final_val < best_val
+        best_z = torch.where(better, z, best_z)
+        best_val = torch.where(better, final_val, best_val)
+        x = (lows + best_z * (highs - lows)).cpu().numpy()
+    fun = float(best_val)
+    success = bool(np.isfinite(fun))
+    return OptimizeResult(
+        x=x, fun=fun, nit=steps, nfev=steps + 1, success=success,
+        message=("Gradient descent finished." if success else
+                 "Objective remained non-finite."),
+        population=x[None, :], population_energies=np.asarray([fun]))
+
+
+def random_search(objective, sample_fn, num, key=None, seed=None,
+                  batch_size=None, batched=False, mesh=None, mesh_axis=None,
+                  device=DEFAULT_DEVICE, dtype=DEFAULT_DTYPE):
+    """Monte-Carlo minimization: sample ``num`` candidates, keep the best.
+
+    Args:
+        objective: (dim,) -> scalar loss, mapped over each batch as in
+            :func:`differential_evolution`; with ``batched=True`` it maps
+            the (n, dim) batch to (n,) losses in one call.
+        sample_fn: ``sample_fn(generator, n) -> (n, dim)`` candidates,
+            drawn with the ``torch.Generator`` it is given (JAX's takes a
+            key).
+        num: number of candidates.
+        key / seed: ``torch.Generator`` on ``device`` or int seed.
+        batch_size: (optional) candidates a batch, to bound memory.
+        mesh, mesh_axis: not ported; any mesh raises
+            ``NotImplementedError`` (ROADMAP.md, Queue 1, item 9).
+        device, dtype: where (the card by default) and in which float type
+            the candidates are evaluated.
+
+    Returns:
+        :class:`OptimizeResult` (``nfev`` the true count; the population
+        fields hold the *last* batch).
+    """
+    _no_mesh(mesh)
+    device = resolve_device(device)
+    dtype = resolve_dtype(dtype)
+    generator = _generator(key, seed, device)
+    if batch_size is None:
+        batch_size = num
+    best_x, best_fun = None, np.inf
+    last_pop, last_energies = None, None
+    evaluated = 0
+    while evaluated < num:
+        n = min(batch_size, num - evaluated)
+        candidates = torch.as_tensor(sample_fn(generator, n)).to(
+            device=device, dtype=dtype)
+        energies = _population_objective(objective, batched, n)(
+            candidates).detach().cpu().numpy()
+        finite = np.isfinite(energies)
+        if finite.any():
+            i = int(np.argmin(np.where(finite, energies, np.inf)))
+            if energies[i] < best_fun:
+                best_fun = float(energies[i])
+                best_x = candidates[i].cpu().numpy()
+        last_pop, last_energies = candidates.cpu().numpy(), energies
+        evaluated += n
+    success = best_x is not None
+    return OptimizeResult(
+        x=best_x, fun=best_fun, nit=1, nfev=evaluated, success=success,
+        message=("Random search finished." if success else
+                 "Every sampled candidate produced a non-finite loss."),
+        population=last_pop, population_energies=last_energies)

@@ -7,7 +7,8 @@ JAX, so it runs on a GPU machine without it:
 
 Each kernel (GR4J K1 MSE, K2 stats, K3 trajectories (also bit for bit
 K4's cold entry), K4 trajectories + state; ABC K6 single launch (also at
-its chunk edges, and the same bits from run to run), K7 three launches;
+its chunk edges, and the same bits from run to run), K7 three launches
+(also at its chunk edges, for 1, 7 and 4096 members);
 the snow family's K8
 objective, K9 trajectories and K10 trajectories + state; HBV-Edu K12
 objective, K13 trajectories, K14 trajectories + state; the warm entry of
@@ -20,7 +21,9 @@ tensors.  Tolerances:
 float64 ``rtol=1e-9, atol=1e-12`` (the same operations in another order);
 float32 trajectories ``rtol=5e-3, atol=1e-3`` and objectives
 ``rtol=2e-2`` (rounding compounds over the recurrence; rrmpg_tpu's own
-fused-vs-XLA float32 drift is 8.5e-3 relative).  The ABC scan in float32
+fused-vs-XLA float32 drift is 8.5e-3 relative).  DE on the card: a fused
+fit checkpointed and resumed equals the unbroken one bit for bit, and
+``polish=True`` on the fused engine is skipped with JAX's message.  The ABC scan in float32
 is held to ``1e-4`` of each series' largest value: the
 parallel order of the sums differs from the plain version's.  HBV-Edu
 members whose soil store goes negative are NaN in kernel and plain
@@ -247,6 +250,121 @@ def test_abc_single_kernel_is_bit_reproducible(cuda, shape):
     for _ in range(4):
         for g, f in zip(fa.abc_fused_single(prec, s0, params), first):
             assert torch.equal(g, f)
+
+
+K7_EDGES = [(n, chunks) for n in (1, 4096) for chunks in (1, 2, 32, 33)] + [
+    (7, 256), (7, 257)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("n,chunks", K7_EDGES)
+@pytest.mark.parametrize("last", ["one_step", "full"])
+def test_abc_chunked_kernel_at_chunk_edges(cuda, dtype, n, chunks, last):
+    """K7 with ``chunks`` chunks a member, the last one step long or full,
+    for one member, 4096 members and 7 (one carry block of 8 members a warp,
+    part-filled; at 257 chunks a team of two warps a member), against the
+    doubling scan and K6."""
+    chunk = _abc_chunk(dtype)
+    t_len = (chunks - 1) * chunk + 1 if last == "one_step" else chunks * chunk
+    rng = np.random.default_rng(chunks * 7 + n)
+    prec = torch.tensor(rng.uniform(0, 20, t_len), dtype=dtype, device=cuda)
+    a = rng.uniform(0, 1, n)
+    c = rng.uniform(0, 1, n)
+    c[:3] = (0.0, 0.12, 1.0)[:n]
+    params = {k: torch.tensor(v, dtype=dtype, device=cuda)
+              for k, v in (('a', a), ('b', rng.uniform(0, 1 - a)), ('c', c))}
+    s0 = torch.tensor(rng.uniform(0, 9, n), dtype=dtype, device=cuda)
+    fg.reset_launches()
+    got = fa.abc_fused(prec, s0, params)
+    torch.cuda.synchronize()
+    assert fg.LAUNCHES["abc_fused"] == 1
+    want = abc.run_abcmodel_pscan(prec, s0, params)
+    single = fa.abc_fused_single(prec, s0, params)
+    for g, w, k6 in zip(got, want, single):
+        assert g.shape == (n, t_len) and g.dtype == dtype
+        _abc_close(g, w)
+        _abc_close(g, k6)
+    assert torch.equal(got[1][:, 0], s0)
+    assert not bool(got[0][:, 0].any())
+
+
+@pytest.mark.parametrize("kernel", ["abc_fused_single", "abc_fused",
+                                    "run_abcmodel_pscan"])
+def test_abc_float32_tracks_float64(cuda, kernel):
+    """In float32, K6, K7 and the doubling scan stay within ``abc_tol`` of
+    the float64 doubling scan on the same inputs where a small c (7e-5)
+    makes the store remember thousands of steps: 4096 members x 32 chunks.
+    Maps kept as (1 - A, B) round no (1 - c); with A kept, both kernels
+    strayed past it."""
+    fn = abc.run_abcmodel_pscan if kernel == "run_abcmodel_pscan" else \
+        getattr(fa, kernel)
+    t_len = 32 * _abc_chunk(torch.float32)
+    rng = np.random.default_rng(5)
+    prec = torch.tensor(rng.uniform(0, 20, t_len), dtype=torch.float32,
+                        device=cuda)
+    a = rng.uniform(0, 1, 4096)
+    c = rng.uniform(0, 1, 4096)
+    c[:4] = (0.0, 0.12, 1.0, 7e-5)
+    params = {k: torch.tensor(v, dtype=torch.float32, device=cuda)
+              for k, v in (('a', a), ('b', rng.uniform(0, 1 - a)), ('c', c))}
+    s0 = torch.tensor(rng.uniform(0, 9, 4096), dtype=torch.float32,
+                      device=cuda)
+    exact = abc.run_abcmodel_pscan(prec.double(), s0.double(),
+                                   {k: v.double() for k, v in params.items()})
+    for g, w in zip(fn(prec, s0, params), exact):
+        torch.testing.assert_close(g.double(), w, rtol=0.0,
+                                   atol=1e-4 * float(w.abs().max()))
+
+
+# ---------------------------------------------------------------------------
+# DE on the card: checkpoint and resume, polish
+# ---------------------------------------------------------------------------
+
+def _fit_inputs():
+    rng = np.random.default_rng(3)
+    prec, etp = rng.uniform(0, 15, 400), rng.uniform(0, 4, 400)
+    qobs = GR4J(params={'x1': 500.0, 'x2': 0.5, 'x3': 80.0, 'x4': 2.0},
+                dtype=torch.float64).simulate(prec, etp).cpu().numpy().ravel()
+    return qobs, prec, etp
+
+
+def test_fused_fit_resumed_equals_unbroken(cuda, tmp_path):
+    """Seven generations saved every five, resumed to twelve: the card's
+    generator state comes back from the file, so the resumed fit walks the
+    unbroken one's population bit for bit."""
+    qobs, prec, etp = _fit_inputs()
+    path = str(tmp_path / "fit.npz")
+    kw = dict(engine='fused', seed=0, tol=0.0)
+    full = GR4J(device=cuda).fit(qobs, prec, etp, maxiter=12, **kw)
+    GR4J(device=cuda).fit(qobs, prec, etp, maxiter=7, checkpoint_path=path,
+                          checkpoint_every=5, **kw)
+    fg.reset_launches()
+    resumed = GR4J(device=cuda).fit(qobs, prec, etp, maxiter=12,
+                                    resume_from=path, **kw)
+    assert fg.LAUNCHES["gr4j_mse"] == 5          # no initial population
+    assert resumed.nit == full.nit == 12 and resumed.nfev == full.nfev
+    assert resumed.fun == full.fun
+    np.testing.assert_array_equal(resumed.population, full.population)
+    np.testing.assert_array_equal(resumed.population_energies,
+                                  full.population_energies)
+
+
+def test_fused_fit_polish_is_skipped_and_scan_polish_runs(cuda):
+    """The fused kernels have no backward: ``polish=True`` leaves the fit as
+    it was and says so.  The 'scan' engine is differentiated on the card."""
+    qobs, prec, etp = _fit_inputs()
+    kw = dict(engine='fused', seed=0, maxiter=3)
+    plain = GR4J(device=cuda).fit(qobs, prec, etp, **kw)
+    polished = GR4J(device=cuda).fit(qobs, prec, etp, polish=True, **kw)
+    assert polished.message == (plain.message
+                                + " Polish skipped (RuntimeError).")
+    assert polished.fun == plain.fun and polished.nfev == plain.nfev
+    kw = dict(engine='scan', seed=0, maxiter=2)
+    plain = GR4J(device=cuda).fit(qobs[:120], prec[:120], etp[:120], **kw)
+    polished = GR4J(device=cuda).fit(qobs[:120], prec[:120], etp[:120],
+                                     polish=True, polish_steps=3, **kw)
+    assert "skipped" not in polished.message
+    assert polished.nfev == plain.nfev + 4 and polished.fun <= plain.fun
 
 
 # ---------------------------------------------------------------------------
