@@ -97,9 +97,23 @@ Phases, in order (each prints its lines; any failure exits non-zero):
                   GR4J objective through K5 and the regional hysteresis + ice
                   snow objective through K11, 8 catchments x 131072 members,
                   'mse' and 'kge'; GLUE weights and prediction limits over a
-                  20000-member CemaneigeGR4J Monte-Carlo through K9).  Then
-                  each kernel is compared with its plain version at the shapes
-                  the main path gave it;
+                  20000-member CemaneigeGR4J Monte-Carlo through K9); the
+                  analysis tools (``tools``): ``fit(method='sce')`` of GR4J
+                  on CAMELS 01031500 through K1 (K1 launches 1 + nit beta,
+                  ``nfev`` exact, ``fun`` against the 'scan' engine) and of
+                  HBV-Edu on the MATLAB days through K12 (the field
+                  capacity's bound lowered to 1 mm, so NaN members arise
+                  and are quarantined), ``fit_Q_SCA(pareto=True)`` of the
+                  hysteresis + ice model (pop 128, 30 generations, one K8
+                  SCA-statistics launch a generation; the front re-evaluated
+                  through the 'scan' engine, its hypervolume against the
+                  initial population's), Sobol' (n = 1024, 6144 points) and
+                  Morris (64 trajectories) over a fused GR4J MSE, one K1
+                  launch each, DE-MC (16 chains x 400 steps, two K1 launches
+                  a step) and ``monte_carlo`` of 16384 GR4J members with the
+                  FDC signatures through K3 (K2 never).  Then each kernel is
+                  compared with its plain version at the shapes the main path
+                  gave it;
 6. times       -- each kernel against its plain version and its bound:
                   GR4J and HBV-Edu at 131072 members x 3651 days, the snow
                   kernels at 131072 x 3651 x 5 layers (hysteresis + ice),
@@ -124,8 +138,8 @@ Phases, in order (each prints its lines; any failure exits non-zero):
                   at 10M steps.
 
 ``--phases a,b`` (development) runs only the named phases after the build:
-kernels, golden, main, forecast, regional, times; the result lines need them
-all.  ``--compare DIR[,DIR...]`` (development) builds the kernel sources in
+kernels, golden, main, forecast, regional, tools, times; the result lines
+need them all.  ``--compare DIR[,DIR...]`` (development) builds the kernel sources in
 each DIR (another version's ``rrmpg_tpu_torch/csrc``) beside this
 checkout's, times K1-K14 of both in turns with the largest output
 difference between the builds (K4, K10 and K14 also at the forecast path's
@@ -2983,6 +2997,326 @@ def phase_regional(card):
     return launches, max_abs, walls
 
 
+# The tools phase: SCE-UA, NSGA-II, Sobol' / Morris, DE-MC and the FDC
+# signatures of monte_carlo, driven through their entry points.
+TOOLS_SCE_MAXITER = 20
+TOOLS_PARETO = dict(pop_size=128, n_generations=30)
+TOOLS_SOBOL_N = 1024
+TOOLS_SOBOL_CHECKED = 512      # design points held against the plain version
+TOOLS_MORRIS_TRAJECTORIES = 64
+TOOLS_DEMC = dict(num_chains=16, num_steps=400)
+TOOLS_DEMC_SIGMA = 2.0         # mm/day: the Gaussian likelihood's error
+TOOLS_MC_MEMBERS = 16384
+TOOLS_MC_CHECKED = 256         # members whose signatures are held to float64
+SIGNATURE_TOL = (5e-3, 1e-3)
+
+
+def sce_counts(res, dim, n_complexes=None):
+    """(p, m, beta) of an SCE-UA run on ``dim`` parameters and its exact
+    evaluation count."""
+    p = n_complexes or max(2, dim)
+    m = beta = 2 * dim + 1
+    return p, beta, p * m + res.nit * beta * 3 * p
+
+
+def gr4j_mse_objective(prec_t, etp_t, qobs_t, record=None):
+    """A user's batched GR4J MSE objective on the fused op (K1): (P, 4)
+    candidates -> (P,); ``record`` keeps each call's candidates and losses."""
+    from rrmpg_tpu_torch.models import GR4J
+    from rrmpg_tpu_torch.models.gr4j import fit_uh_lengths
+    from rrmpg_tpu_torch.ops import gr4j_ensemble_mse_fused
+
+    n1, n2 = fit_uh_lengths(GR4J._default_bounds['x4'][1])
+
+    def objective(X):
+        params = {n: X[:, j].contiguous()
+                  for j, n in enumerate(GR4J._param_list)}
+        out = gr4j_ensemble_mse_fused(prec_t, etp_t, qobs_t, 0.0, 0.0, params,
+                                      num_uh1=n1, num_uh2=n2)
+        if record is not None:
+            record.append((X, out))
+        return out
+
+    return objective, (n1, n2)
+
+
+def gr4j_mse_plain(prec_t, etp_t, qobs_t, X, uh):
+    """K1's plain version on the candidates X (rows in parameter order)."""
+    from rrmpg_tpu_torch.models import GR4J
+    from rrmpg_tpu_torch.ops import fused_gr4j as fg
+
+    params = {n: torch.as_tensor(X[:, j], dtype=prec_t.dtype,
+                                 device=DEVICE).contiguous()
+              for j, n in enumerate(GR4J._param_list)}
+    return fg.gr4j_objective_reference(prec_t, etp_t, qobs_t,
+                                       fg.pack_params(params, 0.0, 0.0),
+                                       *uh)
+
+
+def phase_tools(card, qobs, prec, etp, forcing, qsim_matlab):
+    """The analysis tools through their entry points, at full width:
+    ``fit(method='sce')`` of GR4J on CAMELS 01031500 (K1) and of HBV-Edu on
+    the MATLAB days (K12); ``fit_Q_SCA(pareto=True)`` of the hysteresis +
+    ice model on its Excel sheet (K8's SCA statistics); Sobol' indices and
+    Morris screening over a fused GR4J MSE (K1, one launch each); DE-MC on
+    a Gaussian likelihood from K1 (two launches a step); and
+    ``monte_carlo`` with the FDC signatures (K3, never K2).  Each with its
+    launch counts read just after; then the checks against the 'scan'
+    engine and the plain versions (not counted)."""
+    from rrmpg_tpu_torch.models import GR4J, CemaneigeHystGR4JIce, HBVEdu
+    from rrmpg_tpu_torch.ops import fused_gr4j as fg
+    from rrmpg_tpu_torch.ops.uh import required_uh_lengths
+    from rrmpg_tpu_torch.tools import (demc_sample, hypervolume_2d,
+                                       monte_carlo, morris_screening,
+                                       sobol_indices)
+    from rrmpg_tpu_torch.utils import (calibration_loss, fdc_fhv, fdc_flv,
+                                       fdc_fms, mse)
+
+    launches, max_abs, walls = {}, {}, {}
+
+    def counted(key, fn):
+        result, counts, seconds = run_counted(fn)
+        walls[key] = seconds
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+        return result, counts
+
+    prec_t, etp_t, qobs_t = (as_tensor(a, F32) for a in (prec, etp, qobs))
+    names = GR4J._param_list
+    t_len = len(prec)
+
+    # SCE-UA on GR4J, every CCE step one K1 launch of 3 p candidates.
+    res, counts = counted("sce GR4J", lambda: GR4J().fit(
+        qobs, prec, etp, method='sce', engine='fused', loss_metric='mse',
+        seed=0, maxiter=TOOLS_SCE_MAXITER))
+    check_fit(GR4J, res, "SCE GR4J")
+    p, beta, nfev = sce_counts(res, len(names))
+    check(res.nfev == nfev, f"SCE GR4J nfev {res.nfev}, expected {nfev}")
+    expect = {"gr4j_mse": 1 + res.nit * beta}
+    check(counts == expect,
+          f"SCE GR4J launch counts {counts} differ from {expect}")
+    qsim = GR4J(params=dict(zip(names, map(float, res.x)))).simulate(
+        prec, etp, engine='scan')[:, 0]
+    scan_fun = float(mse(qobs_t, qsim))
+    check(np.isclose(res.fun, scan_fun, rtol=TOL[F32]["obj"][0]),
+          f"SCE GR4J fun {res.fun} against the 'scan' engine's {scan_fun}")
+    print(f"[5 tools] SCE-UA GR4J fused on CAMELS 01031500 T={t_len} "
+          f"float32: p={p}, {3 * p} candidates a CCE step, nit={res.nit}, "
+          f"nfev={res.nfev}, fun {res.fun:.5f} ('scan' at x: "
+          f"{scan_fun:.5f}), success={res.success} in "
+          f"{walls['sce GR4J']:.3f} s; launches {counts} == expected; "
+          f"{card}")
+
+    # SCE-UA on HBV-Edu with the field capacity's bound lowered to 1 mm, so
+    # that members whose soil store empties arise: their losses are NaN
+    # (K12 keeps them NaN), counted on the device through the objective,
+    # and the optimizer must never select one.
+    snow, soil, s1, s2 = HBV_INITS
+    inits = dict(snow_init=snow, soil_init=soil, s1_init=s1, s2_init=s2)
+    hbv_qobs = qsim_matlab * (24 * 60 * 60) / (HBV_AREA * 1000)
+    hbv_qobs[::97] = np.nan
+    seen = []
+
+    class CountedHBV(HBVEdu):
+        _default_bounds = dict(HBVEdu._default_bounds, FC=(1.0, 200.0))
+
+        def _batch_objective(self, *args, **kw):
+            objective = super()._batch_objective(*args, **kw)
+
+            def counted_objective(X):
+                out = objective(X)
+                seen.append(torch.isnan(out).sum())
+                return out
+
+            return counted_objective
+
+    res_hbv, counts = counted("sce HBV-Edu", lambda: CountedHBV().fit(
+        hbv_qobs, **forcing, **inits, method='sce', engine='fused', seed=0,
+        maxiter=TOOLS_SCE_MAXITER))
+    n_nan = int(torch.stack(seen).sum())
+    p_h, beta_h, nfev_h = sce_counts(res_hbv, len(HBVEdu._param_list))
+    check(np.isfinite(res_hbv.fun) and res_hbv.nfev == nfev_h and n_nan > 0,
+          f"SCE HBV-Edu: fun {res_hbv.fun}, nfev {res_hbv.nfev} (expected "
+          f"{nfev_h}), {n_nan} NaN candidates")
+    check_fit(CountedHBV, res_hbv, "SCE HBV-Edu")
+    expect = {"hbv_mse": 1 + res_hbv.nit * beta_h}
+    check(counts == expect,
+          f"SCE HBV-Edu launch counts {counts} differ from {expect}")
+    print(f"[5 tools] SCE-UA HBV-Edu fused on the MATLAB days "
+          f"T={len(hbv_qobs)} float32, FC in (1, 200): p={p_h}, "
+          f"nit={res_hbv.nit}, nfev="
+          f"{res_hbv.nfev}, fun {res_hbv.fun:.5f}, {n_nan} NaN candidates "
+          f"quarantined in {walls['sce HBV-Edu']:.3f} s; launches {counts} "
+          f"== expected; {card}")
+
+    # NSGA-II: the Q-vs-SCA Pareto front, one K8 launch a generation.
+    met, snow_qobs, ndsi = snow_main_data()
+    snow_forcing = (*met.values(), FRAC_ICE_GOLDEN)
+    setup = dict(met_station_height=700, altitudes=ALTITUDES, s_init=0.5,
+                 r_init=0.4)
+    pareto_kw = dict(loss_metric='kge', engine='fused', seed=0, pareto=True,
+                     **setup)
+    gens = TOOLS_PARETO["n_generations"]
+    front, counts = counted("pareto", lambda: CemaneigeHystGR4JIce(
+        ).fit_Q_SCA(snow_qobs, *snow_forcing, *ndsi, **pareto_kw,
+                    **TOOLS_PARETO))
+    expect = {"snow_sca_stats": gens + 1}
+    check(counts == expect,
+          f"Pareto fit launch counts {counts} differ from {expect}")
+    initial, counts0 = run_counted(lambda: CemaneigeHystGR4JIce().fit_Q_SCA(
+        snow_qobs, *snow_forcing, *ndsi, **pareto_kw,
+        pop_size=TOOLS_PARETO["pop_size"], n_generations=0))[:2]
+    check(counts0 == {"snow_sca_stats": 1},
+          f"the initial population's launch counts {counts0}")
+    check(len(front.x) >= 1 and (front.rank == 0).sum() == len(front.x)
+          and np.isfinite(front.f).all(),
+          f"Pareto front of {len(front.x)} members, ranks "
+          f"{np.unique(front.rank)}, not all finite")
+    finite0 = np.isfinite(initial.population_f).all(axis=1)
+    nadir = initial.population_f[finite0].max(axis=0)
+    hv_0 = hypervolume_2d(initial.population_f, nadir)
+    hv = hypervolume_2d(front.f, nadir)
+    check(hv >= hv_0, f"hypervolume {hv} of the front below the initial "
+          f"population's {hv_0}")
+    # The front re-evaluated through the 'scan' engine's trajectories.
+    model = CemaneigeHystGR4JIce()
+    params = {n: front.x[:, j]
+              for j, n in enumerate(model._param_list)}
+    out = model.simulate(*snow_forcing, params=params, engine='scan',
+                         return_storage=True, **setup)
+    loss = calibration_loss('kge')
+    obs_t = as_tensor(snow_qobs, F32)
+    l_q = loss(obs_t[:, None], out[0], dim=0)
+    sca = 100.0 * out[5]                                   # (T, L, F)
+    l_sca = sum(loss(as_tensor(ndsi[b], F32)[:, None], sca[:, b], dim=0)
+                for b in range(len(ALTITUDES)))
+    scan_f = torch.stack([l_q, l_sca], dim=1).double().cpu().numpy()
+    check(np.allclose(front.f, scan_f, rtol=TOL[F32]["obj"][0]),
+          f"Pareto front f against the 'scan' components: largest "
+          f"difference {np.abs(front.f - scan_f).max()}")
+    print(f"[5 tools] NSGA-II fit_Q_SCA(pareto=True) CemaneigeHystGR4JIce "
+          f"fused, Excel sheet T={len(snow_qobs)} x {len(ALTITUDES)} layers "
+          f"float32: pop {TOOLS_PARETO['pop_size']} x {gens} generations, "
+          f"front {len(front.x)} members, (1-KGE_q, sum 1-KGE_sca) from "
+          f"{front.f.min(axis=0).round(4).tolist()} to "
+          f"{front.f.max(axis=0).round(4).tolist()}, hypervolume {hv:.4f} "
+          f">= initial {hv_0:.4f} (nadir {nadir.round(4).tolist()}); 'scan' "
+          f"components within {np.abs(front.f / scan_f - 1).max():.2e}; "
+          f"in {walls['pareto']:.3f} s; launches {expect} == expected "
+          f"(+1 for the initial population); {card}")
+
+    # Sobol' and Morris over a fused GR4J MSE: the design in one launch.
+    bounds = [GR4J._default_bounds[n] for n in names]
+    record = []
+    objective, uh = gr4j_mse_objective(prec_t, etp_t, qobs_t, record)
+    sob, counts = counted("sobol", lambda: sobol_indices(
+        objective, bounds, n=TOOLS_SOBOL_N, seed=0, batched=True,
+        names=tuple(names)))
+    rows = TOOLS_SOBOL_N * (len(names) + 2)
+    check(counts == {"gr4j_mse": 1} and record[0][0].shape[0] == rows,
+          f"Sobol': launch counts {counts} for {rows} design points")
+    X0, f0 = record[0]
+    k = TOOLS_SOBOL_CHECKED
+    want = gr4j_mse_plain(prec_t, etp_t, qobs_t, X0[:k], uh)
+    max_abs["gr4j_mse"] = report(
+        f"tools shape gr4j_mse (Sobol' design, first {k} of {rows})",
+        f0[:k], want, *TOL[F32]["obj"])
+    check(np.isfinite(sob.s1).all() and np.isfinite(sob.st).all()
+          and sob.n_used == TOOLS_SOBOL_N,
+          f"Sobol' indices not finite: {sob}")
+    record.clear()
+    mor, counts = counted("morris", lambda: morris_screening(
+        objective, bounds, num_trajectories=TOOLS_MORRIS_TRAJECTORIES,
+        seed=0, batched=True, names=tuple(names)))
+    points = TOOLS_MORRIS_TRAJECTORIES * (len(names) + 1)
+    check(counts == {"gr4j_mse": 1} and record[0][0].shape[0] == points
+          and np.isfinite(mor.mu_star).all()
+          and (mor.n_effects == TOOLS_MORRIS_TRAJECTORIES).all(),
+          f"Morris: launch counts {counts}, {mor}")
+    print(f"[5 tools] Sobol' n={TOOLS_SOBOL_N} ({rows} points, one K1 "
+          f"launch) over GR4J fused MSE, CAMELS 01031500: S1 "
+          f"{np.round(sob.s1, 3).tolist()}, ST {np.round(sob.st, 3).tolist()}"
+          f" in {walls['sobol']:.3f} s; Morris {TOOLS_MORRIS_TRAJECTORIES} "
+          f"trajectories ({points} points, one launch): mu* "
+          f"{np.round(mor.mu_star, 3).tolist()} in {walls['morris']:.3f} s; "
+          f"{card}")
+
+    # DE-MC on a Gaussian likelihood from K1: two launches a step.
+    scale = -0.5 * t_len / TOOLS_DEMC_SIGMA ** 2
+    mse_objective, _ = gr4j_mse_objective(prec_t, etp_t, qobs_t)
+    chain, counts = counted("demc", lambda: demc_sample(
+        lambda X: scale * mse_objective(X), bounds, seed=0, batched=True,
+        **TOOLS_DEMC))
+    steps = TOOLS_DEMC["num_steps"]
+    expect = {"gr4j_mse": 1 + 2 * steps}
+    check(counts == expect, f"DE-MC launch counts {counts} differ from "
+          f"{expect}")
+    plain_map = scale * float(gr4j_mse_plain(
+        prec_t, etp_t, qobs_t, chain.x_map[None, :], uh)[0])
+    check(0.0 < chain.acceptance_rate < 1.0
+          and np.isfinite(chain.r_hat).all()
+          and np.isclose(chain.logp_map, plain_map,
+                         rtol=TOL[F32]["obj"][0]),
+          f"DE-MC: acceptance {chain.acceptance_rate}, r_hat "
+          f"{chain.r_hat}, logp_map {chain.logp_map} against the plain "
+          f"version's {plain_map}")
+    print(f"[5 tools] DE-MC GR4J fused Gaussian likelihood (sigma "
+          f"{TOOLS_DEMC_SIGMA} mm/day) on CAMELS 01031500: "
+          f"{TOOLS_DEMC['num_chains']} chains x {steps} steps, acceptance "
+          f"{chain.acceptance_rate:.3f}, r_hat "
+          f"{np.round(chain.r_hat, 3).tolist()}, x_map "
+          f"{np.round(chain.x_map, 3).tolist()}, logp_map "
+          f"{chain.logp_map:.2f} (plain {plain_map:.2f}) in "
+          f"{walls['demc']:.3f} s ({walls['demc'] / steps * 1e3:.2f} ms a "
+          f"step); launches {counts} == expected; {card}")
+
+    # monte_carlo with the FDC signatures: the trajectory kernel K3 once.
+    metrics = ('mse', 'fhv', 'flv', 'fms')
+    np.random.seed(6)
+    mc, counts = counted("mc signatures", lambda: monte_carlo(
+        GR4J(), TOOLS_MC_MEMBERS, qobs, metrics=metrics, return_qsim=False,
+        engine='fused', prec=prec, etp=etp))
+    check(counts == {"gr4j_traj": 1},
+          f"monte_carlo with signatures: launch counts {counts}, expected "
+          "K3 once and K2 never")
+    for m in metrics:
+        check(mc[m].shape == (TOOLS_MC_MEMBERS,) and np.isfinite(mc[m]).all(),
+              f"monte_carlo {m}: shape {mc[m].shape}, not all finite")
+    k = TOOLS_MC_CHECKED
+    members, _ = GR4J(dtype=F64)._prepare_params(mc['params'][:k])
+    traj = fg.gr4j_simulate_reference(
+        as_tensor(prec, F64), as_tensor(etp, F64),
+        fg.pack_params(members, 0.0, 0.0),
+        *required_uh_lengths(members['x4'])).T               # (T, k)
+    obs64 = as_tensor(qobs, F64)[:, None]
+    plain = {'fhv': fdc_fhv(obs64, traj, dim=0),
+             'flv': fdc_flv(obs64, traj, dim=0),
+             'fms': fdc_fms(obs64, traj, dim=0),
+             'mse': mse(obs64, traj, dim=0)}
+    worst = {}
+    for m in metrics:
+        want = plain[m].cpu().numpy()
+        diff = np.abs(mc[m][:k] - want)
+        worst[m] = float(diff.max())
+        check(np.allclose(mc[m][:k], want, rtol=SIGNATURE_TOL[0],
+                          atol=SIGNATURE_TOL[1]),
+              f"monte_carlo {m} of the first {k} members: largest "
+              f"difference {worst[m]} from float64 signatures of the plain "
+              "trajectories")
+    print(f"[5 tools] monte_carlo GR4J {TOOLS_MC_MEMBERS} x {t_len} fused "
+          f"with {metrics}, return_qsim=False: median FHV "
+          f"{np.median(mc['fhv']):.2f} %, FLV {np.median(mc['flv']):.2f} %, "
+          f"FMS {np.median(mc['fms']):.2f} % in "
+          f"{walls['mc signatures']:.3f} s; first {k} members within "
+          f"rtol={SIGNATURE_TOL[0]}, atol={SIGNATURE_TOL[1]} of float64 "
+          f"signatures of the plain trajectories (largest differences "
+          f"{ {m: float(f'{v:.2e}') for m, v in worst.items()} }); launches "
+          f"{counts} == expected; {card}")
+    total = sum(walls.values())
+    print(f"[5 tools] the tools' entry points took {total:.3f} s; {card}")
+    return launches, max_abs, walls
+
+
 def measure_row(rows, card, name, kernel, plain, ops, n_bytes, reps, what,
                 dtype=F32):
     """Time ``kernel`` and its ``plain`` version, print one ``[6 times]``
@@ -4540,7 +4874,8 @@ def kernel_entries(launches, max_abs, times):
     return out
 
 
-PHASES = ("kernels", "golden", "main", "forecast", "regional", "times")
+PHASES = ("kernels", "golden", "main", "forecast", "regional", "tools",
+          "times")
 
 
 def main():
@@ -4615,6 +4950,10 @@ def main():
     if "regional" in phases:
         gather("regional", phase_regional(card))
         lap("the regional path")
+    if "tools" in phases:
+        gather("tools", phase_tools(card, qobs, prec, etp, forcing,
+                                    qsim_matlab))
+        lap("the tools")
     if "times" in phases:
         times = phase_times(card, prec, etp, qobs, forcing, qsim_matlab)
         lap("the times")

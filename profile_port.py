@@ -8,7 +8,8 @@ the shapes ``chip_smoke.py`` drives (the forecast path too: a 131072-member
 warm continuation of the last 365 days from one shared state and a warm
 ``fit`` per family that carries state through kernels; the regional path: the
 GR4J and snow objectives over 8 catchments x 131072 members, and GLUE over a
-20000-member Monte-Carlo): warmed up once,
+20000-member Monte-Carlo; the tools phase's SCE-UA fit of GR4J, Pareto fit
+of the hysteresis + ice model and DE-MC chain): warmed up once,
 run three times untraced (host clock, synchronised) and once under ``torch.profiler``.
 Per path one line: the untraced walls, the traced wall, the device's busy
 time (kernels and copies), its idle share (1 - busy / traced wall), and the
@@ -158,6 +159,32 @@ def main():
           lambda: CemaneigeHystGR4JIce(
               params=dict(cs.HYST_GOLDEN, DDF=5)).simulate(
                   *snow_forcing, engine='fused', **snow_kw))
+
+    # The analysis tools at chip_smoke.py's tools-phase shapes: SCE-UA (one
+    # K1 launch a CCE step), the Pareto fit (one K8 launch a generation)
+    # and DE-MC (two K1 launches a step).
+    from rrmpg_tpu_torch.tools import demc_sample
+
+    trace(card, f"GR4J fit method='sce' (12 candidates a launch x "
+          f"{len(prec)}, maxiter {cs.TOOLS_SCE_MAXITER})",
+          lambda: GR4J().fit(qobs, prec, etp, method='sce', engine='fused',
+                             seed=0, maxiter=cs.TOOLS_SCE_MAXITER))
+    trace(card, f"CemaneigeHystGR4JIce fit_Q_SCA(pareto=True) kge (pop "
+          f"{cs.TOOLS_PARETO['pop_size']} x {shape}, "
+          f"{cs.TOOLS_PARETO['n_generations']} generations)",
+          lambda: CemaneigeHystGR4JIce().fit_Q_SCA(
+              snow_qobs, *snow_forcing, *ndsi, loss_metric='kge',
+              pareto=True, engine='fused', seed=0, **snow_kw,
+              **cs.TOOLS_PARETO))
+    demc_objective, _ = cs.gr4j_mse_objective(
+        *(cs.as_tensor(a, cs.F32) for a in (prec, etp, qobs)))
+    demc_scale = -0.5 * len(prec) / cs.TOOLS_DEMC_SIGMA ** 2
+    trace(card, f"DE-MC GR4J Gaussian likelihood ({cs.TOOLS_DEMC['num_chains']}"
+          f" chains x {cs.TOOLS_DEMC['num_steps']} steps x {len(prec)})",
+          lambda: demc_sample(
+              lambda X: demc_scale * demc_objective(X),
+              [GR4J._default_bounds[p] for p in GR4J._param_list], seed=0,
+              batched=True, **cs.TOOLS_DEMC))
 
     # The forecast path: spin-up to a state, then the full-width warm
     # continuation and the warm recalibration of the last days from it.

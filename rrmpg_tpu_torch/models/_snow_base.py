@@ -20,6 +20,8 @@ returns the end-of-series :class:`~.states.SnowGR4JState`, and
 state kernel K10, discharge only); ``fit(initial_state=)`` calibrates a
 continuation segment from one shared state on both engines (``'fused'``:
 the warm entry of K8), ``fit_Q_SCA(initial_state=)`` on ``'scan'`` only.
+``fit_Q_SCA(pareto=True)`` (cold starts) returns the Q-vs-SCA Pareto front
+of NSGA-II (:mod:`..tools.moo`), on ``'fused'`` one K8 launch a generation.
 The state carries the layer constants of the series that produced it (the
 snow-cover threshold, or the mean annual solid precipitation): a
 continuation uses those, never its own forcing's.
@@ -42,6 +44,7 @@ from ..ops.compositions import (
     run_cemaneigehystgr4jice,
 )
 from ..ops.fused_snow import (
+    q_sca_components_from_stats,
     q_sca_loss_from_stats,
     snowgr4j_ensemble_mse_fused,
     snowgr4j_simulate_fused,
@@ -435,10 +438,13 @@ class SnowGR4JBase(CemaneigeBase):
             qobs, loss_metric)
         return lambda X: loss(self._candidates(X))
 
-    def _fused_q_sca_objective(self, loss_metric, f, qobs, ndsi):
+    def _fused_q_sca_objective(self, loss_metric, f, qobs, ndsi,
+                               components=False):
         """Batched Q+SCA objective backed by K8's ``sca_stats`` mode: the
         discharge and per-band 100*SCA statistics come from one launch;
-        the reference's 0.75 / 5 x 0.05 weighting is applied to them."""
+        the reference's 0.75 / 5 x 0.05 weighting is applied to them.  With
+        ``components=True`` the objective returns the (P, 2) pair
+        ``(L_q, L_sca)`` instead, for the Pareto fit."""
         if loss_metric not in ("mse", "kge"):
             raise ValueError(
                 f"Unsupported loss_metric {loss_metric!r} for the fused "
@@ -449,6 +455,9 @@ class SnowGR4JBase(CemaneigeBase):
             stats = self._fused_objective_stats(
                 f, qobs, self._candidates(X), ndsi=ndsi, sca_stats=True,
                 masked=masked)
+            if components:
+                return torch.stack(q_sca_components_from_stats(
+                    stats, qobs, ndsi, loss_metric), dim=1)
             return q_sca_loss_from_stats(stats, qobs, ndsi, loss_metric)
 
         return objective
@@ -574,11 +583,10 @@ class SnowGR4JBase(CemaneigeBase):
     def _fit_q_sca(self, obs, f, loss_metric, seed, engine, initial_state,
                    pareto, de_kwargs):
         check_engine(engine)
-        if pareto:
-            raise NotImplementedError(
-                "fit_Q_SCA(pareto=True) needs the NSGA-II optimizer "
-                "(tools/moo.py), which is not ported yet; see ROADMAP.md, "
-                "Queue 1, item 8.")
+        if pareto and initial_state is not None:
+            raise ValueError(
+                "fit_Q_SCA(pareto=True) supports cold starts only; run "
+                "the scalarized fit for the warm path.")
         loss = calibration_loss(loss_metric)
         qobs = self._tensor(validate_array_input(obs, np.float64, 'obs'))
         if f.prec.shape[1] != NUM_NDSI_BANDS:
@@ -593,7 +601,7 @@ class SnowGR4JBase(CemaneigeBase):
                                              initial_state, engine, ndsi)
         elif engine == "fused":
             objective = self._fused_q_sca_objective(loss_metric, f, qobs,
-                                                    ndsi)
+                                                    ndsi, components=pareto)
         else:
             sca_index = 5                                  # in both orders
 
@@ -604,6 +612,14 @@ class SnowGR4JBase(CemaneigeBase):
                 sca = 100.0 * outputs[sca_index]           # (N, T, L)
                 loss_sca = sum(loss(ndsi[b][None, :], sca[:, :, b], dim=-1)
                                for b in range(NUM_NDSI_BANDS))
+                if pareto:
+                    return torch.stack([loss_q, loss_sca], dim=1)
                 return 0.75 * loss_q + 0.05 * loss_sca
 
+        if pareto:
+            from ..tools.moo import nsga2
+
+            bounds = tuple(self._default_bounds[p] for p in self._param_list)
+            return nsga2(objective, bounds, seed=seed, batched=True,
+                         device=self.device, dtype=self.dtype, **de_kwargs)
         return self._minimize(objective, seed, de_kwargs)

@@ -118,10 +118,19 @@ class CemaneigeHystGR4J(SnowGR4JBase):
                 ``engine='scan'``; 'mse' or 'kge' on ``engine='fused'``,
                 which takes every term from one launch of K8's SCA
                 statistics.
-            pareto: the bi-objective form; not ported yet.
+            pareto: replace the fixed 75 / 5 blend by a bi-objective
+                optimization of ``(L_q, L_sca)`` with
+                :func:`rrmpg_tpu_torch.tools.moo.nsga2` and return the whole
+                Q-vs-SCA Pareto front (``**de_kwargs`` then holds nsga2's
+                arguments, e.g. ``pop_size`` / ``n_generations``; on
+                ``engine='fused'`` one K8 launch a generation).  Cold
+                starts only: with ``initial_state`` it raises
+                ``ValueError``.
 
         Returns:
-            An :class:`~rrmpg_tpu_torch.tools.calibration.OptimizeResult`.
+            An :class:`~rrmpg_tpu_torch.tools.calibration.OptimizeResult`,
+            or a :class:`~rrmpg_tpu_torch.tools.moo.ParetoResult` with
+            ``pareto=True``.
         """
         f = self._prepare(prec, mean_temp, min_temp, max_temp, etp, None,
                           met_station_height, altitudes, snow_pack_init,

@@ -102,9 +102,13 @@ class CemaneigeHystGR4JIce(SnowGR4JBase):
         over the five elevation bands (reference
         ``cemaneigehystgr4jice.py:640-717``); args as
         :meth:`CemaneigeHystGR4J.fit_Q_SCA`, plus ``frac_ice``.
+        ``pareto=True`` optimizes the pair ``(L_q, L_sca)`` with
+        :func:`rrmpg_tpu_torch.tools.moo.nsga2` and returns the whole front.
 
         Returns:
-            An :class:`~rrmpg_tpu_torch.tools.calibration.OptimizeResult`.
+            An :class:`~rrmpg_tpu_torch.tools.calibration.OptimizeResult`,
+            or a :class:`~rrmpg_tpu_torch.tools.moo.ParetoResult` with
+            ``pareto=True``.
         """
         f = self._prepare(prec, mean_temp, min_temp, max_temp, etp, frac_ice,
                           met_station_height, altitudes, snow_pack_init,

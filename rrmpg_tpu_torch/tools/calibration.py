@@ -136,22 +136,28 @@ def _converged(energies, tol, atol):
     return bool(std <= atol + tol * torch.abs(energies.mean()))
 
 
+def _batch_map(objective, batched):
+    """``objective`` as a map over the rows of a (P, dim) batch: itself with
+    ``batched``, else mapped over the rows (vmap, or a loop where vmap
+    cannot trace it)."""
+    if batched:
+        return objective
+    vmapped = torch.func.vmap(objective)
+
+    def mapped(pop):
+        try:
+            return vmapped(pop)
+        except RuntimeError:
+            return torch.stack([torch.as_tensor(objective(x)) for x in pop])
+
+    return mapped
+
+
 def _population_objective(objective, batched, pop_size):
     """``objective`` as a map from the (P, dim) population to its (P,)
-    energies: itself with ``batched``, else mapped over the members (vmap,
-    or a loop where vmap cannot trace it).  Energies of any other shape
-    raise ``ValueError``."""
-    if batched:
-        mapped = objective
-    else:
-        vmapped = torch.func.vmap(objective)
-
-        def mapped(pop):
-            try:
-                return vmapped(pop)
-            except RuntimeError:
-                return torch.stack([torch.as_tensor(objective(x))
-                                    for x in pop])
+    energies (:func:`_batch_map`).  Energies of any other shape raise
+    ``ValueError``."""
+    mapped = _batch_map(objective, batched)
 
     def energies_of(pop):
         energies = torch.as_tensor(mapped(pop))
@@ -337,19 +343,29 @@ def differential_evolution(objective, bounds, key=None, popsize=15,
 
 
 def minimize(objective, bounds, method="de", **kwargs):
-    """Dispatch to a named global optimizer (``'de'`` only so far).
+    """Dispatch to a named global optimizer.
+
+    The model classes' ``fit`` methods route through this, so every class
+    takes ``fit(..., method='sce')`` to calibrate with SCE-UA instead of
+    differential evolution.
 
     Args:
         objective / bounds: as in :func:`differential_evolution`.
-        method: ``'de'``.
-        **kwargs: forwarded to the optimizer.
+        method: ``'de'`` (default, :func:`differential_evolution`) or
+            ``'sce'`` (:func:`rrmpg_tpu_torch.tools.sce.sce_ua`).
+        **kwargs: forwarded to the chosen optimizer.
+
+    Returns:
+        :class:`OptimizeResult`.
     """
     if method == "de":
         return differential_evolution(objective, bounds, **kwargs)
+    if method == "sce":
+        from .sce import sce_ua
+        return sce_ua(objective, bounds, **kwargs)
     raise ValueError(
-        f"Unsupported calibration method {method!r}; the port has 'de' "
-        "(differential evolution). SCE-UA waits in ROADMAP.md, Queue 1, "
-        "item 8.")
+        f"Unsupported calibration method {method!r}; choose 'de' "
+        "(differential evolution) or 'sce' (SCE-UA).")
 
 
 def gradient_descent(objective, bounds, x0=None, steps=500,

@@ -6,8 +6,11 @@ the host numpy generator, the whole ensemble simulated as one batched
 call, per-member metrics as batched reductions.
 
 With ``return_qsim=False`` and ``engine='fused'`` on a model that has a
-fused sufficient-statistics kernel, the evaluation runs through it: one
-kernel launch, four numbers per member, no trajectories anywhere.
+fused sufficient-statistics kernel, and every metric derivable from the
+four statistics, the evaluation runs through it: one kernel launch, four
+numbers per member, no trajectories anywhere.  The FDC signatures 'fhv',
+'flv' and 'fms' sort each trajectory, so with any of them the ensemble
+goes through ``model.simulate`` (on ``'fused'`` the trajectory kernel).
 
 Results are host numpy arrays, as in the reference.
 """
@@ -18,14 +21,20 @@ import torch
 from ..models.basemodel import BaseModel, _no_mesh
 from ..ops.stats import losses_from_stats
 from ..utils import metrics as _metrics
+from ..utils import signatures as _signatures
 from ..utils.array_checks import validate_array_input
 
 _METRIC_FNS = {'mse': _metrics.mse, 'rmse': _metrics.rmse,
                'nse': _metrics.nse, 'kge': _metrics.kge,
                'alpha_nse': _metrics.alpha_nse,
-               'beta_nse': _metrics.beta_nse, 'r': _metrics.pearson_r}
+               'beta_nse': _metrics.beta_nse, 'r': _metrics.pearson_r,
+               # FDC signature diagnostics, the same (obs, sim, dim)
+               # contract (see rrmpg_tpu_torch.utils.signatures).
+               'fhv': _signatures.fdc_fhv, 'flv': _signatures.fdc_flv,
+               'fms': _signatures.fdc_fms}
 
-# Metric key -> name in losses_from_stats.
+# Metrics derivable from the fused kernels' (4,) time-mean sufficient
+# statistics; key -> name in losses_from_stats.
 _STATS_METRICS = {'mse': 'mse', 'rmse': 'rmse', 'nse': 'nse',
                   'kge': 'kge', 'alpha_nse': 'alpha',
                   'beta_nse': 'beta', 'r': 'r'}
@@ -44,11 +53,15 @@ def monte_carlo(model, num, qobs=None, mesh=None, metrics=('mse',),
             ensemble over it); anything else raises
             ``NotImplementedError`` before any sampling.
         metrics: any of 'mse', 'rmse', 'nse', 'kge', 'alpha_nse',
-            'beta_nse', 'r' (default ('mse',), the reference's contract).
+            'beta_nse', 'r' (default ('mse',), the reference's contract),
+            plus the FDC signature diagnostics 'fhv', 'flv', 'fms'
+            (:mod:`rrmpg_tpu_torch.utils.signatures`).
         batch_size: (optional) evaluate the ensemble in member chunks of
             this size to bound device memory.
         return_qsim: with ``False`` (requires ``qobs``) trajectories are not
-            kept; with ``engine='fused'`` they are never computed either.
+            kept; with ``engine='fused'`` on a model with a fused statistics
+            kernel and every metric in {'mse', 'rmse', 'nse', 'kge',
+            'alpha_nse', 'beta_nse', 'r'} they are never computed either.
         **kwargs: inputs passed through to ``model.simulate``.
 
     Returns:
@@ -88,8 +101,10 @@ def monte_carlo(model, num, qobs=None, mesh=None, metrics=('mse',),
     params = model.get_random_params(num=num)
 
     stats_fn = getattr(model, "_fused_stats", None)
-    if (not return_qsim and stats_fn is not None
-            and kwargs.get("engine") == "fused"):
+    use_stats = (not return_qsim and stats_fn is not None
+                 and kwargs.get("engine") == "fused"
+                 and all(m in _STATS_METRICS for m in metrics))
+    if use_stats:
         def evaluate(param_chunk):
             pd, _ = model._prepare_params(param_chunk)
             stats = stats_fn(qobs, pd, kwargs)

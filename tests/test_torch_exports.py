@@ -5,7 +5,8 @@ Every name ``rrmpg_tpu.ops`` exports and every name in
 forms the port leaves out on purpose (listed below).  Every name
 ``rrmpg_tpu.tools`` exports imports from ``rrmpg_tpu_torch.tools`` but for
 the tools that wait for ROADMAP Queue 1 item 8 (listed, with their letter,
-and held to still be missing, so that the list stays true).  The cold
+and held to still be missing, so that the list stays true).  Every name
+``rrmpg_tpu.utils`` imports has its counterpart in ``rrmpg_tpu_torch.utils``.  The cold
 :class:`GR4JState` of ``gr4j_initial_state`` equals JAX's member by member,
 and a warm start from it is ``run_gr4j``, in the port and against JAX's,
 at ``rtol=1e-12``: the two packages run the same float64 equations, whose
@@ -24,8 +25,9 @@ import torch
 import rrmpg_tpu.models as jax_models
 import rrmpg_tpu.ops as jax_ops
 import rrmpg_tpu.tools as jax_tools
+import rrmpg_tpu.utils as jax_utils
 from rrmpg_tpu.ops import gr4j as jax_gr4j
-from rrmpg_tpu_torch import models, ops, tools
+from rrmpg_tpu_torch import models, ops, tools, utils
 from rrmpg_tpu_torch.interop import params_from_numpy
 from rrmpg_tpu_torch.ops import gr4j as pt_gr4j
 
@@ -47,11 +49,6 @@ PALLAS_COUNTERPARTS = {
 # Tools of the JAX package that wait for ROADMAP Queue 1 item 8, by its
 # letter: not left out on purpose.
 TOOLS_WAITING = {
-    "sce_ua": "8b",
-    "ParetoResult": "8c", "hypervolume_2d": "8c", "nsga2": "8c",
-    "MorrisResult": "8d", "SobolResult": "8d", "morris_screening": "8d",
-    "sobol_indices": "8d",
-    "MCMCResult": "8e", "demc_sample": "8e",
     "assimilation_cycle": "8f", "enkf_update": "8f",
     "particle_filter_update": "8f", "perturb_state": "8f",
 }
@@ -97,6 +94,12 @@ def test_tools_name_imports_unless_waiting(name):
     else:
         assert getattr(tools, name) is not None
         assert name in _imported_names(tools)
+
+
+@pytest.mark.parametrize("name", _imported_names(jax_utils))
+def test_utils_name_has_its_counterpart(name):
+    assert getattr(utils, name) is not None
+    assert name in _imported_names(utils)
 
 
 def test_tools_waiting_names_are_jax_tools():

@@ -129,7 +129,7 @@ def test_monte_carlo_qsim_and_batches():
         monte_carlo(GR4J(device='cpu'), num=4, prec=prec, etp=etp, return_qsim=False)
     with pytest.raises(ValueError, match="Unknown metric"):
         monte_carlo(GR4J(device='cpu'), num=4, qobs=qobs, prec=prec, etp=etp,
-                    metrics=('fhv',))
+                    metrics=('fdc',))
 
 
 @pytest.mark.parametrize("gaps", [False, True])

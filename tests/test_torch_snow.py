@@ -290,8 +290,10 @@ def test_deferred_features_name_their_queue_item(name):
     with pytest.raises(NotImplementedError, match="Queue 1, item 9"):
         model.simulate(**kw, mesh=object())
     if name in HYST_CLASSES:
-        with pytest.raises(NotImplementedError, match="Queue 1, item 8"):
-            model.fit_Q_SCA(obs, **kw, **_ndsi(30, 0), pareto=True)
+        # The Pareto form (item 8c) is ported, for cold starts only.
+        with pytest.raises(ValueError, match="cold starts only"):
+            model.fit_Q_SCA(obs, **warm_kw, **_ndsi(30, 0), pareto=True,
+                            initial_state=state)
         with pytest.raises(TypeError, match="must be a SnowGR4JState"):
             model.fit_Q_SCA(obs, **warm_kw, **_ndsi(30, 0),
                             initial_state=object())
