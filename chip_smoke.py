@@ -111,9 +111,25 @@ Phases, in order (each prints its lines; any failure exits non-zero):
                   Morris (64 trajectories) over a fused GR4J MSE, one K1
                   launch each, DE-MC (16 chains x 400 steps, two K1 launches
                   a step) and ``monte_carlo`` of 16384 GR4J members with the
-                  FDC signatures through K3 (K2 never).  Then each kernel is
-                  compared with its plain version at the shapes the main path
-                  gave it;
+                  FDC signatures through K3 (K2 never); the assimilation
+                  path (``assim``): ``assimilation_cycle`` over the last 365
+                  days in 36 windows of 10 days at 131072 members, GR4J on
+                  CAMELS 01031500 against a twin truth (the calibrated model
+                  through K3 with noise; the ensemble starts from the
+                  spun-up state, K4, dry and spread): the EnKF on the host
+                  and the scan backend (bit-equal expected, held to the
+                  float32 trajectory tolerance), the particle filter and the
+                  joint parameter EnKF on the scan backend, each through 36
+                  warm K4 launches and closer to the truth after 5 cycles
+                  than the free run; HBV-Edu on the MATLAB days (36 K14) and
+                  the hysteresis + ice model on its Excel sheet (36 K10), the
+                  EnKF on the scan backend; ABC's particle filter on the
+                  sequential engine; 'fused' against 'scan' window steps at
+                  256 members; the scan loop under
+                  ``torch.cuda.set_sync_debug_mode('error')``; cycles a
+                  second of both backends at 1024 x 128 and 131072 x 36.
+                  Then each kernel is compared with its plain version at the
+                  shapes the main path gave it;
 6. times       -- each kernel against its plain version and its bound:
                   GR4J and HBV-Edu at 131072 members x 3651 days, the snow
                   kernels at 131072 x 3651 x 5 layers (hysteresis + ice),
@@ -138,8 +154,9 @@ Phases, in order (each prints its lines; any failure exits non-zero):
                   at 10M steps.
 
 ``--phases a,b`` (development) runs only the named phases after the build:
-kernels, golden, main, forecast, regional, tools, times; the result lines
-need them all.  ``--compare DIR[,DIR...]`` (development) builds the kernel sources in
+kernels, golden, main, forecast, regional, tools, assim, times; the result
+lines need them all (``assim`` without ``main`` takes the golden parameter
+sets for the calibrated ones).  ``--compare DIR[,DIR...]`` (development) builds the kernel sources in
 each DIR (another version's ``rrmpg_tpu_torch/csrc``) beside this
 checkout's, times K1-K14 of both in turns with the largest output
 difference between the builds (K4, K10 and K14 also at the forecast path's
@@ -3317,6 +3334,448 @@ def phase_tools(card, qobs, prec, etp, forcing, qsim_matlab):
     return launches, max_abs, walls
 
 
+# ---------------------------------------------------------------------------
+# The assimilation path: ensemble data assimilation on the warm entries of
+# K4, K14 and K10
+# ---------------------------------------------------------------------------
+
+ASSIM_MEMBERS = 131072
+ASSIM_WINDOW = 10            # days a cycle; the last 365 days give 36 cycles
+ASSIM_NOISE = 0.02           # std of the twin truth's observation noise
+ASSIM_SEED = 0
+ASSIM_WALL_SHAPE = (1024, 128)   # benchmarks/assim_cycle.py's members x windows
+ASSIM_CHECK = (256, 5)       # members x cycles of 'fused' against 'scan'
+ASSIM_ABC_MEMBERS = 4096
+ASSIM_SPREAD = 0.2           # lognormal scale of the joint run's parameters
+ASSIM_DRY = 0.5              # the ensemble starts with its stores halved
+ASSIM_SPIN_IN = 5            # cycles left out of the RMSE (the filter's spin-in)
+# Parameters of the path when it runs without the main paths
+# (``--phases assim``, development): the golden sets.
+ASSIM_FALLBACK = {"GR4J": GR4J_GOLDEN, "HBV-Edu": HBV_GOLDEN,
+                  "snow": dict(HYST_GOLDEN, DDF=5.0)}
+
+
+def generator(seed):
+    g = torch.Generator(device=DEVICE)
+    g.manual_seed(seed)
+    return g
+
+
+def assim_ensemble(model, state, n, seed):
+    """``n`` members around one spun-up ``state``, started dry: every
+    dynamical field scaled by ASSIM_DRY (the series constants kept), then
+    broadcast and spread with ``perturb_state(rel_std=0.2)``."""
+    from rrmpg_tpu_torch.models.states import broadcast_state
+    from rrmpg_tpu_torch.tools import perturb_state
+    from rrmpg_tpu_torch.tools.assimilation import (CONSTANT_FIELDS,
+                                                    _flatten_state)
+
+    one = model._single_member_state(state)
+    X, rebuild = _flatten_state(broadcast_state(one, 1), CONSTANT_FIELDS)
+    dry = rebuild(X * ASSIM_DRY)
+    shared = broadcast_state(model._single_member_state(dry), n)
+    return perturb_state(shared, generator(seed), rel_std=0.2)
+
+
+def shared_params(model, n):
+    """The model's one parameter set for ``n`` members (state estimation)."""
+    return {name: torch.full((n,), float(getattr(model, name)), dtype=F32,
+                             device=DEVICE) for name in model._param_list}
+
+
+def around(model, n, seed, rel):
+    """``n`` members around the model's parameters (lognormal factors of
+    scale ``rel``, clipped into the class bounds), on the card."""
+    g = generator(seed)
+    out = {}
+    for name in model._param_list:
+        lo, hi = model._default_bounds[name]
+        z = torch.randn(n, generator=g, device=DEVICE)
+        value = getattr(model, name) * torch.exp(rel * z - 0.5 * rel ** 2)
+        out[name] = value.clamp(lo, hi).to(F32)
+    return out
+
+
+def subset(params, state, k):
+    from rrmpg_tpu_torch.models.states import map_state
+
+    return ({n: v[:k].contiguous() for n, v in params.items()},
+            map_state(lambda leaf: leaf[:k].contiguous(), state))
+
+
+def scan_loop_without_sync(model, forcings, obs, obs_std, params, state,
+                           seed, cycles, **options):
+    """The scan backend with every synchronisation of the host with the
+    card inside its window loop an error (``set_sync_debug_mode``): the
+    set-up copies to the card and the results come back outside it."""
+    from rrmpg_tpu_torch.tools import assimilation as assim
+
+    opts = dict(inflation=1.0, frozen=assim.CONSTANT_FIELDS,
+                postprocess=assim.REPAIR_KNOWN, estimate_params=False,
+                param_bounds=None, method='enkf', ess_threshold=0.5,
+                jitter=0.0, sim_kwargs={'engine': 'fused'})
+    opts.update(options)
+    run, finish = assim._scan_program(model, forcings, obs, ASSIM_WINDOW,
+                                      obs_std, params, state, generator(seed),
+                                      cycles, **opts)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = run()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    return finish(out)
+
+
+def phase_assim(card, qobs, prec, etp, forcing, qsim_matlab):
+    """Ensemble data assimilation through ``tools.assimilation_cycle``, float32
+    on the card, the launch counts read around every call.  A twin
+    experiment: the truth is the calibrated model with noise; the
+    forecaster's 131072 members start from its spun-up state dry (stores
+    halved) and spread (``perturb_state(rel_std=0.2)``).  The state runs
+    share the calibrated parameters (a state-only EnKF over members whose
+    parameters differ does worse than the free run: it takes parameter
+    error for state error); the joint run draws them around it within the
+    class bounds.  The RMSE leaves out the first ASSIM_SPIN_IN cycles, in
+    which the filter pulls the dry start in (and its first analysis
+    overshoots), as the JAX package's twin tests do.
+
+    GR4J on CAMELS 01031500: the EnKF on both backends, the particle filter
+    and the joint parameter EnKF on the scan backend, each 36 warm K4
+    launches and closer to the truth than the free run; HBV-Edu on the
+    MATLAB days (K14) and the hysteresis + ice model on its Excel sheet
+    (K10), the EnKF on the scan backend; ABC's particle filter on the
+    sequential engine.  Then 'fused' against 'scan' window steps at 256
+    members, the scan loop with every host synchronisation an error, and
+    the cycles a second of both backends at 1024 members x 128 windows and
+    at 131072 x 36.  K4, K14 and K10 are held to their plain versions on the
+    first window."""
+    from rrmpg_tpu_torch.models import (ABCModel, CemaneigeHystGR4JIce, GR4J,
+                                        HBVEdu)
+    from rrmpg_tpu_torch.ops import fused_gr4j as fg
+    from rrmpg_tpu_torch.ops import fused_hbv as fh
+    from rrmpg_tpu_torch.ops import fused_snow as fs
+    from rrmpg_tpu_torch.tools import assimilation_cycle
+
+    launches, max_abs, walls = {}, {}, {}
+    tol = TOL[F32]
+    n, w, days = ASSIM_MEMBERS, ASSIM_WINDOW, FORECAST_DAYS
+    cycles = days // w
+    rng = np.random.default_rng(ASSIM_SEED)
+    cold = {"gr4j_traj_state": "gr4j_traj_state_cold",
+            "hbv_traj_state": "hbv_traj_state_cold",
+            "snow_traj_state": "snow_traj_state_cold"}
+    warm = {k: v[:-4] + "warm" for k, v in cold.items()}
+
+    def counted(key, fn, expect, modes=warm):
+        result, got, seconds = run_counted(fn)
+        check(got == expect, f"assim {key}: launch counts {got} differ "
+              f"from the expected {expect}")
+        walls[key] = seconds
+        for k, v in got.items():
+            k = modes.get(k, k)
+            launches[k] = launches.get(k, 0) + v
+        return result
+
+    def keep(key, err):
+        max_abs[key] = max(max_abs.get(key, 0.0), err)
+
+    def finite(label, result, n_cycles=cycles):
+        state, _, q, diags = result
+        check(q.shape == (n_cycles * w, state_leaves(state)[0].shape[0])
+              and np.isfinite(q).all(),
+              f"assim {label}: qsim of shape {q.shape} is not finite")
+        check(all(bool(torch.isfinite(x).all()) for x in state_leaves(state)),
+              f"assim {label}: the final state is not finite")
+        check(np.isfinite(diags.innovation).all(),
+              f"assim {label}: innovations not finite")
+
+    def rmse(q, truth):
+        """RMSE of the ensemble mean against the truth over the cycled days
+        after the filter's spin-in."""
+        mean = (q.mean(axis=1, dtype=np.float64) if isinstance(q, np.ndarray)
+                else q.double().mean(dim=1).cpu().numpy())
+        days_in = slice(ASSIM_SPIN_IN * w, cycles * w)
+        return float(np.sqrt(np.mean((mean[days_in] - truth[days_in]) ** 2)))
+
+    # GR4J on CAMELS 01031500: the twin truth is the calibrated model over
+    # the whole record (K3) with noise; the forecaster's ensemble starts
+    # from the spun-up state dry and spread.  The state runs share the
+    # calibrated parameters; the joint run draws them around it.
+    t_len = len(prec)
+    split = t_len - days
+    params0 = CALIBRATED.get("GR4J", ASSIM_FALLBACK["GR4J"])
+    model = GR4J(params=params0)
+    tail = dict(prec=prec[split:], etp=etp[split:])
+    _, state = counted("GR4J spin-up", lambda: model.simulate(
+        prec[:split], etp[:split], return_final_state=True, engine='fused'),
+        {"gr4j_traj_state": 1}, cold)
+    q_true = counted("GR4J truth", lambda: model.simulate(
+        prec, etp, engine='fused'), {"gr4j_traj": 1})[split:, 0]
+    truth = q_true.cpu().numpy().astype(np.float64)
+    obs = truth + rng.normal(0.0, ASSIM_NOISE, days)
+    ens = assim_ensemble(model, state, n, 2)
+    members = shared_params(model, n)
+    spread = around(model, n, 1, ASSIM_SPREAD)
+    free = {}
+    for label, params in (("shared", members), ("spread", spread)):
+        free[label] = rmse(counted(f"GR4J free run {label}", lambda: (
+            model.simulate(**tail, params=params, initial_state=ens,
+                           engine='fused')), {"gr4j_traj_state": 1}), truth)
+    runs = {}
+    for label, backend, params, kw in (
+            ("EnKF host", "host", "shared", dict(obs_std=0.05)),
+            ("EnKF scan", "scan", "shared", dict(obs_std=0.05)),
+            ("PF scan", "scan", "shared", dict(obs_std=0.1, method='pf',
+                                               jitter=0.05)),
+            ("EnKF params scan", "scan", "spread", dict(
+                obs_std=0.05, estimate_params=True,
+                param_bounds=GR4J._default_bounds))):
+        chosen = members if params == "shared" else spread
+        runs[label] = counted(f"GR4J {label}", lambda: assimilation_cycle(
+            model, tail, obs, w, params=chosen, initial_state=ens,
+            key=generator(3), backend=backend, engine='fused', **kw),
+            {"gr4j_traj_state": cycles})
+        finite(f"GR4J {label}", runs[label])
+        err = rmse(runs[label][2], truth)
+        check(err < free[params], f"assim GR4J {label}: ensemble-mean RMSE "
+              f"{err} against the truth not below the free run's "
+              f"{free[params]}")
+        print(f"[5 assim] GR4J {label} {n} x {cycles} cycles of {w} days, "
+              f"fused, {params} parameters: ensemble-mean RMSE {err:.4f} "
+              f"mm/day against the truth after {ASSIM_SPIN_IN} cycles (free "
+              f"run {free[params]:.4f}) in "
+              f"{walls[f'GR4J {label}']:.3f} s, "
+              f"{cycles / walls[f'GR4J {label}']:.1f} cycles/s; {cycles} K4 "
+              f"launches; {card}")
+    host, scan = runs["EnKF host"], runs["EnKF scan"]
+    for what, a, b in (("qsim", scan[2], host[2]),
+                       ("innovation", scan[3].innovation,
+                        host[3].innovation),
+                       ("posterior mean", scan[3].posterior_mean,
+                        host[3].posterior_mean)):
+        report(f"assim GR4J EnKF scan vs host backend: {what}",
+               torch.from_numpy(a), torch.from_numpy(b), *tol["traj"])
+    for a, b in zip(state_leaves(scan[0]), state_leaves(host[0])):
+        report("assim GR4J EnKF scan vs host backend: final state leaf",
+               a, b, *tol["traj"])
+    same = np.array_equal(scan[2], host[2]) and all(
+        torch.equal(a, b) for a, b in zip(state_leaves(scan[0]), state_leaves(host[0])))
+    print(f"    scan and host backend bit-equal (qsim, final state): {same}")
+    pf_ess = runs["PF scan"][3].ess
+    print(f"    PF scan: ESS per cycle min {pf_ess.min():.1f} max "
+          f"{pf_ess.max():.1f} of {n}")
+    p_means = runs["EnKF params scan"][3].param_mean
+    print(f"    EnKF params scan: mean x1..x4 first cycle "
+          f"{np.round(p_means[0], 3).tolist()}, last "
+          f"{np.round(p_means[-1], 3).tolist()}, truth "
+          f"{[round(float(params0[k]), 3) for k in GR4J._param_list]}")
+    prec_t, etp_t = (as_tensor(a[split:split + w], F32) for a in (prec, etp))
+    _, traj, rows = gr4j_state_pair(fg, prec_t, etp_t, spread, ens,
+                                    (10, 21))
+    keep("gr4j_traj_state_warm", report(
+        "assim shape gr4j_traj_state warm (first window) traj", *traj,
+        *tol["traj"]))
+    keep("gr4j_traj_state_warm", report(
+        "assim shape gr4j_traj_state warm (first window) state rows", *rows,
+        *tol["traj"]))
+    gr4j_case = (model, tail, obs, spread, ens, {})
+
+    # HBV-Edu on the MATLAB days: a twin truth continued from the spin-up.
+    hbv = HBVEdu(params=CALIBRATED.get("HBV-Edu", ASSIM_FALLBACK["HBV-Edu"]))
+    t_len = len(qsim_matlab)
+    split = t_len - days
+    const = dict(PE_m=forcing['PE_m'], T_m=forcing['T_m'])
+
+    def hbv_cut(lo, hi):
+        return {k: forcing[k][lo:hi] for k in ("temp", "prec", "month")}
+
+    snow0, soil0, s1_0, s2_0 = HBV_INITS
+    _, state = counted("HBV-Edu spin-up", lambda: hbv.simulate(
+        **hbv_cut(0, split), **const, snow_init=snow0, soil_init=soil0,
+        s1_init=s1_0, s2_init=s2_0, return_final_state=True,
+        engine='fused'), {"hbv_traj_state": 1}, cold)
+    tail = hbv_cut(split, t_len)
+    truth = counted("HBV-Edu truth", lambda: hbv.simulate(
+        **tail, **const, initial_state=state, engine='fused'),
+        {"hbv_traj_state": 1})[:, 0].cpu().numpy().astype(np.float64)
+    obs = truth + rng.normal(0.0, ASSIM_NOISE, days)
+    members = shared_params(hbv, n)
+    ens = assim_ensemble(hbv, state, n, 5)
+    q_free = counted("HBV-Edu free run", lambda: hbv.simulate(
+        **tail, **const, params=members, initial_state=ens, engine='fused'),
+        {"hbv_traj_state": 1})
+    result = counted("HBV-Edu EnKF scan", lambda: assimilation_cycle(
+        hbv, tail, obs, w, 0.05, params=members, initial_state=ens,
+        key=generator(6), backend='scan', engine='fused', **const),
+        {"hbv_traj_state": cycles})
+    finite("HBV-Edu EnKF scan", result)
+    print(f"[5 assim] HBV-Edu EnKF scan {n} x {cycles} cycles of {w} days, "
+          f"fused: ensemble-mean RMSE {rmse(result[2], truth):.4f} mm/day "
+          f"(free run {rmse(q_free, truth):.4f}) in "
+          f"{walls['HBV-Edu EnKF scan']:.3f} s; {cycles} K14 launches; "
+          f"{card}")
+    tensors = hbv_tensors(forcing, F32)
+    window = tuple(x[split:split + w].contiguous() for x in tensors[:3]) + \
+        tensors[3:]
+    _, traj, rows = hbv_state_pair(fh, window, members, tuple(ens))
+    keep("hbv_traj_state_warm", report(
+        "assim shape hbv_traj_state warm (first window) traj", *traj,
+        *tol["traj"]))
+    keep("hbv_traj_state_warm", report(
+        "assim shape hbv_traj_state warm (first window) state rows", *rows,
+        *tol["traj"]))
+    hbv_case = (hbv, tail, obs, members, ens, const)
+
+    # The hysteresis + ice snow model on its Excel sheet, 5 layers.
+    met, snow_qobs, _ = snow_main_data()
+    setup = dict(met_station_height=700, altitudes=ALTITUDES,
+                 frac_ice=FRAC_ICE_GOLDEN)
+    snow = CemaneigeHystGR4JIce(params=CALIBRATED.get(
+        "snow", ASSIM_FALLBACK["snow"]))
+    t_len = len(snow_qobs)
+    split = t_len - days
+
+    def snow_cut(lo, hi):
+        return {k: v[lo:hi] for k, v in met.items()}
+
+    _, state = counted("snow spin-up", lambda: snow.simulate(
+        **snow_cut(0, split), **setup, s_init=0.5, r_init=0.4,
+        return_final_state=True, engine='fused'), {"snow_traj_state": 1},
+        cold)
+    tail = snow_cut(split, t_len)
+    truth = counted("snow truth", lambda: snow.simulate(
+        **tail, **setup, initial_state=state, engine='fused'),
+        {"snow_traj_state": 1})[:, 0].cpu().numpy().astype(np.float64)
+    obs = truth + rng.normal(0.0, ASSIM_NOISE, days)
+    members = shared_params(snow, n)
+    ens = assim_ensemble(snow, state, n, 8)
+    q_free = counted("snow free run", lambda: snow.simulate(
+        **tail, **setup, params=members, initial_state=ens, engine='fused'),
+        {"snow_traj_state": 1})
+    result = counted("snow EnKF scan", lambda: assimilation_cycle(
+        snow, tail, obs, w, 0.05, params=members, initial_state=ens,
+        key=generator(9), backend='scan', engine='fused', **setup),
+        {"snow_traj_state": cycles})
+    finite("snow EnKF scan", result)
+    print(f"[5 assim] CemaneigeHystGR4JIce EnKF scan {n} x {cycles} cycles "
+          f"of {w} days x {len(ALTITUDES)} layers, fused: ensemble-mean RMSE "
+          f"{rmse(result[2], truth):.4f} mm/day (free run "
+          f"{rmse(q_free, truth):.4f}) in {walls['snow EnKF scan']:.3f} s; "
+          f"{cycles} K10 launches; {card}")
+    f = snow._prepare(*snow_cut(split, split + w).values(), FRAC_ICE_GOLDEN,
+                      700, ALTITUDES, 0, 0, 0, 0, 0)
+    d = SnowData(f.prec, f.mean_temp, f.frac_solid_prec, f.etp, f.frac_ice,
+                 as_tensor(obs[:w], F32))
+    _, traj, (got_st, want_st) = snow_state_pair(
+        fs, d, members, ens, hyst=True, ice=True, uh=(10, 21))
+    keep("snow_traj_state_warm", report(
+        "assim shape snow_traj_state warm (first window) traj", *traj,
+        *tol["traj"]))
+    keep("snow_traj_state_warm", report(
+        "assim shape snow_traj_state warm (first window) state rows",
+        snow_rows(got_st), snow_rows(want_st), *tol["traj"]))
+    snow_case = (snow, tail, obs, members, ens, setup)
+
+    # ABC carries state on the sequential engine only: its particle filter.
+    abc = ABCModel(params=ABC_PARAMS)
+    split = len(prec) - days
+    _, state = counted("ABC spin-up", lambda: abc.simulate(
+        prec[:split], initial_state=5.0, return_final_state=True,
+        engine='fused'), {"abc_fused_single": 1}, {})
+    truth = abc.simulate(prec[split:], initial_state=state)[:, 0]
+    truth = truth.cpu().numpy().astype(np.float64)
+    obs = truth + rng.normal(0.0, ASSIM_NOISE, days)
+    np.random.seed(10)
+    abc_members = ABCModel().get_random_params(ASSIM_ABC_MEMBERS)
+    ens = assim_ensemble(abc, state, ASSIM_ABC_MEMBERS, 11)
+    q_free = abc.simulate(prec[split:], params=abc_members,
+                          initial_state=ens)
+    result = counted("ABC PF scan", lambda: assimilation_cycle(
+        abc, {'prec': prec[split:]}, obs, w, 0.1, params=abc_members,
+        initial_state=ens, key=generator(12), backend='scan', method='pf',
+        jitter=0.05), {})
+    finite("ABC PF scan", result)
+    print(f"[5 assim] ABC PF scan {ASSIM_ABC_MEMBERS} x {cycles} cycles of "
+          f"{w} days, 'scan' engine: ensemble-mean RMSE "
+          f"{rmse(result[2], truth):.4f} (free run {rmse(q_free, truth):.4f})"
+          f" in {walls['ABC PF scan']:.3f} s; no kernel launched; {card}")
+
+    # 'fused' against 'scan' window steps, and the scan loop without a
+    # synchronisation, at 256 members.
+    k, c = ASSIM_CHECK
+    for label, (m, tail, obs, members, ens, kw) in (
+            ("GR4J", gr4j_case), ("HBV-Edu", hbv_case),
+            ("CemaneigeHystGR4JIce", snow_case)):
+        sub_params, sub_state = subset(members, ens, k)
+        head = {key: v[:c * w] for key, v in tail.items()}
+        out = {engine: assimilation_cycle(
+            m, head, obs[:c * w], w, 0.05, params=sub_params,
+            initial_state=sub_state, key=generator(13), backend='scan',
+            engine=engine, **kw) for engine in ('fused', 'scan')}
+        report(f"assim {label} {k} x {c} cycles: 'fused' vs 'scan' qsim",
+               torch.from_numpy(out['fused'][2]),
+               torch.from_numpy(out['scan'][2]), *tol["traj"])
+        report(f"assim {label} {k} x {c} cycles: 'fused' vs 'scan' "
+               "posterior mean", torch.from_numpy(out['fused'][3]
+                                                  .posterior_mean),
+               torch.from_numpy(out['scan'][3].posterior_mean), *tol["traj"])
+        for a, b in zip(state_leaves(out['fused'][0]),
+                        state_leaves(out['scan'][0])):
+            report(f"assim {label} {k} x {c} cycles: 'fused' vs 'scan' "
+                   "final state leaf", a, b, *tol["traj"])
+        configs = [dict()]
+        if label == "GR4J":
+            configs.append(dict(method='pf', jitter=0.05, ess_threshold=1.0,
+                                estimate_params=True,
+                                param_bounds=GR4J._default_bounds))
+        for options in configs:
+            sim = dict(kw, engine='fused')
+            result = scan_loop_without_sync(
+                m, head, obs[:c * w], 0.05, sub_params, sub_state, 14, c,
+                sim_kwargs=sim, **options)
+            finite(f"{label} without sync", result, c)
+            print(f"    assim {label} scan loop {options.get('method', 'enkf')}"
+                  f"{' + params' if options else ''}: {c} cycles with "
+                  "torch.cuda.set_sync_debug_mode('error'): no "
+                  "synchronisation")
+
+    # Cycles a second of both backends: 1024 members x 128 windows of 10
+    # days (benchmarks/assim_cycle.py's shape) and 131072 x 36 (above).
+    members_w, windows = ASSIM_WALL_SHAPE
+    span = windows * w
+    split = len(prec) - span
+    _, state = counted("GR4J wall spin-up", lambda: model.simulate(
+        prec[:split], etp[:split], return_final_state=True, engine='fused'),
+        {"gr4j_traj_state": 1}, cold)
+    tail = dict(prec=prec[split:], etp=etp[split:])
+    obs = counted("GR4J wall truth", lambda: model.simulate(
+        **tail, initial_state=state, engine='fused'),
+        {"gr4j_traj_state": 1})[:, 0].cpu().numpy() + rng.normal(
+            0.0, ASSIM_NOISE, span)
+    members = shared_params(model, members_w)
+    ens = assim_ensemble(model, state, members_w, 16)
+    rates = {}
+    for backend in ("host", "scan"):
+        key = f"GR4J EnKF {backend} {members_w} x {windows}"
+        counted(key, lambda: assimilation_cycle(
+            model, tail, obs, w, 0.05, params=members, initial_state=ens,
+            key=generator(17), backend=backend, engine='fused'),
+            {"gr4j_traj_state": windows})
+        rates[backend] = windows / walls[key]
+    big = {b: cycles / walls[f"GR4J EnKF {b}"] for b in ("host", "scan")}
+    print(f"[5 assim] cycles/s, GR4J EnKF, engine='fused', float32: "
+          f"{members_w} members x {windows} windows of {w}: host "
+          f"{rates['host']:.1f}, scan {rates['scan']:.1f} (scan/host "
+          f"{rates['scan'] / rates['host']:.2f}); {n} x {cycles}: host "
+          f"{big['host']:.1f}, scan {big['scan']:.1f} (scan/host "
+          f"{big['scan'] / big['host']:.2f}); {card}")
+    total = sum(walls.values())
+    print(f"[5 assim] the assimilation path's entry points took {total:.3f} "
+          f"s; {card}")
+    return launches, max_abs, walls
+
+
 def measure_row(rows, card, name, kernel, plain, ops, n_bytes, reps, what,
                 dtype=F32):
     """Time ``kernel`` and its ``plain`` version, print one ``[6 times]``
@@ -4875,7 +5334,7 @@ def kernel_entries(launches, max_abs, times):
 
 
 PHASES = ("kernels", "golden", "main", "forecast", "regional", "tools",
-          "times")
+          "assim", "times")
 
 
 def main():
@@ -4954,6 +5413,10 @@ def main():
         gather("tools", phase_tools(card, qobs, prec, etp, forcing,
                                     qsim_matlab))
         lap("the tools")
+    if "assim" in phases:
+        gather("assim", phase_assim(card, qobs, prec, etp, forcing,
+                                    qsim_matlab))
+        lap("the assimilation path")
     if "times" in phases:
         times = phase_times(card, prec, etp, qobs, forcing, qsim_matlab)
         lap("the times")

@@ -2,6 +2,7 @@
 """Where the time goes on the PyTorch port's main paths, on one NVIDIA GPU.
 
     python3 profile_port.py        # from the repository root; needs one card
+    python3 profile_port.py assim  # the assimilation cycle alone
 
 Each path is driven through the entry points a user calls, in float32, at
 the shapes ``chip_smoke.py`` drives (the forecast path too: a 131072-member
@@ -9,7 +10,9 @@ warm continuation of the last 365 days from one shared state and a warm
 ``fit`` per family that carries state through kernels; the regional path: the
 GR4J and snow objectives over 8 catchments x 131072 members, and GLUE over a
 20000-member Monte-Carlo; the tools phase's SCE-UA fit of GR4J, Pareto fit
-of the hysteresis + ice model and DE-MC chain): warmed up once,
+of the hysteresis + ice model and DE-MC chain; the assim phase's GR4J EnKF
+cycle of 131072 members x 36 windows on both backends, with K4's share of
+the wall): warmed up once,
 run three times untraced (host clock, synchronised) and once under ``torch.profiler``.
 Per path one line: the untraced walls, the traced wall, the device's busy
 time (kernels and copies), its idle share (1 - busy / traced wall), and the
@@ -83,12 +86,51 @@ def trace(card, label, fn):
           f"{' / '.join(f'{w:.2f}' for w in untraced)} ms, traced "
           f"{traced:.2f} ms, device busy {busy:.3f} ms, idle share "
           f"{1 - busy / traced:.3f}; {kernels}; {card}")
-    return by_name
+    return by_name, traced
+
+
+def profile_assimilation(card, prec, etp):
+    """The GR4J assimilation cycle of chip_smoke.py's assim phase: 131072
+    members from a dry, spread start, the last 365 days of CAMELS 01031500
+    in 36 windows of 10 days, the EnKF on the host and the scan backend
+    through K4's warm entry; per backend the wall, K4's share of it and the
+    idle share."""
+    from rrmpg_tpu_torch.models import GR4J
+    from rrmpg_tpu_torch.tools import assimilation_cycle
+
+    days, w, n = cs.FORECAST_DAYS, cs.ASSIM_WINDOW, cs.ASSIM_MEMBERS
+    split = len(prec) - days
+    model = GR4J(params={'x1': 350.0, 'x2': 1.0, 'x3': 90.0, 'x4': 1.7})
+    _, state = model.simulate(prec[:split], etp[:split],
+                              return_final_state=True, engine='fused')
+    truth = model.simulate(prec, etp, engine='fused')[split:, 0]
+    obs = truth.cpu().numpy() + np.random.default_rng(0).normal(
+        0.0, cs.ASSIM_NOISE, days)
+    members = cs.shared_params(model, n)
+    ens = cs.assim_ensemble(model, state, n, 2)
+    tail = dict(prec=prec[split:], etp=etp[split:])
+    for backend in ("host", "scan"):
+        by_name, traced = trace(
+            card, f"GR4J EnKF assimilation_cycle backend='{backend}' {n} x "
+            f"{days // w} windows of {w} (fused)",
+            lambda: assimilation_cycle(
+                model, tail, obs, w, 0.05, params=members, initial_state=ens,
+                key=cs.generator(3), backend=backend, engine='fused'))
+        k4 = sum(ms for name, (ms, _) in by_name.items()
+                 if "gr4j_traj_state" in name)
+        print(f"[profile]     backend='{backend}': K4 {k4:.3f} ms of the "
+              f"traced {traced:.2f} ms ({k4 / traced:.3f}); {card}")
 
 
 def main():
+    only_assim = sys.argv[1:] == ["assim"]
     card = cs.phase_environment()
     cs.phase_build()
+    if only_assim:
+        _, prec, etp = cs.basin()
+        profile_assimilation(card, prec, etp)
+        print(card)
+        return
     from rrmpg_tpu_torch.models import (GR4J, ABCModel,
                                         CemaneigeHystGR4JIce, HBVEdu)
     from rrmpg_tpu_torch.ops import abc_fused, abc_fused_single
@@ -297,6 +339,7 @@ def main():
     trace(card, f"ABC fit mse (45 members x {len(prec)}, maxiter 30, plain "
           "doubling scan)", lambda: ABCModel().fit(qobs, prec, seed=0,
                                                    maxiter=30))
+    profile_assimilation(card, prec, etp)
     print(card)
 
 

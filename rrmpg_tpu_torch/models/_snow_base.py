@@ -408,6 +408,55 @@ class SnowGR4JBase(CemaneigeBase):
         return self._stateful_output(self._series_layout(series), final,
                                      return_storage, return_final_state)
 
+    def _warm_cycle_pieces(self, forcings, sim_kwargs):
+        """``(time_arrays, warm_step)`` for the device-resident assimilation
+        cycle (see ``GR4J._warm_cycle_pieces``), shared by the four
+        compositions: the met preprocessing (elevation-layer extrapolation
+        and solid fraction) runs once over the full series on the host, in
+        float64; the step advances one window from a carried
+        :class:`~.states.SnowGR4JState`, on ``sim_kwargs``' ``engine``
+        ('scan' by default, or 'fused' for the warm entry of K10).  The UH
+        lengths come from the class bound of x4."""
+        kw = dict(sim_kwargs)
+        met_station_height = kw.pop('met_station_height', None)
+        altitudes = kw.pop('altitudes', [])
+        frac_ice = kw.pop('frac_ice', None)
+        engine = kw.pop('engine', 'scan')
+        if kw:
+            raise ValueError(
+                f"Unused simulate kwargs for {type(self).__name__} "
+                f"cycling: {sorted(kw)}.")
+        if self._ice and frac_ice is None:
+            raise ValueError(
+                f"{type(self).__name__} cycling needs 'frac_ice'.")
+        check_engine(engine)
+        prec, mean_temp, frac_solid, _, (etp,) = self._validate_met(
+            forcings['prec'], forcings['mean_temp'], forcings['min_temp'],
+            forcings['max_temp'], met_station_height, altitudes,
+            extra_series=(('etp', forcings['etp']),))
+        fi = (self._tensor(self._validate_frac_ice(frac_ice)) if self._ice
+              else None)
+        x4_hi = self._default_bounds['x4'][1]
+        n1, n2 = required_uh_lengths(x4_hi)
+
+        def warm_step(arrays, state, params):
+            prec_w, mt_w, etp_w, fs_w = arrays
+            self._check_layers(state.snow.g.shape[-1], prec_w.shape[1])
+            GR4J._check_history_depth(state.gr4j.pr_history.shape[-1], n2,
+                                      [x4_hi])
+            if engine == "fused":
+                return snowgr4j_simulate_state_fused(
+                    prec_w, mt_w, etp_w, fs_w, params, state=state,
+                    frac_ice=fi, hyst=self._hyst, ice=self._ice,
+                    num_uh1=n1, num_uh2=n2)
+            f = _Forcing(prec_w, mt_w, etp_w, fs_w, fi, 0.0, 0.0, 0.0, 0.0,
+                         0.0, ())
+            series, final = self._run_scan_warm(f, params, state, n1, n2)
+            return series[0], final
+
+        return (tuple(self._tensor(a) for a in (prec, mean_temp, etp,
+                                                 frac_solid)), warm_step)
+
     def _fused_simulate(self, f, params):
         """Discharge-only fused simulation (K9); (N, T)."""
         n1, n2 = required_uh_lengths(params['x4'])

@@ -141,6 +141,27 @@ class ABCModel(BaseModel):
             (qsim.T, storage.T), ABCState(storage=final), return_storage,
             return_final_state)
 
+    def _warm_cycle_pieces(self, forcings, sim_kwargs):
+        """Device-resident cycling pieces (see ``GR4J._warm_cycle_pieces``).
+        ABC carries state on the sequential engine only: ``engine='fused'``
+        raises as in ``simulate``."""
+        kw = dict(sim_kwargs)
+        engine = kw.pop("engine", "scan")
+        if kw:
+            raise ValueError(
+                f"ABCModel.simulate takes no extra forcing kwargs; got "
+                f"{sorted(kw)}.")
+        check_engine(engine)
+        self._check_stateful_supported(engine)
+        prec = _validate_prec(forcings['prec'])
+
+        def warm_step(arrays, state, params):
+            qsim, _, final = run_abcmodel_warm(arrays[0], state.storage,
+                                               params)
+            return qsim, ABCState(storage=final)
+
+        return (self._tensor(prec),), warm_step
+
     def _batch_objective(self, qobs, prec, initial_state, loss_metric):
         """The calibration objective: (P, 3) candidates -> (P,) losses.
 

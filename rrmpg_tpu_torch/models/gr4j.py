@@ -219,6 +219,42 @@ class GR4J(BaseModel):
                                      final, return_storage,
                                      return_final_state)
 
+    def _warm_cycle_pieces(self, forcings, sim_kwargs):
+        """``(time_arrays, warm_step)`` for the device-resident assimilation
+        cycle (:func:`rrmpg_tpu_torch.tools.assimilation.assimilation_cycle`
+        with ``backend='scan'``): the validated full-series forcing as
+        tensors on the model's device (leading time axis, windowed by the
+        caller) and ``warm_step(window_arrays, state, params) -> (qsim (N,
+        w), new_state)``.  ``sim_kwargs`` may name the ``engine``: 'scan'
+        (default) or 'fused' (the warm entry of K4).  The UH lengths come
+        from the class bound of x4, so a history keeps its width while the
+        members' x4 move."""
+        kw = dict(sim_kwargs)
+        engine = kw.pop("engine", "scan")
+        if kw:
+            raise ValueError(
+                f"GR4J.simulate takes no extra forcing kwargs; got "
+                f"{sorted(kw)}.")
+        check_engine(engine)
+        prec, etp = self._validate_forcings(forcings['prec'],
+                                            forcings['etp'])
+        x4_hi = self._default_bounds['x4'][1]
+        n1, n2 = required_uh_lengths(x4_hi)
+
+        def warm_step(arrays, state, params):
+            prec_w, etp_w = arrays
+            self._check_history_depth(state.pr_history.shape[-1], n2,
+                                      [x4_hi])
+            if engine == "fused":
+                return gr4j_simulate_state_fused(prec_w, etp_w, params,
+                                                 state=state, num_uh1=n1,
+                                                 num_uh2=n2)
+            qsim, _, _, final = run_gr4j_warm(prec_w, etp_w, state, params,
+                                              n1, n2)
+            return qsim, final
+
+        return (self._tensor(prec), self._tensor(etp)), warm_step
+
     def _fused_stats(self, qobs, param_dict, sim_kwargs):
         """(4, N) time-mean sufficient statistics from the fused kernel K2:
         the trajectory-free evaluation behind

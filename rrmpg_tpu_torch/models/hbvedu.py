@@ -190,6 +190,39 @@ class HBVEdu(BaseModel):
                 "Pass either the *_init scalars (cold start) or a "
                 f"full initial_state ({what}), not both.")
 
+    def _warm_cycle_pieces(self, forcings, sim_kwargs):
+        """Device-resident cycling pieces (see ``GR4J._warm_cycle_pieces``).
+
+        ``PE_m``/``T_m`` (the (12,) monthly climatologies) ride in
+        ``sim_kwargs``, with the optional ``engine`` ('scan', or 'fused'
+        for the warm entry of K14).  The months are validated and made
+        0-based once, as ``simulate`` makes them.
+        """
+        kw = dict(sim_kwargs)
+        pe_m = kw.pop('PE_m')
+        t_m = kw.pop('T_m')
+        engine = kw.pop('engine', 'scan')
+        if kw:
+            raise ValueError(
+                f"Unused simulate kwargs for HBVEdu cycling: "
+                f"{sorted(kw)}.")
+        check_engine(engine)
+        temp, prec, month, pe_m, t_m = self._forcing_tensors(
+            forcings['temp'], forcings['prec'], forcings['month'], pe_m, t_m)
+
+        def warm_step(arrays, state, params):
+            temp_w, prec_w, month_w = arrays
+            if engine == "fused":
+                qsim, final = hbv_simulate_state_fused(
+                    temp_w, prec_w, month_w, pe_m, t_m, 0.0, 0.0, 0.0, 0.0,
+                    params, state=tuple(state))
+            else:
+                qsim, *_, final = run_hbvedu_warm(
+                    temp_w, prec_w, month_w, pe_m, t_m, tuple(state), params)
+            return qsim, HBVEduState(*final)
+
+        return (temp, prec, month), warm_step
+
     def _fused_stats(self, qobs, param_dict, sim_kwargs):
         """(4, N) time-mean sufficient statistics from the fused kernel
         K12: the trajectory-free evaluation behind

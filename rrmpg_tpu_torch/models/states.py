@@ -143,10 +143,12 @@ def repair_state(state):
     for fld in cls._fields:
         low, high = domains[fld]
         leaf = torch.as_tensor(getattr(state, fld))
+        # The bounds are filled in on the leaf's device, not copied there:
+        # a repair inside a device-resident loop reads nothing back.
         if low is not None:
-            leaf = torch.maximum(leaf, leaf.new_tensor(low))
+            leaf = torch.maximum(leaf, leaf.new_full((), low))
         if high is not None:
-            leaf = torch.minimum(leaf, leaf.new_tensor(high))
+            leaf = torch.minimum(leaf, leaf.new_full((), high))
         repaired[fld] = leaf
     if cls is CemaneigeHystState:
         # Hysteresis coupling: the running SWE maximum can never sit

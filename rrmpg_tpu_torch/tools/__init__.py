@@ -1,7 +1,10 @@
 """Experiment tools: Monte-Carlo ensembles, global calibration (DE,
 SCE-UA), multi-objective calibration (NSGA-II), sensitivity analysis,
-DE-MC posterior sampling, state files and GLUE uncertainty bounds."""
+DE-MC posterior sampling, ensemble data assimilation (EnKF, particle
+filter), state files and GLUE uncertainty bounds."""
 
+from .assimilation import (assimilation_cycle, enkf_update,
+                           particle_filter_update, perturb_state)
 from .calibration import (OptimizeResult, differential_evolution,
                           gradient_descent, minimize, random_search)
 from .sce import sce_ua

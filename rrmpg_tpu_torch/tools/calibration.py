@@ -59,6 +59,14 @@ class OptimizeResult(typing.NamedTuple):
         return self.population[bad], self.population_energies[bad]
 
 
+def _device_index(device):
+    """The card a device names; ``cuda`` without an index is the current
+    one (a ``torch.Generator(device='cuda')`` reports no index)."""
+    if device.type == "cuda" and device.index is None:
+        return torch.cuda.current_device()
+    return device.index
+
+
 def _generator(key, seed, device):
     """The ``torch.Generator`` that draws a run's random numbers: ``key``
     itself (JAX's PRNG key argument), or a new one on ``device`` seeded from
@@ -73,8 +81,9 @@ def _generator(key, seed, device):
             f"{type(key).__name__}: a JAX PRNG key cannot seed torch's "
             "random stream (pass seed= instead).")
     where = key.device
-    if where.type != device.type or (device.index is not None
-                                     and where.index != device.index):
+    if where.type != device.type or (
+            device.index is not None
+            and _device_index(where) != _device_index(device)):
         raise ValueError(
             f"key is a torch.Generator on {where}; the run draws on "
             f"{device}.")

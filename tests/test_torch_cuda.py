@@ -34,6 +34,12 @@ K8 (layers in registers at 1 and 5 layers, in shared memory otherwise) and
 K12 stage their forcing 64 steps at a time; their cases at T shorter than,
 equal to and not a multiple of a tile, with N = 200 (a ragged last block)
 and gaps at the tile edges, check the staging with the same tolerances.
+Ensemble data assimilation: the scan backend against the host backend
+through the warm entry of K4, K14 and K10 (GR4J, HBV-Edu, hyst + ice; 129
+and 200 members, 7 cycles of 9 days, EnKF with parameters and the particle
+filter) at the trajectory tolerances, the scan backend's window loop under
+``torch.cuda.set_sync_debug_mode('error')``, and the resampling index
+clamped where a float32 sum of the weights ends short.
 """
 
 import os
@@ -1680,3 +1686,158 @@ def test_regional_gr4j_tile_and_block_edges(cuda, dtype, n1, n2, x4_max, T,
     assert bool(torch.isfinite(got).all())
     torch.testing.assert_close(got, want, rtol=TOL[dtype]["obj"][0],
                                atol=TOL[dtype]["obj"][1])
+
+
+# ---------------------------------------------------------------------------
+# Ensemble data assimilation on the card: the scan backend (a loop over
+# windows that reads nothing back) against the host backend, both through
+# the warm entry of K4 / K14 / K10, at members around a block edge
+# ---------------------------------------------------------------------------
+
+ASSIM_MEMBERS = (129, 200)
+ASSIM_WINDOW, ASSIM_CYCLES = 9, 7
+ASSIM_MODELS = ("GR4J", "HBVEdu", "CemaneigeHystGR4JIce")
+ASSIM_METHODS = {
+    "enkf": dict(obs_std=0.05, estimate_params=True, inflation=1.02),
+    "pf": dict(obs_std=0.1, method="pf", ess_threshold=0.8, jitter=0.1),
+}
+
+
+def _assim_setup(name, n, device, dtype, seed=0):
+    """Model, forcing, simulate keywords, observations, parameters and a
+    spread state of ``n`` members, spun up over 30 days on the card."""
+    from rrmpg_tpu_torch.tools import perturb_state
+
+    rng = np.random.default_rng(seed)
+    T = 30 + ASSIM_WINDOW * ASSIM_CYCLES
+    model = getattr(models, name)(device=device, dtype=dtype)
+    np.random.seed(seed)
+    params = model.get_random_params(n)
+    if name == "GR4J":
+        forcings = {'prec': rng.gamma(0.8, 6.0, T),
+                    'etp': rng.uniform(1.0, 4.0, T)}
+        kw = {}
+    elif name == "HBVEdu":
+        for k, v in {'FC': 177.1, 'PWP': 105.89, 'Beta': 2.35}.items():
+            params[k] = v * rng.uniform(0.95, 1.05, n)
+        forcings = {'temp': rng.uniform(-5.0, 15.0, T),
+                    'prec': rng.gamma(0.8, 6.0, T),
+                    'month': (np.arange(T) // 8) % 12 + 1}
+        kw = {'PE_m': rng.uniform(0.5, 4.0, 12),
+              'T_m': rng.uniform(-2.0, 15.0, 12)}
+    else:
+        mt = rng.uniform(-10.0, 15.0, T)
+        forcings = {'prec': rng.uniform(0.0, 15.0, T), 'mean_temp': mt,
+                    'min_temp': mt - 2.0, 'max_temp': mt + 2.0,
+                    'etp': rng.uniform(0.0, 4.0, T)}
+        kw = dict(met_station_height=495, altitudes=[550, 620, 700, 785, 920],
+                  frac_ice=[0.1, 0.2, 0.3, 0.4, 0.5])
+    head = {k: v[:30] for k, v in forcings.items()}
+    tail = {k: v[30:] for k, v in forcings.items()}
+    q, state = model.simulate(**head, **kw, params=params,
+                              return_final_state=True, engine='fused')
+    state = perturb_state(state, torch.Generator(device=device).manual_seed(1),
+                          rel_std=0.3)
+    q_tail = model.simulate(**tail, **kw, params=params, initial_state=state,
+                            engine='fused')
+    obs = 1.2 * q_tail[:, 0].double().cpu().numpy()
+    return model, tail, kw, obs, params, state
+
+
+def _assim_leaves(state):
+    from rrmpg_tpu_torch.tools.assimilation import _named_leaves
+
+    return [leaf for _, leaf in _named_leaves(state)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("method", list(ASSIM_METHODS))
+@pytest.mark.parametrize("N", ASSIM_MEMBERS)
+@pytest.mark.parametrize("name", ASSIM_MODELS)
+def test_assimilation_scan_backend_matches_host(cuda, name, N, method,
+                                                dtype):
+    from rrmpg_tpu_torch.tools import assimilation_cycle
+
+    model, tail, kw, obs, params, state = _assim_setup(name, N, cuda, dtype)
+    options = dict(ASSIM_METHODS[method])
+    if options.get("estimate_params") or method == "pf":
+        options["param_bounds"] = model._default_bounds
+    runs = {backend: assimilation_cycle(
+        model, tail, obs, ASSIM_WINDOW, params=params, initial_state=state,
+        key=torch.Generator(device=cuda).manual_seed(5), backend=backend,
+        engine='fused', **options, **kw) for backend in ("host", "scan")}
+    (sh, ph, qh, dh), (ss, ps, qs, ds) = runs["host"], runs["scan"]
+    rtol, atol = TOL[dtype]["traj"]
+    assert qs.shape == (ASSIM_WINDOW * ASSIM_CYCLES, N)
+    assert np.isfinite(qs).all()
+    np.testing.assert_allclose(qs, qh, rtol=rtol, atol=atol)
+    np.testing.assert_allclose(ds.innovation, dh.innovation, rtol=rtol,
+                               atol=atol)
+    np.testing.assert_allclose(ds.posterior_mean, dh.posterior_mean,
+                               rtol=rtol, atol=atol)
+    for a, b in zip(_assim_leaves(ss), _assim_leaves(sh)):
+        np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(),
+                                   rtol=rtol, atol=atol)
+    for k in params.dtype.names:
+        np.testing.assert_allclose(ps[k], ph[k], rtol=rtol, atol=atol)
+    if method == "pf":
+        np.testing.assert_allclose(ds.ess, dh.ess, rtol=rtol)
+
+
+@pytest.mark.parametrize("method", list(ASSIM_METHODS))
+@pytest.mark.parametrize("name", ASSIM_MODELS)
+def test_assimilation_scan_loop_reads_nothing_back(cuda, name, method):
+    """Every synchronisation of the host with the card inside the scan
+    backend's window loop raises under ``set_sync_debug_mode('error')``."""
+    from rrmpg_tpu_torch.tools import assimilation as assim
+
+    model, tail, kw, obs, params, state = _assim_setup(name, 200, cuda,
+                                                       torch.float32)
+    options = dict(inflation=1.0, frozen=assim.CONSTANT_FIELDS,
+                   postprocess=assim.REPAIR_KNOWN, estimate_params=False,
+                   param_bounds=None, method='enkf', ess_threshold=0.5,
+                   jitter=0.0)
+    options.update(ASSIM_METHODS[method])
+    obs_std = options.pop("obs_std")
+    if options["estimate_params"] or method == "pf":
+        options["estimate_params"] = True
+        options["param_bounds"] = model._default_bounds
+    run, finish = assim._scan_program(
+        model, tail, obs, ASSIM_WINDOW, obs_std, params, state,
+        torch.Generator(device=cuda).manual_seed(5), ASSIM_CYCLES,
+        sim_kwargs=dict(kw, engine='fused'), **options)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = run()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    _, _, q, diags = finish(out)
+    assert np.isfinite(q).all() and np.isfinite(diags.innovation).all()
+
+
+def test_resample_index_clamped_on_the_card(cuda):
+    """A float32 sum of normalized weights that rounds below the last
+    stratified position: the index stays N - 1, and the gather of a state
+    at those indices runs (an index of N would trip the card's bounds
+    assertion)."""
+    from rrmpg_tpu_torch.tools.assimilation import (
+        _systematic_resample_indices, _take)
+    from rrmpg_tpu_torch.models.states import ABCState
+
+    n = 100_000
+    w = torch.full((n,), (1.0 - 1e-5) / n, dtype=torch.float32, device=cuda)
+    cumsum = torch.cumsum(w, 0)
+    u = torch.tensor(1.0 - 2.0 ** -24, dtype=torch.float32, device=cuda)
+    positions = (torch.arange(n, dtype=torch.float32, device=cuda) + u) / n
+    assert float(positions[-1]) > float(cumsum[-1])
+    idx = _systematic_resample_indices(w, u)
+    want = np.minimum(np.searchsorted(cumsum.cpu().numpy(),
+                                      positions.cpu().numpy()), n - 1)
+    np.testing.assert_array_equal(idx.cpu().numpy(), want)
+    assert int(idx.max()) == n - 1
+    state = ABCState(storage=torch.arange(n, dtype=torch.float32,
+                                          device=cuda))
+    taken = _take(state, idx)
+    torch.cuda.synchronize()
+    assert float(taken.storage[-1]) == n - 1

@@ -5,7 +5,7 @@ Every name ``rrmpg_tpu.ops`` exports and every name in
 forms the port leaves out on purpose (listed below).  Every name
 ``rrmpg_tpu.tools`` exports imports from ``rrmpg_tpu_torch.tools`` but for
 the tools that wait for ROADMAP Queue 1 item 8 (listed, with their letter,
-and held to still be missing, so that the list stays true).  Every name
+and held to still be missing, so that the list stays true; none wait now).  Every name
 ``rrmpg_tpu.utils`` imports has its counterpart in ``rrmpg_tpu_torch.utils``.  The cold
 :class:`GR4JState` of ``gr4j_initial_state`` equals JAX's member by member,
 and a warm start from it is ``run_gr4j``, in the port and against JAX's,
@@ -47,11 +47,9 @@ PALLAS_COUNTERPARTS = {
 
 
 # Tools of the JAX package that wait for ROADMAP Queue 1 item 8, by its
-# letter: not left out on purpose.
-TOOLS_WAITING = {
-    "assimilation_cycle": "8f", "enkf_update": "8f",
-    "particle_filter_update": "8f", "perturb_state": "8f",
-}
+# letter: not left out on purpose.  None wait now (the four assimilation
+# tools of 8f were the last).
+TOOLS_WAITING = {}
 
 
 def _imported_names(module):
