@@ -127,9 +127,23 @@ Phases, in order (each prints its lines; any failure exits non-zero):
                   sequential engine; 'fused' against 'scan' window steps at
                   256 members; the scan loop under
                   ``torch.cuda.set_sync_debug_mode('error')``; cycles a
-                  second of both backends at 1024 x 128 and 131072 x 36.
-                  Then each kernel is compared with its plain version at the
-                  shapes the main path gave it;
+                  second of both backends at 1024 x 128 and 131072 x 36;
+                  the device mesh (``mesh``): the fused GR4J fits of the
+                  main path (K1 'mse', K2 'kge'), an HBV-Edu fit (K12)
+                  and the hysteresis + ice fit and ``fit_Q_SCA`` (K8),
+                  both at popsize 12 (populations 4 divides), on
+                  ``default_mesh()`` (every visible GPU) and on 4 shards
+                  of cuda:0, bit for bit the unsharded
+                  fits with shards x their launches; the regional GR4J (K5,
+                  8 x 131072 x 12418) and snow (K11, 8 x 131072 x 1827 x 5)
+                  objectives on a 2 x 2 (ensemble, catchment) mesh of
+                  cuda:0, four launches bit for bit the one; the 'scan'
+                  engine's ``simulate`` and ``monte_carlo`` on both meshes
+                  at 4096 members x 365 days; the fused simulate and
+                  statistics raising under a mesh; ``initialize()`` in one
+                  process (NCCL) and a mesh fit after it equal to the one
+                  before.  Then each kernel is compared with its plain
+                  version at the shapes the main path gave it;
 6. times       -- each kernel against its plain version and its bound:
                   GR4J and HBV-Edu at 131072 members x 3651 days, the snow
                   kernels at 131072 x 3651 x 5 layers (hysteresis + ice),
@@ -154,7 +168,7 @@ Phases, in order (each prints its lines; any failure exits non-zero):
                   at 10M steps.
 
 ``--phases a,b`` (development) runs only the named phases after the build:
-kernels, golden, main, forecast, regional, tools, assim, times; the result
+kernels, golden, main, forecast, regional, tools, assim, mesh, times; the result
 lines need them all (``assim`` without ``main`` takes the golden parameter
 sets for the calibrated ones).  ``--compare DIR[,DIR...]`` (development) builds the kernel sources in
 each DIR (another version's ``rrmpg_tpu_torch/csrc``) beside this
@@ -3776,6 +3790,333 @@ def phase_assim(card, qobs, prec, etp, forcing, qsim_matlab):
     return launches, max_abs, walls
 
 
+# The mesh phase: the device mesh (rrmpg_tpu_torch.parallel) through the
+# public entry points.
+MESH_SHARDS = 4            # shards of cuda:0: each entry of a mesh is one
+# Population multipliers whose populations the 4 shards divide (an
+# unsharded run of another size has no sharded twin: DE pads to the shards).
+MESH_HBV_POPSIZE = 12      # 12 x 11 = 132 members
+MESH_SNOW_POPSIZE = 12     # 12 x 9 = 108 members (the main path's 135 is not)
+MESH_SCAN = dict(members=4096, days=365)   # the 'scan' engine's cut depth
+
+
+def phase_mesh(card, qobs, prec, etp, forcing, qsim_matlab):
+    """The device mesh through the public entry points: the fused fits of
+    GR4J on CAMELS 01031500 (K1 'mse', K2 'kge'), HBV-Edu on the MATLAB
+    days (K12) and the hysteresis + ice model on its Excel sheet (K8, also
+    ``fit_Q_SCA``: K8's SCA statistics) on ``default_mesh()`` (every
+    visible GPU) and on MESH_SHARDS shards of cuda:0, each bit for bit the
+    unsharded fit with shards x its launches; the regional GR4J (K5, 8 x
+    131072 x 12418) and snow (K11, 8 x 131072 x 1827 x 5) objectives on a
+    2 x 2 (ensemble, catchment) mesh of cuda:0, four launches bit for bit
+    the one; the 'scan' engine's ``simulate(mesh=)`` and
+    ``monte_carlo(mesh=)`` at MESH_SCAN's cut depth; the fused simulate and
+    statistics branches raising under a mesh; a single-process
+    ``initialize()`` (NCCL, world size 1) and a mesh fit after it equal to
+    the one before.  Then every kernel of the phase against its plain
+    version at the shapes shard 0 gave it (not counted;
+    :func:`mesh_shard_checks`)."""
+    import socket
+
+    import torch.distributed as dist
+
+    from rrmpg_tpu_torch import interop
+    from rrmpg_tpu_torch.models import GR4J, CemaneigeHystGR4JIce, HBVEdu
+    from rrmpg_tpu_torch.parallel import (default_mesh,
+                                          ensemble_catchment_mesh,
+                                          initialize, regional_gr4j_objective,
+                                          regional_snow_objective)
+    from rrmpg_tpu_torch.tools import monte_carlo
+
+    launches, max_abs, walls = {}, {}, {}
+
+    def counted(key, fn):
+        result, counts, seconds = run_counted(fn)
+        walls[key] = seconds
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+        return result, counts
+
+    meshes = {"every GPU": default_mesh(),
+              f"{MESH_SHARDS} x cuda:0": default_mesh(["cuda:0"]
+                                                      * MESH_SHARDS)}
+    check(meshes["every GPU"].size == torch.cuda.device_count(),
+          "default_mesh() does not span every visible GPU")
+
+    # The fused fits: unsharded, then on each mesh.
+    snow, soil, s1, s2 = HBV_INITS
+    hbv_qobs = qsim_matlab * (24 * 60 * 60) / (HBV_AREA * 1000)
+    hbv_qobs[200:215] = np.nan
+    hbv_qobs[::97] = np.nan
+    met, snow_qobs, ndsi = snow_main_data()
+    snow_args = (snow_qobs, *met.values(), FRAC_ICE_GOLDEN)
+    snow_kw = dict(engine='fused', seed=0, maxiter=SNOW_FIT_MAXITER,
+                   popsize=MESH_SNOW_POPSIZE, met_station_height=700,
+                   altitudes=ALTITUDES, s_init=0.5, r_init=0.4)
+    fits = [
+        ("GR4J mse", GR4J, "fit", (qobs, prec, etp),
+         dict(engine='fused', seed=0, maxiter=30), "gr4j_mse"),
+        ("GR4J kge", GR4J, "fit", (qobs, prec, etp),
+         dict(engine='fused', seed=0, maxiter=30, loss_metric='kge'),
+         "gr4j_stats"),
+        ("HBV-Edu mse", HBVEdu, "fit", (hbv_qobs,),
+         dict(**forcing, snow_init=snow, soil_init=soil, s1_init=s1,
+              s2_init=s2, engine='fused', seed=0, maxiter=30,
+              popsize=MESH_HBV_POPSIZE), "hbv_mse"),
+        ("hyst+ice mse", CemaneigeHystGR4JIce, "fit", snow_args, snow_kw,
+         "snow_mse"),
+        ("hyst+ice Q+SCA kge", CemaneigeHystGR4JIce, "fit_Q_SCA",
+         (*snow_args, *ndsi), dict(snow_kw, loss_metric='kge'),
+         "snow_sca_stats"),
+    ]
+    results = {}
+    for label, cls, method, args, kw, kernel in fits:
+        plain, n_plain = counted(f"{label}", lambda: getattr(cls(), method)(
+            *args, **kw))
+        check(set(n_plain) == {kernel}, f"mesh phase, {label}: unsharded "
+              f"launches {n_plain}, expected {kernel} only")
+        results[label] = plain
+        line = []
+        for name, mesh in meshes.items():
+            sharded, n_mesh = counted(f"{label} on {name}", lambda: getattr(
+                cls(), method)(*args, mesh=mesh, **kw))
+            expect = {kernel: mesh.size * n_plain[kernel]}
+            check(n_mesh == expect, f"mesh phase, {label} on {name}: "
+                  f"launches {n_mesh}, expected {expect}")
+            check(np.array_equal(sharded.population, plain.population)
+                  and np.array_equal(sharded.population_energies,
+                                     plain.population_energies)
+                  and sharded.nit == plain.nit,
+                  f"mesh phase, {label} on {name}: not bit-equal to the "
+                  "unsharded fit")
+            line.append(f"{name} ({mesh.size} shards) "
+                        f"{walls[f'{label} on {name}']:.3f} s, {n_mesh}")
+        print(f"[5 mesh] {label} fit, {len(plain.population)} members, "
+              f"nit={plain.nit}: unsharded {walls[label]:.3f} s, {n_plain}; "
+              + "; ".join(line) + f"; bit-equal; {card}")
+
+    # The regional sweeps on a 2 x 2 (ensemble, catchment) mesh of cuda:0.
+    mesh2 = ensemble_catchment_mesh(2, 2, devices=["cuda:0"] * MESH_SHARDS)
+    rng = np.random.default_rng(0)
+    c, t_len = REGION_BASINS, len(prec)
+    qobs_ct = np.tile(qobs, (c, 1))
+    qobs_ct[0, t_len // 2:] = np.nan
+    qobs_ct[1, rng.random(t_len) < 0.1] = np.nan
+    gr4j_in = interop.regional_forcing_from_numpy(
+        np.stack([prec * rng.uniform(0.8, 1.2) for _ in range(c)]),
+        np.stack([etp * rng.uniform(0.9, 1.1) for _ in range(c)]), qobs_ct,
+        device=DEVICE)
+    np.random.seed(4)
+    gr4j_params = interop.params_from_numpy(
+        GR4J().get_random_params(MC_MEMBERS), device=DEVICE)
+    snow_np = region_snow_arrays()
+    etp_s, qobs_s, prec_s, temp_s, frac_s, frac_ice = (
+        interop.regional_forcing_from_numpy(
+            snow_np["etp"], snow_np["qobs"],
+            layers=(snow_np["prec"], snow_np["temp"], snow_np["frac"]),
+            frac_ice=snow_np["frac_ice"], device=DEVICE))
+    snow_params = interop.params_from_numpy(
+        CemaneigeHystGR4JIce().get_random_params(MC_MEMBERS), device=DEVICE)
+    sweeps = {
+        "gr4j_regional": lambda loss, mesh: regional_gr4j_objective(
+            *gr4j_in, 0.3, 0.3, gr4j_params, loss_metric=loss, mesh=mesh),
+        "snow_regional": lambda loss, mesh: regional_snow_objective(
+            prec_s, temp_s, etp_s, frac_s, qobs_s, 0.0, 0.0, 0.5, 0.4,
+            snow_params, frac_ice=frac_ice, hyst=True, ice=True,
+            loss_metric=loss, mesh=mesh)}
+    for kernel, sweep in sweeps.items():
+        for loss in ("mse", "kge"):
+            key = f"{kernel} {loss}"
+            want, n_plain = counted(key, lambda: sweep(loss, None))
+            got, n_mesh = counted(f"{key} on 2 x 2",
+                                  lambda: sweep(loss, mesh2))
+            check(n_plain == {kernel: 1} and n_mesh == {kernel: 4},
+                  f"mesh phase, {key}: launches {n_plain} unsharded, "
+                  f"{n_mesh} on the 2 x 2 mesh; expected 1 and 4")
+            check(got.shape == want.shape == (c, MC_MEMBERS),
+                  f"mesh phase, {key}: shape {tuple(got.shape)}")
+            equal = torch.equal(got, want)
+            if not equal:
+                err = report(f"mesh phase, {key} on 2 x 2 against "
+                             "unsharded (each member's own arithmetic, "
+                             "expected bit for bit)", got, want,
+                             *TOL[F32]["obj"])
+            print(f"[5 mesh] {key}, {c} x {MC_MEMBERS}: unsharded "
+                  f"{walls[key]:.3f} s, 2 x 2 mesh of cuda:0 "
+                  f"{walls[key + ' on 2 x 2']:.3f} s, launches {n_plain} / "
+                  f"{n_mesh}, " + ("bit-equal" if equal else
+                                   f"max |diff| {err:.3g}") + f"; {card}")
+
+    # The 'scan' engine on a mesh, and what raises under one.
+    days = slice(len(prec) - MESH_SCAN["days"], None)
+    np.random.seed(7)
+    members = GR4J().get_random_params(MESH_SCAN["members"])
+    scan_plain = GR4J().simulate(prec[days], etp[days], params=members)
+    np.random.seed(8)
+    mc_plain = monte_carlo(GR4J(), MESH_SCAN["members"], qobs[days],
+                           metrics=('nse',), prec=prec[days], etp=etp[days])
+    for name, mesh in meshes.items():
+        got, _ = counted(f"scan simulate on {name}", lambda: GR4J().simulate(
+            prec[days], etp[days], params=members, mesh=mesh))
+        np.random.seed(8)
+        mc, _ = counted(f"scan monte_carlo on {name}", lambda: monte_carlo(
+            GR4J(), MESH_SCAN["members"], qobs[days], mesh,
+            metrics=('nse',), prec=prec[days], etp=etp[days]))
+        check(torch.equal(got, scan_plain)
+              and np.array_equal(mc['qsim'], mc_plain['qsim'])
+              and np.array_equal(mc['nse'], mc_plain['nse'], equal_nan=True),
+              f"mesh phase, 'scan' simulate / monte_carlo on {name}: not "
+              "bit-equal to the unsharded run")
+        for what, call in (
+                ("fused simulate", lambda: GR4J().simulate(
+                    prec, etp, engine='fused', mesh=mesh)),
+                ("fused statistics", lambda: monte_carlo(
+                    GR4J(), 8, qobs, mesh, return_qsim=False,
+                    engine='fused', prec=prec, etp=etp))):
+            try:
+                call()
+            except ValueError:
+                continue
+            raise SmokeFailure(f"mesh phase: the {what} on {name} did not "
+                               "raise ValueError")
+    print(f"[5 mesh] 'scan' simulate and monte_carlo, "
+          f"{MESH_SCAN['members']} members x {MESH_SCAN['days']} days: "
+          + ", ".join(f"{k} {v:.3f} s" for k, v in walls.items()
+                      if k.startswith("scan")) + "; bit-equal to unsharded; "
+          f"fused simulate and statistics raise ValueError; {card}")
+
+    # One process, NCCL: initialize() and a mesh fit equal to the one
+    # before.
+    label, cls, method, args, kw, kernel = fits[0]
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    rank, world, count = initialize(f"localhost:{port}", num_processes=1)
+    try:
+        check((rank, world) == (0, 1) and dist.get_backend() == "nccl",
+              f"initialize(): rank {rank}, world {world}, backend "
+              f"{dist.get_backend()}")
+        after, n_after = counted("fit after initialize", lambda: getattr(
+            cls(), method)(*args, mesh=default_mesh(), **kw))
+    finally:
+        dist.destroy_process_group()
+    check(np.array_equal(after.population_energies,
+                         results[label].population_energies),
+          "mesh phase: the fit after initialize() differs from the one "
+          "before")
+    print(f"[5 mesh] initialize(): NCCL, rank {rank} of {world}, {count} "
+          f"device(s); {label} fit on default_mesh() after it "
+          f"{walls['fit after initialize']:.3f} s, {n_after}, bit-equal to "
+          f"the one before; {card}")
+
+    # Every kernel of the phase against its plain version on the inputs of
+    # shard 0 (not counted): the fits' kernels on the first 1/MESH_SHARDS
+    # of each final population at the fit's forcing, the regional kernels
+    # on the 2 x 2 mesh's first (catchment, member) block, whole.
+    max_abs.update(mesh_shard_checks(results, qobs, prec, etp, forcing,
+                                     hbv_qobs, met, snow_qobs, ndsi, gr4j_in,
+                                     gr4j_params, (prec_s, temp_s, etp_s,
+                                                   frac_s, qobs_s, frac_ice),
+                                     snow_params))
+    print(f"[5 mesh] the mesh phase's entry points took "
+          f"{sum(walls.values()):.3f} s; {card}")
+    return launches, max_abs, walls
+
+
+def mesh_shard_checks(results, qobs, prec, etp, forcing, hbv_qobs, met,
+                      snow_qobs, ndsi, gr4j_in, gr4j_params, snow_in,
+                      snow_params):
+    """K1, K2, K12, K8 ('mse' and SCA statistics), K5 and K11 against their
+    plain versions at the shapes one shard of the mesh phase gave them;
+    returns the max abs error of each kernel."""
+    from rrmpg_tpu_torch.models import CemaneigeHystGR4JIce, GR4J, HBVEdu
+    from rrmpg_tpu_torch.ops import fused_gr4j as fg
+    from rrmpg_tpu_torch.ops import fused_hbv as fh
+    from rrmpg_tpu_torch.ops import fused_snow as fs
+
+    def shard(cls, label):
+        res = results[label]
+        share = len(res.population) // MESH_SHARDS
+        return {k: v[:share].contiguous()
+                for k, v in population_params(cls, res).items()}, share
+
+    max_abs = {}
+
+    def keep(kernel, err):
+        max_abs[kernel] = max(max_abs.get(kernel, 0.0), err)
+
+    prec_t, etp_t, qobs_t = (as_tensor(a, F32) for a in (prec, etp, qobs))
+    masked = bool(np.isnan(qobs).any())
+    count = int(np.isfinite(qobs).sum())
+    for kernel, label, stats in (("gr4j_mse", "GR4J mse", False),
+                                 ("gr4j_stats", "GR4J kge", True)):
+        params, share = shard(GR4J, label)
+        got = fg.gr4j_ensemble_mse_fused(prec_t, etp_t, qobs_t, 0.0, 0.0,
+                                         params, 3, 7, stats=stats,
+                                         masked=masked)
+        want = fg.gr4j_objective_reference(
+            prec_t, etp_t, qobs_t, fg.pack_params(params, 0.0, 0.0), 3, 7,
+            stats, masked, count)
+        keep(kernel, report(f"mesh shard shape {kernel} ({share} x "
+                            f"{len(prec)})", got, want, *TOL[F32]["obj"]))
+
+    params, share = shard(HBVEdu, "HBV-Edu mse")
+    tensors = hbv_tensors(forcing, F32)
+    args = (fh, tensors, as_tensor(hbv_qobs, F32), params, "mse", True)
+    keep("hbv_mse", report(
+        f"mesh shard shape hbv_mse ({share} x {len(hbv_qobs)})",
+        hbv_kernel(*args), hbv_plain(*args), *TOL[F32]["obj"], nan_ok=True))
+
+    model_cls = CemaneigeHystGR4JIce
+    f = model_cls()._prepare(*met.values(), FRAC_ICE_GOLDEN, 700, ALTITUDES,
+                             0, 0, 0, 0.5, 0.4)
+    d = SnowData(f.prec, f.mean_temp, f.frac_solid_prec, f.etp, f.frac_ice,
+                 as_tensor(snow_qobs, F32), as_tensor(np.stack(ndsi), F32))
+    kw = dict(hyst=True, ice=True, uh=(10, 21), masked=True,
+              inits=(0.0, 0.0, 0.5, 0.4))
+    for kernel, label, mode in (("snow_mse", "hyst+ice mse", "mse"),
+                                ("snow_sca_stats", "hyst+ice Q+SCA kge",
+                                 "sca_stats")):
+        params, share = shard(model_cls, label)
+        keep(kernel, report(
+            f"mesh shard shape {kernel} ({share} x {len(snow_qobs)} x "
+            f"{len(ALTITUDES)})", snow_call(fs, d, params, mode, **kw),
+            snow_call(fs, d, params, mode, plain=True, **kw),
+            *TOL[F32]["obj"]))
+
+    # The 2 x 2 (ensemble, catchment) mesh's shard 0: the first half of the
+    # catchments and of the members.
+    c, n = REGION_BASINS // 2, MC_MEMBERS // 2
+    prec_c, etp_c, qobs_c = (x[:c].contiguous() for x in gr4j_in)
+    sub = {k: v[:n].contiguous() for k, v in gr4j_params.items()}
+    masked = bool(torch.isnan(qobs_c).any())
+    want = regional_gr4j_plain(fg, prec_c, etp_c, qobs_c, sub, (10, 21),
+                               masked, (0.3, 0.3))
+    for stats in (False, True):
+        got = fg.gr4j_regional_objective_fused(prec_c, etp_c, qobs_c, 0.3,
+                                               0.3, sub, stats=stats,
+                                               masked=masked)
+        keep("gr4j_regional", report(
+            f"mesh shard shape gr4j_regional ({'stats' if stats else 'mse'}"
+            f", {c} catchments x {n} members x {prec_c.shape[1]})", got,
+            want if stats else want[0], *TOL[F32]["obj"]))
+    d = {k: x[:c].contiguous() for k, x in zip(
+        ("prec", "temp", "etp", "frac", "qobs", "frac_ice"), snow_in)}
+    sub = {k: v[:n].contiguous() for k, v in snow_params.items()}
+    kw = dict(hyst=True, ice=True, uh=(10, 21),
+              masked=bool(torch.isnan(d["qobs"]).any()),
+              inits=(0.0, 0.0, 0.5, 0.4))
+    want = regional_snow_call(fs, d, sub, plain=True, **kw)
+    for stats in (False, True):
+        keep("snow_regional", report(
+            f"mesh shard shape snow_regional ({'stats' if stats else 'mse'}"
+            f", {c} catchments x {n} members x {d['prec'].shape[1]} x "
+            f"{d['prec'].shape[2]})",
+            regional_snow_call(fs, d, sub, stats=stats, **kw),
+            want if stats else want[0], *TOL[F32]["obj"]))
+    return max_abs
+
+
 def measure_row(rows, card, name, kernel, plain, ops, n_bytes, reps, what,
                 dtype=F32):
     """Time ``kernel`` and its ``plain`` version, print one ``[6 times]``
@@ -5334,7 +5675,7 @@ def kernel_entries(launches, max_abs, times):
 
 
 PHASES = ("kernels", "golden", "main", "forecast", "regional", "tools",
-          "assim", "times")
+          "assim", "mesh", "times")
 
 
 def main():
@@ -5417,6 +5758,10 @@ def main():
         gather("assim", phase_assim(card, qobs, prec, etp, forcing,
                                     qsim_matlab))
         lap("the assimilation path")
+    if "mesh" in phases:
+        gather("mesh", phase_mesh(card, qobs, prec, etp, forcing,
+                                  qsim_matlab))
+        lap("the mesh phase")
     if "times" in phases:
         times = phase_times(card, prec, etp, qobs, forcing, qsim_matlab)
         lap("the times")

@@ -34,6 +34,7 @@ import numpy as np
 import torch
 
 from ..ops.cemaneige import run_cemaneigehyst_warm
+from ..ops._launch import valid_count
 from ..ops.compositions import (
     _weighted_icemelt,
     run_cemaneigegr4j,
@@ -58,9 +59,11 @@ from ..ops.met import (
 )
 from ..ops.stats import losses_from_stats
 from ..ops.uh import NUM_UH1, NUM_UH2, required_uh_lengths
+from ..parallel.mesh import check_mesh
 from ..utils.array_checks import check_for_negatives, validate_array_input
 from ..utils.metrics import calibration_loss
-from .basemodel import BaseModel, _no_mesh, check_engine
+from .basemodel import (BaseModel, check_engine, check_fused_mesh,
+                        check_stats_mesh)
 from .gr4j import GR4J, fit_uh_lengths
 from .states import (
     CemaneigeHystState,
@@ -298,6 +301,27 @@ class SnowGR4JBase(CemaneigeBase):
         run = run_cemaneigehystgr4j if self._hyst else run_cemaneigegr4j
         return run(f.prec, f.mean_temp, f.etp, f.frac_solid_prec, *tail)
 
+    def _scan_members(self, run, f, params, mesh, state=None):
+        """``run(f, [state,] params) -> (series, final)`` (``final`` None
+        for a cold start without state) over the members, at once or split
+        over ``mesh`` (:meth:`BaseModel._ensemble`); returns (series,
+        final).  The hysteresis rain series (last, (T, L), the same for
+        every member) stays out of the split: each call drops it and the
+        first one's is kept."""
+        rain = []
+
+        def batched(f, *rest):
+            series, final = run(f, *rest)
+            if self._hyst:
+                rain.append(series[-1])
+                series = series[:-1]
+            return (*series, final)
+
+        *series, final = self._ensemble(batched, (f,), params, mesh, state)
+        if self._hyst:
+            series.append(rain[0].to(series[0].device))
+        return tuple(series), final
+
     def _series_layout(self, outputs):
         """The op's series (member axis first) in the reference layout,
         member axis last: (T, N) and (T, L, N).  The rain series (last of
@@ -382,8 +406,10 @@ class SnowGR4JBase(CemaneigeBase):
         return series, SnowGR4JState(snow=snow, gr4j=gr4j_final)
 
     def _simulate_stateful(self, f, param_dict, initial_state,
-                           return_final_state, return_storage, engine):
-        """Forecast-mode execution shared by the four compositions."""
+                           return_final_state, return_storage, engine,
+                           mesh=None):
+        """Forecast-mode execution shared by the four compositions (on a
+        mesh, ``'scan'`` only, the state split with the members)."""
         num = param_dict['CTG'].shape[0]
         n1, n2 = required_uh_lengths(param_dict['x4'])
         state = None
@@ -402,9 +428,14 @@ class SnowGR4JBase(CemaneigeBase):
                 ice=self._ice, num_uh1=n1, num_uh2=n2)
             series = (qsim,)
         elif state is None:
-            series, final = self._run_scan_final(f, param_dict, n1, n2)
+            series, final = self._scan_members(
+                lambda f, params: self._run_scan_final(f, params, n1, n2),
+                f, param_dict, mesh)
         else:
-            series, final = self._run_scan_warm(f, param_dict, state, n1, n2)
+            series, final = self._scan_members(
+                lambda f, state, params: self._run_scan_warm(
+                    f, params, state, n1, n2),
+                f, param_dict, mesh, state)
         return self._stateful_output(self._series_layout(series), final,
                                      return_storage, return_final_state)
 
@@ -481,9 +512,10 @@ class SnowGR4JBase(CemaneigeBase):
         'mse'/'rmse' accumulate squared error; 'nse'/'kge' run the
         statistics mode and minimize ``1 - score``."""
         masked = bool(torch.isnan(qobs).any())
+        count = valid_count(qobs, masked)
         loss = stats_objective(
             lambda params, stats: self._fused_objective_stats(
-                f, qobs, params, stats=stats, masked=masked),
+                f, qobs, params, stats=stats, masked=masked, count=count),
             qobs, loss_metric)
         return lambda X: loss(self._candidates(X))
 
@@ -519,22 +551,25 @@ class SnowGR4JBase(CemaneigeBase):
                   initial_state, return_final_state):
         _check_return_storage(return_storage)
         check_engine(engine)
-        _no_mesh(mesh)
+        check_mesh(mesh)
         self._check_no_cold_inits(initial_state, *self._cold_inits(f))
         param_dict, _ = self._prepare_params(params)
         if initial_state is not None or return_final_state:
-            self._check_stateful_engine(engine, return_storage)
+            self._check_stateful_engine(engine, return_storage, mesh)
             return self._simulate_stateful(
                 f, param_dict, initial_state, return_final_state,
-                return_storage, engine)
+                return_storage, engine, mesh)
         if engine == "fused":
+            check_fused_mesh(mesh)
             if return_storage:
                 raise ValueError(
                     "engine='fused' computes discharge only; use "
                     "engine='scan' for storage trajectories.")
             return self._fused_simulate(f, param_dict).T
         n1, n2 = required_uh_lengths(param_dict['x4'])
-        outputs = self._run_scan(f, param_dict, n1, n2)
+        outputs, _ = self._scan_members(
+            lambda f, params: (self._run_scan(f, params, n1, n2), None),
+            f, param_dict, mesh)
         if not return_storage:
             return outputs[0].T
         return self._series_layout(outputs)
@@ -545,7 +580,7 @@ class SnowGR4JBase(CemaneigeBase):
         ``monte_carlo(return_qsim=False, engine='fused')``."""
         kw = dict(sim_kwargs)
         kw.pop("engine", None)
-        _no_mesh(kw.pop("mesh", None))
+        check_stats_mesh(kw)
         forcing = [kw.pop(k) for k in ("prec", "mean_temp", "min_temp",
                                        "max_temp", "etp")]
         frac_ice = kw.pop("frac_ice", None) if self._ice else None
@@ -569,30 +604,27 @@ class SnowGR4JBase(CemaneigeBase):
             f, self._tensor(qobs), param_dict, stats=True,
             masked=bool(np.isnan(qobs).any()))
 
-    def _warm_objective(self, loss_metric, f, qobs, initial_state, engine,
+    def _warm_objective(self, loss_metric, f, qobs, state, engine,
                         ndsi=None):
         """Batched DE objective of a continuation segment: every candidate
-        starts from the one shared ``initial_state``, broadcast to the
-        candidate batch.  'fused' evaluates a generation with one launch of
-        K8's warm entry (discharge objectives); 'scan' runs the warm
-        composition and, with ``ndsi``, adds the reference's 0.75 / 5 x 0.05
-        discharge + SCA weighting."""
-        if engine == "fused" and ndsi is not None:
-            raise ValueError(
-                "fit_Q_SCA(initial_state=) supports engine='scan' "
-                "only; the fused warm kernel covers the discharge "
-                "objectives.")
+        starts from the one shared single-member ``state`` (checked by
+        :meth:`_warm_state`), broadcast to the candidate batch.  'fused'
+        evaluates a generation with one launch of K8's warm entry
+        (discharge objectives); 'scan' runs the warm composition and, with
+        ``ndsi``, adds the reference's 0.75 / 5 x 0.05 discharge + SCA
+        weighting."""
         loss = calibration_loss(loss_metric)
-        state = self._warm_state(initial_state, f.prec.shape[1])
         if engine == "fused":
             x4_hi = self._default_bounds['x4'][1]
             GR4J._check_history_depth(state.gr4j.pr_history.shape[-1],
                                       fit_uh_lengths(x4_hi)[1], [x4_hi])
             masked = bool(torch.isnan(qobs).any())
+            count = valid_count(qobs, masked)
             fused_loss = stats_objective(
                 lambda params, stats: self._fused_objective_stats(
                     f, qobs, params, stats=stats, masked=masked,
-                    state=broadcast_state(state, params['CTG'].shape[0])),
+                    state=broadcast_state(state, params['CTG'].shape[0]),
+                    count=count),
                 qobs, loss_metric)
             return lambda X: fused_loss(self._candidates(X))
 
@@ -616,17 +648,25 @@ class SnowGR4JBase(CemaneigeBase):
         loss = calibration_loss(loss_metric)
         qobs = self._tensor(validate_array_input(obs, np.float64, 'obs'))
         self._check_no_cold_inits(initial_state, *self._cold_inits(f))
-        if initial_state is not None:
-            objective = self._warm_objective(loss_metric, f, qobs,
-                                             initial_state, engine)
-        elif engine == "fused":
-            objective = self._fused_batch_objective(loss_metric, f, qobs)
-        else:
+        state = (None if initial_state is None
+                 else self._warm_state(initial_state, f.prec.shape[1]))
+
+        def build(f, qobs, state):
+            """The objective over tensors on one device."""
+            if state is not None:
+                return self._warm_objective(loss_metric, f, qobs, state,
+                                            engine)
+            if engine == "fused":
+                return self._fused_batch_objective(loss_metric, f, qobs)
+
             def objective(X):
                 qsim = self._run_scan(f, self._candidates(X), NUM_UH1,
                                       NUM_UH2)[0]
                 return loss(qobs[None, :], qsim, dim=-1)
+            return objective
 
+        objective = self._objective_per_device(build, (f, qobs, state),
+                                               de_kwargs.get("mesh"))
         return self._minimize(objective, seed, de_kwargs)
 
     def _fit_q_sca(self, obs, f, loss_metric, seed, engine, initial_state,
@@ -645,13 +685,23 @@ class SnowGR4JBase(CemaneigeBase):
                 f"'altitudes' gives {f.prec.shape[1]}.")
         ndsi = torch.stack(f.extras)                       # (5, T)
         self._check_no_cold_inits(initial_state, *self._cold_inits(f))
+        state = None
         if initial_state is not None:
-            objective = self._warm_objective(loss_metric, f, qobs,
-                                             initial_state, engine, ndsi)
-        elif engine == "fused":
-            objective = self._fused_q_sca_objective(loss_metric, f, qobs,
-                                                    ndsi, components=pareto)
-        else:
+            if engine == "fused":
+                raise ValueError(
+                    "fit_Q_SCA(initial_state=) supports engine='scan' "
+                    "only; the fused warm kernel covers the discharge "
+                    "objectives.")
+            state = self._warm_state(initial_state, f.prec.shape[1])
+
+        def build(f, qobs, ndsi, state):
+            """The objective over tensors on one device."""
+            if state is not None:
+                return self._warm_objective(loss_metric, f, qobs, state,
+                                            engine, ndsi)
+            if engine == "fused":
+                return self._fused_q_sca_objective(loss_metric, f, qobs,
+                                                   ndsi, components=pareto)
             sca_index = 5                                  # in both orders
 
             def objective(X):
@@ -664,7 +714,10 @@ class SnowGR4JBase(CemaneigeBase):
                 if pareto:
                     return torch.stack([loss_q, loss_sca], dim=1)
                 return 0.75 * loss_q + 0.05 * loss_sca
+            return objective
 
+        objective = self._objective_per_device(
+            build, (f, qobs, ndsi, state), de_kwargs.get("mesh"))
         if pareto:
             from ..tools.moo import nsga2
 

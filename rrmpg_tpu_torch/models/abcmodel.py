@@ -28,9 +28,10 @@ import numpy as np
 from ..config import DEFAULT_DEVICE, DEFAULT_DTYPE
 from ..ops.abc import run_abcmodel, run_abcmodel_pscan, run_abcmodel_warm
 from ..ops.fused_abc import abc_fused_single
+from ..parallel.mesh import check_mesh
 from ..utils.array_checks import check_for_negatives, validate_array_input
 from ..utils.metrics import calibration_loss
-from .basemodel import BaseModel, _no_mesh, check_engine
+from .basemodel import BaseModel, check_engine, check_fused_mesh
 from .states import ABCState, check_state_type
 
 
@@ -96,10 +97,11 @@ class ABCModel(BaseModel):
             return_storage: (optional) also return the storage series.
             params: (optional) structured array / dict of parameter sets,
                 evaluated batched.  Defaults to the instance's parameters.
-            mesh: not ported yet; must be None (the ensemble split across
-                devices of ``rrmpg_tpu``).
+            mesh: (optional) :class:`~..parallel.mesh.Mesh`; the
+                members (and a warm state) are split over its 'ensemble'
+                axis, ``engine='scan'`` only.
             engine: 'scan' (plain PyTorch) or 'fused' (CUDA kernel K6, one
-                launch for all members).
+                launch for all members, single-device).
             return_final_state: also return the end-of-series
                 :class:`~.states.ABCState` (member axis leading).
 
@@ -111,7 +113,7 @@ class ABCModel(BaseModel):
             ValueError: If one of the inputs contains invalid values.
             TypeError: If one of the inputs has an incorrect datatype.
         """
-        _no_mesh(mesh)
+        check_mesh(mesh)
         prec = _validate_prec(prec)
         warm = not isinstance(initial_state, numbers.Number)
         if warm:
@@ -128,12 +130,18 @@ class ABCModel(BaseModel):
         if warm:
             self._check_stateful_supported(engine)
             state = self._normalize_state(initial_state, num)
-            qsim, storage, final = run_abcmodel_warm(
-                self._tensor(prec), state.storage, param_dict)
+            qsim, storage, final = self._ensemble(
+                run_abcmodel_warm, (self._tensor(prec),), param_dict, mesh,
+                state=state.storage)
+        elif engine == "fused":
+            check_fused_mesh(mesh)
+            qsim, storage = abc_fused_single(self._tensor(prec),
+                                             initial_state, param_dict)
         else:
-            run = abc_fused_single if engine == "fused" else run_abcmodel
-            qsim, storage = run(self._tensor(prec), initial_state,
-                                param_dict)
+            qsim, storage = self._ensemble(
+                run_abcmodel, (self._tensor(prec), initial_state),
+                param_dict, mesh)
+        if not warm:
             # The storage series is the whole ABC state: its last row is
             # the final state of a cold start.
             final = storage[:, -1]
@@ -165,7 +173,8 @@ class ABCModel(BaseModel):
     def _batch_objective(self, qobs, prec, initial_state, loss_metric):
         """The calibration objective: (P, 3) candidates -> (P,) losses.
 
-        ``qobs``/``prec`` are (T,) tensors on the model's device.  A
+        ``qobs``/``prec`` are (T,) tensors on one device (the model's, or a
+        mesh shard's).  A
         generation is one batched call of the plain parallel-prefix
         simulation (``rrmpg_tpu`` has no fused ABC objective either) and
         the masked metrics.  ``initial_state`` is the cold-start storage (a
@@ -205,9 +214,8 @@ class ABCModel(BaseModel):
                 to ``differential_evolution``: ``key``, ``popsize``,
                 ``maxiter``, ``tol``, ``checkpoint_path`` /
                 ``checkpoint_every`` / ``resume_from`` (``*.npz``),
-                ``polish`` / ``polish_steps`` (skipped, with a note in
-                the message, on the fused kernels, which have no
-                backward); ``mesh`` raises ``NotImplementedError``.
+                ``polish`` / ``polish_steps``; ``mesh`` / ``mesh_axis``
+                (each generation's population split over the mesh).
 
         Returns:
             An :class:`~rrmpg_tpu_torch.tools.calibration.OptimizeResult`.
@@ -221,9 +229,11 @@ class ABCModel(BaseModel):
         else:
             check_state_type(initial_state, ABCState, type(self).__name__)
             initial_state = self._single_member_state(initial_state)
-        objective = self._batch_objective(
-            self._tensor(qobs), self._tensor(prec), initial_state,
-            loss_metric)
+        objective = self._objective_per_device(
+            lambda qobs, prec, initial_state: self._batch_objective(
+                qobs, prec, initial_state, loss_metric),
+            (self._tensor(qobs), self._tensor(prec), initial_state),
+            de_kwargs.get("mesh"))
         bounds = tuple(self._default_bounds[p] for p in self._param_list)
         return minimize(objective, bounds, seed=seed, batched=True,
                         device=self.device, dtype=self.dtype, **de_kwargs)

@@ -18,6 +18,8 @@ import torch
 
 from ..config import (DEFAULT_DEVICE, DEFAULT_DTYPE, resolve_device,
                       resolve_dtype)
+from ..parallel.ensemble import ensemble_run
+from ..parallel.mesh import check_mesh, replicate, tree_leaves
 from .states import normalize_state, single_member_state
 
 _ENGINES = ("scan", "fused")
@@ -28,11 +30,25 @@ def check_engine(engine):
         raise ValueError("engine must be 'scan' or 'fused'.")
 
 
-def _no_mesh(mesh):
+def check_fused_mesh(mesh, what="sharded simulation"):
+    """``engine='fused'`` runs on the model's device: a mesh raises, as
+    JAX's ``engine='pallas'`` does."""
     if mesh is not None:
-        raise NotImplementedError(
-            "mesh= (an ensemble split across devices) is not ported yet; "
-            "see ROADMAP.md, Queue 1, item 9 (multi-device).")
+        raise ValueError(
+            "engine='fused' simulate runs single-device through the class "
+            "API and would silently ignore mesh; use engine='scan' for "
+            f"{what}, or the regional/ensemble helpers in "
+            "rrmpg_tpu_torch.parallel.")
+
+
+def check_stats_mesh(sim_kwargs):
+    """The fused statistics path of ``monte_carlo`` runs on the model's
+    device: a mesh in its simulate kwargs raises, as JAX's does."""
+    if sim_kwargs.pop("mesh", None) is not None:
+        raise ValueError(
+            "The fused statistics path runs single-device; drop mesh= "
+            "(shard with parallel.ensemble instead) or keep "
+            "return_qsim=True.")
 
 
 class BaseModel(object):
@@ -171,15 +187,17 @@ class BaseModel(object):
                 "model.")
 
     @staticmethod
-    def _check_stateful_engine(engine, return_storage):
+    def _check_stateful_engine(engine, return_storage, mesh=None):
         """Guard for forecast-mode calls on the classes whose fused kernels
         carry state (GR4J, HBV-Edu and the snow compositions): both engines
-        work, but the fused path is discharge-only."""
+        work, but the fused path is discharge-only and single-device."""
         check_engine(engine)
-        if engine == "fused" and return_storage:
-            raise ValueError(
-                "engine='fused' computes discharge only; use "
-                "engine='scan' for storage trajectories.")
+        if engine == "fused":
+            check_fused_mesh(mesh, "sharded forecast ensembles")
+            if return_storage:
+                raise ValueError(
+                    "engine='fused' computes discharge only; use "
+                    "engine='scan' for storage trajectories.")
 
     def _normalize_state(self, initial_state, num):
         """``initial_state`` broadcast to ``num`` members, on the model's
@@ -190,6 +208,38 @@ class BaseModel(object):
         """``initial_state`` as the one shared initial condition of a
         calibration (unbatched leaves)."""
         return single_member_state(initial_state, self.dtype, self.device)
+
+    @staticmethod
+    def _ensemble(kernel, forcing_args, params, mesh, state=None):
+        """``kernel(*forcing_args, [state,] params)`` over the members, as
+        a tuple of outputs with the member axis leading: one call, or on a
+        mesh one call per shard through
+        :func:`~..parallel.ensemble.ensemble_run` (the state split with the
+        parameters)."""
+        if mesh is not None:
+            return ensemble_run(kernel, forcing_args, params, mesh,
+                                state=state)
+        state_args = () if state is None else (state,)
+        out = kernel(*forcing_args, *state_args, params)
+        return out if isinstance(out, tuple) else (out,)
+
+    def _objective_per_device(self, build, inputs, mesh):
+        """The calibration objective ``build(*inputs)``, a map from (P,
+        dim) candidates to (P,) losses.  On a mesh, one objective per
+        distinct device of the mesh, each built once (a ``fit``'s worth)
+        from :func:`~..parallel.mesh.replicate`'s copy of ``inputs`` there,
+        and each called with the candidates that lie on its device; the
+        candidates on the model's own device (a polish) take the objective
+        built from ``inputs`` as they are."""
+        objective = build(*inputs)
+        if mesh is None:
+            return objective
+        check_mesh(mesh)
+        home = tree_leaves(inputs)[0].device
+        objectives = {device: build(*copy) for device, copy in
+                      replicate(inputs, mesh).items() if device != home}
+        objectives[home] = objective
+        return lambda X: objectives[X.device](X)
 
     @staticmethod
     def _to_reference_layout(series):

@@ -21,6 +21,8 @@ import numpy as np
 import torch
 
 from ..config import DEFAULT_DEVICE, DEFAULT_DTYPE
+from ..ops._launch import valid_count
+from ..parallel.mesh import check_mesh
 from ..ops.cemaneige import run_cemaneige, run_cemaneige_warm
 from ..ops.fused_snow import (
     cemaneige_ensemble_mse_fused,
@@ -33,7 +35,7 @@ from ._snow_base import (
     _check_return_storage,
     stats_objective,
 )
-from .basemodel import _no_mesh, check_engine
+from .basemodel import check_engine, check_fused_mesh
 from .states import CemaneigeState, broadcast_state, check_state_type
 
 _INIT_NAMES = ('snow_pack_init', 'thermal_state_init')
@@ -87,8 +89,12 @@ class Cemaneige(CemaneigeBase):
                 ('scan' only).
             params: (optional) structured array / dict of parameter sets,
                 evaluated batched.
+            mesh: (optional) :class:`~..parallel.mesh.Mesh`; the
+                members (and a warm state) are split over its 'ensemble'
+                axis, ``engine='scan'`` only.
             engine: 'scan' (plain PyTorch) or 'fused' (CUDA kernel K9 in
-                its snow-only mode, outflow only, cold starts only).
+                its snow-only mode, outflow only, cold starts only,
+                single-device).
             initial_state: (optional) :class:`~.states.CemaneigeState`
                 from a previous ``return_final_state=True`` call;
                 continues that simulation (``engine='scan'`` only).
@@ -112,36 +118,33 @@ class Cemaneige(CemaneigeBase):
             altitudes, snow_pack_init, thermal_state_init)
         _check_return_storage(return_storages, 'return_storages')
         check_engine(engine)
-        _no_mesh(mesh)
+        check_mesh(mesh)
         self._check_no_cold_inits(initial_state, (snow0, th0), _INIT_NAMES)
 
         param_dict, num = self._prepare_params(params)
+        forcing = (prec, mean_temp, frac_solid_prec)
         if initial_state is not None or return_final_state:
             self._check_stateful_supported(engine)
             if initial_state is None:
-                *series, (G, eTG, g_thresh) = run_cemaneige(
-                    prec, mean_temp, frac_solid_prec, snow0, th0, param_dict,
-                    return_final=True)
-                g_thresh = g_thresh.expand_as(G)
+                *series, final = self._ensemble(
+                    _cold_final, (*forcing, snow0, th0), param_dict, mesh)
             else:
                 state = self._warm_state(initial_state, prec.shape[1], num)
-                g_thresh = state.g_thresh
-                *series, (G, eTG) = run_cemaneige_warm(
-                    prec, mean_temp, frac_solid_prec, (state.g, state.etg),
-                    g_thresh, param_dict)
+                *series, final = self._ensemble(_warm_final, forcing,
+                                                param_dict, mesh, state=state)
             return self._stateful_output(
-                self._to_reference_layout(series),
-                CemaneigeState(g=G, etg=eTG, g_thresh=g_thresh),
-                return_storages, return_final_state)
+                self._to_reference_layout(series), final, return_storages,
+                return_final_state)
         if engine == "fused":
+            check_fused_mesh(mesh)
             if return_storages:
                 raise ValueError(
                     "engine='fused' computes the outflow only; use "
                     "engine='scan' for storage trajectories.")
             return cemaneige_simulate_fused(prec, mean_temp, frac_solid_prec,
                                             snow0, th0, param_dict).T
-        outflow, G, eTG = run_cemaneige(prec, mean_temp, frac_solid_prec,
-                                        snow0, th0, param_dict)
+        outflow, G, eTG = self._ensemble(run_cemaneige, (*forcing, snow0, th0),
+                                         param_dict, mesh)
         if return_storages:
             return outflow.T, G.permute(1, 2, 0), eTG.permute(1, 2, 0)
         return outflow.T
@@ -180,7 +183,8 @@ class Cemaneige(CemaneigeBase):
                 ``checkpoint_every`` / ``resume_from`` (``*.npz``),
                 ``polish`` / ``polish_steps`` (skipped, with a note in
                 the message, on the fused kernels, which have no
-                backward); ``mesh`` raises ``NotImplementedError``.
+                backward); ``mesh`` / ``mesh_axis`` (each generation's
+                population split over the mesh).
 
         Returns:
             An :class:`~rrmpg_tpu_torch.tools.calibration.OptimizeResult`.
@@ -193,33 +197,59 @@ class Cemaneige(CemaneigeBase):
             altitudes, snow_pack_init, thermal_state_init)
         self._check_no_cold_inits(initial_state, (snow0, th0), _INIT_NAMES)
 
+        state = None
         if initial_state is not None:
             if engine != "scan":
                 raise ValueError(
                     "fit(initial_state=) supports engine='scan' only.")
             state = self._warm_state(initial_state, prec.shape[1])
 
-            def objective(X):
-                st = broadcast_state(state, X.shape[0])
-                outflow = run_cemaneige_warm(
-                    prec, mean_temp, frac_solid_prec, (st.g, st.etg),
-                    st.g_thresh, self._candidates(X))[0]
-                return loss(qobs[None, :], outflow, dim=-1)
-        elif engine == "fused":
-            masked = bool(torch.isnan(qobs).any())
-            fused_loss = stats_objective(
-                lambda params, stats: cemaneige_ensemble_mse_fused(
-                    prec, mean_temp, frac_solid_prec, qobs, snow0, th0,
-                    params, stats=stats, masked=masked),
-                qobs, loss_metric)
+        def build(qobs, prec, mean_temp, frac_solid_prec, state):
+            """The objective over tensors on one device."""
+            if state is not None:
+                def objective(X):
+                    st = broadcast_state(state, X.shape[0])
+                    outflow = run_cemaneige_warm(
+                        prec, mean_temp, frac_solid_prec, (st.g, st.etg),
+                        st.g_thresh, self._candidates(X))[0]
+                    return loss(qobs[None, :], outflow, dim=-1)
+                return objective
+            if engine == "fused":
+                masked = bool(torch.isnan(qobs).any())
+                count = valid_count(qobs, masked)
+                fused_loss = stats_objective(
+                    lambda params, stats: cemaneige_ensemble_mse_fused(
+                        prec, mean_temp, frac_solid_prec, qobs, snow0, th0,
+                        params, stats=stats, masked=masked, count=count),
+                    qobs, loss_metric)
+                return lambda X: fused_loss(self._candidates(X))
 
-            def objective(X):
-                return fused_loss(self._candidates(X))
-        else:
             def objective(X):
                 outflow, _, _ = run_cemaneige(
                     prec, mean_temp, frac_solid_prec, snow0, th0,
                     self._candidates(X))
                 return loss(qobs[None, :], outflow, dim=-1)
+            return objective
 
+        objective = self._objective_per_device(
+            build, (qobs, prec, mean_temp, frac_solid_prec, state),
+            de_kwargs.get("mesh"))
         return self._minimize(objective, seed, de_kwargs)
+
+
+def _cold_final(prec, mean_temp, frac_solid_prec, snow0, th0, params):
+    """A cold start with its final :class:`~.states.CemaneigeState`, the
+    series' snow-cover threshold given to every member."""
+    *series, (G, eTG, g_thresh) = run_cemaneige(
+        prec, mean_temp, frac_solid_prec, snow0, th0, params,
+        return_final=True)
+    return (*series, CemaneigeState(g=G, etg=eTG,
+                                    g_thresh=g_thresh.expand_as(G)))
+
+
+def _warm_final(prec, mean_temp, frac_solid_prec, state, params):
+    """A continuation from a batched state, with its final state."""
+    *series, (G, eTG) = run_cemaneige_warm(
+        prec, mean_temp, frac_solid_prec, (state.g, state.etg),
+        state.g_thresh, params)
+    return (*series, CemaneigeState(g=G, etg=eTG, g_thresh=state.g_thresh))

@@ -54,8 +54,11 @@ class CemaneigeGR4J(SnowGR4JBase):
                 only).
             params: (optional) structured array / dict of parameter sets,
                 evaluated batched.
+            mesh: (optional) :class:`~..parallel.mesh.Mesh`; the
+                members (and a warm state) are split over its 'ensemble'
+                axis, ``engine='scan'`` only.
             engine: 'scan' (plain PyTorch) or 'fused' (CUDA kernel K9,
-                discharge only).
+                discharge only, single-device).
 
         Returns:
             qsim (T, N); plus G (T, L, N), eTG (T, L, N), s_store (T, N),
@@ -95,7 +98,8 @@ class CemaneigeGR4J(SnowGR4JBase):
                 ``checkpoint_every`` / ``resume_from`` (``*.npz``),
                 ``polish`` / ``polish_steps`` (skipped, with a note in
                 the message, on the fused kernels, which have no
-                backward); ``mesh`` raises ``NotImplementedError``.
+                backward); ``mesh`` / ``mesh_axis`` (each generation's
+                population split over the mesh).
 
         Returns:
             An :class:`~rrmpg_tpu_torch.tools.calibration.OptimizeResult`.

@@ -21,20 +21,24 @@ state kernel K4); ``fit(initial_state=)`` calibrates a continuation segment
 from one shared state (``'fused'``: the warm entry of K1/K2).
 """
 
+import functools
 import numbers
 
 import numpy as np
 import torch
 
 from ..config import DEFAULT_DEVICE, DEFAULT_DTYPE
+from ..ops._launch import valid_count
 from ..ops.fused_gr4j import (gr4j_ensemble_mse_fused, gr4j_simulate_fused,
                               gr4j_simulate_state_fused)
 from ..ops.gr4j import GR4JState, run_gr4j, run_gr4j_warm
 from ..ops.stats import losses_from_stats
 from ..ops.uh import NUM_UH1, NUM_UH2, required_uh_lengths
+from ..parallel.mesh import check_mesh
 from ..utils.array_checks import check_for_negatives, validate_array_input
 from ..utils.metrics import calibration_loss
-from .basemodel import BaseModel, _no_mesh, check_engine
+from .basemodel import (BaseModel, check_engine, check_fused_mesh,
+                        check_stats_mesh)
 from .states import broadcast_state, check_state_type
 
 
@@ -112,10 +116,11 @@ class GR4J(BaseModel):
             return_storage: also return the s/r store series ('scan' only).
             params: (optional) structured array / dict of parameter sets,
                 evaluated batched.
-            mesh: not ported yet; must be None (the ensemble split across
-                devices of ``rrmpg_tpu``).
+            mesh: (optional) :class:`~..parallel.mesh.Mesh`; the
+                members (and a warm state) are split over its 'ensemble'
+                axis, ``engine='scan'`` only.
             engine: 'scan' (plain PyTorch) or 'fused' (CUDA kernel K3,
-                or K4 in forecast mode; discharge only).
+                or K4 in forecast mode; discharge only, single-device).
             initial_state: (optional) :class:`~..ops.gr4j.GR4JState` from
                 a previous ``return_final_state=True`` call; continues that
                 simulation (stores and UH filter history carried across
@@ -134,7 +139,7 @@ class GR4J(BaseModel):
             TypeError: If one of the inputs has an incorrect datatype.
             RuntimeError: If prec and etp differ in length.
         """
-        _no_mesh(mesh)
+        check_mesh(mesh)
         prec, etp = self._validate_forcings(prec, etp)
         s_init, r_init = self._validate_inits(s_init, r_init)
         if not isinstance(return_storage, bool):
@@ -149,12 +154,13 @@ class GR4J(BaseModel):
         n1, n2 = required_uh_lengths(param_dict['x4'])
         prec, etp = self._tensor(prec), self._tensor(etp)
         if initial_state is not None or return_final_state:
-            self._check_stateful_engine(engine, return_storage)
+            self._check_stateful_engine(engine, return_storage, mesh)
             return self._simulate_stateful(
                 prec, etp, s_init, r_init, initial_state,
                 return_final_state, return_storage, param_dict, n1, n2,
-                engine)
+                engine, mesh)
         if engine == "fused":
+            check_fused_mesh(mesh)
             if return_storage:
                 raise ValueError(
                     "engine='fused' computes discharge only; use "
@@ -162,8 +168,9 @@ class GR4J(BaseModel):
             qsim = gr4j_simulate_fused(prec, etp, s_init, r_init,
                                        param_dict, n1, n2)
             return qsim.T
-        qsim, s_store, r_store = run_gr4j(prec, etp, s_init, r_init,
-                                          param_dict, n1, n2)
+        qsim, s_store, r_store = self._ensemble(
+            functools.partial(run_gr4j, num_uh1=n1, num_uh2=n2),
+            (prec, etp, s_init, r_init), param_dict, mesh)
         if return_storage:
             return qsim.T, s_store.T, r_store.T
         return qsim.T
@@ -196,8 +203,9 @@ class GR4J(BaseModel):
 
     def _simulate_stateful(self, prec, etp, s_init, r_init, initial_state,
                            return_final_state, return_storage, param_dict,
-                           n1, n2, engine):
-        """Forecast-mode execution: warm continuation and/or final state."""
+                           n1, n2, engine, mesh=None):
+        """Forecast-mode execution: warm continuation and/or final state
+        (on a mesh, ``'scan'`` only, the state split with the members)."""
         state = None
         if initial_state is not None:
             state = self._normalize_state(initial_state,
@@ -210,11 +218,14 @@ class GR4J(BaseModel):
                 r_init=r_init, num_uh1=n1, num_uh2=n2)
             series = (qsim,)
         elif state is None:
-            *series, final = run_gr4j(prec, etp, s_init, r_init, param_dict,
-                                      n1, n2, return_final=True)
+            *series, final = self._ensemble(
+                functools.partial(run_gr4j, num_uh1=n1, num_uh2=n2,
+                                  return_final=True),
+                (prec, etp, s_init, r_init), param_dict, mesh)
         else:
-            *series, final = run_gr4j_warm(prec, etp, state, param_dict, n1,
-                                           n2)
+            *series, final = self._ensemble(
+                functools.partial(run_gr4j_warm, num_uh1=n1, num_uh2=n2),
+                (prec, etp), param_dict, mesh, state=state)
         return self._stateful_output(self._to_reference_layout(series),
                                      final, return_storage,
                                      return_final_state)
@@ -261,6 +272,7 @@ class GR4J(BaseModel):
         ``monte_carlo(return_qsim=False, engine='fused')``."""
         kw = dict(sim_kwargs)
         kw.pop("engine", None)
+        check_stats_mesh(kw)
         prec = kw.pop("prec")
         etp = kw.pop("etp")
         s_init = kw.pop("s_init", 0.0)
@@ -282,7 +294,8 @@ class GR4J(BaseModel):
                          engine, state=None):
         """The calibration objective: (P, 4) candidates -> (P,) losses.
 
-        ``qobs``/``prec``/``etp`` are (T,) tensors on the model's device.
+        ``qobs``/``prec``/``etp`` are (T,) tensors on one device (the
+        model's, or a mesh shard's).
         'fused' evaluates a whole DE generation with one launch of K1
         ('mse'/'rmse') or K2 ('nse'/'kge'); 'scan' runs the plain
         batched simulation and the masked metrics.  ``state`` (a
@@ -312,6 +325,7 @@ class GR4J(BaseModel):
                                       [x4_hi])
         use_stats = loss_metric in ("nse", "kge")
         masked = bool(torch.isnan(qobs).any())
+        count = valid_count(qobs, masked)
 
         def objective(X):
             params = {n: X[:, j].contiguous()
@@ -320,7 +334,8 @@ class GR4J(BaseModel):
                 prec, etp, qobs, s_init, r_init, params, num_uh1=n1,
                 num_uh2=n2, stats=use_stats, masked=masked,
                 state=(None if state is None
-                       else broadcast_state(state, X.shape[0])))
+                       else broadcast_state(state, X.shape[0])),
+                count=count)
             if use_stats:
                 return 1.0 - losses_from_stats(out, qobs)[loss_metric]
             if loss_metric == "rmse":
@@ -355,7 +370,9 @@ class GR4J(BaseModel):
                 ``checkpoint_every`` / ``resume_from`` (``*.npz``),
                 ``polish`` / ``polish_steps`` (skipped, with a note in
                 the message, on the fused kernels, which have no
-                backward); ``mesh`` raises ``NotImplementedError``.
+                backward); ``mesh`` / ``mesh_axis`` (each generation's
+                population split over the mesh, one launch of the fused
+                kernel a shard, the forcing copied once a device).
 
         Returns:
             An :class:`~rrmpg_tpu_torch.tools.calibration.OptimizeResult`.
@@ -370,9 +387,11 @@ class GR4J(BaseModel):
                                 "warm calibration")
         state = (None if initial_state is None
                  else self._single_member_state(initial_state))
-        objective = self._batch_objective(
-            self._tensor(qobs), self._tensor(prec), self._tensor(etp),
-            s_init, r_init, loss_metric, engine, state)
+        objective = self._objective_per_device(
+            lambda qobs, prec, etp, state: self._batch_objective(
+                qobs, prec, etp, s_init, r_init, loss_metric, engine, state),
+            (self._tensor(qobs), self._tensor(prec), self._tensor(etp),
+             state), de_kwargs.get("mesh"))
         bounds = tuple(self._default_bounds[p] for p in self._param_list)
         return minimize(objective, bounds, seed=seed, batched=True,
                         device=self.device, dtype=self.dtype, **de_kwargs)

@@ -21,17 +21,22 @@ continuation advances the carried storages at every step; a cold start
 keeps the reference's initialization step at ``t = 0``.
 """
 
+import functools
+
 import numpy as np
 import torch
 
 from ..config import DEFAULT_DEVICE, DEFAULT_DTYPE
+from ..ops._launch import valid_count
 from ..ops.fused_hbv import (hbv_ensemble_mse_fused, hbv_simulate_fused,
                              hbv_simulate_state_fused)
 from ..ops.hbvedu import PARAM_NAMES, run_hbvedu, run_hbvedu_warm
 from ..ops.stats import losses_from_stats
+from ..parallel.mesh import check_mesh
 from ..utils.array_checks import check_for_negatives, validate_array_input
 from ..utils.metrics import calibration_loss
-from .basemodel import BaseModel, _no_mesh, check_engine
+from .basemodel import (BaseModel, check_engine, check_fused_mesh,
+                        check_stats_mesh)
 from .states import HBVEduState, check_state_type
 
 _INIT_NAMES = ("snow_init", "soil_init", "s1_init", "s2_init")
@@ -116,10 +121,11 @@ class HBVEdu(BaseModel):
                 only).
             params: (optional) structured array / dict of parameter sets,
                 evaluated batched.
-            mesh: not ported yet; must be None (the ensemble split across
-                devices of ``rrmpg_tpu``).
+            mesh: (optional) :class:`~..parallel.mesh.Mesh`; the
+                members (and a warm state) are split over its 'ensemble'
+                axis, ``engine='scan'`` only.
             engine: 'scan' (plain PyTorch) or 'fused' (CUDA kernel K13,
-                or K14 in forecast mode; discharge only).
+                or K14 in forecast mode; discharge only, single-device).
             initial_state: (optional) :class:`~.states.HBVEduState` from a
                 previous ``return_final_state=True`` call; continues that
                 simulation.  Mutually exclusive with non-zero ``*_init``
@@ -139,7 +145,7 @@ class HBVEdu(BaseModel):
                 is a size mismatch between precipitation, temperature and
                 the month array.
         """
-        _no_mesh(mesh)
+        check_mesh(mesh)
         forcings = self._forcing_tensors(temp, prec, month, PE_m, T_m)
         inits = tuple(float(v) for v in (snow_init, soil_init, s1_init,
                                          s2_init))
@@ -152,7 +158,7 @@ class HBVEdu(BaseModel):
 
         param_dict, _ = self._prepare_params(params)
         if initial_state is not None or return_final_state:
-            self._check_stateful_engine(engine, return_storage)
+            self._check_stateful_engine(engine, return_storage, mesh)
             state = None
             if initial_state is not None:
                 state = self._normalize_state(initial_state,
@@ -162,21 +168,25 @@ class HBVEdu(BaseModel):
                     *forcings, *inits, param_dict, state=state)
                 series = (qsim,)
             elif state is None:
-                *series, final = run_hbvedu(*forcings, *inits, param_dict,
-                                            return_final=True)
+                *series, final = self._ensemble(
+                    functools.partial(run_hbvedu, return_final=True),
+                    (*forcings, *inits), param_dict, mesh)
             else:
-                *series, final = run_hbvedu_warm(*forcings, tuple(state),
-                                                 param_dict)
+                *series, final = self._ensemble(
+                    run_hbvedu_warm, forcings, param_dict, mesh,
+                    state=tuple(state))
             return self._stateful_output(
                 self._to_reference_layout(series), HBVEduState(*final),
                 return_storage, return_final_state)
         if engine == "fused":
+            check_fused_mesh(mesh)
             if return_storage:
                 raise ValueError(
                     "engine='fused' computes discharge only; use "
                     "engine='scan' for storage trajectories.")
             return hbv_simulate_fused(*forcings, *inits, param_dict).T
-        outputs = run_hbvedu(*forcings, *inits, param_dict)
+        outputs = self._ensemble(run_hbvedu, (*forcings, *inits), param_dict,
+                                 mesh)
         if return_storage:
             return tuple(x.T for x in outputs)
         return outputs[0].T
@@ -229,6 +239,7 @@ class HBVEdu(BaseModel):
         ``monte_carlo(return_qsim=False, engine='fused')``."""
         kw = dict(sim_kwargs)
         kw.pop("engine", None)
+        check_stats_mesh(kw)
         forcings = self._forcing_tensors(
             *(kw.pop(k) for k in ("temp", "prec", "month", "PE_m", "T_m")))
         inits = tuple(float(kw.pop(k, 0.0)) for k in _INIT_NAMES)
@@ -245,7 +256,8 @@ class HBVEdu(BaseModel):
                          state=None):
         """The calibration objective: (P, 11) candidates -> (P,) losses.
 
-        ``qobs`` and ``forcings`` are tensors on the model's device.
+        ``qobs`` and ``forcings`` are tensors on one device (the model's,
+        or a mesh shard's).
         'fused' evaluates a whole DE generation with one launch of K12
         (MSE for 'mse'/'rmse', the sufficient statistics for
         'nse'/'kge'); 'scan' runs the plain batched simulation and the
@@ -269,13 +281,14 @@ class HBVEdu(BaseModel):
 
         use_stats = loss_metric in ("nse", "kge")
         masked = bool(torch.isnan(qobs).any())
+        count = valid_count(qobs, masked)
 
         def objective(X):
             params = {n: X[:, j].contiguous()
                       for j, n in enumerate(self._param_list)}
             out = hbv_ensemble_mse_fused(
                 *forcings, qobs, *inits, params, stats=use_stats,
-                masked=masked, state=state)
+                masked=masked, state=state, count=count)
             if use_stats:
                 return 1.0 - losses_from_stats(out, qobs)[loss_metric]
             if loss_metric == "rmse":
@@ -310,7 +323,8 @@ class HBVEdu(BaseModel):
                 ``checkpoint_every`` / ``resume_from`` (``*.npz``),
                 ``polish`` / ``polish_steps`` (skipped, with a note in
                 the message, on the fused kernels, which have no
-                backward); ``mesh`` raises ``NotImplementedError``.
+                backward); ``mesh`` / ``mesh_axis`` (each generation's
+                population split over the mesh).
 
         Returns:
             An :class:`~rrmpg_tpu_torch.tools.calibration.OptimizeResult`.
@@ -327,8 +341,10 @@ class HBVEdu(BaseModel):
         self._check_warm_inputs(initial_state, inits, "warm calibration")
         state = (None if initial_state is None
                  else self._single_member_state(initial_state))
-        objective = self._batch_objective(self._tensor(qobs), forcings,
-                                          inits, loss_metric, engine, state)
+        objective = self._objective_per_device(
+            lambda qobs, forcings, state: self._batch_objective(
+                qobs, forcings, inits, loss_metric, engine, state),
+            (self._tensor(qobs), forcings, state), de_kwargs.get("mesh"))
         bounds = tuple(self._default_bounds[p] for p in self._param_list)
         return minimize(objective, bounds, seed=seed, batched=True,
                         device=self.device, dtype=self.dtype, **de_kwargs)

@@ -128,10 +128,17 @@ def valid_count(qobs, masked):
 
 def launch(kernel, fn_f32, fn_f64, dtype, device, *args):
     """Call the float32 or float64 entry point on ``device``'s current
-    stream, raise on a CUDA error and count one launch of ``kernel``."""
+    stream, raise on a CUDA error and count one launch of ``kernel``.
+
+    The entry points select ``device`` themselves (``cudaSetDevice`` of
+    the library's own, static CUDA runtime), which moves the calling
+    thread's current device; the call runs under ``torch.cuda.device``,
+    so the caller's current device is back when it returns (a mesh
+    launches on every device in turn)."""
     fn = fn_f32 if dtype == torch.float32 else fn_f64
-    stream = torch.cuda.current_stream(device).cuda_stream
-    err = fn(*args, device.index, stream)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = fn(*args, device.index, stream)
     if err != 0:
         raise RuntimeError(
             f"{fn.__name__} failed with cudaError_t {err}.")

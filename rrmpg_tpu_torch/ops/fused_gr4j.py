@@ -373,7 +373,7 @@ def gr4j_simulate_state_fused(prec, etp, params, state=None, s_init=0.0,
 
 def gr4j_ensemble_mse_fused(prec, etp, qobs, s_init, r_init, params,
                             num_uh1=NUM_UH1, num_uh2=NUM_UH2, stats=False,
-                            masked=False, state=None):
+                            masked=False, state=None, count=None):
     """Fused GR4J simulate + objective (K1, or K2 with ``stats=True``).
 
     Returns (N,) mean squared errors, or with ``stats=True`` a (4, N)
@@ -387,11 +387,16 @@ def gr4j_ensemble_mse_fused(prec, etp, qobs, s_init, r_init, params,
     that of a warm continuation: the stores enter at the carried levels and
     the UH registers are rebuilt from the routing-input history, as in
     :func:`gr4j_simulate_state_fused`; ``s_init``/``r_init`` are not read.
+
+    ``count`` (optional) is :func:`~._launch.valid_count` of ``qobs``, taken
+    once by a caller that launches many times (a calibration's objective):
+    without it a masked call reads the count back to the host.
     """
     _check_uh(num_uh1, num_uh2)
     packed = pack_params(params, s_init, r_init, state)
     t_len = check_inputs("GR4J", (prec, etp, qobs), packed, 6)
-    count = valid_count(qobs, masked)
+    if count is None:
+        count = valid_count(qobs, masked)
     n = packed.shape[1]
     hist = None
     if state is not None:
@@ -416,7 +421,7 @@ def gr4j_ensemble_mse_fused(prec, etp, qobs, s_init, r_init, params,
 
 def gr4j_regional_objective_fused(prec, etp, qobs, s_init, r_init, params,
                                   num_uh1=NUM_UH1, num_uh2=NUM_UH2,
-                                  stats=False, masked=False):
+                                  stats=False, masked=False, counts=None):
     """Fused regional GR4J objective (K5): every member over every
     catchment in one launch.
 
@@ -434,12 +439,17 @@ def gr4j_regional_objective_fused(prec, etp, qobs, s_init, r_init, params,
             normalized over its own valid count.  A catchment with no valid
             step raises ``ValueError`` naming it (the JAX kernel returns
             inf/NaN there).  ``None`` masks where ``qobs`` has a NaN.
+        counts: (optional) the (C,) valid counts of ``qobs`` on its device,
+            as :func:`~._launch.valid_counts` gives them with the bool
+            ``masked`` (a split takes them once, before its shards launch);
+            else they are counted here, with one read back to the host.
     """
     _check_uh(num_uh1, num_uh2)
     packed = pack_params(params, s_init, r_init)
     num_catchments, t_len = check_regional_inputs("GR4J", (prec, etp, qobs),
                                                   packed, 6)
-    counts, masked = valid_counts(qobs, masked)
+    if counts is None:
+        counts, masked = valid_counts(qobs, masked)
     if prec.device.type == "cpu":
         return gr4j_regional_objective_reference(
             prec, etp, qobs, packed, num_uh1, num_uh2, stats, masked, counts)

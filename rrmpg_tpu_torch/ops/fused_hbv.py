@@ -224,7 +224,7 @@ def hbv_simulate_state_fused(temp, prec, month, pe_m, t_m, snow_init,
 
 def hbv_ensemble_mse_fused(temp, prec, month, pe_m, t_m, qobs, snow_init,
                            soil_init, s1_init, s2_init, params, stats=False,
-                           masked=False, state=None):
+                           masked=False, state=None, count=None):
     """Fused HBV-Edu simulate + objective (K12).
 
     Returns (N,) mean squared errors, or with ``stats=True`` a (4, N)
@@ -237,6 +237,9 @@ def hbv_ensemble_mse_fused(temp, prec, month, pe_m, t_m, qobs, snow_init,
     With ``state`` (carried stores ``(snow, soil, s1, s2)``, scalars or
     (N,) tensors) the objective is that of a warm continuation: every step
     advances the stores and the ``*_init`` scalars are not read.
+
+    ``count`` (optional) is :func:`~._launch.valid_count` of ``qobs``, taken
+    once by a caller that launches many times.
     """
     warm = state is not None
     packed = pack_params(params, *_inits(state, snow_init, soil_init,
@@ -244,7 +247,8 @@ def hbv_ensemble_mse_fused(temp, prec, month, pe_m, t_m, qobs, snow_init,
     pe_series, tm_series = _month_series(month, pe_m, t_m)
     series = (temp, prec, pe_series, tm_series, qobs)
     t_len = check_inputs("HBV-Edu", series, packed, NUM_ROWS)
-    count = valid_count(qobs, masked)
+    if count is None:
+        count = valid_count(qobs, masked)
     if prec.device.type == "cpu":
         return hbv_objective_reference(*series, packed, stats, masked, count,
                                        warm)

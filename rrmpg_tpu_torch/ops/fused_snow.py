@@ -110,10 +110,17 @@ def layer_inputs(prec, frac_solid_prec, hyst):
     precipitation and the (L,) series constant of each layer, the
     snow-cover threshold (plain) or the mean annual solid precipitation
     (``hyst``).  For (C, T, L) forcing the constants are (C, L), each
-    catchment's from its own series."""
+    catchment's from its own series, reduced over that (T, L) series alone:
+    the bits of a catchment's constants depend neither on the other
+    catchments nor on their number (a mesh's catchment shards take the
+    unsharded call's constants, and a catchment the single-catchment
+    call's)."""
     snow = prec * frac_solid_prec
     rain = prec - snow
-    psol = 365.25 * snow.mean(dim=-2)
+    if snow.dim() == 3:
+        psol = 365.25 * torch.stack([s.mean(dim=0) for s in snow])
+    else:
+        psol = 365.25 * snow.mean(dim=0)
     return (snow.contiguous(), rain.contiguous(),
             (psol if hyst else 0.9 * psol).contiguous())
 
@@ -582,7 +589,7 @@ def snowgr4j_ensemble_mse_fused(prec, mean_temp, etp, frac_solid_prec, qobs,
                                 hyst=False, ice=False, stats=False,
                                 sca_stats=False, snow_only=False,
                                 num_uh1=NUM_UH1, num_uh2=NUM_UH2, state=None,
-                                masked=False):
+                                masked=False, count=None):
     """Fused coupled-model simulate + objective (K8).
 
     Returns (N,) mean squared errors; with ``stats=True`` a (4, N) tensor
@@ -602,6 +609,9 @@ def snowgr4j_ensemble_mse_fused(prec, mean_temp, etp, frac_solid_prec, qobs,
     from the bundle, the layer constants are the bundle's, and the init
     scalars are not read.  ``mse`` and ``stats`` only.
 
+    ``count`` (optional) is :func:`~._launch.valid_count` of ``qobs``, taken
+    once by a caller that launches many times.
+
     Other args as :func:`snowgr4j_simulate_fused`.
     """
     if state is not None and sca_stats:
@@ -619,7 +629,8 @@ def snowgr4j_ensemble_mse_fused(prec, mean_temp, etp, frac_solid_prec, qobs,
                                 snow_only, num_uh1, num_uh2, extra=(qobs,),
                                 state=state)
     snow0, th0 = float(snow_pack_init), float(thermal_state_init)
-    count = valid_count(qobs, masked)
+    if count is None:
+        count = valid_count(qobs, masked)
     ndsi_t = band_counts = None
     if sca_stats:
         if (ndsi.shape != (num_layers, t_len) or ndsi.dtype != etp.dtype
@@ -663,7 +674,7 @@ def snowgr4j_regional_mse_fused(prec, mean_temp, etp, frac_solid_prec, qobs,
                                 snow_pack_init, thermal_state_init, s_init,
                                 r_init, params, frac_ice=None, hyst=False,
                                 ice=False, stats=False, num_uh1=NUM_UH1,
-                                num_uh2=NUM_UH2, masked=False):
+                                num_uh2=NUM_UH2, masked=False, counts=None):
     """Fused regional coupled-model objective (K11): every member over
     every catchment in one launch.
 
@@ -687,6 +698,8 @@ def snowgr4j_regional_mse_fused(prec, mean_temp, etp, frac_solid_prec, qobs,
             normalized over its own valid count, and one with no valid step
             raises ``ValueError`` naming it.  ``None`` masks where ``qobs``
             has a NaN.
+        counts: (optional) the (C,) valid counts with the bool ``masked``,
+            as in :func:`~.fused_gr4j.gr4j_regional_objective_fused`.
     """
     _check_uh(num_uh1, num_uh2)
     if ice and frac_ice is None:
@@ -717,7 +730,8 @@ def snowgr4j_regional_mse_fused(prec, mean_temp, etp, frac_solid_prec, qobs,
             f"frac_ice must be ({num_layers},) or ({num_catchments}, "
             f"{num_layers}); got {tuple(frac_ice.shape)}.")
     frac_ice = frac_ice.expand(num_catchments, num_layers).contiguous()
-    counts, masked = valid_counts(qobs, masked)
+    if counts is None:
+        counts, masked = valid_counts(qobs, masked)
     snow, rain, layer_consts = layer_inputs(prec, frac_solid_prec, hyst)
     temp = mean_temp.contiguous()
     snow0, th0 = float(snow_pack_init), float(thermal_state_init)
@@ -757,15 +771,16 @@ def cemaneige_simulate_fused(prec, mean_temp, frac_solid_prec,
 
 def cemaneige_ensemble_mse_fused(prec, mean_temp, frac_solid_prec, qobs,
                                  snow_pack_init, thermal_state_init, params,
-                                 stats=False, masked=False):
+                                 stats=False, masked=False, count=None):
     """Fused standalone-Cemaneige objective, the snow-only mode of K8;
     returns (N,) losses ((4, N) sufficient statistics with ``stats=True``).
-    ``masked`` excludes NaN observations."""
+    ``masked`` excludes NaN observations; ``count`` as in
+    :func:`snowgr4j_ensemble_mse_fused`."""
     etp = prec.new_zeros(prec.shape[0])
     return snowgr4j_ensemble_mse_fused(
         prec, mean_temp, etp, frac_solid_prec, qobs, snow_pack_init,
         thermal_state_init, 0.0, 0.0, params, snow_only=True, stats=stats,
-        masked=masked)
+        masked=masked, count=count)
 
 
 # ---------------------------------------------------------------------------

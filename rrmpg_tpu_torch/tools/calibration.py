@@ -36,7 +36,8 @@ import torch
 
 from ..config import (DEFAULT_DEVICE, DEFAULT_DTYPE, resolve_device,
                       resolve_dtype)
-from ..models.basemodel import _no_mesh
+from ..parallel.mesh import (ENSEMBLE_AXIS, check_mesh, pad_to_multiple,
+                             sharded_call)
 from .checkpoint import load_checkpoint, save_checkpoint
 
 
@@ -162,11 +163,33 @@ def _batch_map(objective, batched):
     return mapped
 
 
-def _population_objective(objective, batched, pop_size):
+def _mesh_shards(mesh, mesh_axis):
+    """(mesh axis, its shard count) of a calibration tool's ``mesh`` (the
+    ensemble axis by default); (None, 1) without a mesh."""
+    check_mesh(mesh)
+    if mesh is None:
+        return None, 1
+    mesh_axis = ENSEMBLE_AXIS if mesh_axis is None else mesh_axis
+    if mesh_axis not in mesh.shape:
+        raise ValueError(f"mesh has no axis {mesh_axis!r}; its axes are "
+                         f"{mesh.axis_names}.")
+    return mesh_axis, mesh.shape[mesh_axis]
+
+
+def _population_objective(objective, batched, pop_size, mesh=None,
+                          mesh_axis=None):
     """``objective`` as a map from the (P, dim) population to its (P,)
-    energies (:func:`_batch_map`).  Energies of any other shape raise
-    ``ValueError``."""
+    energies (:func:`_batch_map`); on a mesh the population is split over
+    ``mesh_axis``, each shard evaluated on its device and the energies
+    gathered onto the population's (:func:`~..parallel.mesh.sharded_call`).
+    Energies of any other shape raise ``ValueError``."""
     mapped = _batch_map(objective, batched)
+    if mesh is not None:
+        local = mapped
+        axis = _mesh_shards(mesh, mesh_axis)[0]
+
+        def mapped(pop):
+            return sharded_call(local, mesh, (pop,), (axis,), (axis,))
 
     def energies_of(pop):
         energies = torch.as_tensor(mapped(pop))
@@ -201,7 +224,9 @@ def differential_evolution(objective, bounds, key=None, popsize=15,
         key: (optional) ``torch.Generator`` on ``device`` that draws every
             random number, JAX's PRNG key argument; else one seeded from
             ``seed``.  Anything else raises ``TypeError``.
-        popsize: population multiplier; population = popsize * dim.
+        popsize: population multiplier; population = popsize * dim,
+            rounded up to a multiple of the mesh axis's shard count when a
+            mesh is given (as JAX's: 15 x 4 on 8 shards is 64).
         maxiter: maximum number of generations.
         tol, atol: relative / absolute convergence tolerance on the
             energy spread (scipy semantics).
@@ -222,8 +247,14 @@ def differential_evolution(objective, bounds, key=None, popsize=15,
             takes the saved state, so the run ends as the unbroken one
             would.  A file written by ``rrmpg_tpu`` (a JAX key) raises
             ``ValueError``.
-        mesh, mesh_axis: not ported; any mesh raises
-            ``NotImplementedError`` (ROADMAP.md, Queue 1, item 9).
+        mesh: (optional) :class:`~..parallel.mesh.Mesh`: each generation's
+            population is split over its ``mesh_axis``, every shard is
+            evaluated on its device (with ``batched=True``, one call of the
+            objective a shard: a fused kernel's launch), and the energies
+            come back to ``device``.  The population and the generator stay
+            on ``device``, so a run equals the unsharded one of the same
+            population size.  Anything but a mesh raises ``TypeError``.
+        mesh_axis: the mesh axis of the population (default 'ensemble').
         polish: run :func:`gradient_descent` from the best member after
             evolution, and keep its point only if it improves the
             objective.  An objective that autograd cannot differentiate
@@ -238,7 +269,7 @@ def differential_evolution(objective, bounds, key=None, popsize=15,
         :class:`OptimizeResult`; ``nfev = P * (nit + 1)``, plus the
         polish's evaluations with ``polish=True``.
     """
-    _no_mesh(mesh)
+    mesh_axis, n_shards = _mesh_shards(mesh, mesh_axis)
     device = resolve_device(device)
     dtype = resolve_dtype(dtype)
     generator = _generator(key, seed, device)
@@ -247,7 +278,7 @@ def differential_evolution(objective, bounds, key=None, popsize=15,
     lows = torch.tensor([b[0] for b in bounds], dtype=dtype, device=device)
     highs = torch.tensor([b[1] for b in bounds], dtype=dtype, device=device)
     dim = len(bounds)
-    pop_size = popsize * dim
+    pop_size = pad_to_multiple(popsize * dim, n_shards)
     mut_lo, mut_hi = mutation
     own = torch.arange(pop_size, device=device)
     dims = torch.arange(dim, device=device)
@@ -263,7 +294,8 @@ def differential_evolution(objective, bounds, key=None, popsize=15,
         return torch.randint(0, high, (n,), generator=generator,
                              device=device)
 
-    energies_of = _population_objective(objective, batched, pop_size)
+    energies_of = _population_objective(objective, batched, pop_size, mesh,
+                                        mesh_axis)
 
     def generation(pop, energies):
         # A non-finite energy is never selected as best and never shields
@@ -465,30 +497,35 @@ def random_search(objective, sample_fn, num, key=None, seed=None,
             key).
         num: number of candidates.
         key / seed: ``torch.Generator`` on ``device`` or int seed.
-        batch_size: (optional) candidates a batch, to bound memory.
-        mesh, mesh_axis: not ported; any mesh raises
-            ``NotImplementedError`` (ROADMAP.md, Queue 1, item 9).
+        batch_size: (optional) candidates a batch, to bound memory; with a
+            mesh rounded up to a multiple of the shard count.
+        mesh, mesh_axis: (optional) each batch's candidates are split over
+            the mesh axis as in :func:`differential_evolution`; a last
+            batch is rounded up to the shard count (more candidates drawn,
+            as JAX draws them).
         device, dtype: where (the card by default) and in which float type
             the candidates are evaluated.
 
     Returns:
-        :class:`OptimizeResult` (``nfev`` the true count; the population
-        fields hold the *last* batch).
+        :class:`OptimizeResult` (``nfev`` the candidates evaluated,
+        those of a rounded-up last batch included; the population fields
+        hold the *last* batch).
     """
-    _no_mesh(mesh)
+    mesh_axis, n_shards = _mesh_shards(mesh, mesh_axis)
     device = resolve_device(device)
     dtype = resolve_dtype(dtype)
     generator = _generator(key, seed, device)
-    if batch_size is None:
-        batch_size = num
+    batch_size = pad_to_multiple(num if batch_size is None else batch_size,
+                                 n_shards)
     best_x, best_fun = None, np.inf
     last_pop, last_energies = None, None
     evaluated = 0
     while evaluated < num:
-        n = min(batch_size, num - evaluated)
+        n = min(pad_to_multiple(num - evaluated, n_shards), batch_size)
         candidates = torch.as_tensor(sample_fn(generator, n)).to(
             device=device, dtype=dtype)
-        energies = _population_objective(objective, batched, n)(
+        energies = _population_objective(objective, batched, n, mesh,
+                                         mesh_axis)(
             candidates).detach().cpu().numpy()
         finite = np.isfinite(energies)
         if finite.any():

@@ -22,8 +22,8 @@ import torch
 
 from ..config import (DEFAULT_DEVICE, DEFAULT_DTYPE, resolve_device,
                       resolve_dtype)
-from ..models.basemodel import _no_mesh
-from .calibration import (_generator, _latin_hypercube,
+from ..parallel.mesh import pad_to_multiple
+from .calibration import (_generator, _latin_hypercube, _mesh_shards,
                           _population_objective)
 
 _SEGMENT = 512
@@ -98,8 +98,13 @@ def demc_sample(log_prob, bounds, num_chains=None, num_steps=2000,
         gamma: proposal scale (default ``2.38 / sqrt(2 dim)``); every 10th
             step uses ``gamma = 1`` for mode-to-mode jumps.
         jitter: scale of the small Gaussian ``eps`` added to proposals.
-        mesh, mesh_axis: not ported; any mesh raises
-            ``NotImplementedError`` (ROADMAP.md, Queue 1, item 9).
+        mesh: (optional) :class:`~..parallel.mesh.Mesh`: the chain count
+            is rounded up to a multiple of the ``mesh_axis`` shard count
+            (of twice it, for an odd count, so that the halves stay
+            equal), and every half-step's proposals are split over the
+            mesh.  It needs a per-point ``log_prob``: with
+            ``batched=True`` it raises ``ValueError``, as JAX's does.
+        mesh_axis: the mesh axis (default 'ensemble').
         device, dtype: where (the card by default) and in which float type
             the chains live.
 
@@ -114,7 +119,12 @@ def demc_sample(log_prob, bounds, num_chains=None, num_steps=2000,
         raise ValueError(f"'burn_in' must lie in [0, 1); got {burn_in}.")
     if not isinstance(thin, (int, np.integer)) or thin < 1:
         raise ValueError(f"'thin' must be a positive integer; got {thin}.")
-    _no_mesh(mesh)
+    mesh_axis, n_shards = _mesh_shards(mesh, mesh_axis)
+    if mesh is not None and batched:
+        raise ValueError(
+            "demc_sample(mesh=) shards the chain axis and needs a "
+            "per-point (vmappable) log_prob; batched log_probs run "
+            "single-device.")
     device = resolve_device(device)
     dtype = resolve_dtype(dtype)
     generator = _generator(key, seed, device)
@@ -122,6 +132,10 @@ def demc_sample(log_prob, bounds, num_chains=None, num_steps=2000,
     highs = torch.tensor([b[1] for b in bounds], dtype=dtype, device=device)
     dim = len(bounds)
     C = num_chains if num_chains is not None else max(8, 2 * dim)
+    if mesh is not None:
+        # Two equal half-ensembles AND a shard-count multiple.
+        C = pad_to_multiple(C, n_shards if n_shards % 2 == 0
+                            else 2 * n_shards)
     C = C + (C % 2)  # the red-black block update needs equal halves
     if C < 4:
         raise ValueError(
@@ -140,7 +154,8 @@ def demc_sample(log_prob, bounds, num_chains=None, num_steps=2000,
         lp = torch.where(torch.isfinite(lp), lp, -torch.inf)
         return torch.where(in_bounds, lp, -torch.inf)
 
-    log_prob_of_half = _population_objective(log_prob, batched, H)
+    log_prob_of_half = _population_objective(log_prob, batched, H, mesh,
+                                             mesh_axis)
 
     def half_update(block, lp_block, other, g):
         """MH-update every chain of ``block`` at once, proposing with two
@@ -162,7 +177,8 @@ def demc_sample(log_prob, bounds, num_chains=None, num_steps=2000,
                 torch.where(accept, lp_new, lp_block), accept)
 
     z = _latin_hypercube(generator, C, dim, dtype, device)
-    lp = safe_eval(z, _population_objective(log_prob, batched, C))
+    lp = safe_eval(z, _population_objective(log_prob, batched, C, mesh,
+                                            mesh_axis))
     zs_parts, lps_parts, acc_parts = [], [], []
     seg = min(_SEGMENT, num_steps)
     done = 0

@@ -18,7 +18,8 @@ Results are host numpy arrays, as in the reference.
 import numpy as np
 import torch
 
-from ..models.basemodel import BaseModel, _no_mesh
+from ..models.basemodel import BaseModel
+from ..parallel.mesh import check_mesh
 from ..ops.stats import losses_from_stats
 from ..utils import metrics as _metrics
 from ..utils import signatures as _signatures
@@ -49,9 +50,12 @@ def monte_carlo(model, num, qobs=None, mesh=None, metrics=('mse',),
         num: number of simulations.
         qobs: (optional) observed streamflow; if given, the requested
             ``metrics`` of each simulation are returned.
-        mesh: not ported yet; must be None (``rrmpg_tpu`` shards the
-            ensemble over it); anything else raises
-            ``NotImplementedError`` before any sampling.
+        mesh: (optional) :class:`~..parallel.mesh.Mesh` to shard the
+            ensemble over: it goes into the simulate kwargs (the
+            ``'scan'`` engine's ``simulate(mesh=)``); the fused engines
+            and the fused statistics branch run single-device and raise
+            ``ValueError``, as JAX's do.  Anything but a mesh raises
+            ``TypeError`` before any sampling.
         metrics: any of 'mse', 'rmse', 'nse', 'kge', 'alpha_nse',
             'beta_nse', 'r' (default ('mse',), the reference's contract),
             plus the FDC signature diagnostics 'fhv', 'flv', 'fms'
@@ -73,7 +77,7 @@ def monte_carlo(model, num, qobs=None, mesh=None, metrics=('mse',),
         ValueError: If any input contains invalid values.
         TypeError: If any input has a wrong datatype.
     """
-    _no_mesh(mesh)
+    check_mesh(mesh)
     if not isinstance(model, BaseModel):
         raise TypeError(
             f"monte_carlo needs an rrmpg_tpu_torch model instance (a "
@@ -99,6 +103,9 @@ def monte_carlo(model, num, qobs=None, mesh=None, metrics=('mse',),
             "return_qsim=True).")
 
     params = model.get_random_params(num=num)
+
+    if mesh is not None:
+        kwargs = dict(kwargs, mesh=mesh)
 
     stats_fn = getattr(model, "_fused_stats", None)
     use_stats = (not return_qsim and stats_fn is not None

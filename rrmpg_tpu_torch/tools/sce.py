@@ -30,9 +30,9 @@ import torch
 
 from ..config import (DEFAULT_DEVICE, DEFAULT_DTYPE, resolve_device,
                       resolve_dtype)
-from ..models.basemodel import _no_mesh
+from ..parallel.mesh import pad_to_multiple
 from .calibration import (OptimizeResult, _generator, _latin_hypercube,
-                          _population_objective)
+                          _mesh_shards, _population_objective)
 
 
 def _safe(e):
@@ -84,8 +84,12 @@ def sce_ua(objective, bounds, key=None, seed=None, n_complexes=None,
             (``std(E) <= atol + tol * |mean(E)|``, DE's criterion).
         peps: geometric convergence: stop when the population's normalized
             parameter range ``exp(mean(log(range_i)))`` drops below it.
-        mesh, mesh_axis: not ported; any mesh raises
-            ``NotImplementedError`` (ROADMAP.md, Queue 1, item 9).
+        mesh: (optional) :class:`~..parallel.mesh.Mesh`: ``p`` is rounded
+            up to a multiple of the ``mesh_axis`` shard count and every
+            batch of points is split over the mesh, as JAX shards its
+            complex axis.  It needs a per-point objective: with
+            ``batched=True`` it raises ``ValueError``, as JAX's does.
+        mesh_axis: the mesh axis (default 'ensemble').
         device, dtype: where (the card by default) and in which float type
             the population lives.
 
@@ -95,7 +99,13 @@ def sce_ua(objective, bounds, key=None, seed=None, n_complexes=None,
         the number of shuffles, ``nfev`` every objective evaluation
         (``p m + nit beta 3 p``).
     """
-    _no_mesh(mesh)
+    mesh_axis, n_shards = _mesh_shards(mesh, mesh_axis)
+    if mesh is not None and batched:
+        raise ValueError(
+            "sce_ua(mesh=) shards the complex axis and needs a "
+            "per-point (vmappable) objective; batched objectives "
+            "run single-device. Use differential_evolution for "
+            "mesh-sharded batched kernels.")
     device = resolve_device(device)
     dtype = resolve_dtype(dtype)
     generator = _generator(key, seed, device)
@@ -103,7 +113,8 @@ def sce_ua(objective, bounds, key=None, seed=None, n_complexes=None,
     highs = torch.tensor([b[1] for b in bounds], dtype=dtype, device=device)
     dim = len(bounds)
 
-    p = n_complexes if n_complexes is not None else max(2, dim)
+    p = pad_to_multiple(n_complexes if n_complexes is not None
+                        else max(2, dim), n_shards)
     m = 2 * dim + 1          # points per complex
     q = dim + 1              # simplex size
     beta = 2 * dim + 1       # CCE steps per shuffle
@@ -115,9 +126,10 @@ def sce_ua(objective, bounds, key=None, seed=None, n_complexes=None,
         return torch.rand(shape, generator=generator, dtype=dtype,
                           device=device)
 
-    energies_of_sample = _population_objective(objective, batched, p * m)
+    energies_of_sample = _population_objective(objective, batched, p * m,
+                                               mesh, mesh_axis)
     energies_of_candidates = _population_objective(objective, batched,
-                                                   3 * p)
+                                                   3 * p, mesh, mesh_axis)
 
     # Trapezoidal simplex-selection weights over within-complex ranks
     # (rank 0 = best): w_i = 2 (m - i) / (m (m + 1)).

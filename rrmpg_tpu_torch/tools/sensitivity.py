@@ -26,8 +26,8 @@ import torch
 
 from ..config import (DEFAULT_DEVICE, DEFAULT_DTYPE, resolve_device,
                       resolve_dtype)
-from ..models.basemodel import _no_mesh
-from .calibration import _generator, _population_objective
+from ..parallel.mesh import check_mesh, pad_to_multiple
+from .calibration import _generator, _mesh_shards, _population_objective
 
 
 class SobolResult(typing.NamedTuple):
@@ -84,18 +84,27 @@ class MorrisResult(typing.NamedTuple):
     names: tuple
 
 
-def _evaluate_design(objective, X, batched, batch_size, device, dtype):
+def _evaluate_design(objective, X, batched, batch_size, mesh, mesh_axis,
+                     device, dtype):
     """Evaluate every row of the (m, dim) host design matrix in chunks of
-    ``batch_size`` rows on ``device``; float64 numpy (m,)."""
+    ``batch_size`` rows on ``device``; float64 numpy (m,).  On a mesh each
+    chunk is split over ``mesh_axis``: ``batch_size`` is rounded up to a
+    multiple of its shard count, and a short chunk is padded by repeating
+    its last row, as JAX pads it (the padding's values are dropped)."""
+    mesh_axis, n_shards = _mesh_shards(mesh, mesh_axis)
     m = X.shape[0]
-    if batch_size is None:
-        batch_size = m
+    batch_size = pad_to_multiple(m if batch_size is None else batch_size,
+                                 n_shards)
     out = np.empty(m, dtype=np.float64)
     for lo in range(0, m, batch_size):
         chunk = X[lo:lo + batch_size]
         n = chunk.shape[0]
-        vals = _population_objective(objective, batched, n)(
-            torch.as_tensor(chunk, dtype=dtype, device=device))
+        if n % n_shards:
+            pad = pad_to_multiple(n, n_shards) - n
+            chunk = np.concatenate([chunk, np.repeat(chunk[-1:], pad, 0)])
+        vals = _population_objective(objective, batched, chunk.shape[0],
+                                     mesh, mesh_axis)(
+            torch.as_tensor(chunk, dtype=dtype, device=device))[:n]
         out[lo:lo + n] = vals.detach().cpu().numpy()
     return out
 
@@ -145,8 +154,9 @@ def sobol_indices(objective, bounds, n=1024, key=None, seed=None,
         batched: see ``objective``.
         batch_size: evaluate the design in chunks of this many rows
             (default: one call for everything).
-        mesh, mesh_axis: not ported; any mesh raises
-            ``NotImplementedError`` (ROADMAP.md, Queue 1, item 9).
+        mesh, mesh_axis: (optional) :class:`~..parallel.mesh.Mesh` and its
+            axis (default 'ensemble'): every chunk of the design is split
+            over the mesh, one call of the objective a shard.
         bootstrap: number of bootstrap resamples for the confidence
             intervals (0 disables).
         names: (optional) parameter names carried into the result.
@@ -161,7 +171,7 @@ def sobol_indices(objective, bounds, n=1024, key=None, seed=None,
         ValueError: if fewer than 8 complete rows survive the non-finite
             filter, or names/bounds lengths mismatch.
     """
-    _no_mesh(mesh)
+    check_mesh(mesh)
     device = resolve_device(device)
     dtype = resolve_dtype(dtype)
     lows, highs, dim, names = _parse_bounds(bounds, names)
@@ -183,7 +193,8 @@ def sobol_indices(objective, bounds, n=1024, key=None, seed=None,
         blocks.append(ab_i)
     X = lows + np.concatenate(blocks, axis=0) * (highs - lows)
 
-    f = _evaluate_design(objective, X, batched, batch_size, device, dtype)
+    f = _evaluate_design(objective, X, batched, batch_size, mesh, mesh_axis,
+                         device, dtype)
     f_A = f[:n]
     f_B = f[n:2 * n]
     f_AB = f[2 * n:].reshape(dim, n)
@@ -292,7 +303,7 @@ def morris_screening(objective, bounds, num_trajectories=64, num_levels=4,
             f"'num_levels' must be an even integer >= 2; got {num_levels}."
             " (Odd grids make the standard delta = p/(2(p-1)) step leave "
             "the unit interval.)")
-    _no_mesh(mesh)
+    check_mesh(mesh)
     device = resolve_device(device)
     dtype = resolve_dtype(dtype)
     lows, highs, dim, names = _parse_bounds(bounds, names)
@@ -301,8 +312,8 @@ def morris_screening(objective, bounds, num_trajectories=64, num_levels=4,
     R = num_trajectories
     trajs, delta = _morris_trajectories(rng, R, dim, num_levels)
     X = lows + trajs.reshape(R * (dim + 1), dim) * (highs - lows)
-    f = _evaluate_design(objective, X, batched, batch_size, device,
-                         dtype).reshape(R, dim + 1)
+    f = _evaluate_design(objective, X, batched, batch_size, mesh, mesh_axis,
+                         device, dtype).reshape(R, dim + 1)
 
     # Consecutive trajectory points differ in exactly one parameter; the
     # signed normalized step recovers which one and in which direction.

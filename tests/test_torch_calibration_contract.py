@@ -10,8 +10,9 @@ JAX package (CPU).
   their trajectories: both must land within ``atol=0.05`` of the
   quadratic's minimizer with a loss below ``1e-3``.
 * ``mesh=`` stands where JAX has it (``simulate`` of every class,
-  ``monte_carlo``'s fourth parameter); ``None`` runs, anything else raises
-  ``NotImplementedError`` citing ROADMAP Queue 1 item 9.
+  ``monte_carlo``'s fourth parameter); ``None`` runs, a
+  :class:`rrmpg_tpu_torch.parallel.Mesh` runs sharded
+  (``tests/test_torch_parallel.py``), anything else raises ``TypeError``.
 """
 
 import inspect
@@ -175,7 +176,10 @@ def test_simulate_mesh_none_runs_and_equals_jax(name):
 
 @pytest.mark.parametrize("name", ['GR4J', 'HBVEdu', 'ABCModel'])
 def test_simulate_mesh_raises_not_implemented(name):
-    with pytest.raises(NotImplementedError, match="Queue 1, item 9"):
+    """Since the mesh is ported, what is not a mesh raises ``TypeError``
+    (a mesh runs: ``tests/test_torch_parallel.py``).  The name predates
+    the port of the mesh and is kept."""
+    with pytest.raises(TypeError, match="rrmpg_tpu_torch.parallel.Mesh"):
         _simulate(models, name, mesh=object())
 
 
@@ -195,7 +199,10 @@ def test_monte_carlo_positional_mesh_like_jax():
 
 @pytest.mark.parametrize("engine", ["scan", "fused"])
 def test_monte_carlo_mesh_raises_not_implemented(engine):
+    """Since the mesh is ported, what is not a mesh raises ``TypeError``
+    before any sampling (a mesh runs: ``tests/test_torch_parallel.py``).
+    The name predates the port of the mesh and is kept."""
     prec, etp, qobs = _gr4j_inputs()
-    with pytest.raises(NotImplementedError, match="Queue 1, item 9"):
+    with pytest.raises(TypeError, match="rrmpg_tpu_torch.parallel.Mesh"):
         monte_carlo(models.GR4J(device='cpu', dtype=F64), 8, qobs, object(),
                     prec=prec, etp=etp, engine=engine, return_qsim=False)

@@ -1841,3 +1841,140 @@ def test_resample_index_clamped_on_the_card(cuda):
     taken = _take(state, idx)
     torch.cuda.synchronize()
     assert float(taken.storage[-1]) == n - 1
+
+
+# ---------------------------------------------------------------------------
+# The device mesh: every shard one launch on its device, bit for bit the
+# unsharded launch
+# ---------------------------------------------------------------------------
+
+def _launches_of(fn):
+    fg.reset_launches()
+    result = fn()
+    torch.cuda.synchronize()
+    return result, {k: v for k, v in fg.LAUNCHES.items() if v}
+
+
+def _mesh_fit_cases():
+    """(class, fit kwargs, objective kernel) of the fused fits on a mesh:
+    K1/K2 (GR4J), K12 (HBV-Edu), K8 (the hysteresis + ice model, also its
+    SCA statistics through fit_Q_SCA)."""
+    rng = np.random.default_rng(6)
+    T = 200
+    gr4j = dict(prec=rng.uniform(0, 15, T), etp=rng.uniform(0, 4, T))
+    hbv = dict(temp=rng.uniform(-5, 15, T), prec=rng.uniform(0, 10, T),
+               month=np.arange(T) % 12 + 1, PE_m=rng.uniform(0, 3, 12),
+               T_m=rng.uniform(-5, 15, 12), soil_init=100.0)
+    mean_t = rng.uniform(-9, 13, T)
+    snow = dict(prec=rng.uniform(0, 14, T), mean_temp=mean_t,
+                min_temp=mean_t - rng.uniform(0.5, 4, T),
+                max_temp=mean_t + rng.uniform(0.5, 4, T),
+                etp=rng.uniform(0, 3, T), met_station_height=700,
+                altitudes=[550, 620, 700, 785, 920],
+                frac_ice=np.array([0.02, 0.04, 0.25, 0.51, 0.71]))
+    obs = rng.uniform(0.5, 4, T)
+    obs[::13] = np.nan
+    return [("GR4J", gr4j, "gr4j_mse", "mse"),
+            ("GR4J", gr4j, "gr4j_stats", "kge"),
+            ("HBVEdu", hbv, "hbv_mse", "mse"),
+            ("CemaneigeHystGR4JIce", snow, "snow_mse", "mse")], obs
+
+
+@pytest.mark.parametrize("case", range(4))
+def test_mesh_fit_launches_once_per_shard_bit_for_bit(cuda, case):
+    """Four shards of one card: every DE generation is four launches of the
+    fused objective (one a shard), and the fit equals the unsharded one bit
+    for bit (each member's arithmetic is its own)."""
+    from rrmpg_tpu_torch.parallel import default_mesh
+
+    cases, obs = _mesh_fit_cases()
+    name, forcing, kernel, metric = cases[case]
+    model = getattr(models, name)(device=cuda)
+    kw = dict(engine='fused', seed=1, popsize=8, maxiter=3, tol=0.0,
+              loss_metric=metric)
+    mesh = default_mesh([cuda] * 4)
+    plain, n_plain = _launches_of(lambda: model.fit(obs, **forcing, **kw))
+    sharded, n_mesh = _launches_of(
+        lambda: model.fit(obs, **forcing, mesh=mesh, **kw))
+    assert n_plain == {kernel: plain.nit + 1}
+    assert n_mesh == {kernel: 4 * (plain.nit + 1)}
+    np.testing.assert_array_equal(sharded.population, plain.population)
+    np.testing.assert_array_equal(sharded.population_energies,
+                                  plain.population_energies)
+    if name == "CemaneigeHystGR4JIce":
+        ndsi = {f'NDSI{i + 1}': np.random.default_rng(i).uniform(
+            0, 100, len(obs)) for i in range(5)}
+        plain, n_plain = _launches_of(
+            lambda: model.fit_Q_SCA(obs, **forcing, **ndsi, **kw))
+        sharded, n_mesh = _launches_of(
+            lambda: model.fit_Q_SCA(obs, **forcing, **ndsi, mesh=mesh, **kw))
+        assert n_mesh == {"snow_sca_stats": 4 * n_plain["snow_sca_stats"]}
+        np.testing.assert_array_equal(sharded.population_energies,
+                                      plain.population_energies)
+
+
+def test_mesh_regional_kernels_launch_once_per_shard(cuda):
+    """K5 and K11 on a 2 x 2 (ensemble, catchment) mesh of one card: four
+    launches, bit for bit the one unsharded launch."""
+    from rrmpg_tpu_torch import interop
+    from rrmpg_tpu_torch.parallel import (ensemble_catchment_mesh,
+                                          regional_gr4j_objective,
+                                          regional_snow_objective)
+
+    rng = np.random.default_rng(7)
+    C, T, L, N = 4, 300, 5, 512
+    kw = dict(device=cuda, dtype=torch.float32)
+    qobs = _regional_qobs(rng, C, T, True)
+    prec, etp, qo = interop.regional_forcing_from_numpy(
+        rng.uniform(0, 15, (C, T)), rng.uniform(0, 4, (C, T)), qobs, **kw)
+    etp_s, qo_s, lp, lt, lf, fi = interop.regional_forcing_from_numpy(
+        etp.cpu().numpy(), qobs, layers=(
+            rng.uniform(0, 15, (C, T, L)), rng.uniform(-12, 18, (C, T, L)),
+            rng.uniform(0, 1, (C, T, L))),
+        frac_ice=rng.uniform(0, 0.7, (C, L)), **kw)
+    *_, params = _snow_inputs(cuda, torch.float32, L, 2.9, N=N)
+    mesh = ensemble_catchment_mesh(2, 2, devices=[cuda] * 4)
+    for metric in ("mse", "kge"):
+        def gr4j(mesh=None):
+            return regional_gr4j_objective(prec, etp, qo, 0.3, 0.3, params,
+                                           loss_metric=metric, mesh=mesh)
+
+        def snow(mesh=None):
+            return regional_snow_objective(
+                lp, lt, etp_s, lf, qo_s, 0.0, 0.0, 0.5, 0.4, params,
+                frac_ice=fi, hyst=True, ice=True, loss_metric=metric,
+                mesh=mesh)
+
+        for fn, kernel in ((gr4j, "gr4j_regional"), (snow, "snow_regional")):
+            want, n_plain = _launches_of(fn)
+            got, n_mesh = _launches_of(lambda: fn(mesh))
+            assert n_plain == {kernel: 1} and n_mesh == {kernel: 4}
+            assert got.shape == (C, N)
+            assert torch.equal(got, want), (kernel, metric)
+
+
+def test_current_device_kept_across_launches_on_every_device(cuda):
+    """An entry point selects its device itself (the library's own CUDA
+    runtime); the caller's current device is the same after a launch on
+    every visible card, and a fit on a mesh over all of them equals the
+    unsharded fit."""
+    from rrmpg_tpu_torch.parallel import default_mesh
+
+    before = torch.cuda.current_device()
+    for i in range(torch.cuda.device_count()):
+        prec, etp, qobs, params = _inputs(torch.device("cuda", i),
+                                          torch.float32)
+        out = fg.gr4j_ensemble_mse_fused(prec, etp, qobs, 0.4, 0.3, params,
+                                         10, 21)
+        torch.cuda.synchronize(i)
+        assert out.device == torch.device("cuda", i)
+        assert torch.cuda.current_device() == before
+    qobs, prec, etp = _fit_inputs()
+    kw = dict(engine='fused', seed=0, maxiter=3, tol=0.0)
+    mesh = default_mesh()
+    assert mesh.size == torch.cuda.device_count()
+    plain = GR4J(device=cuda).fit(qobs, prec, etp, **kw)
+    sharded = GR4J(device=cuda).fit(qobs, prec, etp, mesh=mesh, **kw)
+    np.testing.assert_array_equal(sharded.population_energies,
+                                  plain.population_energies)
+    assert torch.cuda.current_device() == before

@@ -5,8 +5,11 @@ the JAX package's parameters in its order, then ``device`` and ``dtype``.
 ``key`` is a ``torch.Generator`` (JAX's is a PRNG key, which cannot seed
 torch's stream: it raises).  Every class's ``fit`` forwards ``mesh``,
 ``polish``, ``polish_steps``, ``checkpoint_path``, ``checkpoint_every`` and
-``resume_from`` to DE: a mesh raises ``NotImplementedError`` citing ROADMAP
-Queue 1 item 9, the others work.
+``resume_from`` to DE, and all of them work: a run on a mesh of CPU shards
+equals the run without one (the population exactly; the energies at
+``rtol=1e-12``: ATen's vectorized ``pow`` and its scalar tail round alike
+only to an ulp, and a member's place in its shard decides which it takes),
+and what is not a mesh raises ``TypeError``.
 
 * A run checkpointed every few generations and resumed equals the unbroken
   run bit for bit: the checkpoint holds the generator's state.
@@ -30,6 +33,7 @@ import rrmpg_tpu.tools.calibration as jax_calibration
 from rrmpg_tpu.ops import run_gr4j as jax_run_gr4j
 from rrmpg_tpu_torch import models
 from rrmpg_tpu_torch.ops import run_gr4j
+from rrmpg_tpu_torch.parallel import default_mesh
 from rrmpg_tpu_torch.tools import (differential_evolution, gradient_descent,
                                    random_search)
 
@@ -117,7 +121,9 @@ def test_generator_key_is_the_seeded_stream():
                           mesh=object(), **CPU)],
     ids=["de", "random_search"])
 def test_mesh_raises_not_implemented(mesh_call):
-    with pytest.raises(NotImplementedError, match="Queue 1, item 9"):
+    """Since the mesh is ported, what is not a mesh raises ``TypeError``.
+    The name predates the port of the mesh and is kept."""
+    with pytest.raises(TypeError, match="rrmpg_tpu_torch.parallel.Mesh"):
         mesh_call()
 
 
@@ -151,17 +157,43 @@ def _fit_inputs(name, T=30):
     return getattr(models, name)(**CPU), obs, kw
 
 
+def _assert_mesh_run_equal(got, want):
+    """A mesh run against the run without one: the same population and
+    best member, the energies at ``rtol=1e-12`` (see the module's
+    docstring)."""
+    np.testing.assert_array_equal(got.population, want.population)
+    np.testing.assert_array_equal(got.x, want.x)
+    np.testing.assert_allclose(got.population_energies,
+                               want.population_energies, rtol=1e-12)
+    assert (got.nit, got.nfev) == (want.nit, want.nfev)
+
+
 @pytest.mark.parametrize("name", CLASSES)
 def test_fit_mesh_raises_not_implemented(name):
+    """Every class's ``fit`` forwards ``mesh`` to DE: two CPU shards (each
+    population of popsize 2 x dim is even) give the unsharded run, and
+    what is not a mesh raises ``TypeError``.  The name predates the port
+    of the mesh and is kept."""
     model, obs, kw = _fit_inputs(name)
-    with pytest.raises(NotImplementedError, match="Queue 1, item 9"):
+    mesh = default_mesh(['cpu'] * 2)
+    got = model.fit(obs, **kw, popsize=2, maxiter=2, seed=4, mesh=mesh)
+    want = model.fit(obs, **kw, popsize=2, maxiter=2, seed=4)
+    _assert_mesh_run_equal(got, want)
+    with pytest.raises(TypeError, match="rrmpg_tpu_torch.parallel.Mesh"):
         model.fit(obs, **kw, maxiter=1, mesh=object())
 
 
 def test_fit_q_sca_mesh_raises_not_implemented():
+    """``fit_Q_SCA`` forwards ``mesh`` too, as ``fit`` does above (the
+    name predates the port of the mesh and is kept)."""
     model, obs, kw = _fit_inputs('CemaneigeHystGR4J')
     ndsi = {f'NDSI{i + 1}': np.full(len(obs), 50.0) for i in range(5)}
-    with pytest.raises(NotImplementedError, match="Queue 1, item 9"):
+    mesh = default_mesh(['cpu'] * 2)
+    got = model.fit_Q_SCA(obs, **kw, **ndsi, popsize=2, maxiter=2, seed=4,
+                          mesh=mesh)
+    want = model.fit_Q_SCA(obs, **kw, **ndsi, popsize=2, maxiter=2, seed=4)
+    _assert_mesh_run_equal(got, want)
+    with pytest.raises(TypeError, match="rrmpg_tpu_torch.parallel.Mesh"):
         model.fit_Q_SCA(obs, **kw, **ndsi, maxiter=1, mesh=object())
 
 

@@ -6,7 +6,9 @@ forms the port leaves out on purpose (listed below).  Every name
 ``rrmpg_tpu.tools`` exports imports from ``rrmpg_tpu_torch.tools`` but for
 the tools that wait for ROADMAP Queue 1 item 8 (listed, with their letter,
 and held to still be missing, so that the list stays true; none wait now).  Every name
-``rrmpg_tpu.utils`` imports has its counterpart in ``rrmpg_tpu_torch.utils``.  The cold
+``rrmpg_tpu.utils`` imports has its counterpart in ``rrmpg_tpu_torch.utils``, and every
+name ``rrmpg_tpu.parallel`` imports in ``rrmpg_tpu_torch.parallel`` (JAX's
+``relaxed_shard_map``, JAX-specific, is left out on purpose).  The cold
 :class:`GR4JState` of ``gr4j_initial_state`` equals JAX's member by member,
 and a warm start from it is ``run_gr4j``, in the port and against JAX's,
 at ``rtol=1e-12``: the two packages run the same float64 equations, whose
@@ -24,10 +26,11 @@ import torch
 
 import rrmpg_tpu.models as jax_models
 import rrmpg_tpu.ops as jax_ops
+import rrmpg_tpu.parallel as jax_parallel
 import rrmpg_tpu.tools as jax_tools
 import rrmpg_tpu.utils as jax_utils
 from rrmpg_tpu.ops import gr4j as jax_gr4j
-from rrmpg_tpu_torch import models, ops, tools, utils
+from rrmpg_tpu_torch import models, ops, parallel, tools, utils
 from rrmpg_tpu_torch.interop import params_from_numpy
 from rrmpg_tpu_torch.ops import gr4j as pt_gr4j
 
@@ -92,6 +95,23 @@ def test_tools_name_imports_unless_waiting(name):
     else:
         assert getattr(tools, name) is not None
         assert name in _imported_names(tools)
+
+
+# JAX's shard_map across jax versions: JAX-specific, not ported on purpose.
+PARALLEL_NOT_PORTED = ("relaxed_shard_map",)
+
+
+@pytest.mark.parametrize("name", _imported_names(jax_parallel))
+def test_parallel_name_has_its_counterpart(name):
+    """Every name ``rrmpg_tpu.parallel`` exports, from the mesh helpers to
+    ``initialize``, imports from ``rrmpg_tpu_torch.parallel``."""
+    assert name not in PARALLEL_NOT_PORTED
+    assert getattr(parallel, name) is not None
+    assert name in _imported_names(parallel)
+
+
+def test_parallel_leaves_out_relaxed_shard_map():
+    assert not any(hasattr(parallel, n) for n in PARALLEL_NOT_PORTED)
 
 
 @pytest.mark.parametrize("name", _imported_names(jax_utils))

@@ -119,7 +119,9 @@ def test_validation():
     res = demc_sample(_gauss, [(0, 1)], num_chains=5, num_steps=20, seed=0,
                       **CPU)
     assert res.samples.shape[1] == 6
-    with pytest.raises(NotImplementedError, match="item 9"):
+    # A mesh runs (tests/test_torch_parallel.py); a non-mesh object is
+    # refused by type.
+    with pytest.raises(TypeError, match="rrmpg_tpu_torch.parallel.Mesh"):
         demc_sample(_gauss, [(0, 1)], mesh=object(), **CPU)
     with pytest.raises(TypeError, match="torch.Generator"):
         demc_sample(_gauss, [(0, 1)], key=jax.random.PRNGKey(0), **CPU)

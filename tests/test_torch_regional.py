@@ -213,9 +213,11 @@ def test_masked_none_detects_gaps_and_false_is_honoured():
 
 @pytest.mark.parametrize("call", ["gr4j", "snow", "run"])
 def test_mesh_raises(call):
+    """A mesh runs (tests/test_torch_parallel.py); a non-mesh object is
+    refused by type, before any input is read."""
     prec, etp, qobs, params = _inputs()
     series = _series(prec, etp, qobs)
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(TypeError, match="rrmpg_tpu_torch.parallel.Mesh"):
         if call == "gr4j":
             regional_gr4j_objective(*series, 0.3, 0.3, _p64(params),
                                     mesh=object())

@@ -158,7 +158,9 @@ def test_minimize_dispatch():
 
 
 def test_mesh_and_jax_key_raise():
-    with pytest.raises(NotImplementedError, match="item 9"):
+    # A mesh runs (tests/test_torch_parallel.py); a non-mesh object is
+    # refused by type.
+    with pytest.raises(TypeError, match="rrmpg_tpu_torch.parallel.Mesh"):
         sce_ua(rosen, BOUNDS2, mesh=object(), **CPU)
     with pytest.raises(TypeError, match="torch.Generator"):
         sce_ua(rosen, BOUNDS2, key=jax.random.PRNGKey(0), **CPU)

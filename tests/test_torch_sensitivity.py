@@ -229,7 +229,9 @@ def test_validation_errors_match_jax():
     with pytest.raises(ValueError, match="elementary effects"):
         morris_screening(lambda x: torch.nan * x[0], [(0, 1), (0, 1)],
                          num_trajectories=8, seed=0, bootstrap=0, **CPU)
-    with pytest.raises(NotImplementedError, match="item 9"):
+    # A mesh runs (tests/test_torch_parallel.py); a non-mesh object is
+    # refused by type.
+    with pytest.raises(TypeError, match="rrmpg_tpu_torch.parallel.Mesh"):
         sobol_indices(ishigami, ISHIGAMI_BOUNDS, n=64, mesh=object(), **CPU)
 
 

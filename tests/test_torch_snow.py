@@ -287,7 +287,8 @@ def test_deferred_features_name_their_queue_item(name):
         model.simulate(**warm_kw, initial_state=object())
     with pytest.raises(TypeError, match=f"must be a {bundle}"):
         model.fit(obs, **warm_kw, initial_state=object())
-    with pytest.raises(NotImplementedError, match="Queue 1, item 9"):
+    # The mesh (item 9) is ported: a non-mesh object is refused by type.
+    with pytest.raises(TypeError, match="rrmpg_tpu_torch.parallel.Mesh"):
         model.simulate(**kw, mesh=object())
     if name in HYST_CLASSES:
         # The Pareto form (item 8c) is ported, for cold starts only.
