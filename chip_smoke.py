@@ -33,8 +33,8 @@ Phases, in order (each prints its lines; any failure exits non-zero):
                   and K12 also at T = 37 and 128 around their 64-step
                   staging tiles, N = 200, gaps at tile edges; K9 at T = 1,
                   37, 64, 65 and 128 around its 32-step staging and store
-                  tiles, N = 200 and 129, every variant, the snow-only
-                  outflow bit for bit); then
+                  tiles, N = 200 and 129, the snow-only outflow bit for bit
+                  at every edge, every variant in turn); then
                   the state kernels
                   (K4, K14, K10: trajectories and every state row, cold and
                   warm; K10 at 1, 2, 5 and 7 layers, its snow rows bit for
@@ -142,8 +142,13 @@ Phases, in order (each prints its lines; any failure exits non-zero):
                   at 4096 members x 365 days; the fused simulate and
                   statistics raising under a mesh; ``initialize()`` in one
                   process (NCCL) and a mesh fit after it equal to the one
-                  before.  Then each kernel is compared with its plain
-                  version at the shapes the main path gave it;
+                  before; the ten port examples (``examples``):
+                  ``examples/torch/01-10`` in this process at
+                  ``RRMPG_EXAMPLE_FAST=1``, each through the kernels its
+                  study runs on (EXAMPLE_KERNELS), their launches counted
+                  in the ``kernels`` line.  Then each kernel is compared
+                  with its plain version at the shapes the main path gave
+                  it;
 6. times       -- each kernel against its plain version and its bound:
                   GR4J and HBV-Edu at 131072 members x 3651 days, the snow
                   kernels at 131072 x 3651 x 5 layers (hysteresis + ice),
@@ -168,7 +173,8 @@ Phases, in order (each prints its lines; any failure exits non-zero):
                   at 10M steps.
 
 ``--phases a,b`` (development) runs only the named phases after the build:
-kernels, golden, main, forecast, regional, tools, assim, mesh, times; the result
+kernels, golden, main, forecast, regional, tools, assim, mesh, examples,
+times; the result
 lines need them all (``assim`` without ``main`` takes the golden parameter
 sets for the calibrated ones).  ``--compare DIR[,DIR...]`` (development) builds the kernel sources in
 each DIR (another version's ``rrmpg_tpu_torch/csrc``) beside this
@@ -186,6 +192,7 @@ result line ``{"ok": true, "device": {...}}``.
 import argparse
 import contextlib
 import functools
+import inspect
 import itertools
 import json
 import os
@@ -1285,19 +1292,23 @@ def snow_traj_edge_checks():
     """K9 around its staging and store tiles (32 steps) and its blocks:
     T = 1, 37, 64, 65 and 128, N = 200 and 129 (ragged last blocks of 72
     and 1 members), 1, 2, 5 and 7 layers (registers at 1 and 5, shared
-    columns otherwise), every variant at both UH register pairs and the
-    snow-only routine (its outflow bit for bit), float64 and float32."""
+    columns otherwise), the snow-only routine (its outflow bit for bit) at
+    every edge and one composition variant at one UH register pair at each
+    (T, N, L, dtype) edge, taken in turn so that every layer count and
+    dtype, and every (T, N) edge across its eight (L, dtype) slots, sees all
+    eight, float64 and float32."""
     from rrmpg_tpu_torch.ops import fused_gr4j as fg
     from rrmpg_tpu_torch.ops import fused_snow as fs
 
     n_checks, unequal = 0, 0
-    for dtype in (F64, F32):
+    combos = [(uh, v) for uh in fg.SUPPORTED_UH for v in SNOW_VARIANTS]
+    for i_dtype, dtype in enumerate((F64, F32)):
         tol, name = TOL[dtype]["traj"], str(dtype)[6:]
-        for t_len in TRAJ_EDGE_STEPS:
-            for num_layers in (1, 2, 5, 7):
+        for i_t, t_len in enumerate(TRAJ_EDGE_STEPS):
+            for i_layer, num_layers in enumerate((1, 2, 5, 7)):
                 d = SnowData.random(np.random.default_rng(t_len + num_layers),
                                     t_len, num_layers, dtype)
-                for n in TRAJ_EDGE_MEMBERS:
+                for i_n, n in enumerate(TRAJ_EDGE_MEMBERS):
                     label = f"snow {name} traj T={t_len} N={n} L={num_layers}"
                     params = snow_random_params(np.random.default_rng(n), n,
                                                 dtype, 2.9)
@@ -1307,22 +1318,28 @@ def snow_traj_edge_checks():
                     report(f"{label} snow-only", got, want, *tol)
                     unequal += int((got != want).sum())
                     n_checks += 1
-                    for uh in fg.SUPPORTED_UH:
-                        params = snow_random_params(
-                            np.random.default_rng(n + uh[0]), n, dtype,
-                            2.9 if uh[0] == 3 else BOUNDS_X4_WIDE)
-                        for variant, hyst, ice in SNOW_VARIANTS:
-                            kw = dict(hyst=hyst, ice=ice, uh=uh)
-                            report(f"{label} uh={uh} {variant}",
-                                   snow_call(fs, d, params, "traj", **kw),
-                                   snow_call(fs, d, params, "traj",
-                                             plain=True, **kw), *tol)
-                            n_checks += 1
+                    # One composition an edge, in turn: the 10 (T, N) edges
+                    # of each dtype and layer count take all 8 (UH pair,
+                    # variant) pairs, and so do the 8 (L, dtype) slots of
+                    # each (T, N) edge.
+                    uh, (variant, hyst, ice) = combos[
+                        (i_t * len(TRAJ_EDGE_MEMBERS) + i_n + 4 * i_dtype
+                         + i_layer) % len(combos)]
+                    params = snow_random_params(
+                        np.random.default_rng(n + uh[0]), n, dtype,
+                        2.9 if uh[0] == 3 else BOUNDS_X4_WIDE)
+                    kw = dict(hyst=hyst, ice=ice, uh=uh)
+                    report(f"{label} uh={uh} {variant}",
+                           snow_call(fs, d, params, "traj", **kw),
+                           snow_call(fs, d, params, "traj", plain=True, **kw),
+                           *tol)
+                    n_checks += 1
     print(f"[3 kernels] K9 tile and block edges: {n_checks} kernel-vs-plain "
           f"checks passed at T in {TRAJ_EDGE_STEPS}, N in "
-          f"{TRAJ_EDGE_MEMBERS}, L in (1, 2, 5, 7); snow-only outflow "
-          f"elements that differ from the plain version in any bit: "
-          f"{unequal}")
+          f"{TRAJ_EDGE_MEMBERS}, L in (1, 2, 5, 7), the snow-only routine "
+          f"and one (UH pair, variant) an edge in turn (all 8 at every L "
+          f"and dtype, and at every (T, N)); snow-only outflow elements that "
+          f"differ from the plain version in any bit: {unequal}")
     check(unequal == 0, "the snow-only outflow of K9 is not the plain "
           "version's bit for bit")
 
@@ -1573,7 +1590,10 @@ def state_edge_checks(forcing, prec_np, etp_np):
     the history, H = 6 or 20), T in STATE_EDGE_STEPS; K10 at 2 and 5 layers
     (shared columns and registers), the plain and the hysteresis + ice
     variant (phase 3's other checks and the CUDA tests take the other two to
-    these edges) at both UH register pairs, its snow rows bit for bit; K14
+    these edges) at one UH register pair at each (T, N, L, dtype) edge,
+    taken in turn so that every layer count and dtype, and every (T, N)
+    edge across its four (L, dtype) slots, sees all four (UH pair, variant)
+    pairs, its snow rows bit for bit; K14
     on the MATLAB forcing with NaN members (a tenth of them, at least one,
     dry).  K4 in the same way on CAMELS 01031500 (days with p == e among
     them) at both UH register pairs, its split kernel at N in
@@ -1586,9 +1606,11 @@ def state_edge_checks(forcing, prec_np, etp_np):
     from rrmpg_tpu_torch.ops import fused_snow as fs
 
     n_checks, unequal = 0, 0
+    k10_combos = [(uh, v) for uh in fg.SUPPORTED_UH
+                  for v in SNOW_VARIANTS[::3]]
     k4_sizes = STATE_EDGE_MEMBERS + (fg.traj_split_members() + 1,
                                      fg.traj_split_members() + 72)
-    for dtype in (F64, F32):
+    for i_dtype, dtype in enumerate((F64, F32)):
         tol, name = TOL[dtype]["traj"], str(dtype)[6:]
         tensors = hbv_tensors(forcing, dtype)
         for t_len in TILE64_EDGE_STEPS:
@@ -1631,7 +1653,7 @@ def state_edge_checks(forcing, prec_np, etp_np):
                       f"hbv {name} T={t_len} N={n}: K13 and K14's cold "
                       "entry differ in a bit")
                 n_checks += 2
-        for t_len in STATE_EDGE_STEPS:
+        for i_t, t_len in enumerate(STATE_EDGE_STEPS):
             head = hbv_cut(tensors, 0, t_len)
             tail = hbv_cut(tensors, t_len, 2 * t_len)
             for n in STATE_EDGE_MEMBERS:
@@ -1646,39 +1668,43 @@ def state_edge_checks(forcing, prec_np, etp_np):
                     report(f"hbv {name} K14 T={t_len} N={n} {what}", *pair,
                            *tol, nan_ok=True)
                     n_checks += 1
-            for num_layers in (2, 5):
+            for i_layer, num_layers in enumerate((2, 5)):
                 d = SnowData.random(np.random.default_rng(t_len + num_layers),
                                     2 * t_len, num_layers, dtype)
                 head, tail = d.cut(0, t_len), d.cut(t_len, 2 * t_len)
-                for n in STATE_EDGE_MEMBERS:
-                    for uh in fg.SUPPORTED_UH:
-                        params = snow_random_params(
-                            np.random.default_rng(n + uh[0]), n, dtype,
-                            2.9 if uh[0] == 3 else BOUNDS_X4_WIDE)
-                        for variant, hyst, ice in SNOW_VARIANTS[::3]:
-                            label = (f"snow {name} K10 T={t_len} N={n} "
-                                     f"L={num_layers} uh={uh} {variant}")
-                            state, traj, (got, want) = snow_state_pair(
-                                fs, head, params, None, hyst, ice, uh)
-                            _, traj_b, (got_b, want_b) = snow_state_pair(
-                                fs, tail, params, state, hyst, ice, uh)
-                            for what, pair in (
-                                    ("cold traj", traj),
-                                    ("cold state rows",
-                                     (snow_rows(got), snow_rows(want))),
-                                    ("warm traj", traj_b),
-                                    ("warm state rows",
-                                     (snow_rows(got_b), snow_rows(want_b)))):
-                                report(f"{label} {what}", *pair, *tol)
-                                n_checks += 1
-                            unequal += (snow_bits_unequal(got, want)
-                                        + snow_bits_unequal(got_b, want_b))
+                for i_n, n in enumerate(STATE_EDGE_MEMBERS):
+                    # One (UH pair, variant) an edge, in turn: the 18 (T, N)
+                    # edges of each dtype and layer count take all four, and
+                    # so do the 4 (L, dtype) slots of each (T, N) edge.
+                    uh, (variant, hyst, ice) = k10_combos[
+                        (i_t * len(STATE_EDGE_MEMBERS) + i_n + 2 * i_dtype
+                         + i_layer) % len(k10_combos)]
+                    params = snow_random_params(
+                        np.random.default_rng(n + uh[0]), n, dtype,
+                        2.9 if uh[0] == 3 else BOUNDS_X4_WIDE)
+                    label = (f"snow {name} K10 T={t_len} N={n} "
+                             f"L={num_layers} uh={uh} {variant}")
+                    state, traj, (got, want) = snow_state_pair(
+                        fs, head, params, None, hyst, ice, uh)
+                    _, traj_b, (got_b, want_b) = snow_state_pair(
+                        fs, tail, params, state, hyst, ice, uh)
+                    for what, pair in (
+                            ("cold traj", traj),
+                            ("cold state rows",
+                             (snow_rows(got), snow_rows(want))),
+                            ("warm traj", traj_b),
+                            ("warm state rows",
+                             (snow_rows(got_b), snow_rows(want_b)))):
+                        report(f"{label} {what}", *pair, *tol)
+                        n_checks += 1
+                    unequal += (snow_bits_unequal(got, want)
+                                + snow_bits_unequal(got_b, want_b))
     print(f"[3 kernels] K4, K10, K13 and K14 tile and block edges: "
           f"{n_checks} checks passed at T in {STATE_EDGE_STEPS} (K10, K14) "
           f"and {TILE64_EDGE_STEPS} (K4, K13) cold + as many warm, N in "
           f"{STATE_EDGE_MEMBERS} (K4 also {k4_sizes[-2:]}: its split "
           f"kernel bit for bit its tile kernel), K10 at L in "
-          f"(2, 5), plain and hyst+ice, "
+          f"(2, 5), plain and hyst+ice at both UH pairs in turn, "
           f"K13 bit for bit K14 cold; "
           f"K10 snow state elements that differ from the plain version in "
           f"any bit: {unequal}")
@@ -4117,6 +4143,283 @@ def mesh_shard_checks(results, qobs, prec, etp, forcing, hbv_qobs, met,
     return max_abs
 
 
+EXAMPLES_DIR = REPO / "examples" / "torch"
+# Each port example -> the launch counters (ops._launch.LAUNCHES) its run on
+# the card must raise above 0: the kernels its study goes through.
+EXAMPLE_KERNELS = {
+    "01_model_api": ("snow_stats", "snow_mse", "snow_traj"),
+    "02_speed_comparison": ("abc_fused_single", "abc_fused"),
+    "03_hysteresis_icemelt": ("snow_sca_stats", "snow_mse", "snow_traj"),
+    "04_large_scale_ensembles": ("gr4j_mse",),
+    "05_uncertainty_regional": ("snow_traj", "gr4j_regional"),
+    "06_forecast_mode": ("gr4j_traj", "gr4j_traj_state", "snow_traj_state",
+                         "gr4j_mse"),
+    "07_sensitivity": ("gr4j_mse",),
+    "08_assimilation": ("gr4j_traj", "gr4j_traj_state"),
+    "09_pareto_front": ("snow_sca_stats", "snow_traj"),
+    "10_bayesian_inference": ("gr4j_mse",),
+}
+# The wrappers that launch the kernels, by module of rrmpg_tpu_torch.ops.
+LAUNCHING_WRAPPERS = {
+    "fused_abc": ("abc_fused_single", "abc_fused"),
+    "fused_gr4j": ("gr4j_simulate_fused", "gr4j_simulate_state_fused",
+                   "gr4j_ensemble_mse_fused",
+                   "gr4j_regional_objective_fused"),
+    "fused_hbv": ("hbv_simulate_fused", "hbv_simulate_state_fused",
+                  "hbv_ensemble_mse_fused"),
+    "fused_snow": ("snowgr4j_simulate_fused",
+                   "snowgr4j_simulate_state_fused",
+                   "snowgr4j_ensemble_mse_fused",
+                   "snowgr4j_regional_mse_fused", "cemaneige_simulate_fused",
+                   "cemaneige_ensemble_mse_fused"),
+}
+
+
+def launch_key(counter, warm):
+    """The key of the ``kernels`` line under which a launch counted as
+    ``counter`` is kept: the key of its mode in KERNEL_MODES (the warm mode
+    where the wrapper was given a state), else the counter itself."""
+    for name, modes in KERNEL_MODES.items():
+        keys = {mode: key for mode, (_, key) in modes.items()}
+        if counter == name or counter in keys.values():
+            return keys["warm"] if warm else keys.get("cold", counter)
+    return counter
+
+
+def tree_map(fn, x):
+    """``x`` with ``fn`` applied to each tensor in its tuples, named
+    tuples, lists and dicts."""
+    if isinstance(x, torch.Tensor):
+        return fn(x)
+    if isinstance(x, dict):
+        return {k: tree_map(fn, v) for k, v in x.items()}
+    if isinstance(x, tuple) and hasattr(x, "_fields"):
+        return type(x)(*(tree_map(fn, v) for v in x))
+    if isinstance(x, (tuple, list)):
+        return type(x)(tree_map(fn, v) for v in x)
+    return x
+
+
+def tree_leaves(x):
+    """The tensors of ``x`` (as :func:`tree_map` walks it), in order."""
+    leaves = []
+    tree_map(leaves.append, x)
+    return leaves
+
+
+def call_shape(args, kwargs):
+    """What sets a wrapper call's shape: the shape and dtype of each input
+    tensor and each flag or count (not the float initial stores)."""
+    shape = []
+
+    def walk(x):
+        if isinstance(x, torch.Tensor):
+            shape.append((tuple(x.shape), str(x.dtype)))
+        elif isinstance(x, dict):
+            for k, v in x.items():
+                shape.append(k)
+                walk(v)
+        elif isinstance(x, (tuple, list)):
+            for v in x:
+                walk(v)
+        elif not isinstance(x, float):
+            shape.append(x)
+
+    walk((args, sorted(kwargs.items())))
+    return tuple(shape)
+
+
+class WrapperCalls:
+    """Stands in for every launching wrapper (LAUNCHING_WRAPPERS) under
+    each name the loaded modules of rrmpg_tpu_torch give it, while
+    installed.  An outermost wrapper call adds its launches to ``counted``
+    (by launch counter) and ``launches`` (by :func:`launch_key`), and the
+    first call at each shape is kept, its inputs copied before the call,
+    in ``calls``: {(launch key, wrapper, shape): (wrapper, args, kwargs)}.
+    A wrapper reached under a name it does not replace would launch
+    without adding to ``counted``."""
+
+    def __init__(self):
+        from rrmpg_tpu_torch import ops
+
+        self.spies = {}
+        for module, names in LAUNCHING_WRAPPERS.items():
+            for name in names:
+                fn = getattr(getattr(ops, module), name)
+                self.spies[fn] = self._spy(fn, inspect.signature(fn))
+        self.depth = 0
+        self.counted, self.launches, self.calls = {}, {}, {}
+        self.example = None
+
+    def _spy(self, fn, signature):
+        from rrmpg_tpu_torch.ops import LAUNCHES
+
+        @functools.wraps(fn)
+        def spy(*args, **kwargs):
+            if self.depth:
+                return fn(*args, **kwargs)
+            shape = (fn.__name__, call_shape(args, kwargs))
+            seen = any(k[0] == self.example and k[2:] == shape
+                       for k in self.calls)
+            kept = None if seen else tree_map(torch.clone, (args, kwargs))
+            before = dict(LAUNCHES)
+            self.depth += 1
+            try:
+                out = fn(*args, **kwargs)
+            finally:
+                self.depth -= 1
+            warm = signature.bind(*args, **kwargs).arguments.get(
+                "state") is not None
+            for counter, count in LAUNCHES.items():
+                added = count - before[counter]
+                if not added:
+                    continue
+                key = launch_key(counter, warm)
+                self.counted[counter] = self.counted.get(counter, 0) + added
+                self.launches[key] = self.launches.get(key, 0) + added
+                if kept is not None:
+                    self.calls.setdefault((self.example, key, *shape),
+                                          (fn, *kept))
+            return out
+        return spy
+
+    @staticmethod
+    def _swap(table):
+        """Replace every function of ``table``'s keys by its value under
+        each name a loaded module of rrmpg_tpu_torch gives it."""
+        for module in [m for n, m in list(sys.modules.items())
+                       if n.startswith("rrmpg_tpu_torch") and m is not None]:
+            for name, value in list(vars(module).items()):
+                if inspect.isfunction(value) and value in table:
+                    setattr(module, name, table[value])
+
+    def install(self):
+        self._swap(self.spies)
+
+    def uninstall(self):
+        self._swap({spy: fn for fn, spy in self.spies.items()})
+
+    def reset(self, example):
+        self.example = example
+        self.counted, self.launches = {}, {}
+
+
+def check_example_result(stem, result):
+    """Hold what an example prints as a check: 02's K6 against the plain
+    doubling scan at K6's own float32 tolerance (ABC_RTOL_OF_MAX_F32 of the
+    largest discharge) and its K7 ensemble finite, 06's chained,
+    day-by-day, class and snow forecasts equal to their unbroken runs
+    (max |dq| <= 1e-6), 08's scan backend equal to its host backend."""
+    check(isinstance(result, dict), f"example {stem} returned {result!r}")
+    if stem == "02_speed_comparison":
+        limit = ABC_RTOL_OF_MAX_F32 * result["q_max"]
+        check(result["max_dq"] <= limit, f"example {stem}: K6 and the plain "
+              f"doubling scan differ by {result['max_dq']:.3e} > {limit:.3e}")
+        check(result["ensemble_finite"], f"example {stem}: K7's ensemble "
+              "is not finite")
+    elif stem == "06_forecast_mode":
+        for key in ("chained_max_dq", "daily_max_dq", "class_max_dq",
+                    "snow_max_dq"):
+            check(result[key] <= 1e-6, f"example {stem}: {key} "
+                  f"{result[key]:.3e} > 1e-6")
+    elif stem == "08_assimilation":
+        check(result["backends_max_dq"] == 0.0, f"example {stem}: the scan "
+              f"and host backends differ by {result['backends_max_dq']:.3e}")
+    print(f"[5 examples] {stem}: its own checks held")
+
+
+def examples_shape_checks(calls):
+    """Each kernel the examples launched, at each shape an example gave
+    it (the first such call, its inputs as given), against its plain
+    version: the same wrapper on the same inputs moved to the CPU, where
+    it runs its plain version.  An output may be NaN where the plain
+    version's is (DE-MC proposes members outside the bounds), and nowhere
+    else.  Returns the max abs error by launch key and the seconds taken."""
+    t0 = time.perf_counter()
+    max_abs = {}
+    for (example, key, name, _), (fn, args, kwargs) in calls.items():
+        got = tree_leaves(fn(*args, **kwargs))
+        want = tree_leaves(fn(*tree_map(lambda x: x.cpu(), args),
+                              **tree_map(lambda x: x.cpu(), kwargs)))
+        check(len(got) == len(want), f"{name}: {len(got)} outputs on the "
+              f"card, {len(want)} in its plain version")
+        dims = "; ".join("x".join(map(str, a.shape))
+                         for a in tree_leaves((args, kwargs)) if a.dim())
+        for i, (g, w) in enumerate(zip(got, want)):
+            if not g.is_floating_point():
+                check(torch.equal(g.cpu(), w), f"{name} output {i} differs")
+                continue
+            w = w.to(g.device)
+            if "abc" in key:
+                tol = abc_tol(w)
+            else:
+                tol = TOL[w.dtype]["traj" if "traj" in key else "obj"]
+            err = report(f"example shape {key} ({example}: {name}, output "
+                         f"{i}, inputs {dims})", g, w, *tol, nan_ok=True)
+            max_abs[key] = max(max_abs.get(key, 0.0), err)
+    return max_abs, time.perf_counter() - t0
+
+
+def phase_examples(card):
+    """The ten port examples (``examples/torch``), in this process on the
+    card at ``RRMPG_EXAMPLE_FAST=1``: each loaded with ``runpy`` (not as
+    ``__main__``) and its ``main(['--device', 'cuda'])`` called, with the
+    launch counts set to 0 just before and read just after: each must go
+    through the kernels EXAMPLE_KERNELS names, and what it returns must pass
+    :func:`check_example_result`.  WrapperCalls stands in for the wrappers
+    meanwhile, and every kernel launched is then held against its plain
+    version at each shape an example gave it (:func:`examples_shape_checks`).
+    Nothing is caught: an example that raises fails the run.
+
+    Returns the launches by key of the ``kernels`` line (``examples/<key>``,
+    a state kernel's or objective's warm launches under its warm mode), the
+    max abs errors of the shape checks and the walls."""
+    import runpy
+
+    paths = sorted(EXAMPLES_DIR.glob("[0-9]*.py"))
+    check([p.stem for p in paths] == list(EXAMPLE_KERNELS),
+          f"examples/torch holds {[p.name for p in paths]}")
+    launches, walls = {}, {}
+    saved_fast = os.environ.get("RRMPG_EXAMPLE_FAST")
+    os.environ["RRMPG_EXAMPLE_FAST"] = "1"
+    spy = WrapperCalls()
+    spy.install()
+    try:
+        for path in paths:
+            print(f"[5 examples] {path.stem} ...", flush=True)
+            spy.reset(path.stem)
+            example = runpy.run_path(str(path), run_name="example")
+            result, got, seconds = run_counted(
+                lambda: example["main"](["--device", DEVICE]))
+            missing = [k for k in EXAMPLE_KERNELS[path.stem]
+                       if not got.get(k)]
+            check(not missing, f"example {path.stem} launched no "
+                  f"{missing}; its launches: {got}")
+            check(spy.counted == got, f"example {path.stem} launched "
+                  f"{got}, of which its wrapper calls account for "
+                  f"{spy.counted}")
+            check_example_result(path.stem, result)
+            for key, count in spy.launches.items():
+                launches["examples/" + key] = (
+                    launches.get("examples/" + key, 0) + count)
+            walls[path.stem] = seconds
+            print(f"[5 examples] {path.stem}: {seconds:.2f} s, launches "
+                  f"{spy.launches}; {card}")
+    finally:
+        spy.uninstall()
+        if saved_fast is None:
+            os.environ.pop("RRMPG_EXAMPLE_FAST")
+        else:
+            os.environ["RRMPG_EXAMPLE_FAST"] = saved_fast
+    print(f"[5 examples] the ten examples in {sum(walls.values()):.2f} s, "
+          f"launches {launches}; {card}")
+    max_abs, seconds = examples_shape_checks(spy.calls)
+    walls["shape checks"] = seconds
+    print(f"[5 examples] {len(spy.calls)} kernel-vs-plain checks at the "
+          f"examples' shapes in {seconds:.2f} s; {card}")
+    return launches, max_abs, walls
+
+
 def measure_row(rows, card, name, kernel, plain, ops, n_bytes, reps, what,
                 dtype=F32):
     """Time ``kernel`` and its ``plain`` version, print one ``[6 times]``
@@ -5635,7 +5938,9 @@ def phase_times(card, prec_np, etp_np, qobs_np, forcing, qsim_matlab):
 def kernel_entries(launches, max_abs, times):
     """The fourteen kernels of the ``kernels`` line.  A kernel with several
     modes (KERNEL_MODES) carries the mode named in TOP_MODE at the top, the
-    launches of all its modes together, and every mode under ``modes``."""
+    launches of all its modes together, and every mode under ``modes``.
+    ``launches`` also counts the examples' launches of the kernel (or mode),
+    which ``examples_launches`` gives alone."""
     def entry(name, launches_n, err, row):
         source, replaces = KERNELS[name]
         return {"name": name, "route": "cuda", "source": source,
@@ -5647,19 +5952,25 @@ def kernel_entries(launches, max_abs, times):
     out = []
     for name in KERNELS:
         if name not in KERNEL_MODES:
-            out.append(entry(name, launches.get(name, 0), max_abs[name],
-                             times[name]))
+            examples = launches.get("examples/" + name, 0)
+            out.append(entry(name, launches.get(name, 0) + examples,
+                             max_abs[name], times[name]))
+            out[-1]["examples_launches"] = examples
             if name in SHAPE_ROWS:
                 out[-1]["shapes"] = {row: times[row]
                                      for row in SHAPE_ROWS[name]}
             continue
         modes = KERNEL_MODES[name]
         keys = [key for _, key in modes.values()]
-        combined = entry(name, sum(launches.get(k, 0) for k in keys),
+        examples = sum(launches.get("examples/" + k, 0) for k in keys)
+        combined = entry(name,
+                         sum(launches.get(k, 0) for k in keys) + examples,
                          max(max_abs[k] for k in keys),
                          times[modes[TOP_MODE[name]][1]])
+        combined["examples_launches"] = examples
         combined["modes"] = {
             mode: {"replaces": line, "launches": launches.get(key, 0),
+                   "examples_launches": launches.get("examples/" + key, 0),
                    "max_abs_err": max_abs[key], **times.get(key, {})}
             for mode, (line, key) in modes.items()}
         for mode, detail in combined["modes"].items():
@@ -5675,7 +5986,7 @@ def kernel_entries(launches, max_abs, times):
 
 
 PHASES = ("kernels", "golden", "main", "forecast", "regional", "tools",
-          "assim", "mesh", "times")
+          "assim", "mesh", "examples", "times")
 
 
 def main():
@@ -5762,6 +6073,9 @@ def main():
         gather("mesh", phase_mesh(card, qobs, prec, etp, forcing,
                                   qsim_matlab))
         lap("the mesh phase")
+    if "examples" in phases:
+        gather("examples", phase_examples(card))
+        lap("the examples")
     if "times" in phases:
         times = phase_times(card, prec, etp, qobs, forcing, qsim_matlab)
         lap("the times")
