@@ -146,9 +146,25 @@ Phases, in order (each prints its lines; any failure exits non-zero):
                   ``examples/torch/01-10`` in this process at
                   ``RRMPG_EXAMPLE_FAST=1``, each through the kernels its
                   study runs on (EXAMPLE_KERNELS), their launches counted
-                  in the ``kernels`` line.  Then each kernel is compared
-                  with its plain version at the shapes the main path gave
-                  it;
+                  in the ``kernels`` line; the JAX package's last
+                  surfaces (``surface``): ABC's 'scan' engine on the
+                  Toeplitz products (``linear_recurrence``,
+                  ``run_abcmodel_matscan``) at 10M steps in float32 and
+                  float64 and at 4096 x 12418 with a member at c = 7e-5
+                  against K6, K7 and the float64 doubling scan, under
+                  'highest' and 'high' float32 matmul precision bit for
+                  bit, timed beside K6 and K7, and the class's 10M-step
+                  ``simulate`` and CAMELS ``fit`` on it; a fused GR4J fit
+                  (K1) checkpointed to a directory
+                  (``torch.distributed.checkpoint``), broken off and
+                  resumed, bit for bit the unbroken fit, unsharded and on
+                  4 shards of cuda:0; GR4J ``fit(method='sce',
+                  engine='scan', mesh=)`` on ``default_mesh()`` and on 4
+                  shards of cuda:0 bit for bit the unsharded SCE fit, the
+                  fused form raising; ``config.enable_x64()`` making a
+                  fused ``simulate`` without ``dtype`` K3's float64 run.
+                  Then each kernel is compared with its plain version at
+                  the shapes the main path gave it;
 6. times       -- each kernel against its plain version and its bound:
                   GR4J and HBV-Edu at 131072 members x 3651 days, the snow
                   kernels at 131072 x 3651 x 5 layers (hysteresis + ice),
@@ -174,7 +190,7 @@ Phases, in order (each prints its lines; any failure exits non-zero):
 
 ``--phases a,b`` (development) runs only the named phases after the build:
 kernels, golden, main, forecast, regional, tools, assim, mesh, examples,
-times; the result
+surface, times; the result
 lines need them all (``assim`` without ``main`` takes the golden parameter
 sets for the calibrated ones).  ``--compare DIR[,DIR...]`` (development) builds the kernel sources in
 each DIR (another version's ``rrmpg_tpu_torch/csrc``) beside this
@@ -427,6 +443,25 @@ def report(label, got, want, rtol, atol, nan_ok=False):
           f"{'ok' if ok else 'FAIL'}")
     check(ok, f"{label}: kernel disagrees with its plain version")
     return abs_err
+
+
+def report_members(label, got, want):
+    """Print one comparison of (N, T) float32 ABC series and fail unless
+    every member is within ABC_RTOL_OF_MAX_F32 of that member's own
+    largest value; returns the max abs error."""
+    torch.cuda.synchronize()
+    check(torch.isfinite(got).all().item(), f"{label}: not finite")
+    got, want = got.double(), want.double()
+    diff = (got - want).abs()
+    limit = ABC_RTOL_OF_MAX_F32 * want.abs().amax(dim=-1, keepdim=True)
+    share = float((diff / limit.clamp_min(torch.finfo(F64).tiny)).max())
+    ok = bool((diff <= limit).all())
+    print(f"    {label} shape={tuple(got.shape)} max_abs={float(diff.max()):.3e}"
+          f" worst share of the member's limit {share:.3e} (limits "
+          f"{float(limit.min()):.3g}..{float(limit.max()):.3g}) "
+          f"{'ok' if ok else 'FAIL'}")
+    check(ok, f"{label}: a member disagrees beyond its tolerance")
+    return float(diff.max())
 
 
 def abc_tol(want):
@@ -2127,7 +2162,7 @@ def phase_main_path_abc(card, qobs, prec_basin):
           f"{walls['simulate']:.3f} s; MC {ABC_MC_MEMBERS} members on CAMELS "
           f"01031500 (T={len(prec_basin)}) best NSE {np.max(mc['nse']):.4f} "
           f"in {walls['mc']:.3f} s; fit mse nit={res.nit} fun={res.fun:.5f} "
-          f"in {walls['fit']:.3f} s (plain doubling scan per generation); "
+          f"in {walls['fit']:.3f} s (the Toeplitz scan per generation); "
           f"launches {launches} == expected; {card}")
 
     # What the main path computed at 10M steps (K6 through the class, K7
@@ -4305,16 +4340,17 @@ class WrapperCalls:
 
 
 def check_example_result(stem, result):
-    """Hold what an example prints as a check: 02's K6 against the plain
-    doubling scan at K6's own float32 tolerance (ABC_RTOL_OF_MAX_F32 of the
-    largest discharge) and its K7 ensemble finite, 06's chained,
+    """Hold what an example prints as a check: 02's K6 against the 'scan'
+    engine's Toeplitz products at K6's own float32 tolerance
+    (ABC_RTOL_OF_MAX_F32 of the largest discharge) and its K7 ensemble
+    finite, 06's chained,
     day-by-day, class and snow forecasts equal to their unbroken runs
     (max |dq| <= 1e-6), 08's scan backend equal to its host backend."""
     check(isinstance(result, dict), f"example {stem} returned {result!r}")
     if stem == "02_speed_comparison":
         limit = ABC_RTOL_OF_MAX_F32 * result["q_max"]
-        check(result["max_dq"] <= limit, f"example {stem}: K6 and the plain "
-              f"doubling scan differ by {result['max_dq']:.3e} > {limit:.3e}")
+        check(result["max_dq"] <= limit, f"example {stem}: K6 and the "
+              f"Toeplitz scan differ by {result['max_dq']:.3e} > {limit:.3e}")
         check(result["ensemble_finite"], f"example {stem}: K7's ensemble "
               "is not finite")
     elif stem == "06_forecast_mode":
@@ -4417,6 +4453,323 @@ def phase_examples(card):
     walls["shape checks"] = seconds
     print(f"[5 examples] {len(spy.calls)} kernel-vs-plain checks at the "
           f"examples' shapes in {seconds:.2f} s; {card}")
+    return launches, max_abs, walls
+
+
+# The JAX package's last surfaces (phase ``surface``): the depths of its
+# runs.
+SURFACE_DE = (10, 30)            # generations before the break, and in all
+SURFACE_SCE_DAYS = 365           # SCE on a mesh: the record's last days
+SURFACE_SCE_MAXITER = 1
+SURFACE_SMALL_C = 7e-5           # the smallest c of PERF.md's section 2
+
+
+def surface_abc(card, prec_basin):
+    """(a) of :func:`phase_surface`: ``linear_recurrence`` and
+    ``run_abcmodel_matscan`` (the 'scan' engine's Toeplitz products) at 10M
+    steps in float32 and float64 and at the Monte-Carlo's 4096 x 12418 with
+    a member at c = 7e-5, against K6 and K7 (the errors kept as theirs,
+    the small-c member's aside; at the Monte-Carlo shape each member within
+    ABC's tolerance of its own largest value), and against the float64
+    doubling scan (float64 at 10M, the float32 Monte-Carlo shape member by
+    member); every float32 run twice, under
+    'highest' and under 'high' float32 matmul precision, bit for bit; CUDA
+    event times beside K6's and K7's.  The kernels' launches here compare
+    and are not counted.  Returns the max abs errors by kernel and the
+    times."""
+    from rrmpg_tpu_torch.ops import abc, fused_abc as fa, linear_recurrence
+
+    max_abs, times = {}, {}
+
+    def recurrence(prec, s0, params):
+        return linear_recurrence(1.0 - params['c'],
+                                 params['a'][..., None] * prec[1:], s0)
+
+    def both(prec, s0, params):
+        return (*abc.run_abcmodel_matscan(prec, s0, params),
+                recurrence(prec, s0, params))
+
+    def under_both_precisions(label, fn):
+        """``fn()`` under 'highest', then under 'high' float32 matmul
+        precision, which must give the same bits (TF32 stays out)."""
+        torch.set_float32_matmul_precision("highest")
+        highest = fn()
+        torch.set_float32_matmul_precision("high")
+        high = fn()
+        torch.cuda.synchronize()
+        torch.set_float32_matmul_precision("highest")
+        check(all(torch.equal(a, b) for a, b in zip(highest, high)),
+              f"{label}: 'high' float32 matmul precision changed the result")
+        return highest
+
+    def compare(label, q, s, s_tail, kernels):
+        """Each kernel's (q, S) against matscan's, and its S after step 0
+        against ``linear_recurrence``'s: one series."""
+        for name, (kq, ks) in kernels.items():
+            for series, g, w in (("q", kq, q), ("S", ks, s)):
+                max_abs[name] = max(max_abs.get(name, 0.0), report(
+                    f"surface {label} {name} vs matscan {series}", g, w,
+                    *abc_tol(w)))
+            report(f"surface {label} {name} vs linear_recurrence S",
+                   ks[..., 1:], s_tail, *abc_tol(s_tail))
+
+    def compare_members(label, q, s, s_tail, kernels, small):
+        """As :func:`compare` on (N, T) float32 series, each member held
+        within ABC_RTOL_OF_MAX_F32 of its own largest value.  The member
+        ``small`` (c = 7e-5, storages ~1e4) is held alone against matscan
+        and its errors are not the kernels' ``max_abs_err``; against
+        ``linear_recurrence`` (JAX's rounded ``1 - c``) it is left out."""
+        others = torch.arange(q.shape[0], device=DEVICE) != small
+        for name, (kq, ks) in kernels.items():
+            for series, g, w in (("q", kq, q), ("S", ks, s)):
+                max_abs[name] = max(max_abs.get(name, 0.0), report_members(
+                    f"surface {label} {name} vs matscan {series}", g[others],
+                    w[others]))
+                report_members(f"surface {label} member {small} {name} vs "
+                               f"matscan {series}", g[small:small + 1],
+                               w[small:small + 1])
+            report_members(f"surface {label} {name} vs linear_recurrence S",
+                           ks[others, 1:], s_tail[others])
+
+    prec_np = np.random.default_rng(0).uniform(0, 20, ABC_STEPS)
+    for dtype, suffix in ((F32, ""), (F64, "_f64")):
+        prec = as_tensor(prec_np, dtype)
+        member = {k: as_tensor(v, dtype) for k, v in ABC_PARAMS.items()}
+        s0 = as_tensor(0.0, dtype)
+        label = f"T={ABC_STEPS} {str(dtype)[6:]}"
+        q, s, s_tail = under_both_precisions(
+            label, lambda: both(prec, s0, member))
+        compare(label, q, s, s_tail, {
+            "abc_fused_single": fa.abc_fused_single(prec, s0, member),
+            "abc_fused": fa.abc_fused(prec, s0, member)})
+        if dtype == F64:
+            for series, g, w in zip(("q", "S"), (q, s),
+                                    abc.run_abcmodel_pscan(prec, s0,
+                                                           member)):
+                report(f"surface {label} matscan vs pscan {series}", g, w,
+                       *abc_tol(w))
+        for key, fn, reps in (
+                ("matscan", lambda: abc.run_abcmodel_matscan(
+                    prec, s0, member), 10),
+                ("linear_recurrence", lambda: recurrence(prec, s0, member),
+                 10),
+                ("K6", lambda: fa.abc_fused_single(prec, s0, member), 20),
+                ("K7", lambda: fa.abc_fused(prec, s0, member), 20)):
+            times[key + suffix] = device_ms(fn, reps)
+        del q, s, s_tail
+
+    basin = as_tensor(prec_basin, F32)
+    params, s0 = abc_members(np.random.default_rng(3), ABC_MC_MEMBERS, F32)
+    params['c'][3] = SURFACE_SMALL_C
+    label = f"Monte-Carlo {ABC_MC_MEMBERS} x {basin.shape[0]}"
+    q, s, s_tail = under_both_precisions(label,
+                                         lambda: both(basin, s0, params))
+    # linear_recurrence takes JAX's coefficient, a rounded 1 - c: at c =
+    # 7e-5 over these 12418 steps it drifts 1.2e-4 of the member's largest
+    # storage (the CPU in float32), past ABC's tolerance, which is why
+    # the 'scan' engine builds its powers from c.  It is held on the other
+    # members, and that member's drift is printed and held below 1e-3.
+    compare_members(label, q, s, s_tail, {
+        "abc_fused_single": fa.abc_fused_single(basin, s0, params),
+        "abc_fused": fa.abc_fused(basin, s0, params)}, 3)
+    ref = abc.run_abcmodel_pscan(basin.double(), s0.double(),
+                                 {k: v.double() for k, v in params.items()})
+    drift = float((s_tail[3].double() - ref[1][3, 1:]).abs().max()
+                  / ref[1][3].abs().max())
+    print(f"    surface {label} member 3 (c={SURFACE_SMALL_C:g}) "
+          f"linear_recurrence (a rounded 1 - c, JAX's form) vs float64 "
+          f"pscan: max |err| / max = {drift:.3e}")
+    check(drift < 1e-3, f"linear_recurrence at c={SURFACE_SMALL_C:g} "
+          f"drifts {drift:.3e} of the storage's largest value")
+    # Member by member within 1e-4 of the member's own largest value (the
+    # member at c = 7e-5 holds storages ~1e4): c = 0, 0.12, 1, 7e-5, then
+    # a random one.
+    for k in range(5):
+        for series, g, w in zip(("q", "S"), (q, s), ref):
+            report(f"surface {label} member {k} (c="
+                   f"{float(params['c'][k]):g}) float32 matscan vs float64 "
+                   f"pscan {series}", g[k], w[k], *abc_tol(w[k].float()))
+    del q, s, s_tail, ref
+    for key, fn, reps in (
+            ("matscan_mc", lambda: abc.run_abcmodel_matscan(
+                basin, s0, params), 10),
+            ("K6_mc", lambda: fa.abc_fused_single(basin, s0, params), 20),
+            ("K7_mc", lambda: fa.abc_fused(basin, s0, params), 20)):
+        times[key] = device_ms(fn, reps)
+    print("[5 surface] ABC device ms (CUDA events; matscan = the 'scan' "
+          "engine's Toeplitz products, not a library call): " + ", ".join(
+              f"{k} {v:.4f}" for k, v in times.items()) + f"; {card}")
+    return max_abs, times
+
+
+def same_run(a, b):
+    """Two OptimizeResults equal bit for bit."""
+    return (a.nit == b.nit and a.nfev == b.nfev and a.fun == b.fun
+            and np.array_equal(a.x, b.x)
+            and np.array_equal(a.population, b.population)
+            and np.array_equal(a.population_energies, b.population_energies))
+
+
+def phase_surface(card, qobs, prec, etp):
+    """The JAX package's last surfaces through the public entry points,
+    each check failing the run: (a) :func:`surface_abc`, then
+    ``ABCModel(params).simulate(<10M steps>, engine='scan')`` against K6,
+    and ``ABCModel().fit`` on CAMELS 01031500, both on the Toeplitz scan
+    and launching no kernel; (b) a fused GR4J fit on CAMELS 01031500 (K1)
+    checkpointed to a directory (``torch.distributed.checkpoint``) every
+    DE_CHECKPOINT_EVERY generations, broken off at 10 and resumed to 30,
+    bit for bit the unbroken 30, unsharded and on MESH_SHARDS shards of
+    cuda:0 (shards x the launches, bit for bit the unsharded fit); (c) GR4J
+    ``fit(method='sce', engine='scan', mesh=)`` on the record's last
+    SURFACE_SCE_DAYS days on ``default_mesh()`` and on MESH_SHARDS shards
+    of cuda:0, bit for bit the unsharded SCE fit and launching no kernel,
+    and ``engine='fused'`` raising ``ValueError`` as JAX's does; (d) after
+    ``config.enable_x64()`` a fused GR4J ``simulate`` with no ``dtype`` (K3
+    in float64) bit for bit the one with ``dtype=torch.float64`` and held
+    against the 'scan' engine, and float32 the default again after
+    ``enable_x64(False)``."""
+    from rrmpg_tpu_torch import config
+    from rrmpg_tpu_torch.models import ABCModel, GR4J
+    from rrmpg_tpu_torch.ops import fused_abc as fa
+    from rrmpg_tpu_torch.parallel import default_mesh, pad_to_multiple
+
+    launches, walls = {}, {}
+
+    def counted(key, fn):
+        result, counts, seconds = run_counted(fn)
+        walls[key] = seconds
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+        return result, counts
+
+    # (a) ABC's 'scan' engine on the Toeplitz products.
+    max_abs, times = surface_abc(card, prec)
+    prec_long = np.random.default_rng(0).uniform(0, 20, ABC_STEPS)
+    (q_scan, s_scan), n_sim = counted(
+        "ABC simulate", lambda: ABCModel(
+            params=ABC_PARAMS).simulate(prec_long, engine='scan',
+                                        return_storage=True))
+    res_abc, n_fit = counted("ABC fit", lambda: ABCModel().fit(
+        qobs, prec, seed=0, maxiter=30))
+    check(not n_sim and not n_fit, f"ABC's 'scan' engine launched kernels: "
+          f"{n_sim}, {n_fit}")
+    check_fit(ABCModel, res_abc, "ABC 'scan' fit")
+    k6 = fa.abc_fused_single(as_tensor(prec_long, F32), 0.0, ABC_PARAMS)
+    for series, g, w in zip(("q", "S"), k6, (q_scan[:, 0], s_scan[:, 0])):
+        max_abs["abc_fused_single"] = max(max_abs["abc_fused_single"], report(
+            f"surface ABCModel.simulate 'scan' T={ABC_STEPS}: K6 vs it "
+            f"{series}", g, w, *abc_tol(w)))
+    del q_scan, s_scan, k6
+    print(f"[5 surface] ABCModel 'scan' float32: simulate T={ABC_STEPS} in "
+          f"{walls['ABC simulate']:.3f} s, fit on CAMELS 01031500 "
+          f"(T={len(prec)}) nit={res_abc.nit} fun={res_abc.fun:.5f} in "
+          f"{walls['ABC fit']:.3f} s, no kernel launched; {card}")
+
+    # (b) DE checkpoints to a directory, unsharded and on a mesh.
+    broken, total = SURFACE_DE
+    shards = default_mesh(["cuda:0"] * MESH_SHARDS)
+    fits = {}
+    for label, mesh in (("unsharded", None),
+                        (f"{MESH_SHARDS} x cuda:0", shards)):
+        kw = dict(engine='fused', seed=1, tol=0.0, mesh=mesh)
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "de")
+
+            def runs():
+                full = GR4J().fit(qobs, prec, etp, maxiter=total, **kw)
+                part = GR4J().fit(qobs, prec, etp, maxiter=broken,
+                                  checkpoint_path=path,
+                                  checkpoint_every=DE_CHECKPOINT_EVERY, **kw)
+                check(os.path.isfile(os.path.join(path, ".metadata")),
+                      f"{path} holds no checkpoint directory")
+                return full, part, GR4J().fit(qobs, prec, etp,
+                                              maxiter=total,
+                                              resume_from=path, **kw)
+
+            (full, part, resumed), n = counted(f"DE directory {label}", runs)
+        check(part.nit == broken and same_run(resumed, full),
+              f"DE {label}: {broken} generations to a directory and resumed "
+              f"to {total} differ from the unbroken {total}")
+        check_fit(GR4J, full, f"GR4J fit {label}")
+        expect = {"gr4j_mse": ((total + 1) + (broken + 1) + (total - broken))
+                  * (1 if mesh is None else MESH_SHARDS)}
+        check(n == expect, f"DE {label}: launches {n}, expected {expect}")
+        fits[label] = full
+    check(same_run(*fits.values()), "the fused fit on the mesh differs from "
+          "the unsharded one")
+    print(f"[5 surface] DE, GR4J fused fit on CAMELS 01031500: {broken} "
+          f"generations saved to a directory every {DE_CHECKPOINT_EVERY} and "
+          f"resumed to {total} equal the unbroken {total} bit for bit, "
+          f"unsharded ({walls['DE directory unsharded']:.3f} s for the "
+          f"three fits) and on {MESH_SHARDS} shards of cuda:0 ("
+          f"{walls[f'DE directory {MESH_SHARDS} x cuda:0']:.3f} s); fun "
+          f"{full.fun:.6f}; {card}")
+
+    # (c) SCE-UA on a mesh with the 'scan' objective, per point.
+    days = slice(-SURFACE_SCE_DAYS, None)
+    sce_args = (qobs[days], prec[days], etp[days])
+    sce_kw = dict(method='sce', engine='scan', seed=0,
+                  maxiter=SURFACE_SCE_MAXITER)
+    p = max(2, len(GR4J._param_list))
+    unsharded = {}
+    for label, mesh in (("default_mesh()", default_mesh()),
+                        (f"{MESH_SHARDS} x cuda:0", shards)):
+        n_complexes = pad_to_multiple(p, mesh.size)
+        if n_complexes not in unsharded:
+            unsharded[n_complexes], n = counted(
+                f"SCE scan p={n_complexes}", lambda: GR4J().fit(
+                    *sce_args, n_complexes=n_complexes, **sce_kw))
+            check(not n, f"the 'scan' SCE fit launched {n}")
+        res, n = counted(f"SCE scan {label}", lambda: GR4J().fit(
+            *sce_args, mesh=mesh, **sce_kw))
+        check(not n, f"the 'scan' SCE fit on {label} launched {n}")
+        check_fit(GR4J, res, f"SCE on {label}")
+        check(same_run(res, unsharded[n_complexes]),
+              f"fit(method='sce', engine='scan') on {label} differs from "
+              "the unsharded SCE fit")
+    raised = None
+    try:
+        GR4J().fit(*sce_args, method='sce', engine='fused', mesh=shards,
+                   maxiter=1)
+    except ValueError as exc:
+        raised = str(exc)
+    check(raised is not None and "per-point" in raised,
+          f"fit(method='sce', engine='fused', mesh=) did not raise JAX's "
+          f"ValueError: {raised!r}")
+    print(f"[5 surface] SCE, GR4J fit(method='sce', engine='scan') on the "
+          f"last {SURFACE_SCE_DAYS} days, maxiter {SURFACE_SCE_MAXITER}: on "
+          f"default_mesh() ({walls['SCE scan default_mesh()']:.3f} s) and "
+          f"{MESH_SHARDS} shards of cuda:0 ("
+          f"{walls[f'SCE scan {MESH_SHARDS} x cuda:0']:.3f} s) bit for bit "
+          f"the unsharded fit, nfev {res.nfev}; engine='fused' raises; "
+          f"{card}")
+
+    # (d) enable_x64: float64 without dtype=.
+    config.enable_x64()
+    model = GR4J(params=GR4J_GOLDEN)
+    q_auto, n_auto = counted("simulate enable_x64", lambda: model.simulate(
+        prec, etp, engine='fused'))
+    config.enable_x64(False)
+    q_f64, n_f64 = counted("simulate float64", lambda: GR4J(
+        params=GR4J_GOLDEN, dtype=F64).simulate(prec, etp, engine='fused'))
+    check(model.dtype == F64 and q_auto.dtype == F64
+          and torch.equal(q_auto, q_f64),
+          "enable_x64(): simulate without dtype differs from dtype=float64")
+    check(n_auto == n_f64 == {"gr4j_traj": 1},
+          f"enable_x64 simulate launched {n_auto}, the float64 one {n_f64}")
+    check(config.default_float() == F32
+          and GR4J(params=GR4J_GOLDEN).dtype == F32,
+          "enable_x64(False) left float64 the default")
+    plain = GR4J(params=GR4J_GOLDEN, dtype=F64).simulate(prec, etp,
+                                                         engine='scan')
+    max_abs["gr4j_traj"] = report(
+        f"surface enable_x64 K3 float64 (1 x {len(prec)}) vs the 'scan' "
+        "engine",
+        q_auto, plain, *TOL[F64]["traj"])
+    print(f"[5 surface] enable_x64(): fused GR4J simulate without dtype "
+          f"launched K3 in float64, bit for bit dtype=torch.float64; "
+          f"enable_x64(False) restored float32; {card}")
+    print(f"[5 surface] launches {launches}; {card}")
     return launches, max_abs, walls
 
 
@@ -5986,7 +6339,7 @@ def kernel_entries(launches, max_abs, times):
 
 
 PHASES = ("kernels", "golden", "main", "forecast", "regional", "tools",
-          "assim", "mesh", "examples", "times")
+          "assim", "mesh", "examples", "surface", "times")
 
 
 def main():
@@ -6076,6 +6429,9 @@ def main():
     if "examples" in phases:
         gather("examples", phase_examples(card))
         lap("the examples")
+    if "surface" in phases:
+        gather("surface", phase_surface(card, qobs, prec, etp))
+        lap("the surface phase")
     if "times" in phases:
         times = phase_times(card, prec, etp, qobs, forcing, qsim_matlab)
         lap("the times")

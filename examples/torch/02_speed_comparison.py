@@ -4,9 +4,10 @@ The reference compares pure Python (5.83 s), numba (33.3 ms) and Fortran
 (23.7 ms) on 10M ABC-model timesteps (its published CPU times,
 ``docs/source/examples/speed_comparision.rst``).  The PyTorch port's
 counterpart of ``examples/02_speed_comparison.py`` runs the same
-simulation two ways -- the plain doubling scan ``run_abcmodel_pscan`` (the
-``'scan'`` engine) and, on the card, the hand-written one-launch chunked
-scan ``abc_fused_single`` -- and then as a batched ensemble, 1024 parameter
+simulation two ways -- the chunked Toeplitz products
+``run_abcmodel_matscan`` (the ``'scan'`` engine, as JAX's XLA engine) and,
+on the card, the hand-written one-launch chunked scan
+``abc_fused_single`` -- and then as a batched ensemble, 1024 parameter
 sets over 1M steps each (on the card the three-launch ``abc_fused``),
 which is where an accelerator earns its keep.
 
@@ -29,7 +30,7 @@ import torch
 
 from rrmpg_tpu_torch.config import resolve_device
 from rrmpg_tpu_torch.ops import (abc_fused, abc_fused_single,
-                                 run_abcmodel_pscan)
+                                 run_abcmodel_matscan)
 from rrmpg_tpu_torch.utils.profiling import benchmark
 
 NUMBA_MS = 33.3   # the reference's published numba time
@@ -71,7 +72,7 @@ def main(argv=None):
               for k, v in (('a', 0.3), ('b', 0.2), ('c', 0.15))}
     s0 = torch.tensor(0.0, dtype=torch.float32, device=device)
 
-    engines = {"scan: plain doubling scan": run_abcmodel_pscan}
+    engines = {"scan: Toeplitz products": run_abcmodel_matscan}
     if device.type == "cuda":
         engines["fused: one-launch chunked scan (K6)"] = abc_fused_single
 
@@ -85,7 +86,7 @@ def main(argv=None):
               f"({NUMBA_MS / (res.best_s * 1e3):.0f}x the reference's "
               f"numba); {label}")
         results[name] = float(outputs[name][1][-1])
-    ref_q = outputs["scan: plain doubling scan"][0]
+    ref_q = outputs["scan: Toeplitz products"][0]
     diff = max(float((q - ref_q).abs().max()) for q, _ in outputs.values())
     print(f"final storage {results}; max |dq| between engines {diff:.2e}")
 
@@ -97,7 +98,7 @@ def main(argv=None):
                                 dtype=torch.float32, device=device)
              for k in ('a', 'b', 'c')}
     s0_e = torch.zeros(N, dtype=torch.float32, device=device)
-    kernel = abc_fused if device.type == "cuda" else run_abcmodel_pscan
+    kernel = abc_fused if device.type == "cuda" else run_abcmodel_matscan
     res_e = benchmark(kernel, prec_e, s0_e, batch, repeats=3)
     q_e, s_e = kernel(prec_e, s0_e, batch)
     print(f"ABC ensemble {N}x{T_e} [{kernel.__name__}]: best "

@@ -3,6 +3,7 @@
 
     python3 profile_port.py        # from the repository root; needs one card
     python3 profile_port.py assim  # the assimilation cycle alone
+    python3 profile_port.py abc-scan  # ABC's 'scan' engine: walls, memory
 
 Each path is driven through the entry points a user calls, in float32, at
 the shapes ``chip_smoke.py`` drives (the forecast path too: a 131072-member
@@ -18,6 +19,14 @@ Per path one line: the untraced walls, the traced wall, the device's busy
 time (kernels and copies), its idle share (1 - busy / traced wall), and the
 device time by kernel name.  Every line carries the card's name and power
 limit.  The numbers of PERF.md section 5 come from here.
+
+``abc-scan`` times ABC's ``'scan'`` engine on CAMELS 01031500 at 4096
+and 131072 members: the Toeplitz scan (members in groups, and in one
+group as before the groups), the doubling scan it replaced in the fit
+objective, the class's ``simulate`` and a one-generation ``fit`` of that
+population; per call the median wall of three (host clock, synchronised)
+and the peak of ``torch.cuda.max_memory_allocated`` above what was
+allocated before it.
 """
 
 import sys
@@ -122,9 +131,72 @@ def profile_assimilation(card, prec, etp):
               f"traced {traced:.2f} ms ({k4 / traced:.3f}); {card}")
 
 
+def peak_call(fn):
+    """(median wall ms of three calls after a warm-up, peak bytes above
+    the allocation before the call), or None on running out of memory."""
+    try:
+        fn()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        walls = [wall_ms(fn) for _ in range(UNTRACED_RUNS)]
+        return (sorted(walls)[len(walls) // 2],
+                torch.cuda.max_memory_allocated() - base)
+    except torch.OutOfMemoryError:
+        torch.cuda.empty_cache()
+        return None
+
+
+def profile_abc_scan(card, qobs, prec):
+    """ABC's 'scan' engine at the Monte-Carlo's 4096 members and at
+    MC_MEMBERS, on the basin's days (float32)."""
+    from rrmpg_tpu_torch.models import ABCModel
+    from rrmpg_tpu_torch.ops import abc, linear_scan
+
+    prec_t = cs.as_tensor(prec, cs.F32)
+    for n in (cs.ABC_MC_MEMBERS, cs.MC_MEMBERS):
+        params, s0 = cs.abc_members(np.random.default_rng(3), n, cs.F32)
+        members = {k: v.cpu().numpy() for k, v in params.items()}
+        grouped = linear_scan.MATRIX_ELEMENTS
+
+        def one_group():
+            linear_scan.MATRIX_ELEMENTS = 2 ** 62
+            try:
+                return abc.run_abcmodel_matscan(prec_t, s0, params)
+            finally:
+                linear_scan.MATRIX_ELEMENTS = grouped
+
+        popsize = -(-n // len(ABCModel._param_list))
+        calls = (
+            ("run_abcmodel_matscan (groups of "
+             f"{grouped // 128 ** 2})", lambda: abc.run_abcmodel_matscan(
+                 prec_t, s0, params)),
+            ("run_abcmodel_matscan (one group)", one_group),
+            ("run_abcmodel_pscan (the fit objective's scan before)",
+             lambda: abc.run_abcmodel_pscan(prec_t, s0, params)),
+            ("ABCModel.simulate(engine='scan')", lambda: ABCModel().simulate(
+                prec, params=members, engine='scan')),
+            (f"ABCModel.fit popsize {popsize} ({popsize * 3} members), "
+             "maxiter 1", lambda: ABCModel().fit(qobs, prec, seed=0,
+                                                 popsize=popsize,
+                                                 maxiter=1)))
+        for label, fn in calls:
+            got = peak_call(fn)
+            text = ("out of memory" if got is None else
+                    f"{got[0]:.3f} ms, peak {got[1] / 2 ** 30:.3f} GiB")
+            print(f"[profile] ABC 'scan' {n} x {len(prec)} float32: "
+                  f"{label}: {text}; {card}")
+        del params, s0, members
+
+
 def main():
     only_assim = sys.argv[1:] == ["assim"]
     card = cs.phase_environment()
+    if sys.argv[1:] == ["abc-scan"]:          # no kernel on this path
+        qobs, prec, _ = cs.basin()
+        profile_abc_scan(card, qobs, prec)
+        print(card)
+        return
     cs.phase_build()
     if only_assim:
         _, prec, etp = cs.basin()

@@ -3,21 +3,23 @@
 The JAX package takes parameters as a dict of arrays or a structured
 numpy array and carries state as JAX ``NamedTuple``s; here they become
 tensors on an explicit device.  Inputs are numpy (convert JAX arrays
-with ``np.asarray`` first), so this module imports no JAX.
+with ``np.asarray`` first), so this module imports no JAX.  ``dtype=None``
+is :func:`~.config.default_float`.
 """
 
 import numpy as np
 import torch
 
-from .config import DEFAULT_DEVICE, resolve_device
+from .config import DEFAULT_DEVICE, default_float, resolve_device
 from .models import states as _states
 from .ops.gr4j import GR4JState
 
 
-def params_from_numpy(params, device=DEFAULT_DEVICE, dtype=torch.float32):
+def params_from_numpy(params, device=DEFAULT_DEVICE, dtype=None):
     """Dict of (N,) tensors from a dict of arrays or a structured array,
     on the card unless ``device='cpu'``."""
     device = resolve_device(device)
+    dtype = default_float() if dtype is None else dtype
     if isinstance(params, np.ndarray) and params.dtype.names:
         params = {name: params[name] for name in params.dtype.names}
     if not isinstance(params, dict):
@@ -31,13 +33,14 @@ def params_from_numpy(params, device=DEFAULT_DEVICE, dtype=torch.float32):
 
 def layer_forcing_from_numpy(prec, mean_temp, frac_solid_prec, frac_ice=None,
                              ndsi=None, device=DEFAULT_DEVICE,
-                             dtype=torch.float32):
+                             dtype=None):
     """The snow ops' layer forcing as tensors, on the card unless
     ``device='cpu'``: ``(prec, mean_temp, frac_solid_prec)``, each (T, L),
     followed by ``frac_ice`` (L,) and ``ndsi`` (L, T; an array or a sequence
     of L band series) where given -- the arrays the JAX ops take as they
     are."""
     device = resolve_device(device)
+    dtype = default_float() if dtype is None else dtype
 
     def tensor(a):
         return torch.tensor(np.asarray(a, np.float64), dtype=dtype,
@@ -68,7 +71,7 @@ def layer_forcing_from_numpy(prec, mean_temp, frac_solid_prec, frac_ice=None,
 
 
 def regional_forcing_from_numpy(*series, layers=None, frac_ice=None,
-                                device=DEFAULT_DEVICE, dtype=torch.float32):
+                                device=DEFAULT_DEVICE, dtype=None):
     """The regional objectives' inputs as tensors, on the card unless
     ``device='cpu'``: each of ``series`` (C, T) (``prec, etp, qobs`` for
     GR4J; ``etp, qobs`` for the snow compositions), then, where given, the
@@ -76,6 +79,7 @@ def regional_forcing_from_numpy(*series, layers=None, frac_ice=None,
     ``frac_ice``, (L,) shared or (C, L) per catchment -- the arrays the JAX
     regional objectives take as they are (e.g. ``load_basins``' columns)."""
     device = resolve_device(device)
+    dtype = default_float() if dtype is None else dtype
 
     def tensor(a):
         return torch.tensor(np.asarray(a, np.float64), dtype=dtype,
@@ -111,12 +115,13 @@ def regional_forcing_from_numpy(*series, layers=None, frac_ice=None,
 
 
 def gr4j_state_from_numpy(state, device=DEFAULT_DEVICE,
-                          dtype=torch.float32):
+                          dtype=None):
     """Batched :class:`~rrmpg_tpu_torch.ops.gr4j.GR4JState` from the fields
     ``s`` (N,), ``r`` (N,) and ``pr_history`` (N, H) of a JAX ``GR4JState``
     (a single-member state with ``s``/``r`` scalars and ``pr_history``
     (H,) becomes N=1)."""
     device = resolve_device(device)
+    dtype = default_float() if dtype is None else dtype
 
     def field(name):
         value = getattr(state, name) if hasattr(state, name) else state[name]
@@ -129,7 +134,7 @@ def gr4j_state_from_numpy(state, device=DEFAULT_DEVICE,
 
 
 def state_from_numpy(bundle_name, leaves, device=DEFAULT_DEVICE,
-                     dtype=torch.float32):
+                     dtype=None):
     """A state bundle of this package from the leaves of the JAX package's
     bundle of the same name, given as numpy arrays in field order
     (``tuple(np.asarray(x) for x in jax_state)``), on the card unless
@@ -138,6 +143,7 @@ def state_from_numpy(bundle_name, leaves, device=DEFAULT_DEVICE,
     kept: batched leaves stay batched, a single-member state unbatched.
     """
     device = resolve_device(device)
+    dtype = default_float() if dtype is None else dtype
     if bundle_name == "SnowGR4JState":
         (snow_name, snow_leaves), gr4j_leaves = leaves
         return _states.SnowGR4JState(

@@ -226,13 +226,6 @@ class CemaneigeBase(BaseModel):
         return {name: X[:, j].contiguous()
                 for j, name in enumerate(self._param_list)}
 
-    def _minimize(self, objective, seed, de_kwargs):
-        from ..tools.calibration import minimize
-
-        bounds = tuple(self._default_bounds[p] for p in self._param_list)
-        return minimize(objective, bounds, seed=seed, batched=True,
-                        device=self.device, dtype=self.dtype, **de_kwargs)
-
 
 class _Forcing(typing.NamedTuple):
     """Validated inputs of one call, as tensors on the model's device."""
@@ -667,7 +660,7 @@ class SnowGR4JBase(CemaneigeBase):
 
         objective = self._objective_per_device(build, (f, qobs, state),
                                                de_kwargs.get("mesh"))
-        return self._minimize(objective, seed, de_kwargs)
+        return self._minimize(objective, seed, de_kwargs, engine)
 
     def _fit_q_sca(self, obs, f, loss_metric, seed, engine, initial_state,
                    pareto, de_kwargs):
@@ -724,4 +717,4 @@ class SnowGR4JBase(CemaneigeBase):
             bounds = tuple(self._default_bounds[p] for p in self._param_list)
             return nsga2(objective, bounds, seed=seed, batched=True,
                          device=self.device, dtype=self.dtype, **de_kwargs)
-        return self._minimize(objective, seed, de_kwargs)
+        return self._minimize(objective, seed, de_kwargs, engine)

@@ -5,8 +5,9 @@ bounds, structured dtype, constrained random sampling (b <= 1 - a),
 validation errors and ``simulate``/``fit`` signatures, with
 ``engine='scan'|'fused'`` in place of ``'xla'|'pallas'``:
 
-* ``'scan'`` -- plain batched PyTorch, stepping through time
-  (:func:`..ops.abc.run_abcmodel`), any device;
+* ``'scan'`` -- plain batched PyTorch: the linear storage recurrence as
+  batched Toeplitz products (:func:`..ops.abc.run_abcmodel_matscan`, JAX's
+  XLA engine), any device;
 * ``'fused'`` -- the hand-written single-launch CUDA scan
   (:func:`..ops.fused_abc.abc_fused_single`) for CUDA tensors, all members
   in one launch; on the CPU its plain version.
@@ -17,16 +18,16 @@ member axis last: ``(T, N)``.
 Forecast mode: ``return_final_state=True`` also returns the end-of-series
 :class:`~.states.ABCState` (of a cold start: the last storage row, on
 either engine), and an ``ABCState`` as ``initial_state`` continues from
-one, on the ``'scan'`` engine only; ``fit`` takes a single-member
-``ABCState`` too.
+one, on the ``'scan'`` engine only (:func:`..ops.abc.run_abcmodel_warm`,
+on the same products); ``fit`` takes a single-member ``ABCState`` too.
 """
 
 import numbers
 
 import numpy as np
 
-from ..config import DEFAULT_DEVICE, DEFAULT_DTYPE
-from ..ops.abc import run_abcmodel, run_abcmodel_pscan, run_abcmodel_warm
+from ..config import DEFAULT_DEVICE
+from ..ops.abc import run_abcmodel_matscan, run_abcmodel_warm
 from ..ops.fused_abc import abc_fused_single
 from ..parallel.mesh import check_mesh
 from ..utils.array_checks import check_for_negatives, validate_array_input
@@ -66,8 +67,7 @@ class ABCModel(BaseModel):
                        ('b', np.float64),
                        ('c', np.float64)])
 
-    def __init__(self, params=None, device=DEFAULT_DEVICE,
-                 dtype=DEFAULT_DTYPE):
+    def __init__(self, params=None, device=DEFAULT_DEVICE, dtype=None):
         super().__init__(params=params, device=device, dtype=dtype)
 
     def get_random_params(self, num=1):
@@ -100,8 +100,9 @@ class ABCModel(BaseModel):
             mesh: (optional) :class:`~..parallel.mesh.Mesh`; the
                 members (and a warm state) are split over its 'ensemble'
                 axis, ``engine='scan'`` only.
-            engine: 'scan' (plain PyTorch) or 'fused' (CUDA kernel K6, one
-                launch for all members, single-device).
+            engine: 'scan' (plain PyTorch, batched Toeplitz products) or
+                'fused' (CUDA kernel K6, one launch for all members,
+                single-device).
             return_final_state: also return the end-of-series
                 :class:`~.states.ABCState` (member axis leading).
 
@@ -139,7 +140,7 @@ class ABCModel(BaseModel):
                                              initial_state, param_dict)
         else:
             qsim, storage = self._ensemble(
-                run_abcmodel, (self._tensor(prec), initial_state),
+                run_abcmodel_matscan, (self._tensor(prec), initial_state),
                 param_dict, mesh)
         if not warm:
             # The storage series is the whole ABC state: its last row is
@@ -174,10 +175,10 @@ class ABCModel(BaseModel):
         """The calibration objective: (P, 3) candidates -> (P,) losses.
 
         ``qobs``/``prec`` are (T,) tensors on one device (the model's, or a
-        mesh shard's).  A
-        generation is one batched call of the plain parallel-prefix
-        simulation (``rrmpg_tpu`` has no fused ABC objective either) and
-        the masked metrics.  ``initial_state`` is the cold-start storage (a
+        mesh shard's).  A generation is one batched call of the Toeplitz
+        products (:func:`..ops.abc.run_abcmodel_matscan`, as JAX's
+        objective; ``rrmpg_tpu`` has no fused ABC objective either) and the
+        masked metrics.  ``initial_state`` is the cold-start storage (a
         float) or a single-member :class:`~.states.ABCState` to continue
         from.
         """
@@ -189,7 +190,7 @@ class ABCModel(BaseModel):
                 qsim = run_abcmodel_warm(prec, initial_state.storage,
                                          params)[0]
             else:
-                qsim = run_abcmodel_pscan(prec, initial_state, params)[0]
+                qsim = run_abcmodel_matscan(prec, initial_state, params)[0]
             return loss(qobs[None, :], qsim, dim=-1)
 
         return objective
@@ -210,18 +211,16 @@ class ABCModel(BaseModel):
                 minimizing ``1 - score``.
             seed: (optional) seed of the optimizer's ``torch.Generator``.
             **de_kwargs: forwarded to
-                :func:`rrmpg_tpu_torch.tools.calibration.minimize` and on
-                to ``differential_evolution``: ``key``, ``popsize``,
-                ``maxiter``, ``tol``, ``checkpoint_path`` /
-                ``checkpoint_every`` / ``resume_from`` (``*.npz``),
-                ``polish`` / ``polish_steps``; ``mesh`` / ``mesh_axis``
-                (each generation's population split over the mesh).
+                :func:`rrmpg_tpu_torch.tools.calibration.minimize` and on to
+                ``differential_evolution``: ``key``, ``popsize``, ``maxiter``,
+                ``tol``, ``checkpoint_path`` / ``checkpoint_every`` /
+                ``resume_from`` (``*.npz`` or a directory), ``polish`` /
+                ``polish_steps``; ``mesh`` / ``mesh_axis`` (each generation's
+                population split over the mesh).
 
         Returns:
             An :class:`~rrmpg_tpu_torch.tools.calibration.OptimizeResult`.
         """
-        from ..tools.calibration import minimize
-
         qobs = validate_array_input(qobs, np.float64, 'qobs')
         prec = _validate_prec(prec)
         if isinstance(initial_state, numbers.Number):
@@ -234,6 +233,4 @@ class ABCModel(BaseModel):
                 qobs, prec, initial_state, loss_metric),
             (self._tensor(qobs), self._tensor(prec), initial_state),
             de_kwargs.get("mesh"))
-        bounds = tuple(self._default_bounds[p] for p in self._param_list)
-        return minimize(objective, bounds, seed=seed, batched=True,
-                        device=self.device, dtype=self.dtype, **de_kwargs)
+        return self._minimize(objective, seed, de_kwargs)

@@ -16,8 +16,7 @@ import numbers
 import numpy as np
 import torch
 
-from ..config import (DEFAULT_DEVICE, DEFAULT_DTYPE, resolve_device,
-                      resolve_dtype)
+from ..config import DEFAULT_DEVICE, resolve_device, resolve_dtype
 from ..parallel.ensemble import ensemble_run
 from ..parallel.mesh import check_mesh, replicate, tree_leaves
 from .states import normalize_state, single_member_state
@@ -39,6 +38,25 @@ def check_fused_mesh(mesh, what="sharded simulation"):
             "API and would silently ignore mesh; use engine='scan' for "
             f"{what}, or the regional/ensemble helpers in "
             "rrmpg_tpu_torch.parallel.")
+
+
+class _PointOfBatch(torch.autograd.Function):
+    """One candidate's loss from a batched ``(P, dim) -> (P,)`` objective,
+    whose ``vmap`` is one call of the batched objective on the whole
+    batch: the per-point form of a ``'scan'`` objective, as JAX's XLA
+    objective is per point, without stepping a loop per candidate."""
+
+    @staticmethod
+    def forward(x, objective):
+        return objective(x[None, :])[0]
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def vmap(info, in_dims, x, objective):
+        return objective(x.movedim(in_dims[0], 0)), 0
 
 
 def check_stats_mesh(sim_kwargs):
@@ -63,8 +81,7 @@ class BaseModel(object):
     # Structured numpy datatype (one float64 field per parameter).
     _dtype = np.dtype([])
 
-    def __init__(self, params=None, device=DEFAULT_DEVICE,
-                 dtype=DEFAULT_DTYPE):
+    def __init__(self, params=None, device=DEFAULT_DEVICE, dtype=None):
         """Initialize a hydrological model.
 
         Args:
@@ -72,7 +89,9 @@ class BaseModel(object):
                 omitted, random parameters are drawn within the bounds.
             device: where the model computes: the card (``'cuda'``, the
                 default; raises on a machine without one) or ``'cpu'``.
-            dtype: ``torch.float32`` (default) or ``torch.float64``.
+            dtype: ``torch.float32`` or ``torch.float64``; by default
+                :func:`~..config.default_float` (float32 unless
+                :func:`~..config.enable_x64` was called).
 
         Raises:
             AttributeError: If a model parameter is missing in ``params``.
@@ -240,6 +259,25 @@ class BaseModel(object):
                       replicate(inputs, mesh).items() if device != home}
         objectives[home] = objective
         return lambda X: objectives[X.device](X)
+
+    def _minimize(self, objective, seed, de_kwargs, engine="scan"):
+        """``minimize`` of a batched objective on the model's device.
+        SCE-UA on a mesh shards its complexes and takes a per-point
+        objective, as JAX's does: there the ``'scan'`` engine's objective
+        goes per point (:class:`_PointOfBatch`), and the fused one stays
+        batched and raises, as JAX's Pallas objective does."""
+        from ..tools.calibration import minimize
+
+        per_point = (engine == "scan" and de_kwargs.get("method") == "sce"
+                     and de_kwargs.get("mesh") is not None)
+        if per_point:
+            batched_objective = objective
+
+            def objective(x):
+                return _PointOfBatch.apply(x, batched_objective)
+        bounds = tuple(self._default_bounds[p] for p in self._param_list)
+        return minimize(objective, bounds, seed=seed, batched=not per_point,
+                        device=self.device, dtype=self.dtype, **de_kwargs)
 
     @staticmethod
     def _to_reference_layout(series):

@@ -20,7 +20,7 @@ forcing.
 import numpy as np
 import torch
 
-from ..config import DEFAULT_DEVICE, DEFAULT_DTYPE
+from ..config import DEFAULT_DEVICE
 from ..ops._launch import valid_count
 from ..parallel.mesh import check_mesh
 from ..ops.cemaneige import run_cemaneige, run_cemaneige_warm
@@ -53,7 +53,7 @@ class Cemaneige(CemaneigeBase):
                        ('Kf', np.float64)])
 
     def __init__(self, params=None, device=DEFAULT_DEVICE,
-                 dtype=DEFAULT_DTYPE):
+                 dtype=None):
         super().__init__(params=params, device=device, dtype=dtype)
 
     def _prepare(self, prec, mean_temp, min_temp, max_temp,
@@ -177,14 +177,14 @@ class Cemaneige(CemaneigeBase):
                 segment from a known initial condition (``engine='scan'``
                 only).
             **de_kwargs: forwarded to
-                :func:`rrmpg_tpu_torch.tools.calibration.minimize` and on
-                to ``differential_evolution``: ``key``, ``popsize``,
-                ``maxiter``, ``tol``, ``checkpoint_path`` /
-                ``checkpoint_every`` / ``resume_from`` (``*.npz``),
-                ``polish`` / ``polish_steps`` (skipped, with a note in
-                the message, on the fused kernels, which have no
-                backward); ``mesh`` / ``mesh_axis`` (each generation's
-                population split over the mesh).
+                :func:`rrmpg_tpu_torch.tools.calibration.minimize` and on to
+                ``differential_evolution``: ``key``, ``popsize``, ``maxiter``,
+                ``tol``, ``checkpoint_path`` / ``checkpoint_every`` /
+                ``resume_from`` (``*.npz`` or a directory), ``polish`` /
+                ``polish_steps`` (skipped, with a note in the message, on the
+                fused kernels, which have no backward); ``mesh`` /
+                ``mesh_axis`` (each generation's population split over the
+                mesh).
 
         Returns:
             An :class:`~rrmpg_tpu_torch.tools.calibration.OptimizeResult`.
@@ -234,7 +234,7 @@ class Cemaneige(CemaneigeBase):
         objective = self._objective_per_device(
             build, (qobs, prec, mean_temp, frac_solid_prec, state),
             de_kwargs.get("mesh"))
-        return self._minimize(objective, seed, de_kwargs)
+        return self._minimize(objective, seed, de_kwargs, engine)
 
 
 def _cold_final(prec, mean_temp, frac_solid_prec, snow0, th0, params):

@@ -8,7 +8,7 @@ of ``'xla'|'pallas'`` (see :mod:`._snow_base`).
 
 import numpy as np
 
-from ..config import DEFAULT_DEVICE, DEFAULT_DTYPE
+from ..config import DEFAULT_DEVICE
 from ._snow_base import SnowGR4JBase
 
 
@@ -32,7 +32,7 @@ class CemaneigeGR4J(SnowGR4JBase):
                        ('x4', np.float64)])
 
     def __init__(self, params=None, device=DEFAULT_DEVICE,
-                 dtype=DEFAULT_DTYPE):
+                 dtype=None):
         super().__init__(params=params, device=device, dtype=dtype)
 
     def simulate(self, prec, mean_temp, min_temp, max_temp, etp,
@@ -92,14 +92,14 @@ class CemaneigeGR4J(SnowGR4JBase):
             engine: 'scan', or 'fused' to evaluate every DE generation with
                 one launch of the fused objective kernel K8.
             **de_kwargs: forwarded to
-                :func:`rrmpg_tpu_torch.tools.calibration.minimize` and on
-                to ``differential_evolution``: ``key``, ``popsize``,
-                ``maxiter``, ``tol``, ``checkpoint_path`` /
-                ``checkpoint_every`` / ``resume_from`` (``*.npz``),
-                ``polish`` / ``polish_steps`` (skipped, with a note in
-                the message, on the fused kernels, which have no
-                backward); ``mesh`` / ``mesh_axis`` (each generation's
-                population split over the mesh).
+                :func:`rrmpg_tpu_torch.tools.calibration.minimize` and on to
+                ``differential_evolution``: ``key``, ``popsize``, ``maxiter``,
+                ``tol``, ``checkpoint_path`` / ``checkpoint_every`` /
+                ``resume_from`` (``*.npz`` or a directory), ``polish`` /
+                ``polish_steps`` (skipped, with a note in the message, on the
+                fused kernels, which have no backward); ``mesh`` /
+                ``mesh_axis`` (each generation's population split over the
+                mesh).
 
         Returns:
             An :class:`~rrmpg_tpu_torch.tools.calibration.OptimizeResult`.

@@ -9,7 +9,7 @@ fractions, same ``simulate``/``fit`` signatures, with
 
 import numpy as np
 
-from ..config import DEFAULT_DEVICE, DEFAULT_DTYPE
+from ..config import DEFAULT_DEVICE
 from ._snow_base import SnowGR4JBase
 
 
@@ -37,7 +37,7 @@ class CemaneigeGR4JIce(SnowGR4JBase):
                        ('DDF', np.float64)])
 
     def __init__(self, params=None, device=DEFAULT_DEVICE,
-                 dtype=DEFAULT_DTYPE):
+                 dtype=None):
         super().__init__(params=params, device=device, dtype=dtype)
 
     def simulate(self, prec, mean_temp, min_temp, max_temp, etp, frac_ice,

@@ -15,7 +15,7 @@ which minimizes the efficiency itself), every 'kge' path minimizes
 
 import numpy as np
 
-from ..config import DEFAULT_DEVICE, DEFAULT_DTYPE
+from ..config import DEFAULT_DEVICE
 from ._snow_base import SnowGR4JBase
 
 
@@ -49,7 +49,7 @@ class CemaneigeHystGR4J(SnowGR4JBase):
                        ('x4', np.float64)])
 
     def __init__(self, params=None, device=DEFAULT_DEVICE,
-                 dtype=DEFAULT_DTYPE):
+                 dtype=None):
         super().__init__(params=params, device=device, dtype=dtype)
 
     def simulate(self, prec, mean_temp, min_temp, max_temp, etp,

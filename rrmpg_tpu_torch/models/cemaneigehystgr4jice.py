@@ -10,7 +10,7 @@ multi-objective ``fit_Q_SCA``, with ``engine='scan'|'fused'`` in place of
 
 import numpy as np
 
-from ..config import DEFAULT_DEVICE, DEFAULT_DTYPE
+from ..config import DEFAULT_DEVICE
 from ._snow_base import SnowGR4JBase
 from .cemaneigehystgr4j import _ndsi_series
 
@@ -45,7 +45,7 @@ class CemaneigeHystGR4JIce(SnowGR4JBase):
                        ('DDF', np.float64)])
 
     def __init__(self, params=None, device=DEFAULT_DEVICE,
-                 dtype=DEFAULT_DTYPE):
+                 dtype=None):
         super().__init__(params=params, device=device, dtype=dtype)
 
     def simulate(self, prec, mean_temp, min_temp, max_temp, etp, frac_ice,

@@ -27,7 +27,7 @@ import numbers
 import numpy as np
 import torch
 
-from ..config import DEFAULT_DEVICE, DEFAULT_DTYPE
+from ..config import DEFAULT_DEVICE
 from ..ops._launch import valid_count
 from ..ops.fused_gr4j import (gr4j_ensemble_mse_fused, gr4j_simulate_fused,
                               gr4j_simulate_state_fused)
@@ -67,7 +67,7 @@ class GR4J(BaseModel):
                        ('x4', np.float64)])
 
     def __init__(self, params=None, device=DEFAULT_DEVICE,
-                 dtype=DEFAULT_DTYPE):
+                 dtype=None):
         super().__init__(params=params, device=device, dtype=dtype)
 
     @staticmethod
@@ -364,21 +364,19 @@ class GR4J(BaseModel):
                 recent data), on either engine.  Mutually exclusive with
                 non-zero ``s_init``/``r_init``.
             **de_kwargs: forwarded to
-                :func:`rrmpg_tpu_torch.tools.calibration.minimize` and on
-                to ``differential_evolution``: ``key``, ``popsize``,
-                ``maxiter``, ``tol``, ``checkpoint_path`` /
-                ``checkpoint_every`` / ``resume_from`` (``*.npz``),
-                ``polish`` / ``polish_steps`` (skipped, with a note in
-                the message, on the fused kernels, which have no
-                backward); ``mesh`` / ``mesh_axis`` (each generation's
-                population split over the mesh, one launch of the fused
-                kernel a shard, the forcing copied once a device).
+                :func:`rrmpg_tpu_torch.tools.calibration.minimize` and on to
+                ``differential_evolution``: ``key``, ``popsize``, ``maxiter``,
+                ``tol``, ``checkpoint_path`` / ``checkpoint_every`` /
+                ``resume_from`` (``*.npz`` or a directory), ``polish`` /
+                ``polish_steps`` (skipped, with a note in the message, on the
+                fused kernels, which have no backward); ``mesh`` /
+                ``mesh_axis`` (each generation's population split over the
+                mesh, one launch of the fused kernel a shard, the forcing
+                copied once a device).
 
         Returns:
             An :class:`~rrmpg_tpu_torch.tools.calibration.OptimizeResult`.
         """
-        from ..tools.calibration import minimize
-
         calibration_loss(loss_metric)
         qobs = validate_array_input(qobs, np.float64, 'qobs')
         prec, etp = self._validate_forcings(prec, etp)
@@ -392,6 +390,4 @@ class GR4J(BaseModel):
                 qobs, prec, etp, s_init, r_init, loss_metric, engine, state),
             (self._tensor(qobs), self._tensor(prec), self._tensor(etp),
              state), de_kwargs.get("mesh"))
-        bounds = tuple(self._default_bounds[p] for p in self._param_list)
-        return minimize(objective, bounds, seed=seed, batched=True,
-                        device=self.device, dtype=self.dtype, **de_kwargs)
+        return self._minimize(objective, seed, de_kwargs, engine)

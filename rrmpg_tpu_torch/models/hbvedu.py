@@ -26,7 +26,7 @@ import functools
 import numpy as np
 import torch
 
-from ..config import DEFAULT_DEVICE, DEFAULT_DTYPE
+from ..config import DEFAULT_DEVICE
 from ..ops._launch import valid_count
 from ..ops.fused_hbv import (hbv_ensemble_mse_fused, hbv_simulate_fused,
                              hbv_simulate_state_fused)
@@ -62,7 +62,7 @@ class HBVEdu(BaseModel):
     _dtype = np.dtype([(name, np.float64) for name in PARAM_NAMES])
 
     def __init__(self, params=None, device=DEFAULT_DEVICE,
-                 dtype=DEFAULT_DTYPE):
+                 dtype=None):
         super().__init__(params=params, device=device, dtype=dtype)
 
     @staticmethod
@@ -317,22 +317,20 @@ class HBVEdu(BaseModel):
                 segment from a known initial condition, on either engine.
                 Mutually exclusive with non-zero ``*_init`` scalars.
             **de_kwargs: forwarded to
-                :func:`rrmpg_tpu_torch.tools.calibration.minimize` and on
-                to ``differential_evolution``: ``key``, ``popsize``,
-                ``maxiter``, ``tol``, ``checkpoint_path`` /
-                ``checkpoint_every`` / ``resume_from`` (``*.npz``),
-                ``polish`` / ``polish_steps`` (skipped, with a note in
-                the message, on the fused kernels, which have no
-                backward); ``mesh`` / ``mesh_axis`` (each generation's
-                population split over the mesh).
+                :func:`rrmpg_tpu_torch.tools.calibration.minimize` and on to
+                ``differential_evolution``: ``key``, ``popsize``, ``maxiter``,
+                ``tol``, ``checkpoint_path`` / ``checkpoint_every`` /
+                ``resume_from`` (``*.npz`` or a directory), ``polish`` /
+                ``polish_steps`` (skipped, with a note in the message, on the
+                fused kernels, which have no backward); ``mesh`` /
+                ``mesh_axis`` (each generation's population split over the
+                mesh).
 
         Returns:
             An :class:`~rrmpg_tpu_torch.tools.calibration.OptimizeResult`.
             Candidates whose soil store went negative have NaN losses; the
             optimizer never selects them (``nonfinite_members()``).
         """
-        from ..tools.calibration import minimize
-
         calibration_loss(loss_metric)
         qobs = validate_array_input(qobs, np.float64, 'qobs')
         forcings = self._forcing_tensors(temp, prec, month, PE_m, T_m)
@@ -345,6 +343,4 @@ class HBVEdu(BaseModel):
             lambda qobs, forcings, state: self._batch_objective(
                 qobs, forcings, inits, loss_metric, engine, state),
             (self._tensor(qobs), forcings, state), de_kwargs.get("mesh"))
-        bounds = tuple(self._default_bounds[p] for p in self._param_list)
-        return minimize(objective, bounds, seed=seed, batched=True,
-                        device=self.device, dtype=self.dtype, **de_kwargs)
+        return self._minimize(objective, seed, de_kwargs, engine)

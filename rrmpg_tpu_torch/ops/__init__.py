@@ -3,7 +3,12 @@ kernels' wrappers (``'fused'``).  Every function takes a leading member
 axis on its parameters."""
 
 from ._launch import LAUNCHES, reset_launches
-from .abc import run_abcmodel, run_abcmodel_pscan, run_abcmodel_warm
+from .abc import (
+    run_abcmodel,
+    run_abcmodel_matscan,
+    run_abcmodel_pscan,
+    run_abcmodel_warm,
+)
 from .cemaneige import (
     run_cemaneige,
     run_cemaneige_warm,
@@ -38,6 +43,7 @@ from .fused_snow import (
 )
 from .gr4j import GR4JState, gr4j_initial_state, run_gr4j, run_gr4j_warm
 from .hbvedu import run_hbvedu, run_hbvedu_warm
+from .linear_scan import linear_recurrence
 from .met import (
     calculate_solid_fraction,
     extrapolate_precipitation,

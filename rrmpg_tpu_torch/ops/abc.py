@@ -9,18 +9,27 @@ instead of ``vmap``.  State transition (reference
 
 with ``storage[0] = initial_state`` and ``qsim[0] = 0``.
 
-Two engines for the cold start: :func:`run_abcmodel` steps through time
-(the ``'scan'`` engine), :func:`run_abcmodel_pscan` composes the affine
-maps ``S -> (1 - c)*S + B[t]`` by recursive doubling in log2(T) passes over
-whole tensors.  The second is the plain version of the fused CUDA kernels
-(:mod:`.fused_abc`): the only plain form that is usable at ten million
-steps.
+Three forms of the cold start: :func:`run_abcmodel_matscan` solves the
+linear storage recurrence as batched Toeplitz products
+(:mod:`.linear_scan`; the ``'scan'`` engine, as JAX's XLA engine),
+:func:`run_abcmodel` steps through time, and :func:`run_abcmodel_pscan`
+composes the affine maps ``S -> (1 - c)*S + B[t]`` by recursive doubling in
+log2(T) passes over whole tensors, the plain version of the fused CUDA
+kernels (:mod:`.fused_abc`).  The warm start runs on the Toeplitz
+products too.
+
+The Toeplitz forms build the decay's powers ``(1 - c)^k`` from ``c`` as
+``exp(k log1p(-c))``, never from a rounded ``1 - c``: in float32 that
+rounding carries up to 4e-4 of a small ``c`` (7e-5), and the storage level
+(proportional to 1 / c) carries it too.
 
 Shapes: ``prec`` (T,); parameters and initial state scalars or (N,)
 tensors; series (N, T), or (T,) when every parameter is a scalar.
 """
 
 import torch
+
+from .linear_scan import solve
 
 
 def _members(prec, initial_state, params):
@@ -93,6 +102,41 @@ def affine_prefix(decay, B):
     return D, B
 
 
+def decay_power(c):
+    """``(k, rows) -> (1 - c[rows])^k``, (rows,) + ``k.shape``, from ``c``
+    itself: ``exp(k log1p(-c))``, with ``(1 - c)^0 = 1`` also at ``c = 1``
+    and the sign of ``1 - c < 0`` for ``c > 1``."""
+    above = c > 1
+    log_decay = torch.where(above, torch.log((c - 1).clamp_min(
+        torch.finfo(c.dtype).tiny)), torch.log1p(-c.clamp(max=1)))
+    log_decay = log_decay.clamp_min(torch.finfo(c.dtype).min)
+
+    def power(k, rows):
+        shape = (-1,) + (1,) * k.dim()
+        p = torch.exp(k * log_decay[rows].reshape(shape))
+        return torch.where(above[rows].reshape(shape) & (k % 2 == 1), -p, p)
+
+    return power
+
+
+def run_abcmodel_matscan(prec, initial_state, params):
+    """Simulate the ABC model by batched Toeplitz products (the ``'scan'``
+    engine).
+
+    The same trajectory as :func:`run_abcmodel` (floating-point
+    reassociation aside), computed with the chunked recurrence of
+    :mod:`.linear_scan`: one batched matmul a level for all members.
+    Arguments and results as :func:`run_abcmodel`.
+    """
+    (a, b, c, s0), single = _members(prec, initial_state, params)
+    # Steps t = 1 .. T-1; step 0 is the initialization.
+    tail = solve(decay_power(c), a[:, None] * prec[1:], s0)
+    storage = torch.cat([s0[:, None], tail], dim=1)
+    qsim = _outputs(prec, a, b, c, s0, storage)
+    qsim[:, 0] = 0.0
+    return _finish((qsim, storage), single)
+
+
 def _outputs(prec, a, b, c, s_before, storage):
     """qsim from the storage series and the storage before its first
     element."""
@@ -122,7 +166,8 @@ def run_abcmodel_warm(prec, state, params):
 
     Unlike the cold starts, every timestep advances the model from
     ``state``, so chaining segments through the returned final storage
-    reproduces the unbroken trajectory.
+    reproduces the unbroken trajectory.  Built on the Toeplitz products of
+    :func:`run_abcmodel_matscan`.
 
     Args:
         prec: (T,) continuation-segment precipitation.
@@ -134,8 +179,6 @@ def run_abcmodel_warm(prec, state, params):
         (T,) and a scalar tensor for scalar parameters.
     """
     (a, b, c, s_prev), single = _members(prec, state, params)
-    D_cum, B_cum = affine_prefix(c[:, None], a[:, None] * prec)
-    s_col = s_prev[:, None]
-    storage = s_col - D_cum * s_col + B_cum
+    storage = solve(decay_power(c), a[:, None] * prec, s_prev)
     qsim = _outputs(prec, a, b, c, s_prev, storage)
     return _finish((qsim, storage, storage[:, -1]), single)

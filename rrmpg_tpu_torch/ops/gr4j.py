@@ -18,7 +18,7 @@ import typing
 
 import torch
 
-from ..config import (DEFAULT_DEVICE, DEFAULT_DTYPE, resolve_device,
+from ..config import (DEFAULT_DEVICE, default_float, resolve_device,
                       resolve_dtype)
 from ._ties import clamp_min0
 from .uh import NUM_UH1, NUM_UH2, causal_fir, uh_ordinates
@@ -48,7 +48,7 @@ def gr4j_initial_state(s_init, r_init, params, num_uh2=NUM_UH2, dtype=None,
         num_uh2: UH2 register length; the history holds ``num_uh2 - 1``
             inputs.
         dtype: float32 or float64; default the dtype of a floating-point
-            ``x1`` tensor, else ``config.DEFAULT_DTYPE``.
+            ``x1`` tensor, else ``config.default_float()``.
         device: default ``config.DEFAULT_DEVICE`` (the card).
 
     Returns:
@@ -58,7 +58,7 @@ def gr4j_initial_state(s_init, r_init, params, num_uh2=NUM_UH2, dtype=None,
     device = resolve_device(DEFAULT_DEVICE if device is None else device)
     x1, x3 = (torch.as_tensor(params[k]) for k in ('x1', 'x3'))
     if dtype is None:
-        dtype = x1.dtype if x1.is_floating_point() else DEFAULT_DTYPE
+        dtype = x1.dtype if x1.is_floating_point() else default_float()
     dtype = resolve_dtype(dtype)
     s, r = torch.broadcast_tensors(
         *(torch.as_tensor(frac, dtype=dtype, device=device)

@@ -8,8 +8,8 @@ from .assimilation import (assimilation_cycle, enkf_update,
 from .calibration import (OptimizeResult, differential_evolution,
                           gradient_descent, minimize, random_search)
 from .sce import sce_ua
-from .checkpoint import (load_checkpoint, load_state, save_checkpoint,
-                         save_state)
+from .checkpoint import (load_checkpoint, load_checkpoint_dcp, load_state,
+                         save_checkpoint, save_checkpoint_dcp, save_state)
 from .mcmc import MCMCResult, demc_sample
 from .monte_carlo import monte_carlo
 from .moo import ParetoResult, hypervolume_2d, nsga2

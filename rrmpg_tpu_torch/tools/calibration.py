@@ -18,13 +18,16 @@ from ``jax.random``'s, so trajectories differ from ``rrmpg_tpu``'s while
 the algorithm is the same.  ``key=`` takes a ``torch.Generator`` of the
 caller's in place of JAX's PRNG key.
 
-Long calibrations checkpoint to a ``*.npz`` file (the npz backend of
-:mod:`.checkpoint`) every ``checkpoint_every`` generations: the normalized
-population, its energies, the generation count and, under ``key``, the
-generator's state, so a resumed run draws the numbers the unbroken run
-would have drawn and ends with the same bits.  Orbax directories are
-JAX-only.  :func:`gradient_descent` (Adam in normalized coordinates, by
-autograd) polishes DE's best member with ``polish=True``;
+Long calibrations checkpoint every ``checkpoint_every`` generations, as
+JAX's routes them: to a ``*.npz`` file (the npz backend of
+:mod:`.checkpoint`), or to a directory through
+``torch.distributed.checkpoint`` where JAX writes Orbax (an existing
+directory, or a new path without ``.npz``; every process of a group
+saves and loads it).  A checkpoint holds the normalized population, its
+energies, the generation count and, under ``key``, the generator's state,
+so a resumed run draws the numbers the unbroken run would have drawn and
+ends with the same bits.  :func:`gradient_descent` (Adam in normalized
+coordinates, by autograd) polishes DE's best member with ``polish=True``;
 :func:`random_search` keeps the best of sampled candidates.
 """
 
@@ -34,11 +37,11 @@ import typing
 import numpy as np
 import torch
 
-from ..config import (DEFAULT_DEVICE, DEFAULT_DTYPE, resolve_device,
-                      resolve_dtype)
+from ..config import DEFAULT_DEVICE, resolve_device, resolve_dtype
 from ..parallel.mesh import (ENSEMBLE_AXIS, check_mesh, pad_to_multiple,
                              sharded_call)
-from .checkpoint import load_checkpoint, save_checkpoint
+from .checkpoint import (load_checkpoint, load_checkpoint_dcp,
+                         save_checkpoint, save_checkpoint_dcp)
 
 
 class OptimizeResult(typing.NamedTuple):
@@ -91,23 +94,23 @@ def _generator(key, seed, device):
     return key
 
 
-def _check_npz(path):
-    """Raise for a path that ``rrmpg_tpu`` would take as an Orbax
-    checkpoint directory (an existing directory, or a new path without
-    the ``.npz`` suffix)."""
-    if os.path.isdir(path) or (not os.path.isfile(path)
-                               and not str(path).endswith(".npz")):
-        raise NotImplementedError(
-            f"{str(path)!r} names an Orbax checkpoint directory in "
-            "rrmpg_tpu; Orbax is JAX-only and not ported (ROADMAP.md, "
-            "Queue 1, 'Not ported, on purpose'). Use a *.npz path.")
+def _is_directory(path):
+    """Whether a DE checkpoint path is a directory checkpoint, as JAX's
+    ``_is_orbax`` decides: an existing directory, or a new path without
+    the ``.npz`` suffix (an existing file is an npz checkpoint under any
+    name)."""
+    if os.path.isdir(path):
+        return True
+    if os.path.isfile(path):
+        return False
+    return not str(path).endswith(".npz")
 
 
 def _restore(path, generator, pop_size, dim, dtype, device):
     """(normalized population, energies, nit) of a DE checkpoint written by
     this package, with ``generator`` set to the state saved beside them."""
-    _check_npz(path)
-    ckpt = load_checkpoint(path)
+    ckpt = (load_checkpoint_dcp if _is_directory(path)
+            else load_checkpoint)(path)
     key = np.asarray(ckpt["key"])
     if key.dtype != np.uint8:
         raise ValueError(
@@ -213,7 +216,7 @@ def differential_evolution(objective, bounds, key=None, popsize=15,
                            checkpoint_every=None, resume_from=None,
                            mesh=None, mesh_axis=None, polish=False,
                            polish_steps=200, device=DEFAULT_DEVICE,
-                           dtype=DEFAULT_DTYPE):
+                           dtype=None):
     """Global minimization by differential evolution.
 
     Args:
@@ -236,17 +239,19 @@ def differential_evolution(objective, bounds, key=None, popsize=15,
         batched: whether ``objective`` takes the whole population (see
             above); energies of another shape than (P,) raise
             ``ValueError``.
-        checkpoint_path: (optional) ``*.npz`` file that the evolution state
-            is written to every ``checkpoint_every`` generations and at the
-            end (atomic replacement).  A path ``rrmpg_tpu`` would take as
-            an Orbax directory raises ``NotImplementedError``.
+        checkpoint_path: (optional) where the evolution state is written
+            every ``checkpoint_every`` generations and at the end: a
+            ``*.npz`` file (atomic replacement), or a directory
+            (:func:`~.checkpoint.save_checkpoint_dcp`, where ``rrmpg_tpu``
+            writes Orbax: an existing directory, or a new path without
+            ``.npz``).
         checkpoint_every: generations between checkpoints (None: only at
             the end).
-        resume_from: (optional) checkpoint file of this package to go on
-            from: the initial population is skipped and the generator
-            takes the saved state, so the run ends as the unbroken one
-            would.  A file written by ``rrmpg_tpu`` (a JAX key) raises
-            ``ValueError``.
+        resume_from: (optional) checkpoint file or directory of this
+            package to go on from: the initial population is skipped and
+            the generator takes the saved state, so the run ends as the
+            unbroken one would.  A checkpoint written by ``rrmpg_tpu`` (a
+            JAX key, or an Orbax directory) raises ``ValueError``.
         mesh: (optional) :class:`~..parallel.mesh.Mesh`: each generation's
             population is split over its ``mesh_axis``, every shard is
             evaluated on its device (with ``batched=True``, one call of the
@@ -273,8 +278,6 @@ def differential_evolution(objective, bounds, key=None, popsize=15,
     device = resolve_device(device)
     dtype = resolve_dtype(dtype)
     generator = _generator(key, seed, device)
-    if checkpoint_path is not None:
-        _check_npz(checkpoint_path)
     lows = torch.tensor([b[0] for b in bounds], dtype=dtype, device=device)
     highs = torch.tensor([b[1] for b in bounds], dtype=dtype, device=device)
     dim = len(bounds)
@@ -345,9 +348,10 @@ def differential_evolution(objective, bounds, key=None, popsize=15,
             pop, energies = generation(pop, energies)
             nit += 1
         if checkpoint_path is not None:
-            save_checkpoint(checkpoint_path, {
-                "key": generator.get_state(), "pop": pop,
-                "energies": energies, "nit": np.asarray(nit)})
+            (save_checkpoint_dcp if _is_directory(checkpoint_path)
+             else save_checkpoint)(checkpoint_path, {
+                 "key": generator.get_state(), "pop": pop,
+                 "energies": energies, "nit": np.asarray(nit)})
 
     success = _converged(energies, tol, atol)
     pop_np = scale(pop).cpu().numpy()
@@ -411,7 +415,7 @@ def minimize(objective, bounds, method="de", **kwargs):
 
 def gradient_descent(objective, bounds, x0=None, steps=500,
                      learning_rate=0.05, key=None, seed=None,
-                     device=DEFAULT_DEVICE, dtype=DEFAULT_DTYPE):
+                     device=DEFAULT_DEVICE, dtype=None):
     """Projected gradient descent (Adam) on an objective autograd can
     differentiate (the ``'scan'`` engines; the fused kernels on the card
     have no backward).
@@ -485,7 +489,7 @@ def gradient_descent(objective, bounds, x0=None, steps=500,
 
 def random_search(objective, sample_fn, num, key=None, seed=None,
                   batch_size=None, batched=False, mesh=None, mesh_axis=None,
-                  device=DEFAULT_DEVICE, dtype=DEFAULT_DTYPE):
+                  device=DEFAULT_DEVICE, dtype=None):
     """Monte-Carlo minimization: sample ``num`` candidates, keep the best.
 
     Args:

@@ -1,9 +1,12 @@
-"""Checkpoint files: state bundles between forecast cycles.
+"""Checkpoint files and directories; state bundles between forecast cycles.
 
-Counterpart of the npz half of ``rrmpg_tpu/tools/checkpoint.py``: any flat
-dict of arrays round-trips through a single ``.npz`` file with atomic
-replacement, and :func:`save_state` / :func:`load_state` persist the
-class-level state bundles (:mod:`..models.states`) in it.  The keys are the
+Counterpart of ``rrmpg_tpu/tools/checkpoint.py``: any flat dict of arrays
+round-trips through a single ``.npz`` file with atomic replacement, or
+through a ``torch.distributed.checkpoint`` directory (JAX's Orbax
+directory: :func:`save_checkpoint_dcp` / :func:`load_checkpoint_dcp`, for
+runs that span processes), and :func:`save_state` / :func:`load_state`
+persist the class-level state bundles (:mod:`..models.states`) in a
+``.npz`` file.  The keys are the
 JAX package's (``snow.<field>``, ``gr4j.<field>``, the ``bundle`` and
 ``snow_bundle`` tags), so a state file written by either package loads in
 the other.
@@ -15,7 +18,9 @@ device in its dtype.
 """
 
 import os
+import shutil
 import tempfile
+import warnings
 
 import numpy as np
 import torch
@@ -77,6 +82,96 @@ def load_checkpoint(path):
     if metadata:
         state['metadata'] = metadata
     return state
+
+
+def _in_group():
+    """Whether this process belongs to an initialized process group."""
+    import torch.distributed as dist
+
+    return dist.is_available() and dist.is_initialized()
+
+
+def _dcp_call(fn, state, path, group):
+    """``fn`` (DCP's save or load) on ``state`` at ``path``; in one process
+    without its warning that no process group is initialized."""
+    with warnings.catch_warnings():
+        if not group:
+            warnings.filterwarnings(
+                "ignore", message="torch.distributed is disabled")
+        return fn(state, checkpoint_id=path, no_dist=not group)
+
+
+def save_checkpoint_dcp(path, state):
+    """Write a flat dict of arrays as a checkpoint directory with
+    ``torch.distributed.checkpoint`` (DCP).
+
+    Counterpart of ``rrmpg_tpu.tools.checkpoint.save_checkpoint_orbax``:
+    with a process group (:func:`~..parallel.initialize`) every process
+    calls it with the same ``state``, as Orbax's ``StandardCheckpointer``
+    is called; DCP writes each array once and rank 0 commits.  Without a
+    group it runs in one process.
+
+    DCP writes into ``<path>.tmp`` beside the target; only a complete
+    directory is renamed to ``path`` (an existing one goes to
+    ``<path>.old`` for the moment of the swap, then away).  A save that
+    fails part-way leaves the previous checkpoint at ``path``, never a mix
+    of two generations; one cut off between the two renames leaves it at
+    ``<path>.old`` and nothing at ``path``.
+
+    Args:
+        path: target checkpoint directory (created or replaced).
+        state: dict mapping names to tensors / arrays / array-likes
+            (tensors on the card are fetched to the host).
+    """
+    import torch.distributed as dist
+    import torch.distributed.checkpoint as dcp
+
+    path = os.path.abspath(path)
+    tmp, old = path + ".tmp", path + ".old"
+    group = _in_group()
+    lead = not group or dist.get_rank() == 0
+    if lead:
+        shutil.rmtree(tmp, ignore_errors=True)
+    if group:
+        dist.barrier()
+    _dcp_call(dcp.save, {k: torch.from_numpy(np.array(_to_numpy(v)))
+                         for k, v in state.items()}, tmp, group)
+    if lead:
+        shutil.rmtree(old, ignore_errors=True)
+        if os.path.lexists(path):
+            os.replace(path, old)
+        os.replace(tmp, path)
+        shutil.rmtree(old, ignore_errors=True)
+    if group:
+        dist.barrier()
+
+
+def load_checkpoint_dcp(path):
+    """Load a checkpoint directory written by :func:`save_checkpoint_dcp`.
+
+    Counterpart of ``rrmpg_tpu.tools.checkpoint.load_checkpoint_orbax``
+    (without its ``abstract_state``: the arrays come back whole, as
+    numpy); with a process group every process calls it.
+
+    Returns:
+        dict of numpy arrays.
+
+    Raises:
+        ValueError: if ``path`` holds no such checkpoint (an Orbax
+            directory of ``rrmpg_tpu``, say).
+    """
+    import torch.distributed.checkpoint as dcp
+
+    path = os.path.abspath(path)
+    if not os.path.isfile(os.path.join(path, ".metadata")):
+        raise ValueError(
+            f"{path!r} holds no torch.distributed.checkpoint directory "
+            "(an Orbax checkpoint of rrmpg_tpu cannot be read here).")
+    entries = dcp.FileSystemReader(path).read_metadata().state_dict_metadata
+    state = {k: torch.empty(m.size, dtype=m.properties.dtype)
+             for k, m in entries.items()}
+    _dcp_call(dcp.load, state, path, _in_group())
+    return {k: v.numpy() for k, v in state.items()}
 
 
 def save_state(path, state):

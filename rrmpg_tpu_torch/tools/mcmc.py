@@ -20,8 +20,7 @@ import typing
 import numpy as np
 import torch
 
-from ..config import (DEFAULT_DEVICE, DEFAULT_DTYPE, resolve_device,
-                      resolve_dtype)
+from ..config import DEFAULT_DEVICE, resolve_device, resolve_dtype
 from ..parallel.mesh import pad_to_multiple
 from .calibration import (_generator, _latin_hypercube, _mesh_shards,
                           _population_objective)
@@ -74,7 +73,7 @@ def _split_r_hat(samples):
 def demc_sample(log_prob, bounds, num_chains=None, num_steps=2000,
                 burn_in=0.5, thin=1, key=None, seed=None, batched=False,
                 gamma=None, jitter=1e-6, mesh=None, mesh_axis=None,
-                device=DEFAULT_DEVICE, dtype=DEFAULT_DTYPE):
+                device=DEFAULT_DEVICE, dtype=None):
     """Sample a posterior with Differential Evolution MCMC.
 
     Args:

@@ -31,8 +31,7 @@ import typing
 import numpy as np
 import torch
 
-from ..config import (DEFAULT_DEVICE, DEFAULT_DTYPE, resolve_device,
-                      resolve_dtype)
+from ..config import DEFAULT_DEVICE, resolve_device, resolve_dtype
 from .calibration import _batch_map, _generator, _latin_hypercube
 
 _INF_RANK = 10 ** 9
@@ -143,7 +142,7 @@ def crowding(F, ranks):
 def nsga2(objectives, bounds, pop_size=128, n_generations=100, key=None,
           seed=None, batched=False, crossover_prob=0.9, crossover_eta=15.0,
           mutation_eta=20.0, mutation_prob=None, device=DEFAULT_DEVICE,
-          dtype=DEFAULT_DTYPE):
+          dtype=None):
     """Multi-objective minimization with NSGA-II.
 
     Args:

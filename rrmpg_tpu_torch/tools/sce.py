@@ -28,8 +28,7 @@ the algorithm is the same.
 import numpy as np
 import torch
 
-from ..config import (DEFAULT_DEVICE, DEFAULT_DTYPE, resolve_device,
-                      resolve_dtype)
+from ..config import DEFAULT_DEVICE, resolve_device, resolve_dtype
 from ..parallel.mesh import pad_to_multiple
 from .calibration import (OptimizeResult, _generator, _latin_hypercube,
                           _mesh_shards, _population_objective)
@@ -63,7 +62,7 @@ def _shuffle(pop, energies, p, m, dim):
 def sce_ua(objective, bounds, key=None, seed=None, n_complexes=None,
            maxiter=100, tol=0.01, atol=0.0, peps=1e-4, batched=False,
            mesh=None, mesh_axis=None, device=DEFAULT_DEVICE,
-           dtype=DEFAULT_DTYPE):
+           dtype=None):
     """Minimize with Shuffled Complex Evolution (SCE-UA).
 
     Args:

@@ -24,8 +24,7 @@ import warnings
 import numpy as np
 import torch
 
-from ..config import (DEFAULT_DEVICE, DEFAULT_DTYPE, resolve_device,
-                      resolve_dtype)
+from ..config import DEFAULT_DEVICE, resolve_device, resolve_dtype
 from ..parallel.mesh import check_mesh, pad_to_multiple
 from .calibration import _generator, _mesh_shards, _population_objective
 
@@ -134,7 +133,7 @@ def _seed_from(key, seed, device):
 def sobol_indices(objective, bounds, n=1024, key=None, seed=None,
                   batched=False, batch_size=None, mesh=None, mesh_axis=None,
                   bootstrap=100, names=None, device=DEFAULT_DEVICE,
-                  dtype=DEFAULT_DTYPE):
+                  dtype=None):
     """First- and total-order Sobol' indices via a Saltelli design.
 
     The design is two independent quasi-random matrices ``A, B`` of ``n``
@@ -272,7 +271,7 @@ def _morris_trajectories(rng, R, dim, num_levels):
 def morris_screening(objective, bounds, num_trajectories=64, num_levels=4,
                      key=None, seed=None, batched=False, batch_size=None,
                      mesh=None, mesh_axis=None, bootstrap=100, names=None,
-                     device=DEFAULT_DEVICE, dtype=DEFAULT_DTYPE):
+                     device=DEFAULT_DEVICE, dtype=None):
     """Morris (1991) elementary-effects screening.
 
     Each trajectory moves one parameter at a time by ``delta`` on a

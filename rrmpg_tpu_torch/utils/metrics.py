@@ -52,6 +52,22 @@ def calibration_loss(loss_metric):
 # Batched core reductions
 # ---------------------------------------------------------------------------
 
+def _sum(x, dim):
+    """``x.sum(dim)`` as a pairwise tree of elementwise additions, so that
+    each slice is summed in one order whatever the batch around it.  ATen's
+    reductions choose their order from the batch's shape and a slice's
+    alignment on the card, so a member's loss would change its last bits
+    with the number of members beside it and with its row: a mesh shard
+    would not reproduce the unsharded run."""
+    x = x.movedim(dim, -1)
+    if x.shape[-1] == 0:
+        return x.new_zeros(x.shape[:-1])
+    while x.shape[-1] > 1:
+        x = torch.nn.functional.pad(x, (0, x.shape[-1] % 2))
+        x = x[..., 0::2] + x[..., 1::2]
+    return x[..., 0]
+
+
 def _masked(obs, sim, dim):
     """(weights, obs and sim with gap steps zeroed, valid count)."""
     obs, sim = torch.broadcast_tensors(torch.as_tensor(obs),
@@ -60,23 +76,23 @@ def _masked(obs, sim, dim):
     w = valid.to(obs.dtype)
     zero = torch.zeros((), dtype=obs.dtype, device=obs.device)
     return (w, torch.where(valid, obs, zero), torch.where(valid, sim, zero),
-            w.sum(dim))
+            _sum(w, dim))
 
 
 def _wmean(w, x, n, dim):
-    return (w * x).sum(dim) / n
+    return _sum(w * x, dim) / n
 
 
 def _wstd(w, x, n, dim):
     """Population std over the valid steps."""
     mean = _wmean(w, x, n, dim).unsqueeze(dim)
-    return torch.sqrt((w * (x - mean) ** 2).sum(dim) / n)
+    return torch.sqrt(_sum(w * (x - mean) ** 2, dim) / n)
 
 
 def mse(obs, sim, dim=-1):
     """Mean squared error along ``dim`` over the valid steps."""
     w, obs0, sim0, n = _masked(obs, sim, dim)
-    return (w * (obs0 - sim0) ** 2).sum(dim) / n
+    return _sum(w * (obs0 - sim0) ** 2, dim) / n
 
 
 def rmse(obs, sim, dim=-1):
@@ -89,8 +105,8 @@ def nse(obs, sim, dim=-1):
     observation variance is zero (``calc_nse`` raises instead)."""
     w, obs0, sim0, n = _masked(obs, sim, dim)
     obs_mean = _wmean(w, obs0, n, dim).unsqueeze(dim)
-    denominator = (w * (obs0 - obs_mean) ** 2).sum(dim)
-    numerator = (w * (sim0 - obs0) ** 2).sum(dim)
+    denominator = _sum(w * (obs0 - obs_mean) ** 2, dim)
+    numerator = _sum(w * (sim0 - obs0) ** 2, dim)
     zero_var = denominator == 0
     score = 1.0 - numerator / torch.where(zero_var, 1.0, denominator)
     return torch.where(zero_var, -torch.inf, score)
@@ -101,8 +117,8 @@ def pearson_r(obs, sim, dim=-1):
     w, obs0, sim0, n = _masked(obs, sim, dim)
     obs_c = obs0 - _wmean(w, obs0, n, dim).unsqueeze(dim)
     sim_c = sim0 - _wmean(w, sim0, n, dim).unsqueeze(dim)
-    cov = (w * obs_c * sim_c).sum(dim)
-    denom = torch.sqrt((w * obs_c ** 2).sum(dim) * (w * sim_c ** 2).sum(dim))
+    cov = _sum(w * obs_c * sim_c, dim)
+    denom = torch.sqrt(_sum(w * obs_c ** 2, dim) * _sum(w * sim_c ** 2, dim))
     return cov / denom
 
 

@@ -39,7 +39,10 @@ through the warm entry of K4, K14 and K10 (GR4J, HBV-Edu, hyst + ice; 129
 and 200 members, 7 cycles of 9 days, EnKF with parameters and the particle
 filter) at the trajectory tolerances, the scan backend's window loop under
 ``torch.cuda.set_sync_debug_mode('error')``, and the resampling index
-clamped where a float32 sum of the weights ends short.
+clamped where a float32 sum of the weights ends short.  The masked metrics
+give a member the same bits in any row of a batch, and GR4J's
+``fit(method='sce', engine='scan')`` on 4 shards of one card is the
+unsharded SCE fit bit for bit.
 """
 
 import os
@@ -1978,3 +1981,40 @@ def test_current_device_kept_across_launches_on_every_device(cuda):
     np.testing.assert_array_equal(sharded.population_energies,
                                   plain.population_energies)
     assert torch.cuda.current_device() == before
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("T", [365, 12418])
+def test_scan_metrics_do_not_depend_on_the_row(cuda, dtype, T):
+    """A member's masked metrics are the same bits in a batch of 12 and in
+    one of 3 (ATen's sum would choose its order from the batch's shape and
+    a row's alignment), so a 'scan' objective on a mesh shard gives the
+    unsharded numbers."""
+    from rrmpg_tpu_torch.utils import metrics
+
+    rng = np.random.default_rng(1)
+    obs = rng.uniform(0, 5, T)
+    obs[::13] = np.nan
+    obs = torch.tensor(obs, dtype=dtype, device=cuda)
+    sim = torch.tensor(rng.uniform(0, 5, (12, T)), dtype=dtype, device=cuda)
+    for metric in (metrics.mse, metrics.nse, metrics.kge):
+        whole = metric(obs[None, :], sim, dim=-1)
+        parts = torch.cat([metric(obs[None, :], sim[k:k + 3].clone(),
+                                  dim=-1) for k in range(0, 12, 3)])
+        assert torch.equal(whole, parts), metric.__name__
+
+
+def test_sce_fit_on_a_mesh_of_one_card_is_the_unsharded_fit(cuda):
+    """``fit(method='sce', engine='scan', mesh=)``: the per-point
+    objective on 4 shards of one card gives the unsharded SCE fit bit for
+    bit (3 of the 12 candidates a shard)."""
+    from rrmpg_tpu_torch.parallel import default_mesh
+
+    qobs, prec, etp = (a[-365:] for a in _fit_inputs())
+    kw = dict(method='sce', engine='scan', seed=0, maxiter=1)
+    plain = GR4J(device=cuda).fit(qobs, prec, etp, **kw)
+    sharded = GR4J(device=cuda).fit(qobs, prec, etp,
+                                    mesh=default_mesh(['cuda:0'] * 4), **kw)
+    np.testing.assert_array_equal(sharded.population, plain.population)
+    np.testing.assert_array_equal(sharded.population_energies,
+                                  plain.population_energies)

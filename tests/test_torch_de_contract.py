@@ -12,7 +12,11 @@ only to an ulp, and a member's place in its shard decides which it takes),
 and what is not a mesh raises ``TypeError``.
 
 * A run checkpointed every few generations and resumed equals the unbroken
-  run bit for bit: the checkpoint holds the generator's state.
+  run bit for bit: the checkpoint holds the generator's state.  JAX's
+  routing holds: a ``.npz`` path or an existing file is an npz checkpoint,
+  a new path without ``.npz`` or an existing directory a
+  ``torch.distributed.checkpoint`` directory (JAX's Orbax), which a failed
+  save leaves at its last complete generation.
 * ``gradient_descent`` from the same start equals JAX's at ``rtol=1e-8``:
   both are Adam (betas (0.9, 0.999), eps 1e-8) on the same float64
   objective, whose arithmetic differs only in rounding order.
@@ -35,6 +39,7 @@ from rrmpg_tpu_torch import models
 from rrmpg_tpu_torch.ops import run_gr4j
 from rrmpg_tpu_torch.parallel import default_mesh
 from rrmpg_tpu_torch.tools import (differential_evolution, gradient_descent,
+                                   load_checkpoint, load_checkpoint_dcp,
                                    random_search)
 
 torch.set_num_threads(1)
@@ -197,6 +202,25 @@ def test_fit_q_sca_mesh_raises_not_implemented():
         model.fit_Q_SCA(obs, **kw, **ndsi, maxiter=1, mesh=object())
 
 
+@pytest.mark.parametrize("name, engine", [
+    (name, engine) for name in CLASSES for engine in ("scan", "fused")
+    if name != 'ABCModel' or engine == "scan"])
+def test_fit_directory_checkpoint_resumes(name, engine, tmp_path):
+    """``fit(checkpoint_path=<dir>)`` then ``fit(resume_from=<dir>)`` on
+    either engine walks the unbroken fit's population bit for bit (ABC's
+    ``fit`` has the 'scan' objective only)."""
+    model, obs, kw = _fit_inputs(name)
+    if name != 'ABCModel':
+        kw['engine'] = engine
+    path = str(tmp_path / "fit")
+    full = model.fit(obs, **kw, seed=1, maxiter=4, tol=0.0)
+    model.fit(obs, **kw, seed=1, maxiter=2, tol=0.0, checkpoint_path=path,
+              checkpoint_every=1)
+    resumed = model.fit(obs, **kw, seed=1, maxiter=4, tol=0.0,
+                        resume_from=path)
+    _assert_same_run(resumed, full)
+
+
 @pytest.mark.parametrize("name", CLASSES)
 def test_fit_checkpoint_resume_and_polish(name, tmp_path):
     """Every class's ``fit`` takes the checkpoint and polish keywords: two
@@ -242,8 +266,6 @@ def test_checkpoint_resume_matches_uninterrupted(batched, tmp_path):
 
 
 def test_chunked_equals_monolithic_and_saves_the_end(tmp_path):
-    from rrmpg_tpu_torch.tools import load_checkpoint
-
     mono = differential_evolution(_quadratic, BOUNDS, seed=3, maxiter=30,
                                   tol=0.0, **CPU)
     path = str(tmp_path / "de.npz")
@@ -279,12 +301,92 @@ def test_checkpoint_of_another_population_raises(tmp_path):
 @pytest.mark.parametrize("where", ["checkpoint_path", "resume_from"])
 @pytest.mark.parametrize("kind", ["new_path", "directory"])
 def test_orbax_path_raises(where, kind, tmp_path):
+    """A path JAX takes as an Orbax directory (a new path without ``.npz``,
+    or an existing directory) is a ``torch.distributed.checkpoint``
+    directory here, and a run resumed from it equals the unbroken one bit
+    for bit.  Until the directory backend was ported these four cases held
+    a ``NotImplementedError``; the name is kept.  ``where`` names the
+    argument that meets the directory as it was made: with
+    ``checkpoint_path`` the save replaces it (a new path, or an empty
+    directory), with ``resume_from`` the resumed run also saves over the
+    directory it resumed from."""
     path = tmp_path / "ckpt"
     if kind == "directory":
         path.mkdir()
-    with pytest.raises(NotImplementedError, match="Orbax is JAX-only"):
-        differential_evolution(_quadratic, BOUNDS, maxiter=2,
-                               **{where: str(path)}, **CPU)
+    kw = dict(seed=7, tol=0.0, **CPU)
+    full = differential_evolution(_quadratic, BOUNDS, maxiter=12, **kw)
+    part = differential_evolution(_quadratic, BOUNDS, maxiter=6,
+                                  checkpoint_path=str(path),
+                                  checkpoint_every=4, **kw)
+    assert part.nit == 6 and path.is_dir()
+    assert sorted(p.name for p in tmp_path.iterdir()) == ["ckpt"]
+    again = {"checkpoint_path": str(path)} if where == "resume_from" else {}
+    resumed = differential_evolution(_quadratic, BOUNDS, maxiter=12,
+                                     resume_from=str(path), **again, **kw)
+    _assert_same_run(resumed, full)
+    if again:
+        saved = load_checkpoint_dcp(str(path))
+        assert int(saved['nit']) == 12
+        np.testing.assert_array_equal(saved['energies'],
+                                      full.population_energies)
+
+
+def test_directory_checkpoint_holds_what_npz_holds(tmp_path):
+    """The directory and the npz backend save the same four fields, JAX's
+    ``key`` / ``pop`` / ``energies`` / ``nit`` (``key`` the generator's
+    state), with the same values."""
+    kw = dict(seed=5, maxiter=4, tol=0.0, **CPU)
+    differential_evolution(_quadratic, BOUNDS, checkpoint_path=str(
+        tmp_path / "de.npz"), **kw)
+    differential_evolution(_quadratic, BOUNDS, checkpoint_path=str(
+        tmp_path / "de"), **kw)
+    npz, directory = (load_checkpoint(str(tmp_path / "de.npz")),
+                      load_checkpoint_dcp(str(tmp_path / "de")))
+    assert sorted(directory) == sorted(npz) == ['energies', 'key', 'nit',
+                                                'pop']
+    for name in npz:
+        assert directory[name].dtype == npz[name].dtype
+        np.testing.assert_array_equal(directory[name], npz[name])
+
+
+def test_jax_orbax_directory_raises_on_resume(tmp_path):
+    path = str(tmp_path / "jax_de")
+    jax_calibration.differential_evolution(_jax_quadratic, BOUNDS, seed=7,
+                                           maxiter=2, tol=0.0,
+                                           checkpoint_path=path)
+    with pytest.raises(ValueError, match="no torch.distributed.checkpoint"):
+        differential_evolution(_quadratic, BOUNDS, seed=7, maxiter=4,
+                               resume_from=path, **CPU)
+
+
+def test_failed_directory_save_keeps_the_previous_checkpoint(tmp_path,
+                                                             monkeypatch):
+    """A save that fails part-way leaves the last complete checkpoint at
+    the path: the run resumed from it equals the unbroken run."""
+    import torch.distributed.checkpoint as dcp
+
+    path = str(tmp_path / "ckpt")
+    kw = dict(seed=3, tol=0.0, **CPU)
+    real_save, saves = dcp.save, []
+
+    def failing_save(state, **save_kw):
+        saves.append(int(state['nit']))
+        if len(saves) == 2:          # the second save writes part, fails
+            real_save({'pop': state['pop']}, **save_kw)
+            raise OSError("disk full")
+        return real_save(state, **save_kw)
+
+    monkeypatch.setattr(dcp, "save", failing_save)
+    with pytest.raises(OSError, match="disk full"):
+        differential_evolution(_quadratic, BOUNDS, maxiter=8,
+                               checkpoint_path=path, checkpoint_every=3,
+                               **kw)
+    monkeypatch.setattr(dcp, "save", real_save)
+    assert saves == [3, 6] and int(load_checkpoint_dcp(path)['nit']) == 3
+    resumed = differential_evolution(_quadratic, BOUNDS, maxiter=8,
+                                     resume_from=path, **kw)
+    _assert_same_run(resumed, differential_evolution(
+        _quadratic, BOUNDS, maxiter=8, **kw))
 
 
 # ---------------------------------------------------------------------------

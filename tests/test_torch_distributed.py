@@ -6,7 +6,9 @@ reports one process, as JAX's is.  Two processes joined through a
 rank order; the shared evaluator runs each process's own shards and
 gathers the rest, so a fused GR4J ``fit`` (DE seeded alike on both ranks)
 and ``regional_gr4j_objective`` on a 2 x 2 (ensemble, catchment) mesh give
-every rank the single-process four-shard result.  The two processes run
+every rank the single-process four-shard result; the fit saved to one
+checkpoint directory by both ranks (``torch.distributed.checkpoint``) and
+resumed from it gives it too.  The two processes run
 this file as a script, under a timeout, so that a hang fails the test
 instead of stalling the run.
 """
@@ -47,19 +49,26 @@ def _regional_case():
     return series, params
 
 
-def _run(devices):
-    """(fit population, fit energies, regional losses) on a 4-shard mesh
-    built from this process's ``devices``."""
+def _fit(devices, **kw):
+    """The fused GR4J fit on a 4-shard mesh of this process's
+    ``devices``."""
     from rrmpg_tpu_torch.models import GR4J
-    from rrmpg_tpu_torch.parallel import (default_mesh,
-                                          ensemble_catchment_mesh,
-                                          regional_gr4j_objective)
+    from rrmpg_tpu_torch.parallel import default_mesh
 
     mesh = default_mesh(devices)
     assert mesh.size == 4
-    res = GR4J(device='cpu', dtype=F64).fit(
-        *_fit_case(), engine='fused', seed=3, popsize=4, maxiter=3,
-        mesh=mesh)
+    return GR4J(device='cpu', dtype=F64).fit(
+        *_fit_case(), engine='fused', seed=3, popsize=4, tol=0.0, mesh=mesh,
+        **kw)
+
+
+def _run(devices):
+    """(fit population, fit energies, regional losses) on a 4-shard mesh
+    built from this process's ``devices``."""
+    from rrmpg_tpu_torch.parallel import (ensemble_catchment_mesh,
+                                          regional_gr4j_objective)
+
+    res = _fit(devices, maxiter=3)
     series, params = _regional_case()
     losses = regional_gr4j_objective(
         *series, 0.3, 0.3, params, loss_metric='kge',
@@ -102,9 +111,13 @@ def test_initialize_with_a_coordinator_but_no_world_size_raises():
         os.environ.update(env)
 
 
-def test_two_gloo_processes_equal_one_process(tmp_path):
+@pytest.fixture(scope="module")
+def two_processes(tmp_path_factory):
+    """The one-process four-shard result, and each of the two ranks'
+    outputs (an npz file each)."""
     torch.set_num_threads(1)
     want = _run(['cpu'] * 4)
+    tmp_path = tmp_path_factory.mktemp("gloo")
     store = tmp_path / "store"
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [os.path.dirname(os.path.dirname(os.path.abspath(__file__)))]
@@ -112,7 +125,7 @@ def test_two_gloo_processes_equal_one_process(tmp_path):
            if p]))
     procs = [subprocess.Popen(
         [sys.executable, os.path.abspath(__file__), str(rank), str(store),
-         str(tmp_path / f"rank{rank}.npz")], env=env,
+         str(tmp_path / f"rank{rank}.npz"), str(tmp_path / "de")], env=env,
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
         for rank in range(2)]
     try:
@@ -124,26 +137,49 @@ def test_two_gloo_processes_equal_one_process(tmp_path):
         pytest.fail(f"the two gloo processes did not end in {TIMEOUT} s")
     for p, log in zip(procs, logs):
         assert p.returncode == 0, log
-    for rank in range(2):
-        got = np.load(tmp_path / f"rank{rank}.npz")
+    return want, [dict(np.load(tmp_path / f"rank{rank}.npz"))
+                  for rank in range(2)]
+
+
+def test_two_gloo_processes_equal_one_process(two_processes):
+    want, ranks = two_processes
+    for got in ranks:
         np.testing.assert_array_equal(got["population"], want[0])
         np.testing.assert_array_equal(got["energies"], want[1])
         np.testing.assert_array_equal(got["losses"], want[2])
 
 
-def _worker(rank, store, out):
+def test_two_gloo_processes_checkpoint_to_one_directory(two_processes):
+    """Both ranks save the fit to one checkpoint directory (DCP, JAX's
+    Orbax route) after each of two generations, load it back and go on
+    to three: each equals the uninterrupted one-process fit."""
+    want, ranks = two_processes
+    for got in ranks:
+        assert int(got["saved_nit"]) == 2
+        np.testing.assert_array_equal(got["resumed_population"], want[0])
+        np.testing.assert_array_equal(got["resumed_energies"], want[1])
+
+
+def _worker(rank, store, out, checkpoint):
     """One of the two processes: two CPU shards of the four."""
     torch.set_num_threads(1)
     from rrmpg_tpu_torch.parallel import initialize
+    from rrmpg_tpu_torch.tools import load_checkpoint_dcp
 
     assert initialize(f"file://{store}", num_processes=2, process_id=rank,
                       backend="gloo") == (rank, 2, 2)
     population, energies, losses = _run(['cpu'] * 2)
-    np.savez(out, population=population, energies=energies, losses=losses)
+    _fit(['cpu'] * 2, maxiter=2, checkpoint_path=checkpoint,
+         checkpoint_every=1)
+    saved_nit = load_checkpoint_dcp(checkpoint)["nit"]
+    resumed = _fit(['cpu'] * 2, maxiter=3, resume_from=checkpoint)
+    np.savez(out, population=population, energies=energies, losses=losses,
+             saved_nit=saved_nit, resumed_population=resumed.population,
+             resumed_energies=resumed.population_energies)
     import torch.distributed as dist
 
     dist.destroy_process_group()
 
 
 if __name__ == "__main__":
-    _worker(int(sys.argv[1]), sys.argv[2], sys.argv[3])
+    _worker(int(sys.argv[1]), *sys.argv[2:5])

@@ -1,8 +1,8 @@
 """PyTorch port, the public names of the JAX package (CPU, float64).
 
 Every name ``rrmpg_tpu.ops`` exports and every name in
-``rrmpg_tpu.models.__all__`` has its counterpart in the port, but for the
-forms the port leaves out on purpose (listed below).  Every name
+``rrmpg_tpu.models.__all__`` has its counterpart in the port (none is left
+out since the Toeplitz scan was ported).  Every name
 ``rrmpg_tpu.tools`` exports imports from ``rrmpg_tpu_torch.tools`` but for
 the tools that wait for ROADMAP Queue 1 item 8 (listed, with their letter,
 and held to still be missing, so that the list stays true; none wait now).  Every name
@@ -37,9 +37,9 @@ from rrmpg_tpu_torch.ops import gr4j as pt_gr4j
 torch.set_num_threads(1)
 
 RTOL = 1e-12
-# Not ported on purpose: the Toeplitz / matrix-unit forms of the ABC scan
-# are TPU-specific.
-NOT_PORTED = ("run_abcmodel_matscan", "linear_recurrence")
+# Not ported on purpose: none since the Toeplitz scan behind ABC's 'scan'
+# engine (``linear_recurrence``, ``run_abcmodel_matscan``) was ported.
+NOT_PORTED = ()
 # The Pallas wrappers' counterparts are the fused CUDA wrappers, named
 # ``*_fused`` but for these.
 PALLAS_COUNTERPARTS = {

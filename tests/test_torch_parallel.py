@@ -17,6 +17,8 @@ compute the same numbers, to JAX's sharded run:
 * ``fit(mesh=)`` on both engines, checkpoint and resume under a mesh,
   ``random_search``, SCE-UA, DE-MC, Sobol' and Morris to their unsharded
   runs; Sobol' and Morris also to JAX's mesh runs (the same host design);
+  ``fit(method='sce', mesh=)`` on the 'scan' engine (F8) to the unsharded
+  SCE fit and its ``fun`` to JAX's MSE at ``x``;
 * the regional objectives on a 2 x 4 (ensemble, catchment) mesh to the
   unsharded port and JAX's 2-D mesh;
 * every ``ValueError`` JAX raises under a mesh.
@@ -450,6 +452,31 @@ def test_sce_mesh_matches_unsharded(mesh):
     want = sce_ua(_quadratic, BOUNDS4, seed=1, maxiter=5, n_complexes=8,
                   **CPU)
     _assert_same_run(got, want)                 # p = 4 rounded up to 8
+
+
+@pytest.mark.parametrize("name", ('GR4J', 'HBVEdu', 'ABCModel',
+                                  'CemaneigeHystGR4J'))
+def test_sce_fit_on_a_mesh_matches_unsharded_and_jax(name, mesh):
+    """F8: ``fit(method='sce', mesh=)`` on the 'scan' engine hands SCE-UA
+    the per-point form of the class's objective (its ``vmap`` is one
+    batched call a shard), as JAX's XLA objective is per point: the run
+    equals the unsharded SCE fit with the complexes the mesh rounds to,
+    and ``fun`` is the MSE of JAX's ``simulate`` at ``x``."""
+    kw = _class_inputs(name, T=30)
+    obs = np.random.default_rng(3).uniform(0.5, 4, 30)
+    obs[5::11] = np.nan
+    model = getattr(models, name)(**CPU)
+    dim = len(model._param_list)
+    fit = dict(method='sce', seed=1, maxiter=1)
+    got = model.fit(obs, **kw, mesh=mesh, **fit)
+    want = model.fit(obs, **kw, n_complexes=pad_to_multiple(max(2, dim), 8),
+                     **fit)
+    _assert_same_run(got, want)
+    jax_model = getattr(jax_models, name)(
+        params=dict(zip(model._param_list, got.x)))
+    out = jax_model.simulate(**kw)
+    q = np.asarray(out[0] if isinstance(out, tuple) else out)[:, 0]
+    assert got.fun == pytest.approx(np.nanmean((q - obs) ** 2), rel=RTOL)
 
 
 def test_demc_mesh_matches_unsharded(mesh):
