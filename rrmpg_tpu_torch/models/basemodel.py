@@ -19,6 +19,7 @@ import torch
 from ..config import DEFAULT_DEVICE, resolve_device, resolve_dtype
 from ..parallel.ensemble import ensemble_run
 from ..parallel.mesh import check_mesh, replicate, tree_leaves
+from ..utils.tracing import to_device, traced
 from .states import normalize_state, single_member_state
 
 _ENGINES = ("scan", "fused")
@@ -260,6 +261,7 @@ class BaseModel(object):
         objectives[home] = objective
         return lambda X: objectives[X.device](X)
 
+    @traced("fit")
     def _minimize(self, objective, seed, de_kwargs, engine="scan"):
         """``minimize`` of a batched objective on the model's device.
         SCE-UA on a mesh shards its complexes and takes a per-point
@@ -301,8 +303,9 @@ class BaseModel(object):
     # ------------------------------------------------------------------
 
     def _tensor(self, x):
-        """``x`` as a tensor of the model's dtype on its device."""
-        return torch.as_tensor(x, dtype=self.dtype, device=self.device)
+        """``x`` as a tensor of the model's dtype on its device (host data
+        to a card: a sync)."""
+        return to_device("model.to_device", x, self.dtype, self.device)
 
     def _prepare_params(self, params):
         """Normalize a ``params`` argument to a dict of (N,) tensors.

@@ -37,6 +37,7 @@ from ..ops.uh import NUM_UH1, NUM_UH2, required_uh_lengths
 from ..parallel.mesh import check_mesh
 from ..utils.array_checks import check_for_negatives, validate_array_input
 from ..utils.metrics import calibration_loss
+from ..utils.tracing import sync
 from .basemodel import (BaseModel, check_engine, check_fused_mesh,
                         check_stats_mesh)
 from .states import broadcast_state, check_state_type
@@ -324,7 +325,7 @@ class GR4J(BaseModel):
             self._check_history_depth(state.pr_history.shape[-1], n2,
                                       [x4_hi])
         use_stats = loss_metric in ("nse", "kge")
-        masked = bool(torch.isnan(qobs).any())
+        masked = sync("gr4j.masked", bool, torch.isnan(qobs).any())
         count = valid_count(qobs, masked)
 
         def objective(X):

@@ -3,26 +3,16 @@
 Shared by the fused kernel modules (:mod:`.fused_gr4j`, :mod:`.fused_abc`,
 :mod:`.fused_hbv`, :mod:`.fused_snow`).  :data:`LAUNCHES` holds one count per kernel; a
 wrapper adds one where it launches its kernel and nowhere else, so a run
-can show which kernels it went through.
+can show which kernels it went through.  The counts live in
+:mod:`..utils.tracing` with the port's other counters and spans; this
+module hands on the same objects.
 """
 
 import torch
 
 from ..config import FLOAT_DTYPES
-
-# Kernel launches since the last reset_launches(), by kernel name.
-LAUNCHES = {}
-
-
-def register_kernels(*names):
-    """Give each named kernel a launch count, starting at 0."""
-    for name in names:
-        LAUNCHES.setdefault(name, 0)
-
-
-def reset_launches():
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+from ..utils.tracing import (LAUNCHES, annotate,  # noqa: F401
+                             register_kernels, reset_launches, sync)
 
 
 def check_inputs(family, series, packed, rows):
@@ -100,7 +90,7 @@ def valid_counts(qobs, masked):
     num_catchments, t_len = qobs.shape
     if masked is not False:
         counts = torch.isfinite(qobs).sum(dim=1)
-        on_host = counts.tolist()
+        on_host = sync("ops.valid_counts", counts.tolist)
         if masked is None:
             masked = any(k < t_len for k in on_host)
     if not masked:
@@ -118,7 +108,7 @@ def valid_count(qobs, masked):
     """Steps a masked objective averages over; raises if there is none."""
     if not masked:
         return qobs.shape[0]
-    count = int(torch.isfinite(qobs).sum())
+    count = sync("ops.valid_count", int, torch.isfinite(qobs).sum())
     if count == 0:
         raise ValueError(
             "qobs has no finite value: a masked objective over zero "
@@ -143,3 +133,4 @@ def launch(kernel, fn_f32, fn_f64, dtype, device, *args):
         raise RuntimeError(
             f"{fn.__name__} failed with cudaError_t {err}.")
     LAUNCHES[kernel] += 1
+    annotate(kernel=kernel)

@@ -25,6 +25,7 @@ caller put on the CPU it runs the plain version,
 
 import torch
 
+from ..utils.tracing import traced
 from ._launch import check_inputs, launch, register_kernels
 from .abc import _finish, _members, run_abcmodel_pscan
 
@@ -63,6 +64,7 @@ def _run(kernel, prec, initial_state, params):
     return _finish((qsim, storage), single)
 
 
+@traced("ops.abc_fused_single")
 def abc_fused_single(prec, initial_state, params):
     """ABC-model simulation in one kernel launch (K6).
 
@@ -77,6 +79,7 @@ def abc_fused_single(prec, initial_state, params):
     return _run("abc_fused_single", prec, initial_state, params)
 
 
+@traced("ops.abc_fused")
 def abc_fused(prec, initial_state, params):
     """ABC-model simulation as a three-launch chunked scan (K7); arguments
     and results as :func:`abc_fused_single`."""

@@ -44,6 +44,7 @@ with the other kernel modules, :mod:`._launch`) counts launches per kernel.
 
 import torch
 
+from ..utils.tracing import traced
 from ._launch import (LAUNCHES, check_block, check_inputs,  # noqa: F401
                       check_regional_inputs, launch, register_kernels,
                       reset_launches, valid_count, valid_counts)
@@ -292,6 +293,7 @@ def gr4j_regional_objective_reference(prec, etp, qobs, packed,
 # Wrappers
 # ---------------------------------------------------------------------------
 
+@traced("ops.gr4j_simulate_fused")
 def gr4j_simulate_fused(prec, etp, s_init, r_init, params, num_uh1=NUM_UH1,
                         num_uh2=NUM_UH2):
     """Fused-ensemble GR4J simulation (K3); returns qsim of shape (N, T).
@@ -325,6 +327,7 @@ def state_from_rows(fstate):
                      pr_history=fstate[2:].T.contiguous())
 
 
+@traced("ops.gr4j_simulate_state_fused")
 def gr4j_simulate_state_fused(prec, etp, params, state=None, s_init=0.0,
                               r_init=0.0, num_uh1=NUM_UH1, num_uh2=NUM_UH2):
     """Forecast-mode fused GR4J (K4); returns (qsim (N, T), final
@@ -371,6 +374,7 @@ def gr4j_simulate_state_fused(prec, etp, params, state=None, s_init=0.0,
     return out, state_from_rows(fstate)
 
 
+@traced("ops.gr4j_ensemble_mse_fused")
 def gr4j_ensemble_mse_fused(prec, etp, qobs, s_init, r_init, params,
                             num_uh1=NUM_UH1, num_uh2=NUM_UH2, stats=False,
                             masked=False, state=None, count=None):
@@ -419,6 +423,7 @@ def gr4j_ensemble_mse_fused(prec, etp, qobs, s_init, r_init, params,
     return out
 
 
+@traced("ops.gr4j_regional_objective_fused")
 def gr4j_regional_objective_fused(prec, etp, qobs, s_init, r_init, params,
                                   num_uh1=NUM_UH1, num_uh2=NUM_UH2,
                                   stats=False, masked=False, counts=None):

@@ -36,6 +36,7 @@ makes that member's result NaN.
 
 import torch
 
+from ..utils.tracing import traced
 from ._launch import check_inputs, launch, register_kernels, valid_count
 from .hbvedu import PARAM_NAMES
 
@@ -150,6 +151,7 @@ def hbv_objective_reference(temp, prec, pe_series, tm_series, qobs, packed,
 # Wrappers
 # ---------------------------------------------------------------------------
 
+@traced("ops.hbv_simulate_fused")
 def hbv_simulate_fused(temp, prec, month, pe_m, t_m, snow_init, soil_init,
                        s1_init, s2_init, params):
     """Fused-ensemble HBV-Edu simulation (K13); returns qsim of shape
@@ -187,6 +189,7 @@ def _inits(state, snow_init, soil_init, s1_init, s2_init):
     return tuple(state)
 
 
+@traced("ops.hbv_simulate_state_fused")
 def hbv_simulate_state_fused(temp, prec, month, pe_m, t_m, snow_init,
                              soil_init, s1_init, s2_init, params, state=None):
     """Forecast-mode fused HBV-Edu (K14); returns (qsim (N, T), final
@@ -222,6 +225,7 @@ def hbv_simulate_state_fused(temp, prec, month, pe_m, t_m, snow_init,
     return out, tuple(fstate)
 
 
+@traced("ops.hbv_ensemble_mse_fused")
 def hbv_ensemble_mse_fused(temp, prec, month, pe_m, t_m, qobs, snow_init,
                            soil_init, s1_init, s2_init, params, stats=False,
                            masked=False, state=None, count=None):

@@ -57,6 +57,7 @@ on the same inputs.
 
 import torch
 
+from ..utils.tracing import sync, traced
 from ._launch import (check_block, check_inputs, check_regional_inputs,
                       launch, register_kernels, valid_count, valid_counts)
 from .fused_gr4j import _Members as _GR4JMembers
@@ -457,6 +458,7 @@ def _check_layer_count(lib, num_layers, rows_per_layer, dtype):
             f"layer and member); got {num_layers}. Use engine='scan'.")
 
 
+@traced("ops.snowgr4j_simulate_fused")
 def snowgr4j_simulate_fused(prec, mean_temp, etp, frac_solid_prec,
                             snow_pack_init, thermal_state_init, s_init,
                             r_init, params, frac_ice=None, hyst=False,
@@ -510,6 +512,7 @@ def _pointer(x):
     return None if x is None else x.data_ptr()
 
 
+@traced("ops.snowgr4j_simulate_state_fused")
 def snowgr4j_simulate_state_fused(prec, mean_temp, etp, frac_solid_prec,
                                   params, state=None, snow_pack_init=0.0,
                                   thermal_state_init=0.0, s_init=0.0,
@@ -576,13 +579,14 @@ def _band_counts(ndsi, masked):
     if not masked:
         return ndsi.new_full((num_layers,), float(t_len))
     counts = torch.isfinite(ndsi).sum(dim=1)
-    if bool((counts == 0).any()):
+    if sync("ops.band_counts", bool, (counts == 0).any()):
         raise ValueError(
             "an NDSI band has no finite value: masked statistics over zero "
             "valid steps are undefined.")
     return counts.to(ndsi.dtype)
 
 
+@traced("ops.snowgr4j_ensemble_mse_fused")
 def snowgr4j_ensemble_mse_fused(prec, mean_temp, etp, frac_solid_prec, qobs,
                                 snow_pack_init, thermal_state_init, s_init,
                                 r_init, params, frac_ice=None, ndsi=None,
@@ -670,6 +674,7 @@ def snowgr4j_ensemble_mse_fused(prec, mean_temp, etp, frac_solid_prec, qobs,
     return out
 
 
+@traced("ops.snowgr4j_regional_mse_fused")
 def snowgr4j_regional_mse_fused(prec, mean_temp, etp, frac_solid_prec, qobs,
                                 snow_pack_init, thermal_state_init, s_init,
                                 r_init, params, frac_ice=None, hyst=False,
@@ -756,6 +761,7 @@ def snowgr4j_regional_mse_fused(prec, mean_temp, etp, frac_solid_prec, qobs,
     return out
 
 
+@traced("ops.cemaneige_simulate_fused")
 def cemaneige_simulate_fused(prec, mean_temp, frac_solid_prec,
                              snow_pack_init, thermal_state_init, params):
     """Fused standalone-Cemaneige ensemble simulation; returns (N, T).
@@ -769,6 +775,7 @@ def cemaneige_simulate_fused(prec, mean_temp, frac_solid_prec,
         thermal_state_init, 0.0, 0.0, params, snow_only=True)
 
 
+@traced("ops.cemaneige_ensemble_mse_fused")
 def cemaneige_ensemble_mse_fused(prec, mean_temp, frac_solid_prec, qobs,
                                  snow_pack_init, thermal_state_init, params,
                                  stats=False, masked=False, count=None):

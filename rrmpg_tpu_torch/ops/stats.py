@@ -7,7 +7,10 @@ model family's stats kernel feeds it.
 
 import torch
 
+from ..utils.tracing import traced
 
+
+@traced("ops.losses_from_stats")
 def losses_from_stats(stats, qobs):
     """Objective values from time-mean sufficient statistics.
 

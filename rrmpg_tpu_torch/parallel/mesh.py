@@ -39,6 +39,7 @@ import numpy as np
 import torch
 
 from ..config import resolve_device
+from ..utils.tracing import span, sync, traced
 
 ENSEMBLE_AXIS = "ensemble"
 CATCHMENT_AXIS = "catchment"
@@ -287,6 +288,7 @@ def _pad(x, padded):
     return torch.cat([x, x[:1].expand(padded - n, *x.shape[1:])])
 
 
+@traced("mesh.call")
 def sharded_call(fn, mesh, args, in_axes, out_axes, pad=True):
     """Run ``fn`` once per shard of ``mesh`` and put the results together.
 
@@ -310,6 +312,11 @@ def sharded_call(fn, mesh, args, in_axes, out_axes, pad=True):
         ``fn``'s output tree with every split dimension whole again, on the
         device of the first split tensor of ``args``.  An axis of the mesh
         that no arg is split over runs at its first position only.
+
+    Where spans are recorded, each shard's copies are a ``mesh.copy`` span
+    and its ``fn`` a ``mesh.shard`` span (``device``, and ``shard``: its
+    position in row-major order over the split axes); the gather and the
+    assembly one ``mesh.assemble`` span.
     """
     check_mesh(mesh)
     if len(args) != len(in_axes):
@@ -340,41 +347,46 @@ def sharded_call(fn, mesh, args, in_axes, out_axes, pad=True):
 
     rank, world = _world()
     copies, results = {}, {}
-    for flat in np.ndindex(*(mesh.shape[a] for a in split_axes)):
+    grid = np.ndindex(*(mesh.shape[a] for a in split_axes))
+    for shard, flat in enumerate(grid):
         index = dict(zip(split_axes, flat))
         device, owner = _shard_device(mesh, index)
         if owner != rank:
             continue
-        if device not in copies:
-            copies[device] = [None if a is not None else _to(arg, device)
-                              for arg, a in zip(args, in_axes)]
-        shard_args = []
-        for arg, a, copy in zip(args, in_axes, copies[device]):
-            if a is None:
-                shard_args.append(copy)
-                continue
-            lo, hi = index[a] * chunks[a], (index[a] + 1) * chunks[a]
-            shard_args.append(_to(tree_map(lambda x: x[lo:hi], arg), device))
-        results[flat] = fn(*shard_args)
-    if world > 1:
-        results = _gather(results)
+        with span("mesh.copy", device=str(device), shard=shard):
+            if device not in copies:
+                copies[device] = [None if a is not None else _to(arg, device)
+                                  for arg, a in zip(args, in_axes)]
+            shard_args = []
+            for arg, a, copy in zip(args, in_axes, copies[device]):
+                if a is None:
+                    shard_args.append(copy)
+                    continue
+                lo, hi = index[a] * chunks[a], (index[a] + 1) * chunks[a]
+                shard_args.append(_to(tree_map(lambda x: x[lo:hi], arg),
+                                      device))
+        with span("mesh.shard", device=str(device), shard=shard):
+            results[flat] = fn(*shard_args)
+    with span("mesh.assemble"):
+        if world > 1:
+            results = _gather(results)
 
-    template = next(iter(results.values()))
-    blocks = {flat: tree_leaves(out) for flat, out in results.items()}
+        template = next(iter(results.values()))
+        blocks = {flat: tree_leaves(out) for flat, out in results.items()}
 
-    def assemble(leaf, depth, flat):
-        if depth == len(split_axes):
-            return blocks[flat][leaf].to(home)
-        a = split_axes[depth]
-        parts = [assemble(leaf, depth + 1, flat + (i,))
-                 for i in range(mesh.shape[a])]
-        whole = torch.cat(parts, dim=out_axes.index(a))
-        return whole.narrow(out_axes.index(a), 0, sizes[a])
+        def assemble(leaf, depth, flat):
+            if depth == len(split_axes):
+                return blocks[flat][leaf].to(home)
+            a = split_axes[depth]
+            parts = [assemble(leaf, depth + 1, flat + (i,))
+                     for i in range(mesh.shape[a])]
+            whole = torch.cat(parts, dim=out_axes.index(a))
+            return whole.narrow(out_axes.index(a), 0, sizes[a])
 
-    whole = [assemble(j, 0, ()) for j in range(len(blocks[next(iter(
-        blocks))]))]
-    it = iter(whole)
-    return tree_map(lambda _: next(it), template)
+        whole = [assemble(j, 0, ()) for j in range(len(blocks[next(iter(
+            blocks))]))]
+        it = iter(whole)
+        return tree_map(lambda _: next(it), template)
 
 
 def _gather(local):
@@ -383,7 +395,8 @@ def _gather(local):
 
     gathered = [None] * dist.get_world_size()
     dist.all_gather_object(gathered, {
-        flat: tree_map(lambda x: x.cpu(), out) for flat, out in local.items()})
+        flat: tree_map(lambda x: sync("mesh.gather", x.cpu), out)
+        for flat, out in local.items()})
     merged = {}
     for part in gathered:
         merged.update(part)

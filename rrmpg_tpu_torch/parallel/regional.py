@@ -36,6 +36,7 @@ from ..ops.gr4j import run_gr4j
 from ..ops.stats import losses_from_stats
 from ..ops.uh import NUM_UH1, NUM_UH2
 from ..utils.metrics import calibration_loss
+from ..utils.tracing import span, traced
 from .mesh import CATCHMENT_AXIS, ENSEMBLE_AXIS, check_mesh, sharded_call
 
 
@@ -121,6 +122,7 @@ def _series(x, like):
                            device=like.device)
 
 
+@traced("regional.objective")
 def regional_gr4j_objective(prec, etp, qobs, s_init, r_init, params,
                             mesh=None, engine="fused", loss_metric="mse",
                             masked=None, num_uh1=NUM_UH1, num_uh2=NUM_UH2):
@@ -155,7 +157,8 @@ def regional_gr4j_objective(prec, etp, qobs, s_init, r_init, params,
     like = params['x1']
     prec, etp, qobs = (_series(a, like) for a in (prec, etp, qobs))
     # One read for the whole record; an all-NaN catchment raises.
-    counts, masked = valid_counts(qobs, masked)
+    with span("regional.counts"):
+        counts, masked = valid_counts(qobs, masked)
 
     def local(prec, etp, qobs, counts, params):
         if engine == "fused":
@@ -173,6 +176,7 @@ def regional_gr4j_objective(prec, etp, qobs, s_init, r_init, params,
     return _regional_call(local, mesh, (prec, etp, qobs, counts), params)
 
 
+@traced("regional.objective")
 def regional_snow_objective(prec, mean_temp, etp, frac_solid_prec, qobs,
                             snow_pack_init, thermal_state_init, s_init,
                             r_init, params, frac_ice=None, hyst=False,
@@ -211,7 +215,8 @@ def regional_snow_objective(prec, mean_temp, etp, frac_solid_prec, qobs,
         if mesh is not None and frac_ice.dim() == 1:
             frac_ice = frac_ice.expand(qobs.shape[0], -1).contiguous()
         catchment_series.append(frac_ice)
-    counts, masked = valid_counts(qobs, masked)
+    with span("regional.counts"):
+        counts, masked = valid_counts(qobs, masked)
 
     def local(*args):
         *series, counts, params = args

@@ -40,6 +40,7 @@ import torch
 from ..config import DEFAULT_DEVICE, resolve_device, resolve_dtype
 from ..parallel.mesh import (ENSEMBLE_AXIS, check_mesh, pad_to_multiple,
                              sharded_call)
+from ..utils.tracing import span, sync, to_device
 from .checkpoint import (load_checkpoint, load_checkpoint_dcp,
                          save_checkpoint, save_checkpoint_dcp)
 
@@ -142,11 +143,12 @@ def _latin_hypercube(generator, pop_size, dim, dtype, device):
 
 
 def _converged(energies, tol, atol):
-    finite = bool(torch.isfinite(energies).all())
+    finite = sync("de.converged.finite", bool, torch.isfinite(energies).all())
     if not finite:
         return False
     std = energies.std(correction=0)
-    return bool(std <= atol + tol * torch.abs(energies.mean()))
+    return sync("de.converged.spread", bool,
+                std <= atol + tol * torch.abs(energies.mean()))
 
 
 def _batch_map(objective, batched):
@@ -278,8 +280,8 @@ def differential_evolution(objective, bounds, key=None, popsize=15,
     device = resolve_device(device)
     dtype = resolve_dtype(dtype)
     generator = _generator(key, seed, device)
-    lows = torch.tensor([b[0] for b in bounds], dtype=dtype, device=device)
-    highs = torch.tensor([b[1] for b in bounds], dtype=dtype, device=device)
+    lows = to_device("de.bounds", [b[0] for b in bounds], dtype, device)
+    highs = to_device("de.bounds", [b[1] for b in bounds], dtype, device)
     dim = len(bounds)
     pop_size = pad_to_multiple(popsize * dim, n_shards)
     mut_lo, mut_hi = mutation
@@ -326,27 +328,35 @@ def differential_evolution(objective, bounds, key=None, popsize=15,
         out_of_bounds = (trials < 0.0) | (trials > 1.0)
         trials = torch.where(out_of_bounds, rand(pop_size, dim), trials)
 
-        trial_energies = energies_of(scale(trials))
+        with span("de.evaluate"):
+            trial_energies = energies_of(scale(trials))
         trial_safe = torch.where(torch.isfinite(trial_energies),
                                  trial_energies, torch.inf)
         improved = trial_safe < safe
         return (torch.where(improved[:, None], trials, pop),
                 torch.where(improved, trial_energies, energies))
 
-    if resume_from is not None:
-        pop, energies, nit = _restore(resume_from, generator, pop_size, dim,
-                                      dtype, device)
-    else:
-        pop = _latin_hypercube(generator, pop_size, dim, dtype, device)
-        energies = energies_of(scale(pop))
-        nit = 0
+    with span("de.init"):
+        if resume_from is not None:
+            pop, energies, nit = _restore(resume_from, generator, pop_size,
+                                          dim, dtype, device)
+        else:
+            pop = _latin_hypercube(generator, pop_size, dim, dtype, device)
+            with span("de.evaluate"):
+                energies = energies_of(scale(pop))
+            nit = 0
     # Chunks of generations between checkpoints, as rrmpg_tpu's host loop.
+    # A generation's span holds the convergence test that follows it within
+    # its chunk.
     chunk = checkpoint_every if checkpoint_every else maxiter
     while nit < maxiter and not _converged(energies, tol, atol):
         target = min(nit + chunk, maxiter)
-        while nit < target and not _converged(energies, tol, atol):
-            pop, energies = generation(pop, energies)
-            nit += 1
+        stop = nit >= target or _converged(energies, tol, atol)
+        while not stop:
+            with span("de.generation"):
+                pop, energies = generation(pop, energies)
+                nit += 1
+                stop = nit >= target or _converged(energies, tol, atol)
         if checkpoint_path is not None:
             (save_checkpoint_dcp if _is_directory(checkpoint_path)
              else save_checkpoint)(checkpoint_path, {
@@ -354,8 +364,9 @@ def differential_evolution(objective, bounds, key=None, popsize=15,
                  "energies": energies, "nit": np.asarray(nit)})
 
     success = _converged(energies, tol, atol)
-    pop_np = scale(pop).cpu().numpy()
-    energies_np = energies.cpu().numpy()
+    with span("de.result"):
+        pop_np = sync("de.result.population", scale(pop).cpu).numpy()
+        energies_np = sync("de.result.energies", energies.cpu).numpy()
     best_idx = int(np.argmin(np.where(np.isfinite(energies_np), energies_np,
                                       np.inf)))
     x_best, fun_best = pop_np[best_idx], float(energies_np[best_idx])
