@@ -24,10 +24,10 @@ forms are its own:
   process, keyed by the device.
 * :func:`sharded_call` is the one evaluator every sharded entry point
   shares, as JAX's share ``shard_map``: it pads a split axis to a multiple
-  of its shard count, moves each shard to its device, launches every shard
-  before it reads anything back, gathers the results in shard order onto
-  the caller's device (across processes with ``all_gather_object``) and
-  drops the padding.
+  of its shard count, places every shard's inputs on its device before it
+  launches any shard, launches every shard before it reads anything back,
+  gathers the results in shard order onto the caller's device (across
+  processes with ``all_gather_object``) and drops the padding.
 
 A function run per shard gets its inputs on its shard's device and must
 compute there: the model classes build their calibration objectives once
@@ -313,10 +313,16 @@ def sharded_call(fn, mesh, args, in_axes, out_axes, pad=True):
         device of the first split tensor of ``args``.  An axis of the mesh
         that no arg is split over runs at its first position only.
 
+    Every shard's inputs are copied to its device before the first ``fn``
+    runs, then each ``fn`` runs in the same order: a copy from one card to
+    another runs on the source card's stream and would otherwise queue
+    behind the kernels an earlier shard put there.
+
     Where spans are recorded, each shard's copies are a ``mesh.copy`` span
     and its ``fn`` a ``mesh.shard`` span (``device``, and ``shard``: its
-    position in row-major order over the split axes); the gather and the
-    assembly one ``mesh.assemble`` span.
+    position in row-major order over the split axes), every ``mesh.copy``
+    before the first ``mesh.shard``; the gather and the assembly one
+    ``mesh.assemble`` span.
     """
     check_mesh(mesh)
     if len(args) != len(in_axes):
@@ -346,7 +352,7 @@ def sharded_call(fn, mesh, args, in_axes, out_axes, pad=True):
                 for x in tree_leaves(arg)).device
 
     rank, world = _world()
-    copies, results = {}, {}
+    copies, placed, results = {}, [], {}
     grid = np.ndindex(*(mesh.shape[a] for a in split_axes))
     for shard, flat in enumerate(grid):
         index = dict(zip(split_axes, flat))
@@ -365,6 +371,8 @@ def sharded_call(fn, mesh, args, in_axes, out_axes, pad=True):
                 lo, hi = index[a] * chunks[a], (index[a] + 1) * chunks[a]
                 shard_args.append(_to(tree_map(lambda x: x[lo:hi], arg),
                                       device))
+        placed.append((shard, flat, device, shard_args))
+    for shard, flat, device, shard_args in placed:
         with span("mesh.shard", device=str(device), shard=shard):
             results[flat] = fn(*shard_args)
     with span("mesh.assemble"):

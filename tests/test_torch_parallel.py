@@ -7,6 +7,8 @@ entry point is held to its run without a mesh and, where the two packages
 compute the same numbers, to JAX's sharded run:
 
 * the mesh helpers and ``pad_to_multiple`` to JAX's;
+* ``sharded_call``'s order on a 2 x 2 and an 8-shard mesh: every shard's
+  inputs placed before the first shard runs, the shards in grid order;
 * ``ensemble_run`` / ``ensemble_objective`` with ``run_gr4j`` at N = 13
   (padded to 16) and from a warm state to the unsharded port and to JAX's
   ``ensemble_run`` at ``rtol=1e-12`` (the same float64 equations);
@@ -39,6 +41,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.profiler import ProfilerActivity, profile
 
 import rrmpg_tpu.models as jax_models
 import rrmpg_tpu.parallel as jax_parallel
@@ -60,6 +63,7 @@ from rrmpg_tpu_torch.parallel import (
 from rrmpg_tpu_torch.tools import (demc_sample, differential_evolution,
                                    monte_carlo, morris_screening,
                                    random_search, sce_ua, sobol_indices)
+from rrmpg_tpu_torch.utils import tracing
 
 torch.set_num_threads(1)
 pytestmark = pytest.mark.f64only
@@ -179,6 +183,55 @@ def test_sharded_call_launches_every_shard_then_gathers(mesh):
     with pytest.raises(ValueError, match="no axis 'catchment'"):
         parallel.mesh.sharded_call(fn, mesh, (x,), (CATCHMENT_AXIS,),
                                    (CATCHMENT_AXIS,))
+
+
+@pytest.mark.parametrize("grid", ["2x2", "8"])
+def test_sharded_call_places_every_shard_before_it_launches_one(grid, mesh):
+    """Every shard's inputs are copied before the first shard's ``fn`` runs
+    (a copy between cards runs on its source card's stream, behind what an
+    earlier shard launched there); the shards then run in grid order, and
+    the result is the unsharded computation's bit for bit."""
+    if grid == "8":
+        m, cat = mesh, None
+    else:
+        m = ensemble_catchment_mesh(2, 2, devices=['cpu'] * 4)
+        cat = CATCHMENT_AXIS
+    seen = []
+
+    def fn(q, p, w):
+        seen.append(float(p[0]))
+        return q[:, :1] * p[None, :] + w
+
+    q = torch.arange(18.0, dtype=F64).reshape(6, 3)
+    p = torch.linspace(0.5, 2.0, 13, dtype=F64)
+    w = torch.tensor(0.25, dtype=F64)
+    tracing.reset()
+    try:
+        with profile(activities=[ProfilerActivity.CPU]):
+            got = parallel.mesh.sharded_call(
+                fn, m, (q, p, w), (cat, ENSEMBLE_AXIS, None),
+                (cat, ENSEMBLE_AXIS))
+        spans = tracing.spans()
+    finally:
+        tracing.reset()
+    torch.testing.assert_close(got, q[:, :1] * p[None, :] + w, rtol=0,
+                               atol=0)
+    (call,) = [s for s in spans if s["name"] == "mesh.call"]
+    copies, shards = ([s for s in spans if s["name"] == name]
+                      for name in ("mesh.copy", "mesh.shard"))
+    assert {s["parent"] for s in copies + shards} == {call["id"]}
+    first = min(shards, key=lambda s: s["id"])
+    assert all(c["id"] < first["id"] and c["end_ns"] <= first["start_ns"]
+               for c in copies)
+    expect = [{"device": "cpu", "shard": i} for i in range(m.size)]
+    for group in (copies, shards):
+        assert [s["attrs"] for s in sorted(group, key=lambda s: s["id"])] \
+            == expect
+    k = m.shape[ENSEMBLE_AXIS]
+    padded = torch.cat([p, p[:1].repeat(pad_to_multiple(13, k) - 13)])
+    chunk = len(padded) // k
+    assert seen == [float(padded[e * chunk]) for e in range(k)
+                    for _ in range(m.shape.get(CATCHMENT_AXIS, 1))]
 
 
 # ---------------------------------------------------------------------------
